@@ -1,0 +1,28 @@
+"""ceres_tpu_torch — the ray tracer on PyTorch and CUDA (NVIDIA H100).
+
+The port of the JAX package ``ceres_tpu``, which stays beside it as the
+reference each ported part is tested against. Same sub-packages and
+module names; this package imports ``torch`` and never ``jax``.
+
+Layers on the ported main path (bunny 1080p, smooth shading, shadows):
+  scene I/O   ceres_tpu_torch.io (OBJ), .models (soup, camera, shading)
+  accel       ceres_tpu_torch.accel (host SweepSAH build, treelet cut)
+  kernels     ceres_tpu_torch.ops (culling prepass, CUDA walk kernels)
+  renderer    ceres_tpu_torch.render
+"""
+
+from ceres_tpu_torch.io.obj import load_obj
+from ceres_tpu_torch.models.camera import Camera
+from ceres_tpu_torch.models.mesh import TriangleSoup, triangle_soup
+from ceres_tpu_torch.render.renderer import (RenderConfig, render,
+                                             render_pipeline)
+
+__all__ = [
+    "Camera",
+    "RenderConfig",
+    "TriangleSoup",
+    "load_obj",
+    "render",
+    "render_pipeline",
+    "triangle_soup",
+]

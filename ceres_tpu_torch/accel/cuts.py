@@ -1,0 +1,131 @@
+"""Treelet cut of a host quality BVH into a ClusterSet (counterpart of
+``ceres_tpu/accel/cuts.py``: ``_cut_flatbvh``, ``_pack_clusterset``,
+``clusters_from_flatbvh``, ``build_clusters_quality``).
+
+A cluster is the primitive set of a highest node with <= C primitives,
+its AABB the node's real box. The cut is host-side NumPy, a copy of the
+JAX package's (which imports ``jax``); the per-triangle records are
+gathered from the soup in torch, so the ClusterSet stays differentiable
+with respect to the vertices while the structure (perm, boxes) is
+detached.
+
+The flat walk needs no super level, so the JAX package's second cut
+(``super_first``, for the two-level walk of ROADMAP item M13) is not
+built here.
+"""
+
+from __future__ import annotations
+
+from typing import List
+
+import numpy as np
+import torch
+
+from ceres_tpu_torch.accel import golden_builders as gb
+from ceres_tpu_torch.accel.clusters import CLUSTER_SIZE, ClusterSet
+from ceres_tpu_torch.models.mesh import TriangleSoup
+
+
+def _cut_flatbvh(bvh: gb.FlatBvh, cluster_size: int):
+    """Greedy maximal-subtree cut. Returns (prim id lists, lo, hi) in the
+    JAX package's emission order (depth first, second child first)."""
+    prim_count = bvh.prim_count.astype(np.int64)
+    first = bvh.first_child.astype(np.int64)
+    counts = np.zeros(bvh.node_count, np.int64)
+
+    # Subtree primitive counts, iterative post-order.
+    order = []
+    stack = [0]
+    while stack:
+        i = stack.pop()
+        order.append(i)
+        if prim_count[i] == 0:
+            stack.append(int(first[i]))
+            stack.append(int(first[i]) + 1)
+    for i in reversed(order):
+        if prim_count[i] > 0:
+            counts[i] = prim_count[i]
+        else:
+            counts[i] = counts[first[i]] + counts[first[i] + 1]
+
+    def subtree_prims(i: int) -> np.ndarray:
+        out = []
+        st = [i]
+        while st:
+            j = st.pop()
+            if prim_count[j] > 0:
+                out.append(
+                    bvh.prim_indices[first[j]:first[j] + prim_count[j]])
+            else:
+                st.append(int(first[j]))
+                st.append(int(first[j]) + 1)
+        return np.concatenate(out)
+
+    groups: List[np.ndarray] = []
+    los, his = [], []
+    st = [0]
+    while st:
+        j = st.pop()
+        if counts[j] <= cluster_size:
+            groups.append(subtree_prims(j))
+            los.append(bvh.bounds[j, 0::2])
+            his.append(bvh.bounds[j, 1::2])
+        else:
+            st.append(int(first[j]))
+            st.append(int(first[j]) + 1)
+    return (groups, np.asarray(los, np.float32),
+            np.asarray(his, np.float32))
+
+
+def _pack_clusterset(soup: TriangleSoup, groups, los, his,
+                     cluster_size: int) -> ClusterSet:
+    n_c = len(groups)
+    C = cluster_size
+    perm = np.full((n_c * C,), -1, np.int32)
+    for k, g in enumerate(groups):
+        if g.shape[0] > C:
+            raise ValueError(f"cluster {k} holds {g.shape[0]} > {C} triangles")
+        perm[k * C:k * C + g.shape[0]] = g
+    device = soup.p0.device
+    perm_t = torch.as_tensor(perm, device=device)
+    gather = perm_t.clamp(min=0).long()
+    valid = (perm_t >= 0)[:, None]
+
+    def pack(x):
+        g = torch.where(valid, x[gather], torch.zeros((), dtype=x.dtype,
+                                                      device=device))
+        return g.reshape(n_c, C, 3)
+
+    return ClusterSet(p0=pack(soup.p0), e1=pack(soup.e1), e2=pack(soup.e2),
+                      n=pack(soup.n),
+                      lo=torch.as_tensor(los, device=device),
+                      hi=torch.as_tensor(his, device=device), perm=perm_t)
+
+
+def clusters_from_flatbvh(soup: TriangleSoup, bvh: gb.FlatBvh,
+                          cluster_size: int = CLUSTER_SIZE) -> ClusterSet:
+    """Cut a host FlatBvh into a ClusterSet."""
+    groups, los, his = _cut_flatbvh(bvh, cluster_size)
+    return _pack_clusterset(soup, groups, los, his, cluster_size)
+
+
+def build_clusters_quality(soup: TriangleSoup, builder: str = "sweep",
+                           cluster_size: int = CLUSTER_SIZE) -> ClusterSet:
+    """One-call quality ClusterSet for static-geometry frame loops: a
+    SweepSAH build on the host, then the treelet cut. Built once before
+    the frame loop, like the reference's pre-loop BVH build.
+
+    Only ``builder="sweep"`` is ported; binned, sbvh, ploc and reinsert
+    wait for ROADMAP item M9.
+    """
+    if builder != "sweep":
+        raise NotImplementedError(
+            f"builder {builder!r} is not ported yet (ROADMAP item M9); "
+            "use builder='sweep'")
+    p0 = soup.p0.detach().cpu().numpy()
+    p1 = p0 - soup.e1.detach().cpu().numpy()
+    p2 = soup.e2.detach().cpu().numpy() + p0
+    pts = np.stack([p0, p1, p2], 1)
+    lo, hi, centers = pts.min(1), pts.max(1), pts.mean(1)
+    bvh = gb.build_sweep_sah(lo, hi, centers)
+    return clusters_from_flatbvh(soup, bvh, cluster_size)

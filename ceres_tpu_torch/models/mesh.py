@@ -1,0 +1,87 @@
+"""Triangle-soup scene model (counterpart of ``ceres_tpu/models/mesh.py``).
+
+Conventions kept exactly:
+  * the triangle record is the Möller-Trumbore form ``p0, e1 = p0 - p1,
+    e2 = p2 - p0, n = cross(e1, e2)`` (left-handed normal);
+  * vertex normals accumulate the unnormalised face normal (|n| = 2 *
+    area, so the average is area-weighted) onto the face's three corners
+    and are normalised once at the end.
+
+Everything is plain torch on the input tensors' device, differentiable
+with respect to the vertices.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class TriangleSoup:
+    """Flat per-triangle tensors in precomputed Möller-Trumbore form.
+
+    ``p0``, ``e1``, ``e2``, ``n`` are (F, 3). ``corner_normals`` is
+    (F, 3, 3): the averaged, normalised vertex normal at each corner in
+    face winding order.
+    """
+
+    p0: torch.Tensor
+    e1: torch.Tensor  # p0 - p1
+    e2: torch.Tensor  # p2 - p0
+    n: torch.Tensor   # cross(e1, e2): left-handed, |n| = 2 * area
+    corner_normals: Optional[torch.Tensor] = None
+
+    @property
+    def num_triangles(self) -> int:
+        return self.p0.shape[0]
+
+
+def cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """cross(a, b) over the last axis, one rounding per product and sum.
+
+    Written out rather than ``torch.linalg.cross`` so that no fused CUDA
+    kernel contracts ``a * b - c * d`` into an FMA: the port's float
+    results then follow the same operation order on every device.
+    """
+    a0, a1, a2 = a.unbind(-1)
+    b0, b1, b2 = b.unbind(-1)
+    return torch.stack([a1 * b2 - a2 * b1,
+                        a2 * b0 - a0 * b2,
+                        a0 * b1 - a1 * b0], dim=-1)
+
+
+def face_normals(vertices: torch.Tensor, faces: torch.Tensor) -> torch.Tensor:
+    """Unnormalised left-handed face normals: cross(p0 - p1, p2 - p0)."""
+    f = faces.long()
+    p0, p1, p2 = vertices[f[:, 0]], vertices[f[:, 1]], vertices[f[:, 2]]
+    return cross(p0 - p1, p2 - p0)
+
+
+def vertex_normals(vertices: torch.Tensor, faces: torch.Tensor) -> torch.Tensor:
+    """Area-weighted averaged vertex normals, (V, 3), normalised.
+
+    Each face normal is scatter-added (``index_add``) onto its three
+    corner vertices. Vertices that no face references stay zero.
+    """
+    f = faces.long()
+    n = face_normals(vertices, faces)
+    acc = torch.zeros_like(vertices)
+    for k in range(3):
+        acc = acc.index_add(0, f[:, k], n)
+    length = torch.linalg.vector_norm(acc, dim=-1, keepdim=True)
+    return acc / torch.where(length > 0, length, torch.ones_like(length))
+
+
+def triangle_soup(vertices: torch.Tensor, faces: torch.Tensor,
+                  with_normals: bool = True) -> TriangleSoup:
+    """Build the flat Möller-Trumbore triangle records from an indexed mesh."""
+    f = faces.long()
+    p0, p1, p2 = vertices[f[:, 0]], vertices[f[:, 1]], vertices[f[:, 2]]
+    e1 = p0 - p1
+    e2 = p2 - p0
+    corner = vertex_normals(vertices, faces)[f] if with_normals else None
+    return TriangleSoup(p0=p0, e1=e1, e2=e2, n=cross(e1, e2),
+                        corner_normals=corner)

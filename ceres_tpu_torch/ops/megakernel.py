@@ -1,0 +1,229 @@
+"""Closest-hit and shadow search over triangle clusters (counterpart of
+``ceres_tpu/ops/megakernel.py``: ``_detach_f32``, ``_closest_search``,
+``_winner_tuv``, ``_winner_table_cols``, ``winner_table``,
+``closest_hit_common_origin``, ``any_hit_to_point``).
+
+Two phases per wavefront: the culling prepass (``ops.prepass``) sorts
+each ray tile's candidate clusters front to back, then a walk kernel
+(``ops.walk``) visits them with early exit and returns integers only:
+winner slot ids or occlusion flags. The search is always float32 and
+detached. Everything a caller observes, the hit (t, u, v), the triangle
+id and the shading payload, is gathered at the winners and recomputed in
+plain torch, so gradients with respect to vertices, camera and ray
+directions flow through the gather and ``_winner_tuv`` with no custom
+autograd function.
+
+Not ported yet: generic-origin ``any_hit`` (ROADMAP M8), the in-graph
+treelet cut when ``clusters`` is None (M9), ray windows (M11), the
+two-level and streaming walks (M13), ``exact_f64`` (M14).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from ceres_tpu_torch.accel.clusters import cluster_weights_common_origin
+from ceres_tpu_torch.models.mesh import TriangleSoup
+from ceres_tpu_torch.ops import walk
+from ceres_tpu_torch.ops.prepass import (
+    TILE, _ULP_PAD, _pad_rays, _ray_tcap, _scene_root, _tile_candidate_keys)
+
+
+@dataclasses.dataclass(frozen=True)
+class Hit:
+    """Closest hits of a wavefront; every field is (R,)."""
+
+    t: torch.Tensor        # inf at misses
+    u: torch.Tensor        # barycentric of p1, 0 at misses
+    v: torch.Tensor        # barycentric of p2, 0 at misses
+    prim_id: torch.Tensor  # original triangle id, 0 at misses
+    mask: torch.Tensor     # bool, True where the ray hit
+
+
+def _cols(x):
+    """(R, 3) tensor or 3-tuple of (R,) columns -> 3-tuple of columns."""
+    if isinstance(x, (tuple, list)):
+        return tuple(x)
+    return tuple(x.unbind(-1))
+
+
+def _detach_f32(x):
+    """Detach and cast floating tensors (also inside tuples and
+    dataclasses) to float32, the search precision."""
+    if isinstance(x, torch.Tensor):
+        x = x.detach()
+        return x.float() if x.is_floating_point() else x
+    if isinstance(x, (tuple, list)):
+        return type(x)(_detach_f32(v) for v in x)
+    if dataclasses.is_dataclass(x):
+        return dataclasses.replace(x, **{
+            f.name: _detach_f32(getattr(x, f.name))
+            for f in dataclasses.fields(x)})
+    return x
+
+
+def _require_clusters(clusters):
+    if clusters is None:
+        raise NotImplementedError(
+            "the in-graph treelet cut for clusters=None is ROADMAP item M9; "
+            "pass clusters from accel.cuts.build_clusters_quality")
+    return clusters
+
+
+def _closest_inputs(cs, eye, dir_cols):
+    """The closest walk's inputs (counts, keys, rays, w) for rays
+    ``dir_cols`` from ``eye``: weights, root-exit caps, padded ray rows
+    and the prepass's sorted candidate keys. Detached float32."""
+    cs, eye, dir_cols = _detach_f32((cs, eye, dir_cols))
+    w = cluster_weights_common_origin(cs, eye)
+    root_lo, root_hi = _scene_root(cs)
+    dp = tuple(_pad_rays(c) for c in dir_cols)
+    dirs_tiled = tuple(c.reshape(-1, TILE) for c in dp)
+    alive = (dirs_tiled[0] * dirs_tiled[0] + dirs_tiled[1] * dirs_tiled[1]
+             + dirs_tiled[2] * dirs_tiled[2]) > 0.0
+    tcap = _ray_tcap(root_lo - eye, root_hi - eye, dp)
+    keys, counts = _tile_candidate_keys(cs.lo - eye, cs.hi - eye, dirs_tiled,
+                                        alive=alive)
+    return counts, keys, torch.stack([*dp, tcap]), w
+
+
+def _closest_search(cs, eye, dir_cols):
+    """Detached winner search: (packed slot ids (R,) int32, counters)."""
+    R = dir_cols[0].shape[0]
+    pidx, steps = walk.walk_closest(*_closest_inputs(cs, eye, dir_cols))
+    return pidx[:R], {"traversal_steps": steps, "mt_block_visits": steps}
+
+
+def _winner_tuv(rec, eye, dir_cols):
+    """Möller-Trumbore (t, u, v) at the (ray, winning triangle) pairs.
+
+    ``rec`` holds the gathered winner-table columns [p0 x3, e1 x3, e2 x3,
+    ...]. The face normal is recomputed as cross(e1, e2), the same
+    formula the soup stores.
+    """
+    p0, e1, e2 = rec[0:3], rec[3:6], rec[6:9]
+    n = (e1[1] * e2[2] - e1[2] * e2[1],
+         e1[2] * e2[0] - e1[0] * e2[2],
+         e1[0] * e2[1] - e1[1] * e2[0])
+    d = dir_cols
+    c = tuple(p0[a] - eye[a] for a in range(3))
+    r = (d[1] * c[2] - d[2] * c[1],
+         d[2] * c[0] - d[0] * c[2],
+         d[0] * c[1] - d[1] * c[0])
+    det = n[0] * d[0] + n[1] * d[1] + n[2] * d[2]
+    # det == 0 only at masked (non-winner) rays; keep 1/0 out of gradients.
+    inv = 1.0 / torch.where(det != 0, det, torch.ones_like(det))
+    u = (r[0] * e2[0] + r[1] * e2[1] + r[2] * e2[2]) * inv
+    v = (r[0] * e1[0] + r[1] * e1[1] + r[2] * e1[2]) * inv
+    t = (n[0] * c[0] + n[1] * c[1] + n[2] * c[2]) * inv
+    return t, u, v
+
+
+def _winner_table_cols(soup: TriangleSoup, cs, payload_cols):
+    """List of (N_c * C,) winner-table columns in cluster-slot order:
+    [p0 x3, e1 x3, e2 x3, payload...], zero at padding slots.
+
+    Built from ``soup``, not the detached cluster tensors, so gradients
+    reach the vertices through the gather. Triangle ids are not a column:
+    they are gathered from ``cs.perm`` as integers.
+    """
+    src = cs.perm.clamp(min=0).long()
+    valid = cs.perm >= 0
+    cols = [torch.where(valid, arr[src, a], 0.0)
+            for arr in (soup.p0, soup.e1, soup.e2) for a in range(3)]
+    cols += [torch.where(valid, c[src], 0.0) for c in payload_cols or ()]
+    return cols
+
+
+def winner_table(soup: TriangleSoup, clusters, payload=None):
+    """The stacked (N_c * C, 9 + P) winner table for static-geometry
+    frame loops: build once, pass back as ``table_cols``."""
+    return torch.stack(_winner_table_cols(soup, clusters, payload), dim=-1)
+
+
+def closest_hit_common_origin(soup: TriangleSoup, eye, dirs, clusters=None,
+                              with_counts=False, payload=None,
+                              normal_cols=False, table_cols=None):
+    """Closest hit of normalised ``dirs`` rays all starting at ``eye``.
+
+    ``dirs`` is (R, 3) or a 3-tuple of (R,) columns; ``clusters`` is a
+    prebuilt ClusterSet of this soup. ``payload`` (P per-triangle (T,)
+    columns) rides the winner gather: returns (hit, payload columns),
+    zero at misses. ``normal_cols=True`` prepends the winner's face
+    normal, recomputed from the gathered edges. ``with_counts=True`` adds
+    the measured counters (executed cluster visits and MT pairs).
+    """
+    dir_cols = _cols(dirs)
+    cs = _require_clusters(clusters)
+    pidx, counts = _closest_search(cs, eye, dir_cols)
+    mask = pidx >= 0
+    table = (table_cols if table_cols is not None
+             else winner_table(soup, cs, payload))
+    idx = pidx.clamp(min=0).long()
+    rec = table[idx].t().contiguous().unbind(0)
+    t, u, v = _winner_tuv(rec, eye, dir_cols)
+    hit = Hit(t=torch.where(mask, t, torch.inf),
+              u=torch.where(mask, u, 0.0),
+              v=torch.where(mask, v, 0.0),
+              prim_id=torch.where(mask, cs.perm[idx], 0),
+              mask=mask)
+    out_pay = tuple(rec[9:])
+    if normal_cols:
+        e1, e2 = rec[3:6], rec[6:9]
+        out_pay = (e1[1] * e2[2] - e1[2] * e2[1],
+                   e1[2] * e2[0] - e1[0] * e2[2],
+                   e1[0] * e2[1] - e1[1] * e2[0]) + out_pay
+    out = (hit,) if payload is None and not normal_cols else (hit, out_pay)
+    if with_counts:
+        counts["mt_pairs"] = (counts["mt_block_visits"]
+                              * TILE * cs.cluster_size)
+        out = out + (counts,)
+    return out[0] if len(out) == 1 else out
+
+
+def any_hit_to_point(soup: TriangleSoup, dest, points, skip=None,
+                     clusters=None, with_counts=False):
+    """Occlusion between each ``points[i]`` and the common point ``dest``:
+    the shadow wavefront, every ray aimed at the one sun.
+
+    The wavefront runs as rays from ``dest`` (t = 0) to each receiving
+    point (t = 1), so it is a common-origin wavefront. An occluder lies
+    strictly between light and receiver. ``skip`` marks rays whose answer
+    is irrelevant (no primary hit); they generate no traversal work.
+    Boolean, detached. The JAX package's receiver regrouping (off by
+    default there) waits for ROADMAP item M13.
+    """
+    del soup  # the structure carries the geometry
+    R = _cols(points)[0].shape[0]
+    cs = _require_clusters(clusters)
+    if skip is None:
+        skip = torch.zeros(R, dtype=torch.bool, device=cs.lo.device)
+    occ, steps = walk.walk_any_dest(*_any_dest_inputs(cs, dest, points, skip))
+    result = (occ[:R] == 1) & ~skip
+    if with_counts:
+        return result, {"traversal_steps": steps, "mt_block_visits": steps,
+                        "mt_pairs": steps * TILE * cs.cluster_size}
+    return result
+
+
+def _any_dest_inputs(cs, dest, points, skip):
+    """The shadow walk's inputs (counts, keys, rays, w, occ0) for segments
+    from ``dest`` to ``points``, ``skip`` (bool (R,)) marking rays that
+    start occluded. Detached float32."""
+    cs, dest, p_cols = _detach_f32((cs, dest, _cols(points)))
+    w = cluster_weights_common_origin(cs, dest)
+    root_lo, root_hi = _scene_root(cs)
+    dp = tuple(_pad_rays(p_cols[a] - dest[a]) for a in range(3))
+    dirs_tiled = tuple(c.reshape(-1, TILE) for c in dp)
+    occ0 = _pad_rays(skip.to(torch.int32))
+    alive = (occ0.reshape(-1, TILE) == 0) & (
+        (dirs_tiled[0] * dirs_tiled[0] + dirs_tiled[1] * dirs_tiled[1]
+         + dirs_tiled[2] * dirs_tiled[2]) > 0.0)
+    # Nothing past the receiving point can occlude: cap the walk at t = 1
+    # (+ slack). Padding rays (zero dirs) keep the cap -1.
+    tcap = _ray_tcap(root_lo - dest, root_hi - dest, dp).clamp(max=1.0 + _ULP_PAD)
+    keys, counts = _tile_candidate_keys(cs.lo - dest, cs.hi - dest,
+                                        dirs_tiled, alive=alive)
+    return counts, keys, torch.stack([*dp, tcap]), w, occ0

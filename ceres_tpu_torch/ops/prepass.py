@@ -1,0 +1,154 @@
+"""Interval-culling prepass in torch (counterpart of
+``ceres_tpu/ops/megakernel.py`` ``_safe_inverse``, ``_interval_entry``,
+``_hull``, ``_cid_bits``, ``_tile_candidate_keys``, ``_ray_tcap``,
+``_scene_root``, ``_pad_rays``).
+
+Rays arrive in spatially coherent tiles of TILE = 512. Each tile is
+summarised by the interval hull of its ray directions, and every
+(tile, cluster) pair is culled with one conservative slab test: O(tiles
+x clusters), no ray dimension. Survivors are packed into one int32 key
+per pair, (entry-bound f32 bits with the low cid bits cleared) | cluster
+id, and sorted ascending per tile. The bit pattern of a non-negative f32
+orders like the float, so the sort is front to back.
+
+Keys and counts are bit-identical to the JAX package's: every step is
+one IEEE f32 operation in the same order, with no sums that a compiler
+could contract. Common-origin rays only; the generic-origin hull of
+``any_hit`` waits for ROADMAP item M8.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+TILE = 512           # rays per walk tile (one 16 x 32 pixel block)
+
+_BIG = 3.0e37        # "no hit" sentinel, finite to keep slab math NaN-free
+_VALID_CUT = 1.0e37  # entries >= this are padding, never real candidates
+_INV_CLAMP = 1e30
+_ULP_PAD = 4e-6      # conservative slab widening: never cull a true hit
+
+
+def _fmax(a, b):
+    """torch.maximum with XLA's signed zeros: max(-0, +0) is +0 in either
+    order. The bounds are bit-cast into keys, so the sign of a zero
+    matters."""
+    both0 = (a == 0) & (b == 0)
+    return torch.where(both0, a + b, torch.maximum(a, b))
+
+
+def _fmin(a, b):
+    """torch.minimum with XLA's signed zeros: min(-0, +0) is -0."""
+    both0 = (a == 0) & (b == 0)
+    return torch.where(both0, -((-a) + (-b)), torch.minimum(a, b))
+
+
+def _safe_inverse(d: torch.Tensor) -> torch.Tensor:
+    """Sign-preserving epsilon-clamped 1/d."""
+    sign = torch.where(d >= 0, 1.0, -1.0).to(d.dtype)
+    return torch.where(d.abs() < 1e-30, sign * _INV_CLAMP, 1.0 / d)
+
+
+def _interval_entry(lo, hi, dlo, dhi):
+    """Conservative slab test of each tile's direction hull against the
+    cluster boxes, for rays from a common origin at 0 (boxes pre-shifted).
+
+    lo, hi: (N_c, 3); dlo, dhi: (n_t, 3). Returns (n_t, N_c) f32: a lower
+    bound of any member ray's slab entry distance where overlap is
+    possible, _BIG where no member ray can overlap. Axes whose direction
+    interval straddles zero do not restrict.
+    """
+    empty = (hi < lo).any(dim=-1)[None, :]           # (1, N_c)
+    tn = tf = None
+    for a in range(3):
+        la = lo[None, :, a]                          # (1, N_c)
+        ha = hi[None, :, a]
+        ia = _safe_inverse(dlo[:, a:a + 1])          # (n_t, 1)
+        ib = _safe_inverse(dhi[:, a:a + 1])
+        c0, c1, c2, c3 = la * ia, la * ib, ha * ia, ha * ib
+        emin = _fmin(_fmin(c0, c1), _fmin(c2, c3))
+        emax = _fmax(_fmax(c0, c1), _fmax(c2, c3))
+        straddle = (dlo[:, a:a + 1] < 0) & (dhi[:, a:a + 1] > 0)
+        emin = torch.where(straddle, -_BIG, emin)
+        emax = torch.where(straddle, _BIG, emax)
+        tn = emin if tn is None else _fmax(tn, emin)
+        tf = emax if tf is None else _fmin(tf, emax)
+    tn = _fmax(tn, torch.zeros_like(tn))
+    hit = tn * (1.0 - _ULP_PAD) <= tf.clamp(max=_BIG) * (1.0 + _ULP_PAD)
+    return torch.where(hit & ~empty, tn, _BIG)
+
+
+def _hull(cols, alive):
+    """3-tuple of (n_t, R) ray columns -> per-tile (lo, hi) hulls (n_t, 3)
+    over the alive rays."""
+    los = [torch.where(alive, x, _BIG).amin(dim=1) for x in cols]
+    his = [torch.where(alive, x, -_BIG).amax(dim=1) for x in cols]
+    return torch.stack(los, dim=-1), torch.stack(his, dim=-1)
+
+
+def _cid_bits(n_c: int) -> int:
+    """Low-bit width reserved for a cluster id in a packed candidate key."""
+    return max(1, (n_c - 1).bit_length())
+
+
+def _tile_candidate_keys(lo, hi, dirs_tiled, alive=None):
+    """Per-tile candidate keys, sorted front to back, as one int32 tensor.
+
+    dirs_tiled: 3-tuple of (n_tiles, R) direction columns. Clearing the
+    low cid bits of the entry bound only lowers it, so a key stays a
+    conservative lower bound of any member ray's hit distance. Returns
+    (keys (n_tiles, N_c) int32 ascending, counts (n_tiles,) int32 of real
+    candidates).
+    """
+    if alive is None:
+        alive = (dirs_tiled[0] * dirs_tiled[0] + dirs_tiled[1] * dirs_tiled[1]
+                 + dirs_tiled[2] * dirs_tiled[2]) > 0.0
+    dlo, dhi = _hull(dirs_tiled, alive)
+    tn = _interval_entry(lo, hi, dlo, dhi)
+    # Tiles with no alive rays (all padding or all skipped) get nothing.
+    tn = torch.where(alive.any(dim=1)[:, None], tn, _BIG)
+    counts = (tn < _VALID_CUT).sum(dim=1, dtype=torch.int32)
+    n_c = tn.shape[1]
+    cmask = (1 << _cid_bits(n_c)) - 1
+    cid = torch.arange(n_c, dtype=torch.int32, device=tn.device)[None, :]
+    keys = (tn.view(torch.int32) & ~cmask) | cid
+    return torch.sort(keys, dim=1).values, counts
+
+
+def _ray_tcap(root_lo, root_hi, dir_cols):
+    """Per-ray visit cap: exit distance from the scene's root AABB, for
+    rays from a common origin at 0 (root box pre-shifted).
+
+    Every cluster box lies inside the root box, so a ray that found no
+    hit is done once the walk passes its root exit. Rays that miss the
+    root (or are padding) get -1 and never extend the walk.
+    """
+    tn = tf = alive = None
+    for a in range(3):
+        d = dir_cols[a]
+        inv = _safe_inverse(d)
+        t0 = root_lo[a] * inv
+        t1 = root_hi[a] * inv
+        near = _fmin(t0, t1)
+        far = _fmax(t0, t1)
+        tn = near if tn is None else _fmax(tn, near)
+        tf = far if tf is None else _fmin(tf, far)
+        sq = d * d
+        alive = sq if alive is None else alive + sq
+    tn = _fmax(tn, torch.zeros_like(tn))
+    hit = (tn * (1.0 - _ULP_PAD) <= tf * (1.0 + _ULP_PAD)) & (alive > 0.0)
+    return torch.where(hit, tf * (1.0 + _ULP_PAD), -1.0)
+
+
+def _scene_root(cs):
+    """Root AABB over the non-empty cluster boxes."""
+    nonempty = (cs.hi >= cs.lo).all(dim=-1, keepdim=True)
+    root_lo = torch.where(nonempty, cs.lo, _BIG).amin(dim=0)
+    root_hi = torch.where(nonempty, cs.hi, -_BIG).amax(dim=0)
+    return root_lo, root_hi
+
+
+def _pad_rays(x: torch.Tensor, tile: int = TILE) -> torch.Tensor:
+    """(R,) -> (R_pad,) zero-padded to a multiple of ``tile``."""
+    return F.pad(x, (0, (-x.shape[0]) % tile))

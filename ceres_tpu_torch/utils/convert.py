@@ -1,0 +1,45 @@
+"""Scene state from the JAX package into the port's objects.
+
+Each function takes the JAX package's object (or anything with the same
+fields: numpy arrays, JAX arrays) and returns the port's counterpart on
+``device``. Fields are read with ``np.asarray``, so this module needs no
+JAX. The tests use it to run the JAX walk and the port's walk on the
+same ClusterSet, independently of the port's own builder.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ceres_tpu_torch.accel.clusters import ClusterSet
+from ceres_tpu_torch.models.camera import Camera
+from ceres_tpu_torch.models.mesh import TriangleSoup
+
+
+def tensor(x, device=None) -> torch.Tensor:
+    """One array -> a tensor on ``device`` (dtype kept)."""
+    return torch.as_tensor(np.array(x), device=device)
+
+
+def soup(src, device=None) -> TriangleSoup:
+    """A ``TriangleSoup`` (p0, e1, e2, n, corner_normals or None)."""
+    cn = getattr(src, "corner_normals", None)
+    return TriangleSoup(
+        p0=tensor(src.p0, device), e1=tensor(src.e1, device),
+        e2=tensor(src.e2, device), n=tensor(src.n, device),
+        corner_normals=None if cn is None else tensor(cn, device))
+
+
+def cluster_set(src, device=None) -> ClusterSet:
+    """A ``ClusterSet``: records, boxes and ``perm``. The super level of
+    the two-level walk (``super_first``) is not carried."""
+    return ClusterSet(**{name: tensor(getattr(src, name), device)
+                         for name in ("p0", "e1", "e2", "n", "lo", "hi",
+                                      "perm")})
+
+
+def camera(src, device=None) -> Camera:
+    """A ``Camera`` (eye, dir, up, fov), dtype kept."""
+    return Camera(eye=tensor(src.eye, device), dir=tensor(src.dir, device),
+                  up=tensor(src.up, device), fov=tensor(src.fov, device))

@@ -1,0 +1,35 @@
+"""Pixel-block swizzling (counterpart of ``ceres_tpu/utils/tiling.py``).
+
+Ray tiles must be spatially coherent for cluster culling to bite: a
+32 x 32 pixel block holds two 512-ray walk tiles, each a compact 16 x 32
+screen region. Pure reshape/permute; the inverse restores raster order.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+TILE_H = 32
+TILE_W = 32
+
+
+def swizzle_plane(x: torch.Tensor, th: int = TILE_H,
+                  tw: int = TILE_W) -> torch.Tensor:
+    """(H, W) scalar plane -> (n_rays,) in pixel-block order, zero-padded
+    so both dimensions are tile multiples (zero rays are inert)."""
+    H, W = x.shape
+    x = F.pad(x, (0, (-W) % tw, 0, (-H) % th))
+    H, W = x.shape
+    x = x.reshape(H // th, th, W // tw, tw)
+    return x.permute(0, 2, 1, 3).reshape(-1)
+
+
+def unswizzle_plane(x: torch.Tensor, height: int, width: int,
+                    th: int = TILE_H, tw: int = TILE_W) -> torch.Tensor:
+    """Inverse of swizzle_plane: (n_rays,) -> (height, width)."""
+    Hp = height + (-height) % th
+    Wp = width + (-width) % tw
+    x = x.reshape(Hp // th, Wp // tw, th, tw)
+    x = x.permute(0, 2, 1, 3).reshape(Hp, Wp)
+    return x[:height, :width]

@@ -1,0 +1,138 @@
+"""The walk kernels against their plain versions, on an NVIDIA card.
+
+Needs no JAX, so it runs where the card is:
+
+    python -m pytest --noconftest tests/test_torch_cuda.py -q
+
+(``--noconftest``: the suite's conftest imports JAX). Without a card the
+``cuda`` tests skip. Kernel and plain version must agree exactly (slot
+ids, occlusion flags, executed visits): the kernels are built with
+``--fmad=false`` and written in the plain versions' operation order.
+Inputs come from the port's own main path at small sizes: bunny (61
+clusters), dragon (268 clusters: cluster-id masking past 256) and a
+random soup with rays in every direction.
+"""
+
+import os
+import re
+
+import numpy as np
+import pytest
+import torch
+
+import ceres_tpu_torch as ct
+from ceres_tpu_torch.accel.cuts import build_clusters_quality
+from ceres_tpu_torch.models.camera import camera_ray_columns
+from ceres_tpu_torch.ops import megakernel as mk
+from ceres_tpu_torch.ops import walk
+from ceres_tpu_torch.render.renderer import _hit_points
+from ceres_tpu_torch.utils import tiling
+
+torch.set_num_threads(1)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SUN = (-50.0, 100.0, 0.0)
+EYES = {"bunny": (0.0, 0.1, -0.3), "dragon": (0.0, 2.5, -12.0)}
+
+
+def _inputs(name, dev):
+    """(closest inputs, shadow inputs) as the main path builds them."""
+    if name == "random":
+        rng = np.random.default_rng(5)
+        verts = rng.standard_normal((90, 3)).astype(np.float32)
+        faces = rng.integers(0, 90, (400, 3)).astype(np.int32)
+        eye = np.asarray([0.0, 0.0, -4.0], np.float32)
+        d = rng.standard_normal((3, 3000)).astype(np.float32)
+        dirs = tuple(torch.as_tensor(c / np.linalg.norm(d, axis=0),
+                                     device=dev) for c in d)
+    else:
+        verts, faces = ct.load_obj(os.path.join(ROOT, "data", f"{name}.obj"))
+        eye = np.asarray(EYES[name], np.float32)
+        cam = ct.Camera.make(eye=eye, dir=verts.mean(axis=0) - eye,
+                             up=(0, 1, 0), fov=60.0, device=dev)
+        dirs = tuple(tiling.swizzle_plane(p)
+                     for p in camera_ray_columns(cam, 256, 160))
+    vt = torch.as_tensor(verts, device=dev)
+    ft = torch.as_tensor(faces, device=dev)
+    eye = torch.as_tensor(eye, device=dev)
+    soup = ct.triangle_soup(vt, ft)
+    cs = build_clusters_quality(ct.triangle_soup(vt, ft, with_normals=False))
+    hit, pay = mk.closest_hit_common_origin(soup, eye, dirs, clusters=cs,
+                                            normal_cols=True)
+    points = _hit_points(eye, dirs, hit, pay)
+    sun = torch.as_tensor(SUN, device=dev)
+    return (mk._closest_inputs(cs, eye, dirs),
+            mk._any_dest_inputs(cs, sun, points, ~hit.mask))
+
+
+@pytest.fixture(scope="module", params=["random", "bunny", "dragon"])
+def card_inputs(request):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the walk kernels have no CPU mode")
+    return _inputs(request.param, torch.device("cuda", 0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["closest", "any_dest"])
+def test_kernel_equals_plain(card_inputs, mode):
+    closest, shadow = card_inputs
+    args = closest if mode == "closest" else shadow
+    kernel = walk.walk_closest if mode == "closest" else walk.walk_any_dest
+    plain = (walk._walk_closest_plain if mode == "closest"
+             else walk._walk_any_dest_plain)
+    before = dict(walk.launches)
+    out_k, steps_k = kernel(*args)
+    out_p, steps_p = plain(*args)
+    torch.cuda.synchronize()
+    assert walk.launches[f"walk_{mode}"] == before[f"walk_{mode}"] + 1
+    positive = out_p >= 0 if mode == "closest" else (out_p == 1) & (args[4] == 0)
+    assert int(positive.sum()) > 0
+    assert torch.equal(out_k, out_p)
+    assert int(steps_k) == int(steps_p) > 0
+
+
+@pytest.mark.cuda
+def test_kernel_rejects_mixed_devices(card_inputs):
+    counts, keys, rays, w = card_inputs[0]
+    with pytest.raises(ValueError, match="counts"):
+        walk.walk_closest(counts.cpu(), keys, rays, w)
+
+
+@pytest.mark.cuda
+def test_render_on_card_matches_cpu():
+    # The user entry point end to end on the card (host cut, kernels,
+    # torch column math) against the same call on the CPU (plain walks).
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the walk kernels have no CPU mode")
+    verts, faces = ct.load_obj(os.path.join(ROOT, "data", "bunny.obj"))
+    eye = np.asarray(EYES["bunny"], np.float32)
+    cam = ct.Camera.make(eye=eye, dir=verts.mean(axis=0) - eye, up=(0, 1, 0),
+                         fov=60.0)
+    out = {dev: ct.render(verts, faces, cam, SUN, width=96, height=64,
+                          device=dev) for dev in ("cpu", "cuda")}
+    (img_c, st_c), (img_g, st_g) = out["cpu"], out["cuda"]
+    assert img_g.device.type == "cuda"
+    assert int(st_g["rays"]) == 96 * 64 + int(st_g["primary_hits"])
+    for k in ("primary_hits", "shadow_hits"):
+        # rsqrt and index_add round differently on the card: a silhouette
+        # or shadow-edge ray may flip (0.1% of the pixels).
+        assert abs(int(st_g[k]) - int(st_c[k])) <= 0.001 * 96 * 64
+    off = (img_g.cpu() - img_c).abs().amax(-1) > 1e-4
+    assert off.float().mean() < 0.005
+
+
+def test_kernel_source_constants_match_python():
+    src = open(os.path.join(os.path.dirname(walk.__file__), "csrc",
+                            "walk.cu")).read()
+
+    def const(name):
+        return re.search(rf"constexpr \w+ {name} = ([^;]+);", src).group(1)
+
+    assert int(const("kC")) == walk.CLUSTER_SIZE
+    assert int(const("kR")) == walk.TILE
+    assert int(const("kPlanes")) == walk.WEIGHT_PLANES
+    assert int(const("kPrunePad")) == walk._PRUNE_PAD
+    assert int(const("kBigCleanI"), 16) == walk._BIG_CLEAN_I
+    assert int(const("kNegI")) == walk._NEG_I
+    scale = const("kDestScale")
+    assert float(scale[len("(float)(1.0 - "):-1]) == walk._DEST_EPS

@@ -1,0 +1,143 @@
+"""The port's mesh, camera, tiling and shading against the JAX package.
+
+Same numpy inputs (seeded) through both packages, compared at float32
+with ``atol=1e-6``: elementwise f32 math whose fusion order (and XLA's
+FMA contraction) differs from torch's by a few ulps. Shading is held to
+``atol=3e-6``: XLA's CPU rsqrt is not the correctly rounded 1/sqrt that
+torch computes (about 1 value in 9 differs by an ulp, 1.2e-7 relative),
+and the specular term raises the normalised half vector's dot to the
+24th power, which multiplies that relative error by 24.
+"""
+
+import os
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from ceres_tpu.models import camera as jcam
+from ceres_tpu.models import mesh as jmesh
+from ceres_tpu.models import shading as jshading
+from ceres_tpu.render.scenes import data_dir
+from ceres_tpu.utils import tiling as jtiling
+
+from ceres_tpu_torch.io.obj import load_obj, parse_obj
+from ceres_tpu_torch.models import camera as pcam
+from ceres_tpu_torch.models import mesh as pmesh
+from ceres_tpu_torch.models import shading as pshading
+from ceres_tpu_torch.utils import convert
+from ceres_tpu_torch.utils import tiling as ptiling
+
+torch.set_num_threads(1)
+
+ATOL = 1e-6
+SHADING_ATOL = 3e-6
+
+
+def _close(port, ref, atol=ATOL):
+    np.testing.assert_allclose(np.asarray(port), np.asarray(ref), rtol=0,
+                               atol=atol)
+
+
+def _random_mesh(seed, V=80, F=160):
+    rng = np.random.default_rng(seed)
+    verts = rng.standard_normal((V, 3)).astype(np.float32)
+    faces = rng.integers(0, V, (F, 3)).astype(np.int32)
+    return verts, faces
+
+
+def test_obj_parser_matches(bunny):
+    from ceres_tpu.io.obj import parse_obj as jax_parse
+
+    text = "v 0 0 0\nv 1 0 0\nv 1 1 0\nv 0 1 0\nf 1/1 2//2 3/3/3 -1\n"
+    for a, b in zip(parse_obj(text), jax_parse(text)):
+        np.testing.assert_array_equal(a, b)
+    verts, faces = load_obj(os.path.join(data_dir(), "bunny.obj"))
+    np.testing.assert_array_equal(verts, bunny[0])
+    np.testing.assert_array_equal(faces, bunny[1])
+
+
+@pytest.mark.parametrize("source", ["random", "bunny"])
+def test_triangle_soup(source, bunny):
+    verts, faces = _random_mesh(1) if source == "random" else bunny
+    ref = jmesh.triangle_soup(jnp.asarray(verts), jnp.asarray(faces))
+    got = pmesh.triangle_soup(torch.as_tensor(verts), torch.as_tensor(faces))
+    for name in ("p0", "e1", "e2"):   # gathers and one subtraction: exact
+        np.testing.assert_array_equal(getattr(got, name).numpy(),
+                                      np.asarray(getattr(ref, name)))
+    _close(got.n, ref.n)
+    _close(got.corner_normals, ref.corner_normals)
+    assert pmesh.triangle_soup(torch.as_tensor(verts), torch.as_tensor(faces),
+                               with_normals=False).corner_normals is None
+
+
+def test_vertex_normals_unreferenced_vertex_is_zero():
+    verts, faces = _random_mesh(2)
+    verts = np.concatenate([verts, np.ones((1, 3), np.float32)])
+    got = pmesh.vertex_normals(torch.as_tensor(verts), torch.as_tensor(faces))
+    ref = jmesh.vertex_normals(jnp.asarray(verts), jnp.asarray(faces))
+    _close(got, ref)
+    assert not got[-1].any()
+
+
+def _cameras():
+    return [
+        dict(eye=(0.0, 0.1, -0.3), dir=(-0.028, -0.006, 0.309),
+             up=(0, 1, 0), fov=60.0),
+        dict(eye=(1.5, -2.0, 3.0), dir=(-1.0, 0.5, -2.0), up=(0, 0, 1),
+             fov=35.0),
+    ]
+
+
+@pytest.mark.parametrize("cam", _cameras())
+def test_camera_basis(cam):
+    ref = jcam.camera_basis(jcam.Camera.make(**cam), 96, 54)
+    got = pcam.camera_basis(pcam.Camera.make(**cam), 96, 54)
+    for g, r in zip(got, ref):
+        _close(g, r)
+
+
+@pytest.mark.parametrize("cam", _cameras())
+def test_camera_ray_columns(cam):
+    ref = jcam.camera_ray_columns(jcam.Camera.make(**cam), 70, 45)
+    got = pcam.camera_ray_columns(convert.camera(jcam.Camera.make(**cam)),
+                                  70, 45)
+    for g, r in zip(got, ref):
+        assert tuple(g.shape) == (45, 70)
+        _close(g, r)
+
+
+@pytest.mark.parametrize("shape", [(64, 64), (45, 70), (1080, 1920)])
+def test_swizzle_roundtrip(shape):
+    plane = np.random.default_rng(3).standard_normal(shape).astype(np.float32)
+    ref = np.asarray(jtiling.swizzle_plane(jnp.asarray(plane)))
+    got = ptiling.swizzle_plane(torch.as_tensor(plane))
+    np.testing.assert_array_equal(got.numpy(), ref)
+    back = ptiling.unswizzle_plane(got, *shape)
+    np.testing.assert_array_equal(back.numpy(), plane)
+
+
+def _unit(rng, n):
+    x = rng.standard_normal((3, n)).astype(np.float32)
+    return x / np.linalg.norm(x, axis=0)
+
+
+def test_smooth_shading_cols():
+    rng = np.random.default_rng(4)
+    R = 2048
+    sun, view = _unit(rng, R), _unit(rng, R)
+    corners = np.concatenate([_unit(rng, R) for _ in range(3)])
+    u = rng.random(R, dtype=np.float32) * 0.5
+    v = rng.random(R, dtype=np.float32) * 0.5
+    ref = jshading.smooth_shading_cols(
+        tuple(jnp.asarray(c) for c in sun),
+        tuple(jnp.asarray(c) for c in corners),
+        tuple(jnp.asarray(c) for c in view), jnp.asarray(u), jnp.asarray(v))
+    got = pshading.smooth_shading_cols(
+        tuple(torch.as_tensor(c) for c in sun),
+        tuple(torch.as_tensor(c) for c in corners),
+        tuple(torch.as_tensor(c) for c in view), torch.as_tensor(u),
+        torch.as_tensor(v))
+    for g, r in zip(got, ref):
+        _close(g, r, SHADING_ATOL)

@@ -1,0 +1,194 @@
+"""The port's render pipeline against the JAX package's, on the CPU.
+
+Both packages render bunny with the bench camera and sun on the same
+SweepSAH cluster cut. Tolerances:
+  * ``rays`` exactly (pixels plus primary hits);
+  * ``primary_hits``/``shadow_hits`` within 0.1% of the pixels: the JAX
+    search takes its Möller-Trumbore numerators from an XLA dot and its
+    face normals from XLA's cross product, whose roundings differ from
+    the port's separate f32 products, so a silhouette sign test can flip;
+  * image pixels where winner and shadow agree within 1e-5 (shading
+    math in f32 with a different fusion order).
+
+Also here: the JAX-made fixture the card's smoke test compares with
+(``tests/fixtures/torch_port_bunny_128.npz``; regenerate with
+``JAX_PLATFORMS=cpu PYTHONPATH=. python tests/test_torch_render.py``),
+and the check that the port imports without JAX.
+"""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from ceres_tpu.accel.cuts import build_clusters_quality as jax_quality
+from ceres_tpu.models.camera import Camera as JaxCamera
+from ceres_tpu.models.camera import camera_ray_columns as jax_ray_columns
+from ceres_tpu.models.mesh import triangle_soup as jax_soup
+from ceres_tpu.ops import megakernel as jmk
+from ceres_tpu.render import renderer as jrenderer
+from ceres_tpu.utils import tiling as jtiling
+
+import ceres_tpu_torch as ct
+from ceres_tpu_torch.ops import megakernel as pmk
+from ceres_tpu_torch.utils import convert
+
+torch.set_num_threads(1)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_port_bunny_128.npz")
+SUN = np.asarray([-50.0, 100.0, 0.0], np.float32)
+
+
+def _bench_camera(verts):
+    eye = np.asarray([0.0, 0.1, -0.3], np.float32)
+    return JaxCamera.make(eye=eye, dir=verts.mean(axis=0) - eye, up=(0, 1, 0),
+                          fov=60.0)
+
+
+@pytest.fixture(scope="module")
+def scene(bunny):
+    verts, faces = bunny
+    cs = jax_quality(jax_soup(jnp.asarray(verts), jnp.asarray(faces),
+                              with_normals=False))
+    return verts, faces, _bench_camera(verts), cs
+
+
+def _jax_render(verts, faces, cam, cs, size):
+    config = jrenderer.RenderConfig(width=size, height=size, mode="smooth",
+                                    backend="megakernel")
+    image, stats = jrenderer.render_pipeline(
+        jnp.asarray(verts), jnp.asarray(faces), cam, jnp.asarray(SUN), config,
+        clusters=cs)
+    return np.asarray(image), {k: int(v) for k, v in stats.items()}
+
+
+def _port_render(verts, faces, cam, cs, size):
+    image, stats = ct.render_pipeline(
+        torch.as_tensor(verts), torch.as_tensor(faces), convert.camera(cam),
+        torch.as_tensor(SUN), ct.RenderConfig(width=size, height=size),
+        clusters=convert.cluster_set(cs))
+    return image.numpy(), {k: int(v) for k, v in stats.items()}
+
+
+def _winners(verts, faces, cam, cs, size):
+    """Per-pixel winning triangle ids of both packages (-1 at misses),
+    raster order."""
+    jsoup = jax_soup(jnp.asarray(verts), jnp.asarray(faces))
+    dirs = tuple(jtiling.swizzle_plane(p)
+                 for p in jax_ray_columns(cam, size, size))
+    jhit = jmk.closest_hit_common_origin(jsoup, cam.eye, dirs, clusters=cs)
+    phit = pmk.closest_hit_common_origin(
+        convert.soup(jsoup), convert.tensor(cam.eye),
+        tuple(convert.tensor(d) for d in dirs),
+        clusters=convert.cluster_set(cs))
+
+    def raster(x):
+        return np.asarray(jtiling.unswizzle_plane(jnp.asarray(x), size, size))
+
+    jid = raster(np.where(np.asarray(jhit.mask), np.asarray(jhit.prim_id), -1))
+    pid = raster(torch.where(phit.mask, phit.prim_id, -1).numpy())
+    return jid, pid
+
+
+def test_render_matches_jax(scene):
+    verts, faces, cam, cs = scene
+    size = 64
+    jimg, jst = _jax_render(verts, faces, cam, cs, size)
+    pimg, pst = _port_render(verts, faces, cam, cs, size)
+    assert pst["rays"] == jst["rays"] == size * size + jst["primary_hits"]
+    budget = 0.001 * size * size
+    for k in ("primary_hits", "shadow_hits"):
+        assert abs(pst[k] - jst[k]) <= budget, (k, pst[k], jst[k])
+    assert abs(pst["hits"] - jst["hits"]) <= 2 * budget
+    jid, pid = _winners(verts, faces, cam, cs, size)
+    agree = (jid == pid) & ((jimg.max(-1) > 0) == (pimg.max(-1) > 0))
+    assert (~agree).sum() <= 2 * budget
+    np.testing.assert_allclose(pimg[agree], jimg[agree], rtol=0, atol=1e-5)
+    assert jimg.max() > 0
+
+
+def test_render_entry_point_builds_its_own_cut(bunny):
+    verts, faces = bunny
+    cam = _bench_camera(verts)
+    image, stats = ct.render(verts, faces, cam, SUN, width=32, height=32)
+    assert image.shape == (32, 32, 3) and torch.isfinite(image).all()
+    assert int(stats["rays"]) == 32 * 32 + int(stats["primary_hits"])
+    assert int(stats["primary_hits"]) > 0
+
+
+@pytest.mark.parametrize("kwargs, item", [
+    ({"backend": "bruteforce"}, "M8"),
+    ({"reference_compat": True}, "M8"),
+    ({"mode": "flat"}, "M8"),
+    ({"f64_exact": True}, "M14"),
+])
+def test_unported_options_name_their_roadmap_item(bunny, kwargs, item):
+    verts, faces = bunny
+    with pytest.raises(NotImplementedError, match=item):
+        ct.render(verts, faces, _bench_camera(verts), SUN, width=32,
+                  height=32, **kwargs)
+
+
+def test_unported_inputs_name_their_roadmap_item(bunny):
+    verts, faces = bunny
+    cam = _bench_camera(verts)
+    with pytest.raises(NotImplementedError, match="M14"):
+        ct.render(verts.astype(np.float64), faces, cam, SUN, width=32,
+                  height=32)
+    with pytest.raises(NotImplementedError, match="M12"):
+        ct.render(verts, faces, cam, SUN, width=32, height=32,
+                  spheres=(np.zeros((1, 3)), np.ones(1)))
+
+
+def _fixture_render(verts, faces):
+    cs = jax_quality(jax_soup(jnp.asarray(verts), jnp.asarray(faces),
+                              with_normals=False))
+    image, stats = _jax_render(verts, faces, _bench_camera(verts), cs, 128)
+    return dict(image=image, **{k: stats[k] for k in (
+        "rays", "hits", "primary_hits", "shadow_hits")})
+
+
+def test_fixture_is_the_jax_render(scene):
+    verts, faces, _, _ = scene
+    fresh = _fixture_render(verts, faces)
+    with np.load(FIXTURE) as ref:
+        for k in ("rays", "hits", "primary_hits", "shadow_hits"):
+            assert int(ref[k]) == fresh[k], k
+        np.testing.assert_allclose(ref["image"], fresh["image"], rtol=0,
+                                   atol=1e-6)
+
+
+def test_port_matches_fixture(scene):
+    # What the card's smoke test checks, here on the CPU: fewer than 0.5%
+    # of pixels off by more than 1e-4, counts within 0.2%.
+    verts, faces, cam, cs = scene
+    image, stats = _port_render(verts, faces, cam, cs, 128)
+    with np.load(FIXTURE) as ref:
+        off = np.abs(image - ref["image"]).max(-1) > 1e-4
+        assert off.mean() < 0.005
+        for k in ("rays", "hits", "primary_hits", "shadow_hits"):
+            assert abs(stats[k] - int(ref[k])) <= 0.002 * int(ref[k]), k
+
+
+def test_port_imports_without_jax():
+    code = ("import sys; sys.modules['jax'] = None\n"
+            "import ceres_tpu_torch, ceres_tpu_torch.render.renderer, "
+            "ceres_tpu_torch.ops._build, ceres_tpu_torch.utils.convert\n"
+            "assert not any(m == 'jax' or m.startswith(('jax.', 'ceres_tpu.'))"
+            " for m in sys.modules if sys.modules[m] is not None)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+if __name__ == "__main__":
+    from ceres_tpu.io.obj import load_obj
+
+    v, f = load_obj(os.path.join(ROOT, "data", "bunny.obj"))
+    np.savez_compressed(FIXTURE, **_fixture_render(v, f))
+    print("wrote", FIXTURE)

@@ -1,0 +1,214 @@
+"""The plain versions of the walk kernels against the JAX package's Pallas
+walk (``_walk_pallas`` in interpret mode), and on a card the kernels
+against their plain versions.
+
+Inputs are made once on the JAX side (cluster cut, candidate keys,
+features, packed weights) and converted, so both walks see the same
+numbers. The JAX walk takes its Möller-Trumbore numerators from an XLA
+dot, whose summation order and FMA use differ from the port's separate
+f32 products, so a decision that sits within f32 rounding of its
+boundary can go either way. Tolerances:
+  * occlusion flags on >= 99.9% of rays, and every disagreement a
+    boundary case: the most nearly accepted triangle's sign-test and
+    window margin, recomputed in float64, within 1e-6 of |det|;
+  * winner slot ids on >= 99.9% of rays, and every disagreement a near
+    tie: both triangles' t, recomputed in float64, within 1e-5 relative;
+  * executed visits within 1%.
+The kernels themselves are held to these plain versions on the card by
+``tests/test_torch_cuda.py``, which needs no JAX.
+"""
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from ceres_tpu.accel import clusters as jcl
+from ceres_tpu.accel.cuts import build_clusters_quality as jax_quality
+from ceres_tpu.models.camera import Camera as JaxCamera
+from ceres_tpu.models.camera import camera_ray_columns as jax_ray_columns
+from ceres_tpu.models.mesh import triangle_soup as jax_soup
+from ceres_tpu.ops import megakernel as jmk
+from ceres_tpu.utils import tiling as jtiling
+
+from ceres_tpu_torch.ops import walk
+from ceres_tpu_torch.utils import convert
+
+torch.set_num_threads(1)
+
+SUN = np.asarray([-50.0, 100.0, 0.0], np.float32)
+EYES = {"bunny": (0.0, 0.1, -0.3), "dragon": (0.0, 2.5, -12.0)}
+
+
+def _mesh_scene(verts, faces, eye):
+    cs = jax_quality(jax_soup(jnp.asarray(verts), jnp.asarray(faces),
+                              with_normals=False))
+    eye = np.asarray(eye, np.float32)
+    cam = JaxCamera.make(eye=eye, dir=verts.mean(axis=0) - eye, up=(0, 1, 0),
+                         fov=60.0)
+    dirs = tuple(jtiling.swizzle_plane(p) for p in jax_ray_columns(cam, 64, 64))
+    hit = jmk.closest_hit_common_origin(
+        jax_soup(jnp.asarray(verts), jnp.asarray(faces)), cam.eye, dirs,
+        clusters=cs)
+    t = jnp.where(hit.mask, hit.t, 0.0)
+    # Receivers a hair in front of the surface, as the renderer offsets them.
+    points = tuple(cam.eye[a] + t * (1.0 - 1e-4) * dirs[a] for a in range(3))
+    return cs, jnp.asarray(eye), dirs, jnp.asarray(SUN), points, ~hit.mask
+
+
+def _random_scene():
+    rng = np.random.default_rng(11)
+    verts = rng.standard_normal((90, 3)).astype(np.float32)
+    faces = rng.integers(0, 90, (400, 3)).astype(np.int32)
+    cs = jax_quality(jax_soup(jnp.asarray(verts), jnp.asarray(faces),
+                              with_normals=False))
+    d = rng.standard_normal((3, 1000)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=0)
+    points = rng.standard_normal((3, 1000)).astype(np.float32)
+    skip = rng.random(1000) < 0.3
+    return (cs, jnp.asarray([0.0, 0.0, -4.0], jnp.float32),
+            tuple(jnp.asarray(c) for c in d), jnp.asarray([0.3, 6.0, -5.0]),
+            tuple(jnp.asarray(c) for c in points), jnp.asarray(skip))
+
+
+@pytest.fixture(scope="module", params=["random", "bunny", "dragon"])
+def scene(request, bunny, dragon):
+    if request.param == "random":
+        return _random_scene()
+    verts, faces = bunny if request.param == "bunny" else dragon
+    return _mesh_scene(verts, faces, EYES[request.param])
+
+
+def _planes(cs, origin):
+    """JAX packed weights (N_c, 8, 4C) re-indexed to the port's planes."""
+    packed = np.asarray(jcl.cluster_weights_common_origin_packed(cs, origin))
+    C = cs.cluster_size
+    return packed, np.concatenate(
+        [packed[:, 0:3, 0:C], packed[:, 0:3, C:2 * C],
+         packed[:, 0:3, 2 * C:3 * C], packed[:, 3:4, 3 * C:4 * C]], axis=1)
+
+
+def _inputs(cs, origin, d, skip, mode):
+    """JAX walk inputs as _closest_search / any_hit_to_point build them,
+    and the same numbers converted for the port."""
+    dp = tuple(jmk._pad_rays(c) for c in d)
+    dt = tuple(c.reshape(-1, jmk.TILE) for c in dp)
+    skip_p = jmk._pad_rays(skip)
+    alive = ~skip_p.reshape(-1, jmk.TILE) & (
+        (dt[0] * dt[0] + dt[1] * dt[1] + dt[2] * dt[2]) > 0.0)
+    keys, counts = jmk._tile_candidate_keys(cs.lo - origin, cs.hi - origin,
+                                            dt, alive=alive)
+    root_lo, root_hi = jmk._scene_root(cs)
+    tcap = jmk._ray_tcap(root_lo - origin, root_hi - origin, None, dp)
+    if mode == "any_dest":
+        tcap = jnp.minimum(tcap, 1.0 + jmk._ULP_PAD)
+    packed, planes = _planes(cs, origin)
+    feats = jmk._feats_from_cols(dp, packed.shape[1], tcap=tcap)
+    occ0 = skip_p.astype(jnp.int32)
+    jax_args = (counts, keys, feats, jnp.asarray(packed),
+                occ0 if mode == "any_dest" else None)
+    port_args = (convert.tensor(counts), convert.tensor(keys),
+                 convert.tensor(jnp.stack([*dp, tcap])), convert.tensor(planes))
+    if mode == "any_dest":
+        port_args += (convert.tensor(occ0),)
+    return jax_args, port_args
+
+
+def _jax_walk(args, mode):
+    out, steps = jmk._walk_pallas(*args, tcap_col=4, mode=mode, stream=False,
+                                  interpret=True)
+    return np.asarray(out), int(steps[0, 0])
+
+
+def _closest_args(scene):
+    cs, eye, dirs, _, _, _ = scene
+    return _inputs(cs, eye, dirs, jnp.zeros(dirs[0].shape, bool), "closest")
+
+
+def _shadow_args(scene):
+    cs, _, _, sun, points, skip = scene
+    d = tuple(points[a] - sun[a] for a in range(3))
+    return _inputs(cs, sun, d, skip, "any_dest")
+
+
+def _slot_t(cs, origin, d, slot, ray):
+    """float64 Möller-Trumbore t of ray ``ray`` against cluster slot
+    ``slot`` (packed id cid * C + lane)."""
+    p0 = np.asarray(cs.p0, np.float64).reshape(-1, 3)[slot]
+    e1 = np.asarray(cs.e1, np.float64).reshape(-1, 3)[slot]
+    e2 = np.asarray(cs.e2, np.float64).reshape(-1, 3)[slot]
+    n = np.cross(e1, e2)
+    dv = np.asarray([float(d[a][ray]) for a in range(3)])
+    c = p0 - np.asarray(origin, np.float64)
+    return float(n @ c / (n @ dv))
+
+
+def _shadow_margin(cs, dest, d, ray):
+    """float64 margin of the triangle closest to occluding the segment
+    from ``dest`` along ``d[:, ray]`` (t in [0, 1 - _DEST_EPS]), in units
+    of |det|: positive means occluded, negative unoccluded."""
+    p0, e1, e2 = (np.asarray(x, np.float64).reshape(-1, 3)
+                  for x in (cs.p0, cs.e1, cs.e2))
+    n = np.cross(e1, e2)
+    dv = np.asarray([float(d[a][ray]) for a in range(3)])
+    c = p0 - np.asarray(dest, np.float64)
+    nd = n @ dv
+    real = nd != 0
+    s = np.sign(nd[real])
+    nu, nv = np.cross(c, e2)[real] @ dv, np.cross(c, e1)[real] @ dv
+    nt, nd = (n * c).sum(1)[real], nd[real]
+    m = np.minimum.reduce([nu * s, nv * s, (nd - nu - nv) * s, nt * s,
+                           -(nt - (1.0 - jmk._DEST_EPS) * nd) * s])
+    return float((m / np.abs(nd)).max())
+
+
+def test_closest_plain_matches_pallas(scene):
+    jax_args, port_args = _closest_args(scene)
+    ref, ref_steps = _jax_walk(jax_args, "closest")
+    got, steps = walk.walk_closest(*port_args)
+    got = got.numpy()
+    R = scene[2][0].shape[0]
+    ref, got = ref[:R], got[:R]
+    assert (ref >= 0).sum() > 0
+    differ = np.nonzero(got != ref)[0]
+    assert len(differ) <= 0.001 * R, len(differ)
+    cs, eye, dirs = scene[:3]
+    for ray in differ:   # near ties only
+        assert got[ray] >= 0 and ref[ray] >= 0
+        ta = _slot_t(cs, eye, dirs, got[ray], ray)
+        tb = _slot_t(cs, eye, dirs, ref[ray], ray)
+        assert abs(ta - tb) <= 1e-5 * max(abs(ta), abs(tb))
+    assert abs(int(steps) - ref_steps) <= 0.01 * ref_steps
+
+
+def test_any_dest_plain_matches_pallas(scene):
+    jax_args, port_args = _shadow_args(scene)
+    ref, ref_steps = _jax_walk(jax_args, "any_dest")
+    got, steps = walk.walk_any_dest(*port_args)
+    got = got.numpy()
+    occ0 = port_args[4].numpy()
+    assert ((ref == 1) & (occ0 == 0)).sum() > 0
+    differ = np.nonzero(got != ref)[0]
+    assert len(differ) <= 0.001 * len(ref), len(differ)
+    cs, sun, points = scene[0], scene[3], scene[4]
+    d = tuple(np.asarray(points[a] - sun[a]) for a in range(3))
+    for ray in differ:   # boundary cases only
+        assert abs(_shadow_margin(cs, sun, d, ray)) <= 1e-6
+    assert abs(int(steps) - ref_steps) <= 0.01 * ref_steps
+
+
+def test_plain_versions_do_not_count_launches(scene):
+    _, port_args = _closest_args(scene)
+    walk.reset_launches()
+    walk.walk_closest(*port_args)
+    assert walk.launches == {"walk_closest": 0, "walk_any_dest": 0}
+
+
+def test_wrapper_rejects_bad_inputs(scene):
+    _, (counts, keys, rays, w) = _closest_args(scene)
+    with pytest.raises(ValueError, match="rays"):
+        walk.walk_closest(counts, keys, rays[:3], w)
+    with pytest.raises(ValueError, match="keys"):
+        walk.walk_closest(counts, keys.to(torch.int64), rays, w)
+    with pytest.raises(ValueError, match="w"):
+        walk.walk_closest(counts, keys, rays, w[:, :8])
