@@ -4,10 +4,14 @@ The port of the JAX package ``ceres_tpu``, which stays beside it as the
 reference each ported part is tested against. Same sub-packages and
 module names; this package imports ``torch`` and never ``jax``.
 
-Layers on the ported main path (bunny 1080p, smooth shading, shadows):
-  scene I/O   ceres_tpu_torch.io (OBJ), .models (soup, camera, shading)
-  accel       ceres_tpu_torch.accel (host SweepSAH build, treelet cut)
-  kernels     ceres_tpu_torch.ops (culling prepass, CUDA walk kernels)
+Layers on the ported paths (bunny 1080p on a SweepSAH cut; the
+subdivided bunny up to 1.27M triangles on the device treelet cut):
+  scene I/O   ceres_tpu_torch.io (OBJ), .models (soup, camera, shading,
+              subdivision)
+  accel       ceres_tpu_torch.accel (device morton/LBVH treelet cut, host
+              SweepSAH build and quality cut)
+  kernels     ceres_tpu_torch.ops (culling prepass, CUDA walk kernels:
+              flat or two-level, weights staged or streamed)
   renderer    ceres_tpu_torch.render
 """
 

@@ -1,1 +1,2 @@
-"""Acceleration structure: host SweepSAH build, treelet cut, clusters."""
+"""Acceleration structure: device LBVH and treelet cut, host SweepSAH
+build and quality cut, clusters."""

@@ -9,31 +9,39 @@ gathered from the soup in torch, so the ClusterSet stays differentiable
 with respect to the vertices while the structure (perm, boxes) is
 detached.
 
-The flat walk needs no super level, so the JAX package's second cut
-(``super_first``, for the two-level walk of ROADMAP item M13) is not
-built here.
+``clusters_from_flatbvh`` also makes the JAX package's second cut, the
+super level of the two-level walk (``ClusterSet.super_first``): a
+maximal-subtree cut at <= ``_super_slots(n_c)`` fine clusters per
+super, so a big scene's quality cut walks over tree-tight supers.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import List
 
 import numpy as np
 import torch
 
 from ceres_tpu_torch.accel import golden_builders as gb
-from ceres_tpu_torch.accel.clusters import CLUSTER_SIZE, ClusterSet
+from ceres_tpu_torch.accel.clusters import (CLUSTER_SIZE, ClusterSet,
+                                            _super_slots)
 from ceres_tpu_torch.models.mesh import TriangleSoup
 
 
 def _cut_flatbvh(bvh: gb.FlatBvh, cluster_size: int):
-    """Greedy maximal-subtree cut. Returns (prim id lists, lo, hi) in the
-    JAX package's emission order (depth first, second child first)."""
+    """Greedy maximal-subtree cut. Returns (prim id lists, lo, hi,
+    super_first) in the JAX package's emission order (depth first, second
+    child first), as its ``_cut_flatbvh(..., "auto")``: a second
+    maximal-subtree cut groups <= ``_super_slots(n_c)`` fine clusters per
+    super, and fine clusters are emitted super by super, so each super's
+    members are contiguous fine ids."""
     prim_count = bvh.prim_count.astype(np.int64)
     first = bvh.first_child.astype(np.int64)
     counts = np.zeros(bvh.node_count, np.int64)
+    gcount = np.zeros(bvh.node_count, np.int64)  # fine clusters in subtree
 
-    # Subtree primitive counts, iterative post-order.
+    # Subtree primitive and fine-cluster counts, iterative post-order.
     order = []
     stack = [0]
     while stack:
@@ -47,6 +55,9 @@ def _cut_flatbvh(bvh: gb.FlatBvh, cluster_size: int):
             counts[i] = prim_count[i]
         else:
             counts[i] = counts[first[i]] + counts[first[i] + 1]
+        gcount[i] = 1 if counts[i] <= cluster_size else (
+            gcount[first[i]] + gcount[first[i] + 1]
+            if prim_count[i] == 0 else 1)
 
     def subtree_prims(i: int) -> np.ndarray:
         out = []
@@ -61,20 +72,34 @@ def _cut_flatbvh(bvh: gb.FlatBvh, cluster_size: int):
                 st.append(int(first[j]) + 1)
         return np.concatenate(out)
 
+    super_slots = _super_slots(int(gcount[0]))
     groups: List[np.ndarray] = []
     los, his = [], []
-    st = [0]
-    while st:
-        j = st.pop()
-        if counts[j] <= cluster_size:
-            groups.append(subtree_prims(j))
-            los.append(bvh.bounds[j, 0::2])
-            his.append(bvh.bounds[j, 1::2])
+
+    def emit_fine(i: int) -> None:
+        st = [i]
+        while st:
+            j = st.pop()
+            if counts[j] <= cluster_size:
+                groups.append(subtree_prims(j))
+                los.append(bvh.bounds[j, 0::2])
+                his.append(bvh.bounds[j, 1::2])
+            else:
+                st.append(int(first[j]))
+                st.append(int(first[j]) + 1)
+
+    super_first = []
+    stack = [0]
+    while stack:
+        i = stack.pop()
+        if gcount[i] <= super_slots:
+            super_first.append(len(groups))
+            emit_fine(i)
         else:
-            st.append(int(first[j]))
-            st.append(int(first[j]) + 1)
+            stack.append(int(first[i]))
+            stack.append(int(first[i]) + 1)
     return (groups, np.asarray(los, np.float32),
-            np.asarray(his, np.float32))
+            np.asarray(his, np.float32), np.asarray(super_first, np.int32))
 
 
 def _pack_clusterset(soup: TriangleSoup, groups, los, his,
@@ -104,9 +129,13 @@ def _pack_clusterset(soup: TriangleSoup, groups, los, his,
 
 def clusters_from_flatbvh(soup: TriangleSoup, bvh: gb.FlatBvh,
                           cluster_size: int = CLUSTER_SIZE) -> ClusterSet:
-    """Cut a host FlatBvh into a ClusterSet."""
-    groups, los, his = _cut_flatbvh(bvh, cluster_size)
-    return _pack_clusterset(soup, groups, los, his, cluster_size)
+    """Cut a host FlatBvh into a ClusterSet, with the super level of the
+    two-level walk taken from the same tree."""
+    groups, los, his, super_first = _cut_flatbvh(bvh, cluster_size)
+    cs = _pack_clusterset(soup, groups, los, his, cluster_size)
+    return dataclasses.replace(
+        cs, super_first=torch.as_tensor(super_first, device=cs.lo.device),
+        super_S=_super_slots(len(groups)))
 
 
 def build_clusters_quality(soup: TriangleSoup, builder: str = "sweep",

@@ -30,11 +30,18 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    # counts, keys, rays, w, out, visits, n_tiles, n_c, cmask, device, stream
-    "ceres_walk_closest": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
-    # counts, keys, rays, w, occ0, out, visits, n_tiles, n_c, cmask, device,
-    # stream
-    "ceres_walk_any_dest": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # counts, keys, rays, w, out, visits, n_tiles, n_c, cmask, stream_w,
+    # device, stream
+    "ceres_walk_closest": (_P,) * 6 + (_I,) * 5 + (_P,),
+    # counts, keys, rays, w, occ0, out, visits, n_tiles, n_c, cmask,
+    # stream_w, device, stream
+    "ceres_walk_any_dest": (_P,) * 7 + (_I,) * 5 + (_P,),
+    # counts, keys, rays, w, hull, bbox, first, out, visits, n_tiles, n_s,
+    # cmask, S, stream_w, device, stream
+    "ceres_walk_closest_hier": (_P,) * 9 + (_I,) * 6 + (_P,),
+    # counts, keys, rays, w, occ0, hull, bbox, first, out, visits, n_tiles,
+    # n_s, cmask, S, stream_w, device, stream
+    "ceres_walk_any_dest_hier": (_P,) * 10 + (_I,) * 6 + (_P,),
 }
 
 

@@ -13,9 +13,16 @@ plain torch, so gradients with respect to vertices, camera and ray
 directions flow through the gather and ``_winner_tuv`` with no custom
 autograd function.
 
-Not ported yet: generic-origin ``any_hit`` (ROADMAP M8), the in-graph
-treelet cut when ``clusters`` is None (M9), ray windows (M11), the
-two-level and streaming walks (M13), ``exact_f64`` (M14).
+Scenes past ``prepass._HIER_MIN_CLUSTERS`` blocks walk two-level, over
+supers of up to S blocks, and weights past the resident budget are
+streamed (``prepass._hier_setup``, ``prepass._use_stream``): the JAX
+package's rules, so the same scene takes the same kernel variant.
+Without ``clusters`` the entry points build the LBVH treelet cut on the
+device (``accel.clusters.build_clusters_treelet``), as the JAX package
+does.
+
+Not ported yet: generic-origin ``any_hit`` (ROADMAP M8), ray windows
+(M11), shadow-receiver regrouping (M13), ``exact_f64`` (M14).
 """
 
 from __future__ import annotations
@@ -24,11 +31,13 @@ import dataclasses
 
 import torch
 
-from ceres_tpu_torch.accel.clusters import cluster_weights_common_origin
+from ceres_tpu_torch.accel.clusters import (build_clusters_treelet,
+                                            cluster_weights_common_origin)
 from ceres_tpu_torch.models.mesh import TriangleSoup
 from ceres_tpu_torch.ops import walk
 from ceres_tpu_torch.ops.prepass import (
-    TILE, _ULP_PAD, _pad_rays, _ray_tcap, _scene_root, _tile_candidate_keys)
+    TILE, _ULP_PAD, _hier_setup, _pad_rays, _ray_tcap, _scene_root,
+    _tile_candidate_keys, _use_stream)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,35 +73,49 @@ def _detach_f32(x):
     return x
 
 
-def _require_clusters(clusters):
-    if clusters is None:
-        raise NotImplementedError(
-            "the in-graph treelet cut for clusters=None is ROADMAP item M9; "
-            "pass clusters from accel.cuts.build_clusters_quality")
-    return clusters
+def _treelet(soup: TriangleSoup, clusters):
+    """``clusters``, or the LBVH treelet cut of ``soup`` built on its
+    device when None (the JAX package's default structure)."""
+    if clusters is not None:
+        return clusters
+    return build_clusters_treelet(_detach_f32(soup))
+
+
+def _walk_inputs(cs, origin, dp, alive, tcap):
+    """The walk's inputs for rays from ``origin`` (padded direction
+    columns ``dp``, alive mask per tile, root-exit caps): (args, opts) for
+    ``walk.walk_closest(*args, **opts)``; args = (counts, keys, rays, w),
+    opts = the two-level inputs (hull, bbox, first, S) and ``stream``."""
+    w = cluster_weights_common_origin(cs, origin)
+    dirs_tiled = tuple(c.reshape(-1, TILE) for c in dp)
+    S, hull, bbox, first, cull_lo, cull_hi, w = _hier_setup(
+        cs.lo - origin, cs.hi - origin, dirs_tiled, alive, w, cs=cs)
+    keys, counts = _tile_candidate_keys(cull_lo, cull_hi, dirs_tiled,
+                                        alive=alive)
+    return ((counts, keys, torch.stack([*dp, tcap]), w),
+            {"hull": hull, "bbox": bbox, "first": first, "S": S,
+             "stream": _use_stream(w.shape[0])})
 
 
 def _closest_inputs(cs, eye, dir_cols):
-    """The closest walk's inputs (counts, keys, rays, w) for rays
-    ``dir_cols`` from ``eye``: weights, root-exit caps, padded ray rows
-    and the prepass's sorted candidate keys. Detached float32."""
+    """The closest walk's (args, opts) for rays ``dir_cols`` from ``eye``:
+    weights, root-exit caps, padded ray rows, the prepass's sorted
+    candidate keys and, past the two-level threshold, the super inputs.
+    Detached float32."""
     cs, eye, dir_cols = _detach_f32((cs, eye, dir_cols))
-    w = cluster_weights_common_origin(cs, eye)
     root_lo, root_hi = _scene_root(cs)
     dp = tuple(_pad_rays(c) for c in dir_cols)
-    dirs_tiled = tuple(c.reshape(-1, TILE) for c in dp)
-    alive = (dirs_tiled[0] * dirs_tiled[0] + dirs_tiled[1] * dirs_tiled[1]
-             + dirs_tiled[2] * dirs_tiled[2]) > 0.0
+    alive = (dp[0] * dp[0] + dp[1] * dp[1] + dp[2] * dp[2]).reshape(
+        -1, TILE) > 0.0
     tcap = _ray_tcap(root_lo - eye, root_hi - eye, dp)
-    keys, counts = _tile_candidate_keys(cs.lo - eye, cs.hi - eye, dirs_tiled,
-                                        alive=alive)
-    return counts, keys, torch.stack([*dp, tcap]), w
+    return _walk_inputs(cs, eye, dp, alive, tcap)
 
 
 def _closest_search(cs, eye, dir_cols):
     """Detached winner search: (packed slot ids (R,) int32, counters)."""
     R = dir_cols[0].shape[0]
-    pidx, steps = walk.walk_closest(*_closest_inputs(cs, eye, dir_cols))
+    args, opts = _closest_inputs(cs, eye, dir_cols)
+    pidx, steps = walk.walk_closest(*args, **opts)
     return pidx[:R], {"traversal_steps": steps, "mt_block_visits": steps}
 
 
@@ -149,14 +172,15 @@ def closest_hit_common_origin(soup: TriangleSoup, eye, dirs, clusters=None,
     """Closest hit of normalised ``dirs`` rays all starting at ``eye``.
 
     ``dirs`` is (R, 3) or a 3-tuple of (R,) columns; ``clusters`` is a
-    prebuilt ClusterSet of this soup. ``payload`` (P per-triangle (T,)
-    columns) rides the winner gather: returns (hit, payload columns),
-    zero at misses. ``normal_cols=True`` prepends the winner's face
-    normal, recomputed from the gathered edges. ``with_counts=True`` adds
-    the measured counters (executed cluster visits and MT pairs).
+    prebuilt ClusterSet of this soup (None: the treelet cut is built).
+    ``payload`` (P per-triangle (T,) columns) rides the winner gather:
+    returns (hit, payload columns), zero at misses. ``normal_cols=True``
+    prepends the winner's face normal, recomputed from the gathered
+    edges. ``with_counts=True`` adds the measured counters (executed
+    cluster visits and MT pairs).
     """
     dir_cols = _cols(dirs)
-    cs = _require_clusters(clusters)
+    cs = _treelet(soup, clusters)
     pidx, counts = _closest_search(cs, eye, dir_cols)
     mask = pidx >= 0
     table = (table_cols if table_cols is not None
@@ -195,12 +219,12 @@ def any_hit_to_point(soup: TriangleSoup, dest, points, skip=None,
     Boolean, detached. The JAX package's receiver regrouping (off by
     default there) waits for ROADMAP item M13.
     """
-    del soup  # the structure carries the geometry
     R = _cols(points)[0].shape[0]
-    cs = _require_clusters(clusters)
+    cs = _treelet(soup, clusters)
     if skip is None:
         skip = torch.zeros(R, dtype=torch.bool, device=cs.lo.device)
-    occ, steps = walk.walk_any_dest(*_any_dest_inputs(cs, dest, points, skip))
+    args, opts = _any_dest_inputs(cs, dest, points, skip)
+    occ, steps = walk.walk_any_dest(*args, **opts)
     result = (occ[:R] == 1) & ~skip
     if with_counts:
         return result, {"traversal_steps": steps, "mt_block_visits": steps,
@@ -209,21 +233,19 @@ def any_hit_to_point(soup: TriangleSoup, dest, points, skip=None,
 
 
 def _any_dest_inputs(cs, dest, points, skip):
-    """The shadow walk's inputs (counts, keys, rays, w, occ0) for segments
-    from ``dest`` to ``points``, ``skip`` (bool (R,)) marking rays that
-    start occluded. Detached float32."""
+    """The shadow walk's (args, opts) for segments from ``dest`` to
+    ``points``, ``skip`` (bool (R,)) marking rays that start occluded:
+    args = (counts, keys, rays, w, occ0), opts as in ``_walk_inputs``.
+    Detached float32."""
     cs, dest, p_cols = _detach_f32((cs, dest, _cols(points)))
-    w = cluster_weights_common_origin(cs, dest)
     root_lo, root_hi = _scene_root(cs)
     dp = tuple(_pad_rays(p_cols[a] - dest[a]) for a in range(3))
-    dirs_tiled = tuple(c.reshape(-1, TILE) for c in dp)
     occ0 = _pad_rays(skip.to(torch.int32))
     alive = (occ0.reshape(-1, TILE) == 0) & (
-        (dirs_tiled[0] * dirs_tiled[0] + dirs_tiled[1] * dirs_tiled[1]
-         + dirs_tiled[2] * dirs_tiled[2]) > 0.0)
+        (dp[0] * dp[0] + dp[1] * dp[1] + dp[2] * dp[2]).reshape(-1, TILE)
+        > 0.0)
     # Nothing past the receiving point can occlude: cap the walk at t = 1
     # (+ slack). Padding rays (zero dirs) keep the cap -1.
     tcap = _ray_tcap(root_lo - dest, root_hi - dest, dp).clamp(max=1.0 + _ULP_PAD)
-    keys, counts = _tile_candidate_keys(cs.lo - dest, cs.hi - dest,
-                                        dirs_tiled, alive=alive)
-    return counts, keys, torch.stack([*dp, tcap]), w, occ0
+    args, opts = _walk_inputs(cs, dest, dp, alive, tcap)
+    return args + (occ0,), opts

@@ -15,6 +15,10 @@ Keys and counts are bit-identical to the JAX package's: every step is
 one IEEE f32 operation in the same order, with no sums that a compiler
 could contract. Common-origin rays only; the generic-origin hull of
 ``any_hit`` waits for ROADMAP item M8.
+
+Also here: which walk variant a scene takes (flat or two-level, weights
+resident or streamed, by the JAX package's rules) and the two-level
+walk's inputs (``_super_members``, ``_tile_hulls``, ``_hier_setup``).
 """
 
 from __future__ import annotations
@@ -22,26 +26,17 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ceres_tpu_torch.accel.clusters import CLUSTER_SIZE, _super_slots
+from ceres_tpu_torch.utils import minmax
+from ceres_tpu_torch.utils.minmax import fmax as _fmax
+from ceres_tpu_torch.utils.minmax import fmin as _fmin
+
 TILE = 512           # rays per walk tile (one 16 x 32 pixel block)
 
 _BIG = 3.0e37        # "no hit" sentinel, finite to keep slab math NaN-free
 _VALID_CUT = 1.0e37  # entries >= this are padding, never real candidates
 _INV_CLAMP = 1e30
 _ULP_PAD = 4e-6      # conservative slab widening: never cull a true hit
-
-
-def _fmax(a, b):
-    """torch.maximum with XLA's signed zeros: max(-0, +0) is +0 in either
-    order. The bounds are bit-cast into keys, so the sign of a zero
-    matters."""
-    both0 = (a == 0) & (b == 0)
-    return torch.where(both0, a + b, torch.maximum(a, b))
-
-
-def _fmin(a, b):
-    """torch.minimum with XLA's signed zeros: min(-0, +0) is -0."""
-    both0 = (a == 0) & (b == 0)
-    return torch.where(both0, -((-a) + (-b)), torch.minimum(a, b))
 
 
 def _safe_inverse(d: torch.Tensor) -> torch.Tensor:
@@ -152,3 +147,103 @@ def _scene_root(cs):
 def _pad_rays(x: torch.Tensor, tile: int = TILE) -> torch.Tensor:
     """(R,) -> (R_pad,) zero-padded to a multiple of ``tile``."""
     return F.pad(x, (0, (-x.shape[0]) % tile))
+
+
+# ---------------------------------------------------------------------------
+# Walk variant choice and the two-level walk's super inputs
+# ---------------------------------------------------------------------------
+
+# Above this many blocks the walk goes two-level: the prepass and its sort
+# run over supers of up to S blocks, and the kernel gates each member with
+# an in-kernel slab test. The JAX package's threshold, kept so the same
+# scenes take the same variant; the card's own flat-vs-two-level times
+# may move it (ROADMAP open question).
+_HIER_MIN_CLUSTERS = 12288
+
+# The JAX package keeps weights resident while its packed layout,
+# (blocks, 8, 4C) f32 = 16 KiB a block, fits 8 MiB, and streams them
+# beyond. The port applies the same rule to its block count.
+_RESIDENT_W_BYTES = 8 << 20
+_PACKED_BLOCK_BYTES = 8 * 4 * CLUSTER_SIZE * 4
+
+
+def _use_stream(n_blocks: int) -> bool:
+    """Stream the weights of a walk over ``n_blocks`` blocks (padding
+    included)?"""
+    return n_blocks * _PACKED_BLOCK_BYTES > _RESIDENT_W_BYTES
+
+
+def _super_factor(n_c: int) -> int:
+    """Blocks per super: 1 = flat walk; else _super_slots."""
+    if n_c <= _HIER_MIN_CLUSTERS:
+        return 1
+    return _super_slots(n_c)
+
+
+def _super_members(lo, hi, first, S):
+    """Super-level inputs from a first-member table.
+
+    ``lo``/``hi`` are the (N_c, 3) fine boxes, already shifted into the
+    walk's frame; super j's members are the fine ids [first[j],
+    first[j + 1]), at most S. Returns the (n_s, 3) union boxes (super_lo,
+    super_hi) for the prepass, empty-aware, and the (n_s, 8, S) member-box
+    tensor the kernel gates with: rows 0-2 lo.xyz, 3-5 hi.xyz, 6 the empty
+    flag, 7 zero.
+    """
+    n_c = lo.shape[0]
+    n_s = first.shape[0]
+    member = first[:, None] + torch.arange(S, dtype=torch.int32,
+                                           device=first.device)[None, :]
+    nxt = torch.cat([first[1:], first.new_full((1,), n_c)])
+    valid = (member < nxt[:, None]) & (member < n_c)
+    midx = member.clamp(0, n_c - 1).long()
+    mlo = lo[midx]                                       # (n_s, S, 3)
+    mhi = hi[midx]
+    empty = (mhi < mlo).any(dim=-1) | ~valid             # (n_s, S)
+    super_lo = minmax.amin(torch.where(empty[..., None], _BIG, mlo), 1)
+    super_hi = minmax.amax(torch.where(empty[..., None], -_BIG, mhi), 1)
+    bbox = torch.cat([mlo.transpose(1, 2), mhi.transpose(1, 2),
+                      empty[:, None, :].to(lo.dtype),
+                      lo.new_zeros((n_s, 1, S))], dim=1)
+    return super_lo, super_hi, bbox.contiguous()
+
+
+def _tile_hulls(dirs_tiled, alive):
+    """(n_tiles, 16) per-tile hull scalars for the in-kernel member gate:
+    [1/dlo.xyz, 1/dhi.xyz, straddle.xyz, olo.xyz, ohi.xyz, 0], the
+    precomputed pieces of the _interval_entry test. Common-origin
+    wavefronts have a zero origin hull (their boxes are pre-shifted)."""
+    dlo, dhi = _hull(dirs_tiled, alive)
+    st = ((dlo < 0) & (dhi > 0)).to(dlo.dtype)
+    zero = torch.zeros_like(dlo)
+    return torch.cat([_safe_inverse(dlo), _safe_inverse(dhi), st, zero, zero,
+                      zero[:, :1]], dim=-1).contiguous()
+
+
+def _hier_setup(lo, hi, dirs_tiled, alive, w, cs=None):
+    """Choose the flat or the two-level walk and build its inputs.
+
+    Returns (S, hull, bbox, first, cull_lo, cull_hi, w). For S == 1 the
+    inputs pass through (flat walk). For S > 1 the prepass boxes become
+    the super unions, ``w`` gets S zero blocks (the kernel reads members
+    as first + s), and the kernel gets the hull table, the member boxes
+    and the first-member table. Supers come from the ClusterSet's tree
+    cut when it has one, else uniform S-runs of consecutive blocks.
+    """
+    n_c = lo.shape[0]
+    S = _super_factor(n_c)
+    if S == 1:
+        return 1, None, None, None, lo, hi, w
+    if cs is not None and cs.super_first is not None and cs.super_S > 1:
+        S = cs.super_S
+        first = cs.super_first
+    else:
+        n_s = -(-n_c // S)
+        first = torch.clamp(torch.arange(n_s, dtype=torch.int32,
+                                         device=lo.device) * S, max=n_c)
+    super_lo, super_hi, bbox = _super_members(lo, hi, first, S)
+    hull = _tile_hulls(dirs_tiled, alive)
+    # Member reads run to first + S - 1 <= n_c + S - 1: zero blocks
+    # (rejected by Möller-Trumbore, and gated off anyway).
+    w = F.pad(w, (0, 0, 0, 0, 0, S))
+    return S, hull, bbox, first.contiguous(), super_lo, super_hi, w

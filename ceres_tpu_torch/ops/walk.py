@@ -1,27 +1,36 @@
-"""The two walk kernels' wrappers and their plain PyTorch versions.
+"""The walk kernels' wrappers and their plain PyTorch versions.
 
-``walk_closest`` and ``walk_any_dest`` replace the flat, resident
-``closest`` and ``any_dest`` variants of the JAX package's Pallas walk
+``walk_closest`` and ``walk_any_dest`` replace the ``closest`` and
+``any_dest`` variants of the JAX package's Pallas walk
 (``ceres_tpu/ops/megakernel.py`` ``_make_walk_kernel`` via
-``_walk_pallas``). The kernels are CUDA C++ for sm_90a in
-``csrc/walk.cu``. Each wrapper dispatches on the device of its tensors:
+``_walk_pallas``): flat or two-level (``S > 1``), with weights staged per
+visit or streamed (``stream=True``). The kernels are CUDA C++ for sm_90a
+in ``csrc/walk.cu``. Each wrapper dispatches on the device of its
+tensors:
 
   * CPU tensors go to the plain version (the CPU tests run it);
   * CUDA tensors launch the kernel, or raise: there is no fallback.
 
 The plain versions define the exact results. They use elementwise
 products, never a matmul, in the kernel's operation order, so the kernel
-matches them bit for bit on the card.
+matches them bit for bit on the card. Streaming changes where the
+weights sit, not what is computed: one plain version serves both forms.
 
 Inputs, for n_tiles tiles of TILE = 512 rays and n_c clusters of C = 128:
   counts (n_tiles,) int32   real candidates per tile;
-  keys   (n_tiles, n_c) int32, ascending (``prepass._tile_candidate_keys``);
+  keys   (n_tiles, n_k) int32, ascending (``prepass._tile_candidate_keys``),
+         n_k = n_c (flat) or n_s supers (two-level);
   rays   (4, n_tiles * 512) f32 rows [d.x, d.y, d.z, root-exit cap];
-  w      (n_c, 10, 128) f32 (``clusters.cluster_weights_common_origin``);
-  occ0   (n_tiles * 512,) int32 rays that start occluded (any_dest only).
+  w      (n_c [+ S], 10, 128) f32 (``clusters.cluster_weights_common_origin``,
+         zero-padded by S blocks for the two-level walk);
+  occ0   (n_tiles * 512,) int32 rays that start occluded (any_dest only);
+and for the two-level walk (``prepass._hier_setup``):
+  hull   (n_tiles, 16) f32 per-tile hull scalars;
+  bbox   (n_s, 8, S) f32 member boxes;
+  first  (n_s,) int32 first fine block of each super.
 Each returns (out (n_tiles * 512,) int32, steps), with ``out`` the packed
 winner slot id (cid * C + lane, -1 for a miss) or the occlusion flag, and
-``steps`` the executed cluster visits (0-dim int64), the traversal
+``steps`` the executed block visits (0-dim int64), the traversal
 statistic.
 """
 
@@ -30,8 +39,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ceres_tpu_torch.accel.clusters import CLUSTER_SIZE, WEIGHT_PLANES
-from ceres_tpu_torch.ops.prepass import _BIG, TILE, _cid_bits
+from ceres_tpu_torch.accel.clusters import (_SUPER_MAX, CLUSTER_SIZE,
+                                            WEIGHT_PLANES)
+from ceres_tpu_torch.ops.prepass import _BIG, _ULP_PAD, TILE, _cid_bits
+from ceres_tpu_torch.utils.minmax import fmax, fmin
 
 # The walk's early exit stays conservative only while this slack, in int
 # ulps of the f32 pattern, dominates every way the carried t keys
@@ -45,14 +56,22 @@ _BIG_CLEAN_I = int(np.float32(_BIG).view(np.int32) & ~np.int32(_IMASK))
 _BIG_CLEAN = float(np.int32(_BIG_CLEAN_I).view(np.float32))
 _NEG_I = int(np.float32(-1.0).view(np.int32))  # bits of -1.0: drops out of a max
 _DEST_SCALE = float(np.float32(1.0 - _DEST_EPS))
+_IMAX = 0x7FFFFFFF
 
 # Tiles evaluated at once by the plain versions: bounds their
 # (tiles, 512, 128) temporaries to 32 MB each.
 _PLAIN_CHUNK = 128
 
-# Kernel launches per wrapper since the last reset_launches(). Counted
+
+def _variant(mode: str, S: int, stream: bool) -> str:
+    return (f"walk_{mode}" + ("_hier" if S > 1 else "")
+            + ("_stream" if stream else ""))
+
+
+# Kernel launches per variant since the last reset_launches(). Counted
 # where a wrapper launches its kernel and nowhere else.
-launches = {"walk_closest": 0, "walk_any_dest": 0}
+launches = {_variant(m, S, st): 0 for m in ("closest", "any_dest")
+            for S in (1, 2) for st in (False, True)}
 
 
 def reset_launches() -> None:
@@ -60,14 +79,26 @@ def reset_launches() -> None:
         launches[name] = 0
 
 
-def _check(counts, keys, rays, w, occ0=None):
-    n_tiles, n_c = keys.shape
+def _check(counts, keys, rays, w, occ0, hull, bbox, first, S):
+    n_tiles, n_k = keys.shape
+    n_blocks = n_k if S == 1 else w.shape[0]
     want = {"counts": (counts, (n_tiles,), torch.int32),
-            "keys": (keys, (n_tiles, n_c), torch.int32),
+            "keys": (keys, (n_tiles, n_k), torch.int32),
             "rays": (rays, (4, n_tiles * TILE), torch.float32),
-            "w": (w, (n_c, WEIGHT_PLANES, CLUSTER_SIZE), torch.float32)}
+            "w": (w, (n_blocks, WEIGHT_PLANES, CLUSTER_SIZE), torch.float32)}
     if occ0 is not None:
         want["occ0"] = (occ0, (n_tiles * TILE,), torch.int32)
+    if S > 1:
+        if not 2 <= S <= _SUPER_MAX:
+            raise ValueError(f"S = {S}: a super holds 2..{_SUPER_MAX} blocks")
+        if hull is None or bbox is None or first is None:
+            raise ValueError("the two-level walk needs hull, bbox and first")
+        want["hull"] = (hull, (n_tiles, 16), torch.float32)
+        want["bbox"] = (bbox, (n_k, 8, S), torch.float32)
+        want["first"] = (first, (n_k,), torch.int32)
+    elif hull is not None or bbox is not None or first is not None:
+        raise ValueError("hull, bbox and first belong to the two-level "
+                         "walk (S > 1)")
     for name, (x, shape, dtype) in want.items():
         if tuple(x.shape) != shape or x.dtype != dtype:
             raise ValueError(f"{name}: want {dtype} {shape}, got "
@@ -78,46 +109,59 @@ def _check(counts, keys, rays, w, occ0=None):
             raise ValueError(f"{name} must be contiguous")
     if n_tiles == 0:
         raise ValueError("no ray tiles")
+    if w.data_ptr() % 16:
+        raise ValueError("w must be 16-byte aligned (cp.async copies)")
 
 
-def _launch(name, counts, keys, rays, w, occ0=None):
+def _launch(mode, counts, keys, rays, w, occ0, hull, bbox, first, S, stream):
     from ceres_tpu_torch.ops import _build
 
     if rays.device.type != "cuda":
-        raise ValueError(f"{name}: no kernel for device {rays.device}")
+        raise ValueError(f"walk_{mode}: no kernel for device {rays.device}")
     lib = _build.load()
-    n_tiles, n_c = keys.shape
+    n_tiles, n_k = keys.shape
     out = torch.empty(n_tiles * TILE, dtype=torch.int32, device=rays.device)
     visits = torch.empty(n_tiles, dtype=torch.int32, device=rays.device)
     ptrs = [counts.data_ptr(), keys.data_ptr(), rays.data_ptr(), w.data_ptr()]
     if occ0 is not None:
         ptrs.append(occ0.data_ptr())
-    stream = torch.cuda.current_stream(rays.device).cuda_stream
-    err = getattr(lib, f"ceres_{name}")(
-        *ptrs, out.data_ptr(), visits.data_ptr(), n_tiles, n_c,
-        (1 << _cid_bits(n_c)) - 1, rays.device.index, stream)
+    ints = [n_tiles, n_k, (1 << _cid_bits(n_k)) - 1]
+    fn = f"ceres_walk_{mode}"
+    if S > 1:
+        ptrs += [hull.data_ptr(), bbox.data_ptr(), first.data_ptr()]
+        ints.append(S)
+        fn += "_hier"
+    err = getattr(lib, fn)(
+        *ptrs, out.data_ptr(), visits.data_ptr(), *ints, int(stream),
+        rays.device.index, torch.cuda.current_stream(rays.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: "
+        raise RuntimeError(f"{fn} kernel launch failed: "
                            f"{lib.ceres_error_string(err).decode()} ({err})")
-    launches[name] += 1
+    launches[_variant(mode, S, stream)] += 1
     return out, visits.sum()
 
 
-def walk_closest(counts, keys, rays, w):
+def walk_closest(counts, keys, rays, w, hull=None, bbox=None, first=None, *,
+                 S=1, stream=False):
     """Closest hit per ray: (packed slot ids, steps)."""
-    _check(counts, keys, rays, w)
+    _check(counts, keys, rays, w, None, hull, bbox, first, S)
     if rays.device.type == "cpu":
-        return _walk_closest_plain(counts, keys, rays, w)
-    return _launch("walk_closest", counts, keys, rays, w)
+        return _walk_closest_plain(counts, keys, rays, w, hull, bbox, first,
+                                   S=S)
+    return _launch("closest", counts, keys, rays, w, None, hull, bbox, first,
+                   S, stream)
 
 
-def walk_any_dest(counts, keys, rays, w, occ0):
+def walk_any_dest(counts, keys, rays, w, occ0, hull=None, bbox=None,
+                  first=None, *, S=1, stream=False):
     """Occlusion of each segment from the common origin (t = 0) to its
     receiving point (t = 1): (flags, steps)."""
-    _check(counts, keys, rays, w, occ0)
+    _check(counts, keys, rays, w, occ0, hull, bbox, first, S)
     if rays.device.type == "cpu":
-        return _walk_any_dest_plain(counts, keys, rays, w, occ0)
-    return _launch("walk_any_dest", counts, keys, rays, w, occ0)
+        return _walk_any_dest_plain(counts, keys, rays, w, occ0, hull, bbox,
+                                    first, S=S)
+    return _launch("any_dest", counts, keys, rays, w, occ0, hull, bbox, first,
+                   S, stream)
 
 
 # ---------------------------------------------------------------------------
@@ -142,23 +186,63 @@ def _numerators(d, wj):
     return uvw, nd, nt, s
 
 
-def _walk(counts, keys, rays, state, prune_of, visit):
+def _member_entries(hull, bb):
+    """Int-key entry bounds of each tile's hull against its super's S
+    member boxes (the kernel's member_entry, vectorised).
+
+    hull: (t, 16) hull rows; bb: (t, 8, S) member boxes. Returns (t, S)
+    int32: the slab entry bits, or the bits of _BIG where culled."""
+    tn = tf = None
+    for a in range(3):
+        la = bb[:, a] - hull[:, 12 + a, None]
+        ha = bb[:, 3 + a] - hull[:, 9 + a, None]
+        ia, ib = hull[:, a, None], hull[:, 3 + a, None]
+        c0, c1, c2, c3 = la * ia, la * ib, ha * ia, ha * ib
+        emin = fmin(fmin(c0, c1), fmin(c2, c3))
+        emax = fmax(fmax(c0, c1), fmax(c2, c3))
+        wide = hull[:, 6 + a, None] > 0
+        emin = torch.where(wide, -_BIG, emin)
+        emax = torch.where(wide, _BIG, emax)
+        tn = emin if tn is None else fmax(tn, emin)
+        tf = emax if tf is None else fmin(tf, emax)
+    tn = fmax(tn, torch.zeros_like(tn))
+    ok = ((tn * (1.0 - _ULP_PAD) <= tf.clamp(max=_BIG) * (1.0 + _ULP_PAD))
+          & (bb[:, 6] == 0))
+    return torch.where(ok, tn, _BIG).view(torch.int32)
+
+
+def _walk(counts, keys, rays, state, prune_of, visit, hier=None):
     """The per-tile walk, vectorised over tiles.
 
-    Tiles step k in lockstep; a tile runs visit k while k < count and its
-    k-th entry bound (cid bits masked) is within its prune, and once it
-    stops it stays done, exactly the kernel's loop. ``state`` is a tuple
-    of (n_tiles, R) tensors, updated in place; ``prune_of(tcap, *state)``
-    is the per-tile prune and ``visit(cid, d, *state)`` the new state of
-    the visiting tiles. Returns the executed visits (0-dim int64).
+    Tiles step k in lockstep; a tile runs candidate k while k < count and
+    its k-th entry bound (id bits masked) is within its prune, and once it
+    stops it stays done, exactly the kernel's loop. Flat walk: candidate k
+    is one block. Two-level walk (``hier`` = (hull, bbox, first, S)):
+    candidate k is a super, whose live members the tile visits smallest
+    entry first (ties to the lowest slot) while that entry is within its
+    live prune; tiles take member steps in lockstep too, and a tile whose
+    next entry exceeds its prune stays stopped, since neither changes.
+    ``state`` is a tuple of (n_tiles, R) tensors, updated in place;
+    ``prune_of(tcap, *state)`` is the per-tile prune and ``visit(bid, d,
+    *state)`` the new state of the visiting tiles. Returns the executed
+    block visits (0-dim int64).
     """
-    n_tiles, n_c = keys.shape
-    cmask = (1 << _cid_bits(n_c)) - 1
+    n_tiles, n_k = keys.shape
+    cmask = (1 << _cid_bits(n_k)) - 1
     d = rays[:3].reshape(3, n_tiles, TILE)
     tcap = rays[3].view(torch.int32).reshape(n_tiles, TILE)
     prune = prune_of(tcap, *state)
     done = torch.zeros(n_tiles, dtype=torch.bool, device=keys.device)
     visits = torch.zeros(n_tiles, dtype=torch.int64, device=keys.device)
+
+    def visit_blocks(tiles, bid):
+        visits[tiles] += 1
+        for ch, b in zip(tiles.split(_PLAIN_CHUNK), bid.split(_PLAIN_CHUNK)):
+            new = visit(b, d[:, ch], *(x[ch] for x in state))
+            for x, y in zip(state, new):
+                x[ch] = y
+            prune[ch] = prune_of(tcap[ch], *new)
+
     for k in range(int(counts.max())):
         key_k = keys[:, k]
         run = ~done & (k < counts) & ((key_k & ~cmask) <= prune)
@@ -166,19 +250,38 @@ def _walk(counts, keys, rays, state, prune_of, visit):
         tiles = run.nonzero().squeeze(1)
         if tiles.numel() == 0:
             break
-        visits[tiles] += 1
-        for ch in tiles.split(_PLAIN_CHUNK):
-            cid = key_k[ch] & cmask
-            new = visit(cid, d[:, ch], *(x[ch] for x in state))
-            for x, y in zip(state, new):
-                x[ch] = y
-            prune[ch] = prune_of(tcap[ch], *new)
+        cand = key_k[tiles] & cmask
+        if hier is None:
+            visit_blocks(tiles, cand)
+            continue
+        hull, bbox, first, S = hier
+        sid = cand.long()
+        ent = _member_entries(hull[tiles], bbox[sid])            # (t, S)
+        live = torch.ones_like(ent, dtype=torch.bool)
+        slot = torch.arange(S, dtype=torch.int32, device=keys.device)
+        while True:
+            masked = torch.where(live, ent, _IMAX)
+            m = masked.amin(dim=1)
+            go = m <= prune[tiles]
+            if not bool(go.any()):
+                break
+            s = torch.where(masked == m[:, None], slot, _IMAX).amin(dim=1)
+            rows = go.nonzero().squeeze(1)
+            live[rows, s[rows].long()] = False
+            visit_blocks(tiles[rows], first[sid[rows]] + s[rows])
     return visits.sum()
 
 
-def _walk_closest_plain(counts, keys, rays, w):
-    """Plain version of the closest kernel: per ray the best t key, ties
-    to the lower lane and the earlier cluster."""
+def _hier(hull, bbox, first, S):
+    return None if S == 1 else (hull, bbox, first, S)
+
+
+def _walk_closest_plain(counts, keys, rays, w, hull=None, bbox=None,
+                        first=None, *, S=1, stream=False):
+    """Plain version of the closest kernels: per ray the best t key, ties
+    to the lower lane and the earlier visit. ``stream`` is accepted, so a
+    wrapper's arguments fit, and ignored: it moves no result."""
+    del stream
     n_rays = rays.shape[1]
     lane = torch.arange(CLUSTER_SIZE, dtype=torch.int32, device=keys.device)
     best = torch.full((n_rays // TILE, TILE), _BIG_CLEAN_I, dtype=torch.int32,
@@ -188,34 +291,39 @@ def _walk_closest_plain(counts, keys, rays, w):
     def prune_of(tcap, best, pid):
         return torch.minimum(best, tcap).amax(dim=1) + _PRUNE_PAD
 
-    def visit(cid, d, best, pid):
-        uvw, nd, nt, s = _numerators(d, w[cid.long()])
+    def visit(bid, d, best, pid):
+        uvw, nd, nt, s = _numerators(d, w[bid.long()])
         ok = (torch.minimum(uvw, nt * s) >= 0) & (nd != 0)
         t = torch.where(ok, nt * torch.reciprocal(nd), _BIG_CLEAN)
         kmin = ((t.view(torch.int32) & ~_IMASK) | lane).amin(dim=2)
         t_new = kmin & ~_IMASK
         better = t_new < best
         return (torch.where(better, t_new, best),
-                torch.where(better, cid[:, None] * CLUSTER_SIZE
+                torch.where(better, bid[:, None] * CLUSTER_SIZE
                             + (kmin & _IMASK), pid))
 
-    steps = _walk(counts, keys, rays, (best, pid), prune_of, visit)
+    steps = _walk(counts, keys, rays, (best, pid), prune_of, visit,
+                  _hier(hull, bbox, first, S))
     return pid.reshape(-1), steps
 
 
-def _walk_any_dest_plain(counts, keys, rays, w, occ0):
-    """Plain version of the shadow kernel: per ray, any occluder between
-    the origin (t = 0) and the receiver (t = 1 - _DEST_EPS)."""
+def _walk_any_dest_plain(counts, keys, rays, w, occ0, hull=None, bbox=None,
+                         first=None, *, S=1, stream=False):
+    """Plain version of the shadow kernels: per ray, any occluder between
+    the origin (t = 0) and the receiver (t = 1 - _DEST_EPS). ``stream`` is
+    ignored, as in ``_walk_closest_plain``."""
+    del stream
     occ = occ0.reshape(-1, TILE).clone()
 
     def prune_of(tcap, occ):
         return torch.where(occ > 0, _NEG_I, tcap).amax(dim=1) + _PRUNE_PAD
 
-    def visit(cid, d, occ):
-        uvw, nd, nt, s = _numerators(d, w[cid.long()])
+    def visit(bid, d, occ):
+        uvw, nd, nt, s = _numerators(d, w[bid.long()])
         win = ((nt - _DEST_SCALE * nd) * s <= 0) & (nt * s >= 0)
         ok = (uvw >= 0) & (nd != 0) & win
         return (occ | ok.any(dim=2).to(torch.int32),)
 
-    steps = _walk(counts, keys, rays, (occ,), prune_of, visit)
+    steps = _walk(counts, keys, rays, (occ,), prune_of, visit,
+                  _hier(hull, bbox, first, S))
     return occ.reshape(-1), steps

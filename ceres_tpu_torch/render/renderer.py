@@ -29,7 +29,6 @@ from typing import Optional
 
 import torch
 
-from ceres_tpu_torch.accel.cuts import build_clusters_quality
 from ceres_tpu_torch.models import shading as shading_mod
 from ceres_tpu_torch.models.camera import Camera, camera_ray_columns
 from ceres_tpu_torch.models.mesh import TriangleSoup, triangle_soup
@@ -106,9 +105,11 @@ def render_wavefront_cols(soup: TriangleSoup, camera: Camera, sun_position,
     """Column-form wavefront render -> (3-tuple of (R,) colours, stats).
 
     ``dir_cols`` is a 3-tuple of (R,) normalised primary directions from
-    ``camera.eye``; ``clusters`` the prebuilt ClusterSet of ``soup``.
+    ``camera.eye``; ``clusters`` the prebuilt ClusterSet of ``soup`` (None:
+    the treelet cut is built once for both wavefronts).
     """
     _check_config(config)
+    clusters = megakernel._treelet(soup, clusters)
     want_counts = config.traversal_stats
     res = megakernel.closest_hit_common_origin(
         soup, camera.eye, dir_cols, clusters=clusters,
@@ -201,10 +202,10 @@ def render(vertices, faces, camera: Camera, sun_position,
 
     Inputs may be numpy arrays or tensors; everything runs on ``device``
     (default: the device of ``vertices`` if it is a tensor, else the
-    CPU). Without ``clusters`` a SweepSAH quality cut is built on the
-    host first; the JAX package builds its in-graph LBVH treelet cut
-    there instead, which is ROADMAP item M9. For frame loops, build the
-    cut once (accel.cuts.build_clusters_quality) and call
+    CPU). Without ``clusters`` the LBVH treelet cut is built on the
+    device first, as the JAX package's ``render`` does. For frame loops,
+    build the structure once (accel.clusters.build_clusters_treelet, or
+    the host quality cut accel.cuts.build_clusters_quality) and call
     render_pipeline.
     """
     config = dataclasses.replace(config or RenderConfig(), **kwargs)
@@ -217,8 +218,5 @@ def render(vertices, faces, camera: Camera, sun_position,
                                    device=device)
     camera = Camera.make(camera.eye, camera.dir, camera.up, camera.fov,
                          device=device)
-    if clusters is None:
-        clusters = build_clusters_quality(
-            triangle_soup(vertices, faces, with_normals=False))
     return render_pipeline(vertices, faces, camera, sun_position, config,
                            clusters=clusters, spheres=spheres)

@@ -32,11 +32,14 @@ def soup(src, device=None) -> TriangleSoup:
 
 
 def cluster_set(src, device=None) -> ClusterSet:
-    """A ``ClusterSet``: records, boxes and ``perm``. The super level of
-    the two-level walk (``super_first``) is not carried."""
-    return ClusterSet(**{name: tensor(getattr(src, name), device)
-                         for name in ("p0", "e1", "e2", "n", "lo", "hi",
-                                      "perm")})
+    """A ``ClusterSet``: records, boxes, ``perm`` and, where the source
+    has one, the super level of the two-level walk."""
+    first = getattr(src, "super_first", None)
+    return ClusterSet(
+        **{name: tensor(getattr(src, name), device)
+           for name in ("p0", "e1", "e2", "n", "lo", "hi", "perm")},
+        super_first=None if first is None else tensor(first, device),
+        super_S=int(getattr(src, "super_S", 0)))
 
 
 def camera(src, device=None) -> Camera:

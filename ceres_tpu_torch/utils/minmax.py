@@ -1,0 +1,50 @@
+"""XLA's float min and max in torch.
+
+XLA orders -0 below +0: ``minimum(-0, +0)`` is -0 and ``maximum(-0, +0)``
+is +0 in either argument order, and its reductions and min/max scatters
+follow the same rule. torch's ``minimum``/``maximum`` keep whichever
+zero comes first, and its reductions leave the choice open. The port
+bit-casts bounds into sort keys and compares entry bounds as int bits,
+so the sign of a zero matters: every min and max that the JAX package
+takes on such values goes through this module.
+
+``ordered`` maps f32 to int32 so that signed int order is that total
+order (negative patterns get their magnitude bits flipped). A float
+reduction or scatter-min over the keys is then an exact integer one, in
+any order. There are no NaNs on these paths.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def fmax(a, b):
+    """torch.maximum with XLA's signed zeros."""
+    both0 = (a == 0) & (b == 0)
+    return torch.where(both0, a + b, torch.maximum(a, b))
+
+
+def fmin(a, b):
+    """torch.minimum with XLA's signed zeros."""
+    both0 = (a == 0) & (b == 0)
+    return torch.where(both0, -((-a) + (-b)), torch.minimum(a, b))
+
+
+def ordered(x: torch.Tensor) -> torch.Tensor:
+    """f32 -> int32 key whose signed order is XLA's float order."""
+    bits = x.contiguous().view(torch.int32)
+    return bits ^ ((bits >> 31) & 0x7FFFFFFF)
+
+
+def from_ordered(k: torch.Tensor) -> torch.Tensor:
+    """Inverse of ``ordered``."""
+    return (k ^ ((k >> 31) & 0x7FFFFFFF)).view(torch.float32)
+
+
+def amin(x: torch.Tensor, dim: int) -> torch.Tensor:
+    return from_ordered(ordered(x).amin(dim=dim))
+
+
+def amax(x: torch.Tensor, dim: int) -> torch.Tensor:
+    return from_ordered(ordered(x).amax(dim=dim))

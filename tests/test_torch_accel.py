@@ -77,13 +77,16 @@ def test_quality_cut_matches(name, bunny, dragon):
 def test_cut_groups_match(bunny):
     lo, hi, centers = _boxes(*bunny)
     bvh = jgb.build_sweep_sah(lo, hi, centers)
-    ref_groups, ref_lo, ref_hi, _ = jcuts._cut_flatbvh(bvh, 128, "auto")
-    groups, got_lo, got_hi = pcuts._cut_flatbvh(pgb.FlatBvh(**vars(bvh)), 128)
+    ref_groups, ref_lo, ref_hi, ref_first = jcuts._cut_flatbvh(bvh, 128,
+                                                               "auto")
+    groups, got_lo, got_hi, got_first = pcuts._cut_flatbvh(
+        pgb.FlatBvh(**vars(bvh)), 128)
     assert len(groups) == len(ref_groups) == 61
     for a, b in zip(groups, ref_groups):
         np.testing.assert_array_equal(a, b)
     np.testing.assert_array_equal(got_lo, ref_lo)
     np.testing.assert_array_equal(got_hi, ref_hi)
+    np.testing.assert_array_equal(got_first, ref_first)
 
 
 @pytest.mark.parametrize("name", ["random", "bunny"])

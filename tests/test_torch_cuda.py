@@ -10,7 +10,9 @@ ids, occlusion flags, executed visits): the kernels are built with
 ``--fmad=false`` and written in the plain versions' operation order.
 Inputs come from the port's own main path at small sizes: bunny (61
 clusters), dragon (268 clusters: cluster-id masking past 256) and a
-random soup with rays in every direction.
+random soup with rays in every direction. Every variant is held there:
+flat and two-level (forced by a threshold of 1 block, as the CPU tests
+force it), each with weights staged per visit and streamed.
 """
 
 import os
@@ -24,7 +26,7 @@ import ceres_tpu_torch as ct
 from ceres_tpu_torch.accel.cuts import build_clusters_quality
 from ceres_tpu_torch.models.camera import camera_ray_columns
 from ceres_tpu_torch.ops import megakernel as mk
-from ceres_tpu_torch.ops import walk
+from ceres_tpu_torch.ops import prepass, walk
 from ceres_tpu_torch.render.renderer import _hit_points
 from ceres_tpu_torch.utils import tiling
 
@@ -61,8 +63,14 @@ def _inputs(name, dev):
                                             normal_cols=True)
     points = _hit_points(eye, dirs, hit, pay)
     sun = torch.as_tensor(SUN, device=dev)
-    return (mk._closest_inputs(cs, eye, dirs),
-            mk._any_dest_inputs(cs, sun, points, ~hit.mask))
+    out = {}
+    for walk_form, threshold in (("flat", prepass._HIER_MIN_CLUSTERS),
+                                 ("hier", 1)):
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(prepass, "_HIER_MIN_CLUSTERS", threshold)
+            out[walk_form] = (mk._closest_inputs(cs, eye, dirs),
+                              mk._any_dest_inputs(cs, sun, points, ~hit.mask))
+    return out
 
 
 @pytest.fixture(scope="module", params=["random", "bunny", "dragon"])
@@ -73,18 +81,23 @@ def card_inputs(request):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("stream", [False, True])
+@pytest.mark.parametrize("walk_form", ["flat", "hier"])
 @pytest.mark.parametrize("mode", ["closest", "any_dest"])
-def test_kernel_equals_plain(card_inputs, mode):
-    closest, shadow = card_inputs
-    args = closest if mode == "closest" else shadow
+def test_kernel_equals_plain(card_inputs, mode, walk_form, stream):
+    closest, shadow = card_inputs[walk_form]
+    args, opts = closest if mode == "closest" else shadow
+    opts = dict(opts, stream=stream)
+    assert (opts["S"] > 1) == (walk_form == "hier")
     kernel = walk.walk_closest if mode == "closest" else walk.walk_any_dest
     plain = (walk._walk_closest_plain if mode == "closest"
              else walk._walk_any_dest_plain)
+    name = walk._variant(mode, opts["S"], stream)
     before = dict(walk.launches)
-    out_k, steps_k = kernel(*args)
-    out_p, steps_p = plain(*args)
+    out_k, steps_k = kernel(*args, **opts)
+    out_p, steps_p = plain(*args, **opts)
     torch.cuda.synchronize()
-    assert walk.launches[f"walk_{mode}"] == before[f"walk_{mode}"] + 1
+    assert walk.launches[name] == before[name] + 1
     positive = out_p >= 0 if mode == "closest" else (out_p == 1) & (args[4] == 0)
     assert int(positive.sum()) > 0
     assert torch.equal(out_k, out_p)
@@ -93,15 +106,16 @@ def test_kernel_equals_plain(card_inputs, mode):
 
 @pytest.mark.cuda
 def test_kernel_rejects_mixed_devices(card_inputs):
-    counts, keys, rays, w = card_inputs[0]
+    (counts, keys, rays, w), _ = card_inputs["flat"][0]
     with pytest.raises(ValueError, match="counts"):
         walk.walk_closest(counts.cpu(), keys, rays, w)
 
 
 @pytest.mark.cuda
 def test_render_on_card_matches_cpu():
-    # The user entry point end to end on the card (host cut, kernels,
-    # torch column math) against the same call on the CPU (plain walks).
+    # The user entry point end to end on the card (device treelet cut,
+    # kernels, torch column math) against the same call on the CPU (plain
+    # walks).
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the walk kernels have no CPU mode")
     verts, faces = ct.load_obj(os.path.join(ROOT, "data", "bunny.obj"))
@@ -133,6 +147,8 @@ def test_kernel_source_constants_match_python():
     assert int(const("kPlanes")) == walk.WEIGHT_PLANES
     assert int(const("kPrunePad")) == walk._PRUNE_PAD
     assert int(const("kBigCleanI"), 16) == walk._BIG_CLEAN_I
+    assert int(const("kBigI"), 16) == int(np.float32(walk._BIG).view(np.int32))
+    assert int(const("kSuperMax")) == walk._SUPER_MAX
     assert int(const("kNegI")) == walk._NEG_I
     scale = const("kDestScale")
     assert float(scale[len("(float)(1.0 - "):-1]) == walk._DEST_EPS

@@ -75,9 +75,11 @@ def _jax_keys(cs, origin, d, alive):
 def test_closest_prepass_is_bit_identical(scene):
     cs, eye, dirs, _, _ = scene
     keys, counts, tcap, dp = _jax_keys(cs, eye, dirs, True)
-    p_counts, p_keys, rays, w = pmk._closest_inputs(
+    (p_counts, p_keys, rays, w), opts = pmk._closest_inputs(
         convert.cluster_set(cs), convert.tensor(eye),
         tuple(convert.tensor(d) for d in dirs))
+    assert opts == {"hull": None, "bbox": None, "first": None, "S": 1,
+                    "stream": False}      # flat, resident
     np.testing.assert_array_equal(p_keys.numpy(), np.asarray(keys))
     np.testing.assert_array_equal(p_counts.numpy(), np.asarray(counts))
     np.testing.assert_array_equal(rays[3].numpy().view(np.int32), _bits(tcap))
@@ -97,7 +99,7 @@ def test_shadow_prepass_is_bit_identical(scene):
     keys, counts, tcap, _ = _jax_keys(cs, sun, d,
                                       ~skip_p.reshape(-1, jmk.TILE))
     tcap = jnp.minimum(tcap, 1.0 + jmk._ULP_PAD)
-    p_counts, p_keys, rays, _, occ0 = pmk._any_dest_inputs(
+    (p_counts, p_keys, rays, _, occ0), opts = pmk._any_dest_inputs(
         convert.cluster_set(cs), torch.as_tensor(SUN),
         tuple(convert.tensor(p) for p in points), convert.tensor(skip))
     np.testing.assert_array_equal(p_keys.numpy(), np.asarray(keys))

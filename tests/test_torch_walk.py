@@ -201,7 +201,8 @@ def test_plain_versions_do_not_count_launches(scene):
     _, port_args = _closest_args(scene)
     walk.reset_launches()
     walk.walk_closest(*port_args)
-    assert walk.launches == {"walk_closest": 0, "walk_any_dest": 0}
+    assert "walk_closest" in walk.launches
+    assert not any(walk.launches.values())
 
 
 def test_wrapper_rejects_bad_inputs(scene):
