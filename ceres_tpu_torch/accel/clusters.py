@@ -28,8 +28,10 @@ from ceres_tpu_torch.utils import minmax
 
 CLUSTER_SIZE = 128
 
-# Rows of the common-origin weight planes, (N_c, WEIGHT_PLANES, C).
+# Rows of the common-origin weight planes, (N_c, WEIGHT_PLANES, C), and
+# of the generic-origin planes, (N_c, GENERIC_PLANES, C).
 WEIGHT_PLANES = 10
+GENERIC_PLANES = 16
 
 # Triangle ids ride the JAX package's winner table as exact f32 values,
 # which caps a soup below 2^24 triangles; the port keeps the same limit.
@@ -219,3 +221,21 @@ def cluster_weights_common_origin(clusters: ClusterSet,
     tn = n[..., 0] * p0[..., 0] + n[..., 1] * p0[..., 1] + n[..., 2] * p0[..., 2]
     planes = torch.cat([cu, cv, n, tn[..., None]], dim=-1)   # (N_c, C, 10)
     return planes.transpose(1, 2).contiguous()
+
+
+def cluster_weights_generic(clusters: ClusterSet,
+                            origin_shift: torch.Tensor) -> torch.Tensor:
+    """Möller-Trumbore weights for rays with their own origins:
+    (N_c, 16, C) f32 planes [cu.xyz, cv.xyz, n.xyz, tn, e2.xyz, e1.xyz].
+
+    The first 10 planes are ``cluster_weights_common_origin(clusters,
+    origin_shift)``. A ray with direction d and origin o (both relative
+    to ``origin_shift``) and c = cross(d, o) has the numerators
+    u = dot(cu, d) - dot(e2, c), v = dot(cv, d) - dot(e1, c),
+    det = dot(n, d) and t = tn - dot(n, o): the JAX package's
+    ``cluster_weights_generic_packed`` rows [d, d x o, o, 1], with the
+    negations of -e2, -e1 and -n moved into the walk's operation order.
+    """
+    planes = cluster_weights_common_origin(clusters, origin_shift)
+    edges = torch.cat([clusters.e2, clusters.e1], dim=-1)    # (N_c, C, 6)
+    return torch.cat([planes, edges.transpose(1, 2)], dim=1).contiguous()

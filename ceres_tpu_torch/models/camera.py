@@ -1,4 +1,5 @@
-"""Pinhole camera and ray generation (counterpart of ``ceres_tpu/models/camera.py``).
+"""Pinhole camera and ray generation (counterpart of
+``ceres_tpu/models/camera.py``).
 
 The reference camera model:
 
@@ -69,3 +70,25 @@ def camera_ray_columns(camera: Camera, width: int, height: int):
     inv = torch.rsqrt(cols[0] * cols[0] + cols[1] * cols[1]
                       + cols[2] * cols[2])
     return tuple(c * inv for c in cols)
+
+
+def camera_rays_rows(camera: Camera, width: int, height: int, row_start,
+                     num_rows: int) -> torch.Tensor:
+    """Normalised view directions of pixel rows [row_start, row_start +
+    num_rows), shape (num_rows, width, 3)."""
+    d, iu, iv = camera_basis(camera, width, height)
+    dtype, device = camera.eye.dtype, camera.eye.device
+    i = torch.arange(width, dtype=dtype, device=device)
+    j = row_start + torch.arange(num_rows, dtype=dtype, device=device)
+    u = 2.0 * (i + 0.5) / width - 1.0
+    v = 2.0 * (j + 0.5) / height - 1.0
+    dirs = (u[None, :, None] * iu[None, None, :]
+            + v[:, None, None] * iv[None, None, :] + d[None, None, :])
+    return _normalize(dirs)
+
+
+def camera_rays(camera: Camera, width: int, height: int) -> torch.Tensor:
+    """Normalised view directions of every pixel, (height, width, 3): row
+    j, column i is the ray of pixel (i, j), all from ``camera.eye``. The
+    dense form of the brute-force path."""
+    return camera_rays_rows(camera, width, height, 0, height)

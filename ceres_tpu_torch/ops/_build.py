@@ -29,19 +29,23 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+# Closest modes: counts, keys, rays, w, out, visits, n_tiles, n_c, cmask,
+# stream_w, device, stream. Occlusion modes add occ0 after w. The
+# two-level forms add hull, bbox, first after those pointers and S after
+# cmask.
+_FLAT = (_P,) * 6 + (_I,) * 5 + (_P,)
+_FLAT_OCC = (_P,) * 7 + (_I,) * 5 + (_P,)
+_HIER = (_P,) * 9 + (_I,) * 6 + (_P,)
+_HIER_OCC = (_P,) * 10 + (_I,) * 6 + (_P,)
 _SIGNATURES = {
-    # counts, keys, rays, w, out, visits, n_tiles, n_c, cmask, stream_w,
-    # device, stream
-    "ceres_walk_closest": (_P,) * 6 + (_I,) * 5 + (_P,),
-    # counts, keys, rays, w, occ0, out, visits, n_tiles, n_c, cmask,
-    # stream_w, device, stream
-    "ceres_walk_any_dest": (_P,) * 7 + (_I,) * 5 + (_P,),
-    # counts, keys, rays, w, hull, bbox, first, out, visits, n_tiles, n_s,
-    # cmask, S, stream_w, device, stream
-    "ceres_walk_closest_hier": (_P,) * 9 + (_I,) * 6 + (_P,),
-    # counts, keys, rays, w, occ0, hull, bbox, first, out, visits, n_tiles,
-    # n_s, cmask, S, stream_w, device, stream
-    "ceres_walk_any_dest_hier": (_P,) * 10 + (_I,) * 6 + (_P,),
+    "ceres_walk_closest": _FLAT,
+    "ceres_walk_closest_window": _FLAT,
+    "ceres_walk_any_dest": _FLAT_OCC,
+    "ceres_walk_any": _FLAT_OCC,
+    "ceres_walk_closest_hier": _HIER,
+    "ceres_walk_closest_window_hier": _HIER,
+    "ceres_walk_any_dest_hier": _HIER_OCC,
+    "ceres_walk_any_hier": _HIER_OCC,
 }
 
 

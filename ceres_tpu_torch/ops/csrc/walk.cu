@@ -2,21 +2,32 @@
 // flat or two-level, with weights staged synchronously or streamed.
 //
 // Replaces the variants of the JAX package's Pallas walk kernel
-// (ceres_tpu/ops/megakernel.py, _make_walk_kernel launched by _walk_pallas):
-//   walk_flat<false, false>   closest, flat, resident (the final `else` branch
-//                             with mt_accept and winner_update): the primary
-//                             wavefront, from _closest_search.
-//   walk_flat<true, false>    any_dest, flat, resident (the any-hit branch):
-//                             the shadow wavefront cast from the sun, from
-//                             any_hit_to_point.
-//   walk_flat<*, true>        the same with streamed weights (stream=True:
-//                             _copy / start_fetch / wait_fetch, fetch_wait
-//                             and the drain at early exit).
-//   walk_hier<false, *>       two-level closest (S > 1: block_entries, the
-//                             in-super priority walk, winner_update).
-//   walk_hier<true, *>        two-level any_dest.
+// (ceres_tpu/ops/megakernel.py, _make_walk_kernel launched by _walk_pallas).
+// The mode M is a template parameter:
+//   kClosest        closest hit of common-origin rays (the final `else`
+//                   branch with mt_accept and winner_update): the primary
+//                   wavefront, from _closest_search.
+//   kClosestWindow  the same with a per-ray [tmin, tmax] accept window
+//                   (window=True: rows tcap+1/+2, the accept mask in
+//                   winner_update), from closest_hit_common_origin(tmin=,
+//                   tmax=).
+//   kAnyDest        occlusion of segments from a common origin (the
+//                   any-hit branch with the any_dest accept): the shadow
+//                   wavefront cast from the sun, from any_hit_to_point.
+//   kAny            occlusion of rays with their own origins, t >= 0 and
+//                   no upper bound (the any-hit branch with the generic
+//                   accept; features [d, d x o, o, 1]): the
+//                   reference-exact shadow rays, from any_hit.
+// Each as
+//   walk_flat<M, false>   flat, resident;
+//   walk_flat<M, true>    flat, streamed weights (stream=True: _copy /
+//                         start_fetch / wait_fetch, fetch_wait and the drain
+//                         at early exit);
+//   walk_hier<M, *>       two-level (S > 1: block_entries, the in-super
+//                         priority walk).
 // The plain PyTorch versions that define the exact results are in
-// ceres_tpu_torch/ops/walk.py (_walk_closest_plain, _walk_any_dest_plain).
+// ceres_tpu_torch/ops/walk.py (_walk_closest_plain, _walk_any_dest_plain,
+// _walk_any_plain).
 //
 // What one block computes. One block per tile of kR = 512 rays, one ray per
 // thread. The tile's candidates arrive as one sorted int32 key row
@@ -24,16 +35,24 @@
 // block walks the row front to back while
 //     k < count  &&  (key_k & ~cmask) <= prune,
 // where prune is the tile's maximum over rays of min(best t key, root exit)
-// (closest) or of the root exit of the still unoccluded rays (any_dest),
+// (closest) or of the root exit of the still unoccluded rays (occlusion),
 // plus kPrunePad int ulps. The prune is block-uniform, so every thread takes
 // the same trip count and the barriers in the loops are safe. Per visit the
-// block has a cluster's 10 x 128 weight floats (5 KB) in shared memory and
-// each thread runs Möller-Trumbore against the 128 triangles.
+// block has a cluster's weight planes in shared memory (10 x 128 floats, 5
+// KB, for common-origin rays; 16 x 128, 8 KB, for generic rays) and each
+// thread runs Möller-Trumbore against the 128 triangles.
+//
+// Generic rays (kAny). With o the ray origin and c = d x o (both taken
+// relative to the scene centre), the numerators are u = d.cu - c.e2,
+// v = d.cv - c.e1, det = d.n and t = tn - o.n: the common-origin planes
+// plus six planes [e2.xyz, e1.xyz]. A ray reads 10 rows [d, c, o, tcap].
+// The tile hull's origin columns (hull 9..14) now hold a real origin hull;
+// the two-level gate (member_entry) already subtracts it.
 //
 // Flat walk: a candidate is one cluster. Two-level walk: a candidate is a
 // super of up to S <= 32 consecutive clusters (first[sid] + s). Lanes
-// 0..S-1 of warp 0 slab-test the tile's direction hull (hull row) against
-// the S member boxes (bbox) into S entry bounds in shared memory; then every
+// 0..S-1 of warp 0 slab-test the tile's ray hull (hull row) against the S
+// member boxes (bbox) into S entry bounds in shared memory; then every
 // thread repeatedly takes the live member with the smallest entry (ties to
 // the lowest slot), visits it while that entry is <= the live prune, and
 // refreshes the prune after every member visit. Executed member visits are
@@ -41,25 +60,26 @@
 //
 // Streamed weights. The TPU kernel fetched each visit's block by DMA from
 // HBM into VMEM and prefetched visit k + 1 during visit k. Here the block
-// goes into one of two shared-memory buffers as 320 16-byte cp.async copies
-// (threads 0..319), the next visit's block is copied into the other buffer
-// while the current one is walked, and cp.async.wait_group orders the two.
-// In the flat walk "the next visit" is candidate k + 1; in the two-level
-// walk it is the next live member in priority order, fetched speculatively
-// when its entry is within the current prune (the prune only falls). A copy
-// still in flight at an early exit is drained. The resident variants stage
-// each block synchronously, as the bunny kernels always did. Both forms give
-// the same outputs.
+// goes into one of two shared-memory buffers as 16-byte cp.async copies
+// (320 for 10 planes, 512 for 16: one per thread at most), the next visit's
+// block is copied into the other buffer while the current one is walked,
+// and cp.async.wait_group orders the two. In the flat walk "the next visit"
+// is candidate k + 1; in the two-level walk it is the next live member in
+// priority order, fetched speculatively when its entry is within the
+// current prune (the prune only falls). A copy still in flight at an early
+// exit is drained. The resident variants stage each block synchronously, as
+// the bunny kernels always did. Both forms give the same outputs.
 //
 // What bounds it on an H100. Each member visit is 512 x 128 ray-triangle
-// pairs at about 25 fp32 operations each, on the CUDA cores, plus a
-// block-wide barrier: ~18 us for one block. One block walks one tile, so
-// on big scenes the kernel takes as long as its slowest tile (at 1.27M
-// triangles one tile runs 3,120 member visits). Weights are 5 KB per visit
-// per block; a 1.27M-triangle scene holds 100 MB of them, more than the
-// 50 MB L2. Streaming hides their fetch behind the previous visit, and
-// measured no faster than staging: the fetch is small against the
-// arithmetic. Tensor cores are no use here: the search needs full fp32.
+// pairs at about 25 fp32 operations each (about 43 for generic rays), on the
+// CUDA cores, plus a block-wide barrier: ~18 us for one block. One block
+// walks one tile, so on big scenes the kernel takes as long as its slowest
+// tile (at 1.27M triangles one tile runs 3,120 member visits). Weights are 5
+// KB (8 KB generic) per visit per block; a 1.27M-triangle scene holds 100
+// MB of them (160 MB generic), more than the 50 MB L2. Streaming hides their
+// fetch behind the previous visit, and measured no faster than staging: the
+// fetch is small against the arithmetic. Tensor cores are no use here: the
+// search needs full fp32.
 //
 // What the design does about it. One thread per ray keeps each visit free
 // of cross-thread reductions except the block max for the prune (warp
@@ -89,9 +109,8 @@ constexpr int kC = 128;            // triangles per cluster (CLUSTER_SIZE)
 constexpr int kIdxMask = kC - 1;   // lane bits of a winner key
 constexpr int kR = 512;            // rays per tile (TILE) = threads per block
 constexpr int kWarps = kR / 32;
-constexpr int kPlanes = 10;        // weight rows: cu.xyz, cv.xyz, n.xyz, tn
-constexpr int kBlockFloats = kPlanes * kC;   // 1,280 floats = 5,120 bytes
-constexpr int kCopies = kBlockFloats / 4;    // 320 16-byte cp.async copies
+constexpr int kPlanes = 10;        // common-origin planes: cu.xyz, cv.xyz, n.xyz, tn
+constexpr int kPlanesGeneric = 16; // generic planes: those 10, e2.xyz, e1.xyz
 constexpr int kSuperMax = 32;      // _SUPER_MAX: member slots in one uint32
 constexpr int kHullCols = 16;      // _tile_hulls row
 constexpr int kBoxRows = 8;        // bbox rows: lo.xyz, hi.xyz, empty, pad
@@ -102,6 +121,49 @@ constexpr int kNegI = -1082130432;       // bits of -1.0f: drops out of a max
 constexpr float kDestScale = (float)(1.0 - 4e-6);  // 1 - _DEST_EPS
 constexpr float kPadLo = (float)(1.0 - 4e-6);      // 1 - _ULP_PAD
 constexpr float kPadHi = (float)(1.0 + 4e-6);      // 1 + _ULP_PAD
+
+// Walk modes (walk.py RAY_ROWS).
+constexpr int kClosest = 0;
+constexpr int kClosestWindow = 1;
+constexpr int kAnyDest = 2;
+constexpr int kAny = 3;
+
+__host__ __device__ constexpr bool occlusion(int m) {
+  return m == kAnyDest || m == kAny;
+}
+__host__ __device__ constexpr int planes_of(int m) {
+  return m == kAny ? kPlanesGeneric : kPlanes;
+}
+__host__ __device__ constexpr int tcap_row(int m) { return m == kAny ? 9 : 3; }
+
+// One ray's inputs: its rows of the (rows, n_rays) ray tensor.
+template <int M>
+struct Ray {
+  float dx, dy, dz;
+  float cx = 0.f, cy = 0.f, cz = 0.f;  // d x o (kAny)
+  float ox = 0.f, oy = 0.f, oz = 0.f;  // o (kAny)
+  float tmin = 0.f, tmax = 0.f;        // accept window (kClosestWindow)
+  int tcap;                            // root-exit cap bits
+
+  __device__ __forceinline__ Ray(const float* rays, int n_rays, int ray) {
+    dx = rays[ray];
+    dy = rays[n_rays + ray];
+    dz = rays[2 * n_rays + ray];
+    if (M == kAny) {
+      cx = rays[3 * n_rays + ray];
+      cy = rays[4 * n_rays + ray];
+      cz = rays[5 * n_rays + ray];
+      ox = rays[6 * n_rays + ray];
+      oy = rays[7 * n_rays + ray];
+      oz = rays[8 * n_rays + ray];
+    }
+    if (M == kClosestWindow) {
+      tmin = rays[4 * n_rays + ray];
+      tmax = rays[5 * n_rays + ray];
+    }
+    tcap = __float_as_int(rays[tcap_row(M) * n_rays + ray]);
+  }
+};
 
 // XLA's min / max: as fminf / fmaxf except that -0 orders below +0.
 __device__ __forceinline__ float xmin(float a, float b) {
@@ -129,16 +191,20 @@ __device__ __forceinline__ int block_max(int v, int* sred) {
   return m;
 }
 
-// Synchronous staging of one cluster's weights (every thread takes part;
-// the caller orders it with barriers).
+// Synchronous staging of one cluster's kFloats weights (every thread takes
+// part; the caller orders it with barriers).
+template <int kFloats>
 __device__ __forceinline__ void stage_sync(float* dst, const float* src) {
-  for (int i = threadIdx.x; i < kBlockFloats; i += kR) dst[i] = src[i];
+  for (int i = threadIdx.x; i < kFloats; i += kR) dst[i] = src[i];
 }
 
-// Asynchronous staging: threads 0..319 each start one 16-byte copy, and
-// every thread commits a group, so all threads count the same groups.
+// Asynchronous staging: threads 0..kFloats/4-1 each start one 16-byte copy,
+// and every thread commits a group, so all threads count the same groups.
+template <int kFloats>
 __device__ __forceinline__ void stage_async(float* dst, const float* src) {
-  if (threadIdx.x < kCopies) {
+  static_assert(kFloats % 4 == 0 && kFloats / 4 <= kR,
+                "one 16-byte copy per thread at most");
+  if (threadIdx.x < kFloats / 4) {
     const unsigned s = static_cast<unsigned>(
         __cvta_generic_to_shared(dst + 4 * threadIdx.x));
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
@@ -152,22 +218,43 @@ __device__ __forceinline__ void wait_async() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
+// Möller-Trumbore terms of this ray against triangle j of the staged block
+// sw, in the plain version's order: det and t numerators, the sign s of
+// det, and uvw = min(u, v, det - u - v) * s, the barycentric sign test.
+template <int M>
+__device__ __forceinline__ void numerators(const float* sw, int j,
+                                           const Ray<M>& r, float& nd,
+                                           float& nt, float& s, float& uvw) {
+  float nu = r.dx * sw[0 * kC + j] + r.dy * sw[1 * kC + j] + r.dz * sw[2 * kC + j];
+  float nv = r.dx * sw[3 * kC + j] + r.dy * sw[4 * kC + j] + r.dz * sw[5 * kC + j];
+  nd = r.dx * sw[6 * kC + j] + r.dy * sw[7 * kC + j] + r.dz * sw[8 * kC + j];
+  nt = sw[9 * kC + j];
+  if (M == kAny) {
+    nu = nu - (r.cx * sw[10 * kC + j] + r.cy * sw[11 * kC + j] + r.cz * sw[12 * kC + j]);
+    nv = nv - (r.cx * sw[13 * kC + j] + r.cy * sw[14 * kC + j] + r.cz * sw[15 * kC + j]);
+    nt = nt - (r.ox * sw[6 * kC + j] + r.oy * sw[7 * kC + j] + r.oz * sw[8 * kC + j]);
+  }
+  s = nd >= 0.f ? 1.f : -1.f;
+  uvw = fminf(fminf(nu * s, nv * s), (nd - nu - nv) * s);
+}
+
 // Closest-hit visit of one cluster (weights sw, packed id base cid * kC):
-// update this ray's best t key and winner slot.
+// update this ray's best t key and winner slot. With the window, a pair
+// with t outside [tmin, tmax] is a miss.
+template <int M>
 __device__ __forceinline__ void visit_closest(const float* sw, int cid,
-                                              float dx, float dy, float dz,
-                                              int& best, int& pid) {
+                                              const Ray<M>& r, int& best,
+                                              int& pid) {
   int kmin = INT_MAX;
   for (int j = 0; j < kC; ++j) {
-    const float nu = dx * sw[0 * kC + j] + dy * sw[1 * kC + j] + dz * sw[2 * kC + j];
-    const float nv = dx * sw[3 * kC + j] + dy * sw[4 * kC + j] + dz * sw[5 * kC + j];
-    const float nd = dx * sw[6 * kC + j] + dy * sw[7 * kC + j] + dz * sw[8 * kC + j];
-    const float nt = sw[9 * kC + j];
-    const float s = nd >= 0.f ? 1.f : -1.f;
-    const float uvw = fminf(fminf(nu * s, nv * s), (nd - nu - nv) * s);
+    float nd, nt, s, uvw;
+    numerators<M>(sw, j, r, nd, nt, s, uvw);
     int key = kBigCleanI | j;
     if (fminf(uvw, nt * s) >= 0.f && nd != 0.f) {
-      key = (__float_as_int(nt * __frcp_rn(nd)) & ~kIdxMask) | j;
+      const float t = nt * __frcp_rn(nd);
+      if (M != kClosestWindow || (t >= r.tmin && t <= r.tmax)) {
+        key = (__float_as_int(t) & ~kIdxMask) | j;
+      }
     }
     kmin = min(kmin, key);
   }
@@ -178,59 +265,72 @@ __device__ __forceinline__ void visit_closest(const float* sw, int cid,
   }
 }
 
-// Shadow visit of one cluster: set occ if a triangle lies between the sun
-// (t = 0) and the receiving point (t = 1), short of the point by _DEST_EPS.
+// Shadow visit of one cluster. kAnyDest: set occ if a triangle lies between
+// the sun (t = 0) and the receiving point (t = 1), short of the point by
+// _DEST_EPS. kAny: set occ if a triangle lies at t >= 0, however far.
 // Occluded rays skip the loop; the loop stops at the first occluder.
-__device__ __forceinline__ void visit_any_dest(const float* sw, float dx,
-                                               float dy, float dz, int& occ) {
+template <int M>
+__device__ __forceinline__ void visit_occlusion(const float* sw,
+                                                const Ray<M>& r, int& occ) {
   if (occ != 0) return;
   for (int j = 0; j < kC; ++j) {
-    const float nu = dx * sw[0 * kC + j] + dy * sw[1 * kC + j] + dz * sw[2 * kC + j];
-    const float nv = dx * sw[3 * kC + j] + dy * sw[4 * kC + j] + dz * sw[5 * kC + j];
-    const float nd = dx * sw[6 * kC + j] + dy * sw[7 * kC + j] + dz * sw[8 * kC + j];
-    const float nt = sw[9 * kC + j];
-    const float s = nd >= 0.f ? 1.f : -1.f;
-    const float uvw = fminf(fminf(nu * s, nv * s), (nd - nu - nv) * s);
-    const bool win = ((nt - kDestScale * nd) * s <= 0.f) && (nt * s >= 0.f);
-    if (uvw >= 0.f && nd != 0.f && win) {
+    float nd, nt, s, uvw;
+    numerators<M>(sw, j, r, nd, nt, s, uvw);
+    bool ok;
+    if (M == kAny) {
+      ok = fminf(uvw, nt * s) >= 0.f && nd != 0.f;
+    } else {
+      const bool win = ((nt - kDestScale * nd) * s <= 0.f) && (nt * s >= 0.f);
+      ok = uvw >= 0.f && nd != 0.f && win;
+    }
+    if (ok) {
       occ = 1;
       return;
     }
   }
 }
 
-template <bool kAnyDest>
+template <int M>
+__device__ __forceinline__ void visit(const float* sw, int cid,
+                                      const Ray<M>& r, int& best, int& pid,
+                                      int& occ) {
+  if (occlusion(M)) {
+    visit_occlusion<M>(sw, r, occ);
+  } else {
+    visit_closest<M>(sw, cid, r, best, pid);
+  }
+}
+
+template <int M>
 __device__ __forceinline__ int tile_prune(int best, int occ, int tcap,
                                           int* sred) {
-  return block_max(kAnyDest ? (occ > 0 ? kNegI : tcap) : min(best, tcap),
+  return block_max(occlusion(M) ? (occ > 0 ? kNegI : tcap) : min(best, tcap),
                    sred) + kPrunePad;
 }
 
-template <bool kAnyDest, bool kStream>
+template <int M, bool kStream>
 __global__ void __launch_bounds__(kR)
 walk_flat(const int* __restrict__ counts, const int* __restrict__ keys,
           const float* __restrict__ rays, const float* __restrict__ w,
           const int* __restrict__ occ0, int* __restrict__ out,
           int* __restrict__ visits, int n_rays, int n_c, int cmask) {
-  __shared__ __align__(16) float sw[2][kBlockFloats];
+  constexpr int kFloats = planes_of(M) * kC;
+  __shared__ __align__(16) float sw[2][kFloats];
   __shared__ int sred[kWarps];
 
   const int tile = blockIdx.x;
   const int ray = tile * kR + threadIdx.x;
-  const float dx = rays[ray];
-  const float dy = rays[n_rays + ray];
-  const float dz = rays[2 * n_rays + ray];
-  const int tcap = __float_as_int(rays[3 * n_rays + ray]);
+  const Ray<M> r(rays, n_rays, ray);
   const int count = counts[tile];
   const int* krow = keys + (size_t)tile * n_c;
 
   int best = kBigCleanI;  // closest: best t key (low lane bits clear)
   int pid = -1;           // closest: packed slot id of the winner
-  int occ = kAnyDest ? occ0[ray] : 0;
-  int prune = tile_prune<kAnyDest>(best, occ, tcap, sred);
+  int occ = occlusion(M) ? occ0[ray] : 0;
+  int prune = tile_prune<M>(best, occ, r.tcap, sred);
 
   if (kStream && count > 0) {
-    stage_async(sw[0], w + (size_t)(krow[0] & cmask) * kBlockFloats);
+    stage_async<kFloats>(sw[0], w + (size_t)(krow[0] & cmask) * kFloats);
   }
   int k = 0;
   while (k < count && (krow[k] & ~cmask) <= prune) {
@@ -239,33 +339,30 @@ walk_flat(const int* __restrict__ counts, const int* __restrict__ keys,
     __syncthreads();  // every thread is done with the previous cluster
     if (kStream) {
       if (k + 1 < count) {  // prefetch visit k + 1, wait for visit k
-        stage_async(sw[(k + 1) & 1],
-                    w + (size_t)(krow[k + 1] & cmask) * kBlockFloats);
+        stage_async<kFloats>(sw[(k + 1) & 1],
+                             w + (size_t)(krow[k + 1] & cmask) * kFloats);
         wait_async<1>();
       } else {
         wait_async<0>();
       }
       cur = sw[k & 1];
     } else {
-      stage_sync(sw[0], w + (size_t)cid * kBlockFloats);
+      stage_sync<kFloats>(sw[0], w + (size_t)cid * kFloats);
     }
     __syncthreads();
 
-    if (kAnyDest) {
-      visit_any_dest(cur, dx, dy, dz, occ);
-    } else {
-      visit_closest(cur, cid, dx, dy, dz, best, pid);
-    }
-    prune = tile_prune<kAnyDest>(best, occ, tcap, sred);
+    visit<M>(cur, cid, r, best, pid, occ);
+    prune = tile_prune<M>(best, occ, r.tcap, sred);
     ++k;
   }
   if (kStream) wait_async<0>();  // drain the prefetch an early exit left
-  out[ray] = kAnyDest ? occ : pid;
+  out[ray] = occlusion(M) ? occ : pid;
   if (threadIdx.x == 0) visits[tile] = k;
 }
 
 // Entry bound (int bits) of the tile hull against member slot s of one
-// super's boxes bb (kBoxRows x S): the _interval_entry slab test.
+// super's boxes bb (kBoxRows x S): the _interval_entry slab test, the box
+// widened by the tile's origin hull (zero for common-origin wavefronts).
 __device__ __forceinline__ int member_entry(const float* hl, const float* bb,
                                             int s, int S) {
   float tn = 0.f, tf = 0.f;
@@ -306,7 +403,7 @@ __device__ __forceinline__ int next_member(const int* sent, unsigned rem,
   return slot;
 }
 
-template <bool kAnyDest, bool kStream>
+template <int M, bool kStream>
 __global__ void __launch_bounds__(kR)
 walk_hier(const int* __restrict__ counts, const int* __restrict__ keys,
           const float* __restrict__ rays, const float* __restrict__ w,
@@ -314,17 +411,15 @@ walk_hier(const int* __restrict__ counts, const int* __restrict__ keys,
           const float* __restrict__ bbox, const int* __restrict__ first,
           int* __restrict__ out, int* __restrict__ visits, int n_rays,
           int n_s, int cmask, int S) {
-  __shared__ __align__(16) float sw[2][kBlockFloats];
+  constexpr int kFloats = planes_of(M) * kC;
+  __shared__ __align__(16) float sw[2][kFloats];
   __shared__ int sred[kWarps];
   __shared__ int sent[kSuperMax];
   __shared__ float shl[kHullCols];
 
   const int tile = blockIdx.x;
   const int ray = tile * kR + threadIdx.x;
-  const float dx = rays[ray];
-  const float dy = rays[n_rays + ray];
-  const float dz = rays[2 * n_rays + ray];
-  const int tcap = __float_as_int(rays[3 * n_rays + ray]);
+  const Ray<M> r(rays, n_rays, ray);
   const int count = counts[tile];
   const int* krow = keys + (size_t)tile * n_s;
   if (threadIdx.x < kHullCols) {
@@ -333,8 +428,8 @@ walk_hier(const int* __restrict__ counts, const int* __restrict__ keys,
 
   int best = kBigCleanI;
   int pid = -1;
-  int occ = kAnyDest ? occ0[ray] : 0;
-  int prune = tile_prune<kAnyDest>(best, occ, tcap, sred);  // syncs shl too
+  int occ = occlusion(M) ? occ0[ray] : 0;
+  int prune = tile_prune<M>(best, occ, r.tcap, sred);  // syncs shl too
   const unsigned all = S == kSuperMax ? 0xffffffffu : ((1u << S) - 1u);
 
   int nvis = 0;
@@ -352,7 +447,7 @@ walk_hier(const int* __restrict__ counts, const int* __restrict__ keys,
     int m;
     int s = next_member(sent, rem, S, &m);
     if (m > prune) continue;
-    if (kStream) stage_async(sw[0], w + (size_t)(fs + s) * kBlockFloats);
+    if (kStream) stage_async<kFloats>(sw[0], w + (size_t)(fs + s) * kFloats);
     int b = 0;
     while (true) {
       rem &= ~(1u << s);
@@ -363,7 +458,7 @@ walk_hier(const int* __restrict__ counts, const int* __restrict__ keys,
       if (kStream) {
         ahead = m2 <= prune;  // speculative: the prune may fall first
         if (ahead) {
-          stage_async(sw[b ^ 1], w + (size_t)(fs + s2) * kBlockFloats);
+          stage_async<kFloats>(sw[b ^ 1], w + (size_t)(fs + s2) * kFloats);
           wait_async<1>();
         } else {
           wait_async<0>();
@@ -371,16 +466,12 @@ walk_hier(const int* __restrict__ counts, const int* __restrict__ keys,
         cur = sw[b];
       } else {
         __syncthreads();  // every thread is done with the previous member
-        stage_sync(sw[0], w + (size_t)(fs + s) * kBlockFloats);
+        stage_sync<kFloats>(sw[0], w + (size_t)(fs + s) * kFloats);
       }
       __syncthreads();
 
-      if (kAnyDest) {
-        visit_any_dest(cur, dx, dy, dz, occ);
-      } else {
-        visit_closest(cur, fs + s, dx, dy, dz, best, pid);
-      }
-      prune = tile_prune<kAnyDest>(best, occ, tcap, sred);
+      visit<M>(cur, fs + s, r, best, pid, occ);
+      prune = tile_prune<M>(best, occ, r.tcap, sred);
       ++nvis;
       if (m2 > prune) {
         if (ahead) wait_async<0>();  // drain the speculative fetch
@@ -390,11 +481,11 @@ walk_hier(const int* __restrict__ counts, const int* __restrict__ keys,
       b ^= 1;
     }
   }
-  out[ray] = kAnyDest ? occ : pid;
+  out[ray] = occlusion(M) ? occ : pid;
   if (threadIdx.x == 0) visits[tile] = nvis;
 }
 
-template <bool kAnyDest>
+template <int M>
 int launch_flat(bool stream_w, const int* counts, const int* keys,
                 const float* rays, const float* w, const int* occ0, int* out,
                 int* visits, int n_tiles, int n_c, int cmask, int device,
@@ -404,16 +495,16 @@ int launch_flat(bool stream_w, const int* counts, const int* keys,
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int n_rays = n_tiles * kR;
   if (stream_w) {
-    walk_flat<kAnyDest, true><<<n_tiles, kR, 0, st>>>(
+    walk_flat<M, true><<<n_tiles, kR, 0, st>>>(
         counts, keys, rays, w, occ0, out, visits, n_rays, n_c, cmask);
   } else {
-    walk_flat<kAnyDest, false><<<n_tiles, kR, 0, st>>>(
+    walk_flat<M, false><<<n_tiles, kR, 0, st>>>(
         counts, keys, rays, w, occ0, out, visits, n_rays, n_c, cmask);
   }
   return (int)cudaGetLastError();
 }
 
-template <bool kAnyDest>
+template <int M>
 int launch_hier(bool stream_w, const int* counts, const int* keys,
                 const float* rays, const float* w, const int* occ0,
                 const float* hull, const float* bbox, const int* first,
@@ -425,11 +516,11 @@ int launch_hier(bool stream_w, const int* counts, const int* keys,
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int n_rays = n_tiles * kR;
   if (stream_w) {
-    walk_hier<kAnyDest, true><<<n_tiles, kR, 0, st>>>(
+    walk_hier<M, true><<<n_tiles, kR, 0, st>>>(
         counts, keys, rays, w, occ0, hull, bbox, first, out, visits, n_rays,
         n_s, cmask, S);
   } else {
-    walk_hier<kAnyDest, false><<<n_tiles, kR, 0, st>>>(
+    walk_hier<M, false><<<n_tiles, kR, 0, st>>>(
         counts, keys, rays, w, occ0, hull, bbox, first, out, visits, n_rays,
         n_s, cmask, S);
   }
@@ -438,35 +529,56 @@ int launch_hier(bool stream_w, const int* counts, const int* keys,
 
 }  // namespace
 
-// Flat walk. counts (n_tiles,) int32; keys (n_tiles, n_c) int32 sorted
-// ascending; rays (4, n_tiles * 512) f32 rows [d.x, d.y, d.z, root-exit cap];
-// w (n_c, 10, 128) f32, 16-byte aligned; out (n_tiles * 512,) int32 packed
-// slot id or -1; visits (n_tiles,) int32 executed visits; stream_w selects
-// the streamed form. Returns a cudaError_t.
+// Flat walks. counts (n_tiles,) int32; keys (n_tiles, n_c) int32 sorted
+// ascending; rays (rows, n_tiles * 512) f32 (walk.py RAY_ROWS); w (n_c,
+// planes, 128) f32, 16-byte aligned; occ0 (n_tiles * 512,) int32 the rays
+// that start occluded (occlusion modes); out (n_tiles * 512,) int32, the
+// packed slot id or -1 (closest) or the occlusion flag; visits (n_tiles,)
+// int32 executed visits; stream_w selects the streamed form. Each returns
+// a cudaError_t.
 extern "C" int ceres_walk_closest(const int* counts, const int* keys,
                                   const float* rays, const float* w, int* out,
                                   int* visits, int n_tiles, int n_c,
                                   int cmask, int stream_w, int device,
                                   void* stream) {
-  return launch_flat<false>(stream_w != 0, counts, keys, rays, w, nullptr,
-                            out, visits, n_tiles, n_c, cmask, device, stream);
+  return launch_flat<kClosest>(stream_w != 0, counts, keys, rays, w, nullptr,
+                               out, visits, n_tiles, n_c, cmask, device,
+                               stream);
 }
 
-// As ceres_walk_closest, with occ0 (n_tiles * 512,) int32 the rays that
-// start occluded (skipped); out is the occlusion flag.
+extern "C" int ceres_walk_closest_window(const int* counts, const int* keys,
+                                         const float* rays, const float* w,
+                                         int* out, int* visits, int n_tiles,
+                                         int n_c, int cmask, int stream_w,
+                                         int device, void* stream) {
+  return launch_flat<kClosestWindow>(stream_w != 0, counts, keys, rays, w,
+                                     nullptr, out, visits, n_tiles, n_c,
+                                     cmask, device, stream);
+}
+
 extern "C" int ceres_walk_any_dest(const int* counts, const int* keys,
                                    const float* rays, const float* w,
                                    const int* occ0, int* out, int* visits,
                                    int n_tiles, int n_c, int cmask,
                                    int stream_w, int device, void* stream) {
-  return launch_flat<true>(stream_w != 0, counts, keys, rays, w, occ0, out,
+  return launch_flat<kAnyDest>(stream_w != 0, counts, keys, rays, w, occ0,
+                               out, visits, n_tiles, n_c, cmask, device,
+                               stream);
+}
+
+extern "C" int ceres_walk_any(const int* counts, const int* keys,
+                              const float* rays, const float* w,
+                              const int* occ0, int* out, int* visits,
+                              int n_tiles, int n_c, int cmask, int stream_w,
+                              int device, void* stream) {
+  return launch_flat<kAny>(stream_w != 0, counts, keys, rays, w, occ0, out,
                            visits, n_tiles, n_c, cmask, device, stream);
 }
 
-// Two-level walk. keys (n_tiles, n_s) are super candidates; w
-// (n_c + S, 10, 128) the fine blocks, zero-padded by S; hull (n_tiles, 16)
-// f32 per-tile hull scalars; bbox (n_s, 8, S) f32 member boxes; first (n_s,)
-// int32 first member of each super; 2 <= S <= 32.
+// Two-level walks. keys (n_tiles, n_s) are super candidates; w
+// (n_c + S, planes, 128) the fine blocks, zero-padded by S; hull
+// (n_tiles, 16) f32 per-tile hull scalars; bbox (n_s, 8, S) f32 member
+// boxes; first (n_s,) int32 first member of each super; 2 <= S <= 32.
 extern "C" int ceres_walk_closest_hier(const int* counts, const int* keys,
                                        const float* rays, const float* w,
                                        const float* hull, const float* bbox,
@@ -474,9 +586,19 @@ extern "C" int ceres_walk_closest_hier(const int* counts, const int* keys,
                                        int* visits, int n_tiles, int n_s,
                                        int cmask, int S, int stream_w,
                                        int device, void* stream) {
-  return launch_hier<false>(stream_w != 0, counts, keys, rays, w, nullptr,
-                            hull, bbox, first, out, visits, n_tiles, n_s,
-                            cmask, S, device, stream);
+  return launch_hier<kClosest>(stream_w != 0, counts, keys, rays, w, nullptr,
+                               hull, bbox, first, out, visits, n_tiles, n_s,
+                               cmask, S, device, stream);
+}
+
+extern "C" int ceres_walk_closest_window_hier(
+    const int* counts, const int* keys, const float* rays, const float* w,
+    const float* hull, const float* bbox, const int* first, int* out,
+    int* visits, int n_tiles, int n_s, int cmask, int S, int stream_w,
+    int device, void* stream) {
+  return launch_hier<kClosestWindow>(stream_w != 0, counts, keys, rays, w,
+                                     nullptr, hull, bbox, first, out, visits,
+                                     n_tiles, n_s, cmask, S, device, stream);
 }
 
 extern "C" int ceres_walk_any_dest_hier(const int* counts, const int* keys,
@@ -487,7 +609,19 @@ extern "C" int ceres_walk_any_dest_hier(const int* counts, const int* keys,
                                         int n_s, int cmask, int S,
                                         int stream_w, int device,
                                         void* stream) {
-  return launch_hier<true>(stream_w != 0, counts, keys, rays, w, occ0, hull,
+  return launch_hier<kAnyDest>(stream_w != 0, counts, keys, rays, w, occ0,
+                               hull, bbox, first, out, visits, n_tiles, n_s,
+                               cmask, S, device, stream);
+}
+
+extern "C" int ceres_walk_any_hier(const int* counts, const int* keys,
+                                   const float* rays, const float* w,
+                                   const int* occ0, const float* hull,
+                                   const float* bbox, const int* first,
+                                   int* out, int* visits, int n_tiles,
+                                   int n_s, int cmask, int S, int stream_w,
+                                   int device, void* stream) {
+  return launch_hier<kAny>(stream_w != 0, counts, keys, rays, w, occ0, hull,
                            bbox, first, out, visits, n_tiles, n_s, cmask, S,
                            device, stream);
 }

@@ -1,7 +1,7 @@
 """Closest-hit and shadow search over triangle clusters (counterpart of
 ``ceres_tpu/ops/megakernel.py``: ``_detach_f32``, ``_closest_search``,
 ``_winner_tuv``, ``_winner_table_cols``, ``winner_table``,
-``closest_hit_common_origin``, ``any_hit_to_point``).
+``closest_hit_common_origin``, ``any_hit``, ``any_hit_to_point``).
 
 Two phases per wavefront: the culling prepass (``ops.prepass``) sorts
 each ray tile's candidate clusters front to back, then a walk kernel
@@ -21,8 +21,13 @@ Without ``clusters`` the entry points build the LBVH treelet cut on the
 device (``accel.clusters.build_clusters_treelet``), as the JAX package
 does.
 
-Not ported yet: generic-origin ``any_hit`` (ROADMAP M8), ray windows
-(M11), shadow-receiver regrouping (M13), ``exact_f64`` (M14).
+Rays with their own origins (``any_hit``, the reference-exact shadow
+rays) walk generic-origin weights and tile hulls that carry the spread
+of the tile's origins. ``closest_hit_common_origin(tmin=, tmax=)``
+accepts hits only inside each ray's window and caps the walk at tmax.
+
+Not ported yet: shadow-receiver regrouping (ROADMAP M13), ``exact_f64``
+(M14).
 """
 
 from __future__ import annotations
@@ -32,23 +37,14 @@ import dataclasses
 import torch
 
 from ceres_tpu_torch.accel.clusters import (build_clusters_treelet,
-                                            cluster_weights_common_origin)
+                                            cluster_weights_common_origin,
+                                            cluster_weights_generic)
 from ceres_tpu_torch.models.mesh import TriangleSoup
 from ceres_tpu_torch.ops import walk
+from ceres_tpu_torch.ops.intersect import Hit
 from ceres_tpu_torch.ops.prepass import (
-    TILE, _ULP_PAD, _hier_setup, _pad_rays, _ray_tcap, _scene_root,
-    _tile_candidate_keys, _use_stream)
-
-
-@dataclasses.dataclass(frozen=True)
-class Hit:
-    """Closest hits of a wavefront; every field is (R,)."""
-
-    t: torch.Tensor        # inf at misses
-    u: torch.Tensor        # barycentric of p1, 0 at misses
-    v: torch.Tensor        # barycentric of p2, 0 at misses
-    prim_id: torch.Tensor  # original triangle id, 0 at misses
-    mask: torch.Tensor     # bool, True where the ray hit
+    _BIG, COMMON_ROWS, GENERIC_ROWS, TILE, _ULP_PAD, _hier_setup, _pad_rays,
+    _ray_tcap, _scene_root, _tile_candidate_keys, _use_stream)
 
 
 def _cols(x):
@@ -81,40 +77,74 @@ def _treelet(soup: TriangleSoup, clusters):
     return build_clusters_treelet(_detach_f32(soup))
 
 
-def _walk_inputs(cs, origin, dp, alive, tcap):
-    """The walk's inputs for rays from ``origin`` (padded direction
-    columns ``dp``, alive mask per tile, root-exit caps): (args, opts) for
-    ``walk.walk_closest(*args, **opts)``; args = (counts, keys, rays, w),
-    opts = the two-level inputs (hull, bbox, first, S) and ``stream``."""
-    w = cluster_weights_common_origin(cs, origin)
-    dirs_tiled = tuple(c.reshape(-1, TILE) for c in dp)
+def _tiles(cols):
+    return tuple(c.reshape(-1, TILE) for c in cols)
+
+
+def _walk_inputs(cs, shift, w, ray_rows, dirs_tiled, alive,
+                 origins_tiled=None):
+    """The walk's inputs: (args, opts) for ``walk.walk_*(*args, **opts)``;
+    args = (counts, keys, rays, w), opts = the two-level inputs (hull,
+    bbox, first, S) and ``stream``. ``shift`` is the point the weights
+    and ray rows are relative to (the common origin, or the scene centre
+    for rays with their own ``origins_tiled``)."""
     S, hull, bbox, first, cull_lo, cull_hi, w = _hier_setup(
-        cs.lo - origin, cs.hi - origin, dirs_tiled, alive, w, cs=cs)
+        cs.lo - shift, cs.hi - shift, dirs_tiled, alive, w, cs=cs,
+        origins_tiled=origins_tiled)
     keys, counts = _tile_candidate_keys(cull_lo, cull_hi, dirs_tiled,
-                                        alive=alive)
-    return ((counts, keys, torch.stack([*dp, tcap]), w),
+                                        origins_tiled, alive=alive)
+    rows = COMMON_ROWS if origins_tiled is None else GENERIC_ROWS
+    return ((counts, keys, torch.stack(ray_rows), w),
             {"hull": hull, "bbox": bbox, "first": first, "S": S,
-             "stream": _use_stream(w.shape[0])})
+             "stream": _use_stream(w.shape[0], rows)})
 
 
-def _closest_inputs(cs, eye, dir_cols):
+def _per_ray(x, R, fill, like):
+    """A scalar or (R,) window bound -> (R,) float32 (``fill`` if None)."""
+    if x is None:
+        return torch.full((R,), fill, dtype=torch.float32, device=like.device)
+    return torch.as_tensor(x, dtype=torch.float32,
+                           device=like.device).expand(R).contiguous()
+
+
+def _closest_inputs(cs, eye, dir_cols, tmin=None, tmax=None):
     """The closest walk's (args, opts) for rays ``dir_cols`` from ``eye``:
     weights, root-exit caps, padded ray rows, the prepass's sorted
     candidate keys and, past the two-level threshold, the super inputs.
-    Detached float32."""
-    cs, eye, dir_cols = _detach_f32((cs, eye, dir_cols))
+    With ``tmin``/``tmax`` (scalar or per-ray) the rays carry their
+    [tmin, tmax] window rows, the cap is clamped to tmax and opts gain
+    ``window=True``. Detached float32."""
+    cs, eye, dir_cols, tmin, tmax = _detach_f32((cs, eye, dir_cols, tmin,
+                                                 tmax))
     root_lo, root_hi = _scene_root(cs)
     dp = tuple(_pad_rays(c) for c in dir_cols)
-    alive = (dp[0] * dp[0] + dp[1] * dp[1] + dp[2] * dp[2]).reshape(
-        -1, TILE) > 0.0
+    dirs_tiled = _tiles(dp)
+    alive = (dirs_tiled[0] * dirs_tiled[0] + dirs_tiled[1] * dirs_tiled[1]
+             + dirs_tiled[2] * dirs_tiled[2]) > 0.0
     tcap = _ray_tcap(root_lo - eye, root_hi - eye, dp)
-    return _walk_inputs(cs, eye, dp, alive, tcap)
+    rows = [*dp, tcap]
+    window = tmin is not None or tmax is not None
+    if window:
+        R = dir_cols[0].shape[0]
+        tmin_p = _pad_rays(_per_ray(tmin, R, 0.0, tcap))
+        tmax_p = _pad_rays(_per_ray(tmax, R, _BIG, tcap))
+        # No candidate past tmax can matter: cap the walk there (padded
+        # like the root exit). Dead rays keep the cap -1.
+        rows[3] = torch.where(tcap < 0, tcap,
+                              torch.minimum(tcap,
+                                            tmax_p * (1.0 + _ULP_PAD)))
+        rows += [tmin_p, tmax_p]
+    w = cluster_weights_common_origin(cs, eye)
+    args, opts = _walk_inputs(cs, eye, w, rows, dirs_tiled, alive)
+    if window:
+        opts["window"] = True
+    return args, opts
 
 
-def _closest_search(cs, eye, dir_cols):
+def _closest_search(cs, eye, dir_cols, tmin=None, tmax=None):
     """Detached winner search: (packed slot ids (R,) int32, counters)."""
     R = dir_cols[0].shape[0]
-    args, opts = _closest_inputs(cs, eye, dir_cols)
+    args, opts = _closest_inputs(cs, eye, dir_cols, tmin, tmax)
     pidx, steps = walk.walk_closest(*args, **opts)
     return pidx[:R], {"traversal_steps": steps, "mt_block_visits": steps}
 
@@ -167,21 +197,27 @@ def winner_table(soup: TriangleSoup, clusters, payload=None):
 
 
 def closest_hit_common_origin(soup: TriangleSoup, eye, dirs, clusters=None,
-                              with_counts=False, payload=None,
-                              normal_cols=False, table_cols=None):
+                              with_counts=False, payload=None, tmin=None,
+                              tmax=None, normal_cols=False, exact_f64=False,
+                              table_cols=None):
     """Closest hit of normalised ``dirs`` rays all starting at ``eye``.
 
     ``dirs`` is (R, 3) or a 3-tuple of (R,) columns; ``clusters`` is a
     prebuilt ClusterSet of this soup (None: the treelet cut is built).
+    ``tmin``/``tmax`` (scalar or per-ray (R,)) accept only hits with
+    tmin <= t <= tmax (default [0, _BIG)); tmax also caps the walk.
     ``payload`` (P per-triangle (T,) columns) rides the winner gather:
     returns (hit, payload columns), zero at misses. ``normal_cols=True``
     prepends the winner's face normal, recomputed from the gathered
     edges. ``with_counts=True`` adds the measured counters (executed
     cluster visits and MT pairs).
     """
+    if exact_f64:
+        raise NotImplementedError("exact_f64 is not ported yet (ROADMAP "
+                                  "item M14)")
     dir_cols = _cols(dirs)
     cs = _treelet(soup, clusters)
-    pidx, counts = _closest_search(cs, eye, dir_cols)
+    pidx, counts = _closest_search(cs, eye, dir_cols, tmin, tmax)
     mask = pidx >= 0
     table = (table_cols if table_cols is not None
              else winner_table(soup, cs, payload))
@@ -205,6 +241,63 @@ def closest_hit_common_origin(soup: TriangleSoup, eye, dirs, clusters=None,
                               * TILE * cs.cluster_size)
         out = out + (counts,)
     return out[0] if len(out) == 1 else out
+
+
+def any_hit(soup: TriangleSoup, origin_shift, origins, dirs, skip=None,
+            clusters=None, with_counts=False, exact_f64=False):
+    """Occlusion of rays (origins[i], dirs[i]): True where a ray hits
+    any triangle at t >= 0, however far (the reference's shadow ray with
+    tmax = inf).
+
+    ``origins``/``dirs`` are (R, 3) or 3-tuples of (R,) columns.
+    ``origin_shift`` (3,) is the point the weights and ray origins are
+    taken relative to, for conditioning (the renderer passes the scene
+    centre); the result does not depend on it beyond rounding. ``skip``
+    marks rays whose answer is irrelevant (no primary hit); they generate
+    no traversal work. Boolean, detached.
+    """
+    if exact_f64:
+        raise NotImplementedError("exact_f64 is not ported yet (ROADMAP "
+                                  "item M14)")
+    R = _cols(dirs)[0].shape[0]
+    cs = _treelet(soup, clusters)
+    if skip is None:
+        skip = torch.zeros(R, dtype=torch.bool, device=cs.lo.device)
+    args, opts = _any_inputs(cs, origin_shift, origins, dirs, skip)
+    occ, steps = walk.walk_any(*args, **opts)
+    result = (occ[:R] == 1) & ~skip
+    if with_counts:
+        return result, {"traversal_steps": steps, "mt_block_visits": steps,
+                        "mt_pairs": steps * TILE * cs.cluster_size}
+    return result
+
+
+def _any_inputs(cs, shift, origins, dirs, skip):
+    """The generic shadow walk's (args, opts) for rays from ``origins``
+    along ``dirs``, relative to ``shift``; ``skip`` (bool (R,)) marks rays
+    that start occluded: args = (counts, keys, rays, w, occ0) with ray
+    rows [d, d x o, o, cap], opts as in ``_walk_inputs``. Detached
+    float32."""
+    cs, shift, o_cols, d_cols = _detach_f32((cs, shift, _cols(origins),
+                                             _cols(dirs)))
+    root_lo, root_hi = _scene_root(cs)
+    dp = tuple(_pad_rays(c) for c in d_cols)
+    op = tuple(_pad_rays(o_cols[a] - shift[a]) for a in range(3))
+    dirs_tiled, orig_tiled = _tiles(dp), _tiles(op)
+    occ0 = _pad_rays(skip.to(torch.int32))
+    alive = (occ0.reshape(-1, TILE) == 0) & (
+        (dirs_tiled[0] * dirs_tiled[0] + dirs_tiled[1] * dirs_tiled[1]
+         + dirs_tiled[2] * dirs_tiled[2]) > 0.0)
+    # d x o once here, so the kernel and its plain version read the same
+    # floats. Padding rays have zero dirs: cap -1, never occluded.
+    dxo = (dp[1] * op[2] - dp[2] * op[1],
+           dp[2] * op[0] - dp[0] * op[2],
+           dp[0] * op[1] - dp[1] * op[0])
+    tcap = _ray_tcap(root_lo - shift, root_hi - shift, dp, op)
+    w = cluster_weights_generic(cs, shift)
+    args, opts = _walk_inputs(cs, shift, w, [*dp, *dxo, *op, tcap],
+                              dirs_tiled, alive, orig_tiled)
+    return args + (occ0,), opts
 
 
 def any_hit_to_point(soup: TriangleSoup, dest, points, skip=None,
@@ -247,5 +340,6 @@ def _any_dest_inputs(cs, dest, points, skip):
     # Nothing past the receiving point can occlude: cap the walk at t = 1
     # (+ slack). Padding rays (zero dirs) keep the cap -1.
     tcap = _ray_tcap(root_lo - dest, root_hi - dest, dp).clamp(max=1.0 + _ULP_PAD)
-    args, opts = _walk_inputs(cs, dest, dp, alive, tcap)
+    w = cluster_weights_common_origin(cs, dest)
+    args, opts = _walk_inputs(cs, dest, w, [*dp, tcap], _tiles(dp), alive)
     return args + (occ0,), opts

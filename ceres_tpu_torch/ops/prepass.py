@@ -13,8 +13,9 @@ orders like the float, so the sort is front to back.
 
 Keys and counts are bit-identical to the JAX package's: every step is
 one IEEE f32 operation in the same order, with no sums that a compiler
-could contract. Common-origin rays only; the generic-origin hull of
-``any_hit`` waits for ROADMAP item M8.
+could contract. Common-origin wavefronts pre-shift the boxes by their
+origin; generic-origin rays (``any_hit``) also carry a per-tile origin
+hull, which widens each box by the spread of the tile's origins.
 
 Also here: which walk variant a scene takes (flat or two-level, weights
 resident or streamed, by the JAX package's rules) and the two-level
@@ -45,20 +46,26 @@ def _safe_inverse(d: torch.Tensor) -> torch.Tensor:
     return torch.where(d.abs() < 1e-30, sign * _INV_CLAMP, 1.0 / d)
 
 
-def _interval_entry(lo, hi, dlo, dhi):
-    """Conservative slab test of each tile's direction hull against the
-    cluster boxes, for rays from a common origin at 0 (boxes pre-shifted).
+def _interval_entry(lo, hi, dlo, dhi, olo=None, ohi=None):
+    """Conservative slab test of each tile's ray hull against the cluster
+    boxes.
 
-    lo, hi: (N_c, 3); dlo, dhi: (n_t, 3). Returns (n_t, N_c) f32: a lower
-    bound of any member ray's slab entry distance where overlap is
-    possible, _BIG where no member ray can overlap. Axes whose direction
-    interval straddles zero do not restrict.
+    lo, hi: (N_c, 3); dlo, dhi: (n_t, 3) direction hulls; olo, ohi: (n_t,
+    3) origin hulls, or None for rays from a common origin at 0 (boxes
+    pre-shifted). Returns (n_t, N_c) f32: a lower bound of any member
+    ray's slab entry distance where overlap is possible, _BIG where no
+    member ray can overlap. Axes whose direction interval straddles zero
+    do not restrict. An origin hull folds into the box: box - [olo, ohi]
+    is a wider box.
     """
     empty = (hi < lo).any(dim=-1)[None, :]           # (1, N_c)
     tn = tf = None
     for a in range(3):
         la = lo[None, :, a]                          # (1, N_c)
         ha = hi[None, :, a]
+        if olo is not None:
+            la = la - ohi[:, a:a + 1]                # (n_t, N_c)
+            ha = ha - olo[:, a:a + 1]
         ia = _safe_inverse(dlo[:, a:a + 1])          # (n_t, 1)
         ib = _safe_inverse(dhi[:, a:a + 1])
         c0, c1, c2, c3 = la * ia, la * ib, ha * ia, ha * ib
@@ -87,10 +94,11 @@ def _cid_bits(n_c: int) -> int:
     return max(1, (n_c - 1).bit_length())
 
 
-def _tile_candidate_keys(lo, hi, dirs_tiled, alive=None):
+def _tile_candidate_keys(lo, hi, dirs_tiled, origins_tiled=None, alive=None):
     """Per-tile candidate keys, sorted front to back, as one int32 tensor.
 
-    dirs_tiled: 3-tuple of (n_tiles, R) direction columns. Clearing the
+    dirs_tiled: 3-tuple of (n_tiles, R) direction columns (origins_tiled
+    likewise, None for a common origin at 0). Clearing the
     low cid bits of the entry bound only lowers it, so a key stays a
     conservative lower bound of any member ray's hit distance. Returns
     (keys (n_tiles, N_c) int32 ascending, counts (n_tiles,) int32 of real
@@ -100,7 +108,10 @@ def _tile_candidate_keys(lo, hi, dirs_tiled, alive=None):
         alive = (dirs_tiled[0] * dirs_tiled[0] + dirs_tiled[1] * dirs_tiled[1]
                  + dirs_tiled[2] * dirs_tiled[2]) > 0.0
     dlo, dhi = _hull(dirs_tiled, alive)
-    tn = _interval_entry(lo, hi, dlo, dhi)
+    if origins_tiled is None:
+        tn = _interval_entry(lo, hi, dlo, dhi)
+    else:
+        tn = _interval_entry(lo, hi, dlo, dhi, *_hull(origins_tiled, alive))
     # Tiles with no alive rays (all padding or all skipped) get nothing.
     tn = torch.where(alive.any(dim=1)[:, None], tn, _BIG)
     counts = (tn < _VALID_CUT).sum(dim=1, dtype=torch.int32)
@@ -111,9 +122,10 @@ def _tile_candidate_keys(lo, hi, dirs_tiled, alive=None):
     return torch.sort(keys, dim=1).values, counts
 
 
-def _ray_tcap(root_lo, root_hi, dir_cols):
+def _ray_tcap(root_lo, root_hi, dir_cols, origin_cols=None):
     """Per-ray visit cap: exit distance from the scene's root AABB, for
-    rays from a common origin at 0 (root box pre-shifted).
+    rays from ``origin_cols`` (None: a common origin at 0, root box
+    pre-shifted).
 
     Every cluster box lies inside the root box, so a ray that found no
     hit is done once the walk passes its root exit. Rays that miss the
@@ -123,8 +135,12 @@ def _ray_tcap(root_lo, root_hi, dir_cols):
     for a in range(3):
         d = dir_cols[a]
         inv = _safe_inverse(d)
-        t0 = root_lo[a] * inv
-        t1 = root_hi[a] * inv
+        if origin_cols is None:
+            t0 = root_lo[a] * inv
+            t1 = root_hi[a] * inv
+        else:
+            t0 = (root_lo[a] - origin_cols[a]) * inv
+            t1 = (root_hi[a] - origin_cols[a]) * inv
         near = _fmin(t0, t1)
         far = _fmax(t0, t1)
         tn = near if tn is None else _fmax(tn, near)
@@ -160,17 +176,21 @@ def _pad_rays(x: torch.Tensor, tile: int = TILE) -> torch.Tensor:
 # may move it (ROADMAP open question).
 _HIER_MIN_CLUSTERS = 12288
 
-# The JAX package keeps weights resident while its packed layout,
-# (blocks, 8, 4C) f32 = 16 KiB a block, fits 8 MiB, and streams them
-# beyond. The port applies the same rule to its block count.
+# The JAX package keeps weights resident while its packed layout fits
+# 8 MiB, and streams them beyond. That layout is (blocks, 8, 4C) f32 =
+# 16 KiB a block for common-origin rays and (blocks, 16, 4C) = 32 KiB
+# for generic rays, so generic walks stream above 256 blocks and
+# common-origin walks above 512. The port applies the same rule to its
+# block count.
 _RESIDENT_W_BYTES = 8 << 20
-_PACKED_BLOCK_BYTES = 8 * 4 * CLUSTER_SIZE * 4
+COMMON_ROWS = 8      # packed feature rows [d, 1], padded to 8
+GENERIC_ROWS = 16    # packed feature rows [d, d x o, o, 1], padded to 16
 
 
-def _use_stream(n_blocks: int) -> bool:
+def _use_stream(n_blocks: int, packed_rows: int = COMMON_ROWS) -> bool:
     """Stream the weights of a walk over ``n_blocks`` blocks (padding
-    included)?"""
-    return n_blocks * _PACKED_BLOCK_BYTES > _RESIDENT_W_BYTES
+    included) whose JAX packed layout has ``packed_rows`` feature rows?"""
+    return n_blocks * packed_rows * 4 * CLUSTER_SIZE * 4 > _RESIDENT_W_BYTES
 
 
 def _super_factor(n_c: int) -> int:
@@ -208,19 +228,22 @@ def _super_members(lo, hi, first, S):
     return super_lo, super_hi, bbox.contiguous()
 
 
-def _tile_hulls(dirs_tiled, alive):
+def _tile_hulls(dirs_tiled, alive, origins_tiled=None):
     """(n_tiles, 16) per-tile hull scalars for the in-kernel member gate:
     [1/dlo.xyz, 1/dhi.xyz, straddle.xyz, olo.xyz, ohi.xyz, 0], the
     precomputed pieces of the _interval_entry test. Common-origin
-    wavefronts have a zero origin hull (their boxes are pre-shifted)."""
+    wavefronts (``origins_tiled`` None) have a zero origin hull (their
+    boxes are pre-shifted)."""
     dlo, dhi = _hull(dirs_tiled, alive)
     st = ((dlo < 0) & (dhi > 0)).to(dlo.dtype)
     zero = torch.zeros_like(dlo)
-    return torch.cat([_safe_inverse(dlo), _safe_inverse(dhi), st, zero, zero,
+    olo, ohi = ((zero, zero) if origins_tiled is None
+                else _hull(origins_tiled, alive))
+    return torch.cat([_safe_inverse(dlo), _safe_inverse(dhi), st, olo, ohi,
                       zero[:, :1]], dim=-1).contiguous()
 
 
-def _hier_setup(lo, hi, dirs_tiled, alive, w, cs=None):
+def _hier_setup(lo, hi, dirs_tiled, alive, w, cs=None, origins_tiled=None):
     """Choose the flat or the two-level walk and build its inputs.
 
     Returns (S, hull, bbox, first, cull_lo, cull_hi, w). For S == 1 the
@@ -229,6 +252,7 @@ def _hier_setup(lo, hi, dirs_tiled, alive, w, cs=None):
     as first + s), and the kernel gets the hull table, the member boxes
     and the first-member table. Supers come from the ClusterSet's tree
     cut when it has one, else uniform S-runs of consecutive blocks.
+    ``origins_tiled`` (generic rays) fills the hulls' origin columns.
     """
     n_c = lo.shape[0]
     S = _super_factor(n_c)
@@ -242,7 +266,7 @@ def _hier_setup(lo, hi, dirs_tiled, alive, w, cs=None):
         first = torch.clamp(torch.arange(n_s, dtype=torch.int32,
                                          device=lo.device) * S, max=n_c)
     super_lo, super_hi, bbox = _super_members(lo, hi, first, S)
-    hull = _tile_hulls(dirs_tiled, alive)
+    hull = _tile_hulls(dirs_tiled, alive, origins_tiled)
     # Member reads run to first + S - 1 <= n_c + S - 1: zero blocks
     # (rejected by Möller-Trumbore, and gated off anyway).
     w = F.pad(w, (0, 0, 0, 0, 0, S))

@@ -1,12 +1,20 @@
 """The walk kernels' wrappers and their plain PyTorch versions.
 
-``walk_closest`` and ``walk_any_dest`` replace the ``closest`` and
-``any_dest`` variants of the JAX package's Pallas walk
+The wrappers replace the variants of the JAX package's Pallas walk
 (``ceres_tpu/ops/megakernel.py`` ``_make_walk_kernel`` via
-``_walk_pallas``): flat or two-level (``S > 1``), with weights staged per
-visit or streamed (``stream=True``). The kernels are CUDA C++ for sm_90a
-in ``csrc/walk.cu``. Each wrapper dispatches on the device of its
-tensors:
+``_walk_pallas``), one mode each:
+
+  * ``walk_closest``: closest hit of rays from a common origin
+    (``mode="closest"``); with ``window=True`` only hits with t in each
+    ray's [tmin, tmax] count (``window=True`` there);
+  * ``walk_any_dest``: occlusion of segments from a common origin
+    (``mode="any_dest"``, the shadow wavefront cast from the sun);
+  * ``walk_any``: occlusion of rays with their own origins, t >= 0 with
+    no upper bound (``mode="any"``, the reference-exact shadow rays);
+
+each flat or two-level (``S > 1``), with weights staged per visit or
+streamed (``stream=True``). The kernels are CUDA C++ for sm_90a in
+``csrc/walk.cu``. Each wrapper dispatches on the device of its tensors:
 
   * CPU tensors go to the plain version (the CPU tests run it);
   * CUDA tensors launch the kernel, or raise: there is no fallback.
@@ -20,10 +28,15 @@ Inputs, for n_tiles tiles of TILE = 512 rays and n_c clusters of C = 128:
   counts (n_tiles,) int32   real candidates per tile;
   keys   (n_tiles, n_k) int32, ascending (``prepass._tile_candidate_keys``),
          n_k = n_c (flat) or n_s supers (two-level);
-  rays   (4, n_tiles * 512) f32 rows [d.x, d.y, d.z, root-exit cap];
-  w      (n_c [+ S], 10, 128) f32 (``clusters.cluster_weights_common_origin``,
-         zero-padded by S blocks for the two-level walk);
-  occ0   (n_tiles * 512,) int32 rays that start occluded (any_dest only);
+  rays   (rows, n_tiles * 512) f32 ray rows (``RAY_ROWS``):
+           closest, any_dest  [d.x, d.y, d.z, root-exit cap];
+           closest + window   [d.xyz, cap, tmin, tmax];
+           any                [d.xyz, (d x o).xyz, o.xyz, cap];
+  w      (n_c [+ S], planes, 128) f32 weight planes, 10 for common-origin
+         rays (``clusters.cluster_weights_common_origin``) and 16 for
+         ``walk_any`` (``clusters.cluster_weights_generic``), zero-padded
+         by S blocks for the two-level walk;
+  occ0   (n_tiles * 512,) int32 rays that start occluded (occlusion modes);
 and for the two-level walk (``prepass._hier_setup``):
   hull   (n_tiles, 16) f32 per-tile hull scalars;
   bbox   (n_s, 8, S) f32 member boxes;
@@ -40,7 +53,7 @@ import numpy as np
 import torch
 
 from ceres_tpu_torch.accel.clusters import (_SUPER_MAX, CLUSTER_SIZE,
-                                            WEIGHT_PLANES)
+                                            GENERIC_PLANES, WEIGHT_PLANES)
 from ceres_tpu_torch.ops.prepass import _BIG, _ULP_PAD, TILE, _cid_bits
 from ceres_tpu_torch.utils.minmax import fmax, fmin
 
@@ -58,6 +71,12 @@ _NEG_I = int(np.float32(-1.0).view(np.int32))  # bits of -1.0: drops out of a ma
 _DEST_SCALE = float(np.float32(1.0 - _DEST_EPS))
 _IMAX = 0x7FFFFFFF
 
+# Per mode: ray rows, weight planes, and the row of the root-exit cap.
+RAY_ROWS = {"closest": 4, "closest_window": 6, "any_dest": 4, "any": 10}
+_PLANES = {"closest": WEIGHT_PLANES, "closest_window": WEIGHT_PLANES,
+           "any_dest": WEIGHT_PLANES, "any": GENERIC_PLANES}
+_TCAP_ROW = {"closest": 3, "closest_window": 3, "any_dest": 3, "any": 9}
+
 # Tiles evaluated at once by the plain versions: bounds their
 # (tiles, 512, 128) temporaries to 32 MB each.
 _PLAIN_CHUNK = 128
@@ -70,7 +89,7 @@ def _variant(mode: str, S: int, stream: bool) -> str:
 
 # Kernel launches per variant since the last reset_launches(). Counted
 # where a wrapper launches its kernel and nowhere else.
-launches = {_variant(m, S, st): 0 for m in ("closest", "any_dest")
+launches = {_variant(m, S, st): 0 for m in RAY_ROWS
             for S in (1, 2) for st in (False, True)}
 
 
@@ -79,13 +98,14 @@ def reset_launches() -> None:
         launches[name] = 0
 
 
-def _check(counts, keys, rays, w, occ0, hull, bbox, first, S):
+def _check(mode, counts, keys, rays, w, occ0, hull, bbox, first, S):
     n_tiles, n_k = keys.shape
     n_blocks = n_k if S == 1 else w.shape[0]
     want = {"counts": (counts, (n_tiles,), torch.int32),
             "keys": (keys, (n_tiles, n_k), torch.int32),
-            "rays": (rays, (4, n_tiles * TILE), torch.float32),
-            "w": (w, (n_blocks, WEIGHT_PLANES, CLUSTER_SIZE), torch.float32)}
+            "rays": (rays, (RAY_ROWS[mode], n_tiles * TILE), torch.float32),
+            "w": (w, (n_blocks, _PLANES[mode], CLUSTER_SIZE),
+                  torch.float32)}
     if occ0 is not None:
         want["occ0"] = (occ0, (n_tiles * TILE,), torch.int32)
     if S > 1:
@@ -142,21 +162,24 @@ def _launch(mode, counts, keys, rays, w, occ0, hull, bbox, first, S, stream):
 
 
 def walk_closest(counts, keys, rays, w, hull=None, bbox=None, first=None, *,
-                 S=1, stream=False):
-    """Closest hit per ray: (packed slot ids, steps)."""
-    _check(counts, keys, rays, w, None, hull, bbox, first, S)
+                 S=1, stream=False, window=False):
+    """Closest hit per ray: (packed slot ids, steps). ``window=True``:
+    ``rays`` carries tmin and tmax rows, and a hit counts only with t in
+    [tmin, tmax]."""
+    mode = "closest_window" if window else "closest"
+    _check(mode, counts, keys, rays, w, None, hull, bbox, first, S)
     if rays.device.type == "cpu":
         return _walk_closest_plain(counts, keys, rays, w, hull, bbox, first,
-                                   S=S)
-    return _launch("closest", counts, keys, rays, w, None, hull, bbox, first,
-                   S, stream)
+                                   S=S, window=window)
+    return _launch(mode, counts, keys, rays, w, None, hull, bbox, first, S,
+                   stream)
 
 
 def walk_any_dest(counts, keys, rays, w, occ0, hull=None, bbox=None,
                   first=None, *, S=1, stream=False):
     """Occlusion of each segment from the common origin (t = 0) to its
     receiving point (t = 1): (flags, steps)."""
-    _check(counts, keys, rays, w, occ0, hull, bbox, first, S)
+    _check("any_dest", counts, keys, rays, w, occ0, hull, bbox, first, S)
     if rays.device.type == "cpu":
         return _walk_any_dest_plain(counts, keys, rays, w, occ0, hull, bbox,
                                     first, S=S)
@@ -164,23 +187,41 @@ def walk_any_dest(counts, keys, rays, w, occ0, hull=None, bbox=None,
                    S, stream)
 
 
+def walk_any(counts, keys, rays, w, occ0, hull=None, bbox=None, first=None,
+             *, S=1, stream=False):
+    """Occlusion of rays with their own origins: any triangle at t >= 0,
+    however far (flags, steps)."""
+    _check("any", counts, keys, rays, w, occ0, hull, bbox, first, S)
+    if rays.device.type == "cpu":
+        return _walk_any_plain(counts, keys, rays, w, occ0, hull, bbox, first,
+                               S=S)
+    return _launch("any", counts, keys, rays, w, occ0, hull, bbox, first, S,
+                   stream)
+
+
 # ---------------------------------------------------------------------------
 # Plain versions
 # ---------------------------------------------------------------------------
 
-def _numerators(d, wj):
+def _numerators(r, wj):
     """Möller-Trumbore terms of every (ray, triangle) pair.
 
-    d: (3, t, R) directions; wj: (t, 10, C) weight planes. Returns
-    (uvw, nd, nt, s) broadcastable to (t, R, C), in the kernel's
+    r: (rows, t, R) ray rows; wj: (t, planes, C) weight planes, 10
+    (common origin: r = [d, ...]) or 16 (generic: r = [d, d x o, o, ...]).
+    Returns (uvw, nd, nt, s) broadcastable to (t, R, C), in the kernel's
     operation order: uvw = min(u, v, det - u - v) * sign(det), the
     barycentric sign test, and nt the t numerator."""
-    dx, dy, dz = (d[a][:, :, None] for a in range(3))
-    p = [wj[:, i, None, :] for i in range(WEIGHT_PLANES)]
+    dx, dy, dz = (r[a][:, :, None] for a in range(3))
+    p = [wj[:, i, None, :] for i in range(wj.shape[1])]
     nu = dx * p[0] + dy * p[1] + dz * p[2]
     nv = dx * p[3] + dy * p[4] + dz * p[5]
     nd = dx * p[6] + dy * p[7] + dz * p[8]
     nt = p[9]
+    if len(p) == GENERIC_PLANES:
+        cx, cy, cz, ox, oy, oz = (r[a][:, :, None] for a in range(3, 9))
+        nu = nu - (cx * p[10] + cy * p[11] + cz * p[12])
+        nv = nv - (cx * p[13] + cy * p[14] + cz * p[15])
+        nt = nt - (ox * p[6] + oy * p[7] + oz * p[8])
     s = torch.where(nd >= 0, 1.0, -1.0)
     uvw = torch.minimum(torch.minimum(nu * s, nv * s), (nd - nu - nv) * s)
     return uvw, nd, nt, s
@@ -211,7 +252,7 @@ def _member_entries(hull, bb):
     return torch.where(ok, tn, _BIG).view(torch.int32)
 
 
-def _walk(counts, keys, rays, state, prune_of, visit, hier=None):
+def _walk(counts, keys, rays, tcap_row, state, prune_of, visit, hier=None):
     """The per-tile walk, vectorised over tiles.
 
     Tiles step k in lockstep; a tile runs candidate k while k < count and
@@ -223,14 +264,14 @@ def _walk(counts, keys, rays, state, prune_of, visit, hier=None):
     live prune; tiles take member steps in lockstep too, and a tile whose
     next entry exceeds its prune stays stopped, since neither changes.
     ``state`` is a tuple of (n_tiles, R) tensors, updated in place;
-    ``prune_of(tcap, *state)`` is the per-tile prune and ``visit(bid, d,
-    *state)`` the new state of the visiting tiles. Returns the executed
-    block visits (0-dim int64).
+    ``prune_of(tcap, *state)`` is the per-tile prune and ``visit(bid, r,
+    *state)`` the new state of the visiting tiles, given their ray rows
+    r (rows, t, R). Returns the executed block visits (0-dim int64).
     """
     n_tiles, n_k = keys.shape
     cmask = (1 << _cid_bits(n_k)) - 1
-    d = rays[:3].reshape(3, n_tiles, TILE)
-    tcap = rays[3].view(torch.int32).reshape(n_tiles, TILE)
+    r = rays.reshape(rays.shape[0], n_tiles, TILE)
+    tcap = rays[tcap_row].view(torch.int32).reshape(n_tiles, TILE)
     prune = prune_of(tcap, *state)
     done = torch.zeros(n_tiles, dtype=torch.bool, device=keys.device)
     visits = torch.zeros(n_tiles, dtype=torch.int64, device=keys.device)
@@ -238,7 +279,7 @@ def _walk(counts, keys, rays, state, prune_of, visit, hier=None):
     def visit_blocks(tiles, bid):
         visits[tiles] += 1
         for ch, b in zip(tiles.split(_PLAIN_CHUNK), bid.split(_PLAIN_CHUNK)):
-            new = visit(b, d[:, ch], *(x[ch] for x in state))
+            new = visit(b, r[:, ch], *(x[ch] for x in state))
             for x, y in zip(state, new):
                 x[ch] = y
             prune[ch] = prune_of(tcap[ch], *new)
@@ -277,11 +318,13 @@ def _hier(hull, bbox, first, S):
 
 
 def _walk_closest_plain(counts, keys, rays, w, hull=None, bbox=None,
-                        first=None, *, S=1, stream=False):
+                        first=None, *, S=1, stream=False, window=False):
     """Plain version of the closest kernels: per ray the best t key, ties
-    to the lower lane and the earlier visit. ``stream`` is accepted, so a
+    to the lower lane and the earlier visit; with the window, pairs with
+    t outside [tmin, tmax] count as misses. ``stream`` is accepted, so a
     wrapper's arguments fit, and ignored: it moves no result."""
     del stream
+    mode = "closest_window" if window else "closest"
     n_rays = rays.shape[1]
     lane = torch.arange(CLUSTER_SIZE, dtype=torch.int32, device=keys.device)
     best = torch.full((n_rays // TILE, TILE), _BIG_CLEAN_I, dtype=torch.int32,
@@ -291,10 +334,13 @@ def _walk_closest_plain(counts, keys, rays, w, hull=None, bbox=None,
     def prune_of(tcap, best, pid):
         return torch.minimum(best, tcap).amax(dim=1) + _PRUNE_PAD
 
-    def visit(bid, d, best, pid):
-        uvw, nd, nt, s = _numerators(d, w[bid.long()])
+    def visit(bid, r, best, pid):
+        uvw, nd, nt, s = _numerators(r, w[bid.long()])
         ok = (torch.minimum(uvw, nt * s) >= 0) & (nd != 0)
         t = torch.where(ok, nt * torch.reciprocal(nd), _BIG_CLEAN)
+        if window:
+            tmin, tmax = r[4][:, :, None], r[5][:, :, None]
+            t = torch.where((t >= tmin) & (t <= tmax), t, _BIG_CLEAN)
         kmin = ((t.view(torch.int32) & ~_IMASK) | lane).amin(dim=2)
         t_new = kmin & ~_IMASK
         better = t_new < best
@@ -302,28 +348,48 @@ def _walk_closest_plain(counts, keys, rays, w, hull=None, bbox=None,
                 torch.where(better, bid[:, None] * CLUSTER_SIZE
                             + (kmin & _IMASK), pid))
 
-    steps = _walk(counts, keys, rays, (best, pid), prune_of, visit,
-                  _hier(hull, bbox, first, S))
+    steps = _walk(counts, keys, rays, _TCAP_ROW[mode], (best, pid), prune_of,
+                  visit, _hier(hull, bbox, first, S))
     return pid.reshape(-1), steps
 
 
 def _walk_any_dest_plain(counts, keys, rays, w, occ0, hull=None, bbox=None,
                          first=None, *, S=1, stream=False):
-    """Plain version of the shadow kernels: per ray, any occluder between
-    the origin (t = 0) and the receiver (t = 1 - _DEST_EPS). ``stream`` is
-    ignored, as in ``_walk_closest_plain``."""
+    """Plain version of the common-origin shadow kernels: per ray, any
+    occluder between the origin (t = 0) and the receiver (t = 1 -
+    _DEST_EPS). ``stream`` is ignored, as in ``_walk_closest_plain``."""
     del stream
+    return _occlusion_plain("any_dest", counts, keys, rays, w, occ0, hull,
+                            bbox, first, S)
+
+
+def _walk_any_plain(counts, keys, rays, w, occ0, hull=None, bbox=None,
+                    first=None, *, S=1, stream=False):
+    """Plain version of the generic-origin shadow kernels: per ray, any
+    triangle at t >= 0 from its own origin, with no upper bound.
+    ``stream`` is ignored, as in ``_walk_closest_plain``."""
+    del stream
+    return _occlusion_plain("any", counts, keys, rays, w, occ0, hull, bbox,
+                            first, S)
+
+
+def _occlusion_plain(mode, counts, keys, rays, w, occ0, hull, bbox, first,
+                     S):
+    """The occlusion walk of ``mode`` (any_dest or any)."""
     occ = occ0.reshape(-1, TILE).clone()
 
     def prune_of(tcap, occ):
         return torch.where(occ > 0, _NEG_I, tcap).amax(dim=1) + _PRUNE_PAD
 
-    def visit(bid, d, occ):
-        uvw, nd, nt, s = _numerators(d, w[bid.long()])
-        win = ((nt - _DEST_SCALE * nd) * s <= 0) & (nt * s >= 0)
-        ok = (uvw >= 0) & (nd != 0) & win
+    def visit(bid, r, occ):
+        uvw, nd, nt, s = _numerators(r, w[bid.long()])
+        if mode == "any":
+            ok = (torch.minimum(uvw, nt * s) >= 0) & (nd != 0)
+        else:
+            win = ((nt - _DEST_SCALE * nd) * s <= 0) & (nt * s >= 0)
+            ok = (uvw >= 0) & (nd != 0) & win
         return (occ | ok.any(dim=2).to(torch.int32),)
 
-    steps = _walk(counts, keys, rays, (occ,), prune_of, visit,
-                  _hier(hull, bbox, first, S))
+    steps = _walk(counts, keys, rays, _TCAP_ROW[mode], (occ,), prune_of,
+                  visit, _hier(hull, bbox, first, S))
     return occ.reshape(-1), steps

@@ -1,25 +1,33 @@
 """The render pipeline (counterpart of ``ceres_tpu/render/renderer.py``:
-``RenderConfig``, ``_payload_cols``, ``prepare_winner_table``,
-``render_wavefront_cols``, ``_wavefront_stats``, ``render_pipeline``,
-``render``).
+``RenderConfig``, ``_scene_center``, ``_closest_primary``,
+``_any_shadow``, ``_payload_cols``, ``prepare_winner_table``,
+``render_wavefront_cols``, ``_wavefront_stats``, ``render_wavefront``,
+``render_pipeline``, ``render``).
 
-  1. Pinhole camera rays for every pixel, in 32 x 32 pixel-block order.
-  2. Closest hit through the cluster walk (``ops.megakernel``).
+  1. Pinhole camera rays for every pixel.
+  2. Closest hit: the cluster walk (``backend="megakernel"``, rays in 32 x
+     32 pixel-block order, ``ops.megakernel``) or all pairs
+     (``backend="bruteforce"``, the oracle, ``ops.intersect``).
   3. Miss -> black. Hit -> hit point eye + t * dir, offset by
      -1e-5 * normalize(face normal) against self-intersection.
-  4. Shadow segment from the hit point to the sun, cast as one
-     common-origin wavefront from the sun; any occluder -> black.
-  5. Otherwise Gouraud smooth shading from the corner vertex normals.
+  4. Shadow segment from the hit point to the sun (on the cluster walk,
+     one common-origin wavefront cast from the sun); any occluder ->
+     black.
+  5. Otherwise Gouraud smooth shading from the corner vertex normals
+     (``mode="smooth"``), or |normal| (``"flat"``; ``"normal"`` also
+     ignores shadows).
+
+``reference_compat=True`` reproduces the C++ reference exactly where the
+default corrects it: the hit point u*p0 + v*p1 + (1-u-v)*p2 (off the
+ray), Gouraud weights (u, v, 1-u-v), and shadow rays from the hit point
+toward the sun with no upper bound, so geometry beyond the sun occludes
+(generic-origin rays, ``megakernel.any_hit``).
 
 Stats: "rays" counts traversals (one per pixel plus one shadow ray per
 primary hit), "hits" counts primary hits plus occluded shadow rays, the
 reference renderer's counting.
 
-The port covers the JAX package's megakernel backend with smooth shading
-in float32. Not ported yet: ``backend="bruteforce"``, ``reference_compat``
-and the flat/normal modes (ROADMAP M8), spheres (M12), float64 (M14).
-The port's ``RenderConfig.backend`` therefore defaults to "megakernel"
-(the JAX package's defaults to "bruteforce").
+Not ported yet: spheres (ROADMAP M12) and float64 (M14).
 """
 
 from __future__ import annotations
@@ -30,12 +38,16 @@ from typing import Optional
 import torch
 
 from ceres_tpu_torch.models import shading as shading_mod
-from ceres_tpu_torch.models.camera import Camera, camera_ray_columns
+from ceres_tpu_torch.models.camera import (Camera, camera_ray_columns,
+                                           camera_rays)
 from ceres_tpu_torch.models.mesh import TriangleSoup, triangle_soup
+from ceres_tpu_torch.ops import intersect as mt
 from ceres_tpu_torch.ops import megakernel
 from ceres_tpu_torch.utils import tiling
 
 SELF_INTERSECT_OFFSET = -1e-5
+MODES = ("smooth", "flat", "normal")
+BACKENDS = ("bruteforce", "megakernel")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,39 +56,81 @@ class RenderConfig:
 
     width: int = 1920
     height: int = 1080
-    mode: str = "smooth"          # only "smooth" is ported
-    backend: str = "megakernel"   # only "megakernel" is ported
+    mode: str = "smooth"          # "smooth" | "flat" | "normal"
+    backend: str = "bruteforce"   # "megakernel" | "bruteforce"
     shadows: bool = True
     # Also report the measured traversal counters (executed cluster
     # visits and Möller-Trumbore pairs of both wavefronts).
     traversal_stats: bool = False
-    reference_compat: bool = False  # ROADMAP M8
+    # The C++ reference's exact hit point, Gouraud weights and unbounded
+    # shadow rays (module docstring).
+    reference_compat: bool = False
     f64_exact: bool = False         # ROADMAP M14
 
 
 def _check_config(config: RenderConfig) -> None:
-    if config.backend != "megakernel":
-        raise NotImplementedError(
-            f"backend {config.backend!r} is not ported yet (ROADMAP item "
-            "M8); the port renders with backend='megakernel'")
-    if config.mode != "smooth":
-        raise NotImplementedError(
-            f"mode {config.mode!r} is not ported yet (ROADMAP item M8)")
-    if config.reference_compat:
-        raise NotImplementedError(
-            "reference_compat is not ported yet (ROADMAP item M8)")
+    if config.backend not in BACKENDS:
+        raise ValueError(f"unknown backend: {config.backend}")
+    if config.mode not in MODES:
+        raise ValueError(f"unknown shading mode: {config.mode}")
     if config.f64_exact:
         raise NotImplementedError(
             "f64_exact is not ported yet (ROADMAP item M14)")
 
 
-def _payload_cols(soup: TriangleSoup):
-    """The per-triangle shading payload columns of smooth shading: the
-    nine corner-normal columns [n0 | n1 | n2]."""
-    if soup.corner_normals is None:
-        raise ValueError("smooth shading requires corner_normals")
-    cn = soup.corner_normals
-    return [cn[:, k, a] for k in range(3) for a in range(3)]
+def _normalize(v):
+    return v / torch.linalg.vector_norm(v, dim=-1, keepdim=True)
+
+
+def _scene_center(soup: TriangleSoup) -> torch.Tensor:
+    """The point generic shadow rays are taken relative to, keeping |o|
+    small in their d x o terms (the result does not depend on it beyond
+    rounding)."""
+    return soup.p0.detach().mean(dim=0)
+
+
+def _closest_primary(soup: TriangleSoup, camera: Camera, dirs, backend: str,
+                     clusters=None) -> mt.Hit:
+    """Closest hit of the common-origin primary wavefront, (R, 3) dirs."""
+    if backend == "bruteforce":
+        w = mt.triangle_weights_common_origin(soup, camera.eye)
+        return mt.closest_hit_bruteforce(mt.ray_features_common_origin(dirs),
+                                         w)
+    return megakernel.closest_hit_common_origin(soup, camera.eye, dirs,
+                                                clusters=clusters)
+
+
+def _any_shadow(soup: TriangleSoup, origins, dirs, backend: str, skip=None,
+                clusters=None):
+    """Occlusion of the generic-origin shadow rays, (R, 3) origins and
+    dirs."""
+    center = _scene_center(soup)
+    if backend == "bruteforce":
+        w = mt.triangle_weights(soup, origin_shift=center)
+        return mt.any_hit_bruteforce(mt.ray_features(origins - center, dirs),
+                                     w)
+    return megakernel.any_hit(soup, center, origins, dirs, skip=skip,
+                              clusters=clusters)
+
+
+def _payload_cols(soup: TriangleSoup, config: RenderConfig):
+    """The per-triangle payload columns riding the winner gather, and
+    n_pay, the index of the first compat-vertex column in the returned
+    payload (the face normal's 3 columns come first): the nine
+    corner-normal columns [n0 | n1 | n2] for smooth shading, then with
+    ``reference_compat`` the winner's p0, e1, e2 for the compat hit
+    point."""
+    payload = []
+    if config.mode == "smooth":
+        if soup.corner_normals is None:
+            raise ValueError("smooth shading requires corner_normals")
+        cn = soup.corner_normals
+        payload += [cn[:, k, a] for k in range(3) for a in range(3)]
+    n_pay = len(payload) + 3
+    if config.reference_compat:
+        payload += [arr[:, a] for arr in (soup.p0, soup.e1, soup.e2)
+                    for a in range(3)]
+    return payload, n_pay
 
 
 def prepare_winner_table(soup: TriangleSoup, clusters,
@@ -84,7 +138,8 @@ def prepare_winner_table(soup: TriangleSoup, clusters,
     """Loop-invariant winner table for static-geometry frame loops; pass
     it to render_pipeline(..., table_cols=...)."""
     _check_config(config)
-    return megakernel.winner_table(soup, clusters, _payload_cols(soup))
+    return megakernel.winner_table(soup, clusters,
+                                   _payload_cols(soup, config)[0])
 
 
 def _hit_points(eye, dir_cols, hit, n):
@@ -99,10 +154,25 @@ def _hit_points(eye, dir_cols, hit, n):
                  + SELF_INTERSECT_OFFSET * n[a] * n_inv for a in range(3))
 
 
+def _compat_points(hit, pay, n_pay):
+    """The reference's hit point u*p0 + v*p1 + (1-u-v)*p2 from the
+    winner's gathered p0, e1, e2 (p1 = p0 - e1, p2 = e2 + p0), pushed off
+    the surface like ``_hit_points``. It does not lie on the ray."""
+    n = pay[0:3]
+    nsq = n[0] * n[0] + n[1] * n[1] + n[2] * n[2]
+    n_inv = torch.rsqrt(torch.where(hit.mask, nsq, 1.0))
+    w_bar = 1.0 - hit.u - hit.v
+    p0, e1, e2 = (pay[n_pay + 3 * k:n_pay + 3 * k + 3] for k in range(3))
+    return tuple(hit.u * p0[a] + hit.v * (p0[a] - e1[a])
+                 + w_bar * (e2[a] + p0[a])
+                 + SELF_INTERSECT_OFFSET * n[a] * n_inv for a in range(3))
+
+
 def render_wavefront_cols(soup: TriangleSoup, camera: Camera, sun_position,
                           dir_cols, config: RenderConfig, clusters=None,
                           table_cols=None):
-    """Column-form wavefront render -> (3-tuple of (R,) colours, stats).
+    """Column-form wavefront render on the cluster walk -> (3-tuple of
+    (R,) colours, stats).
 
     ``dir_cols`` is a 3-tuple of (R,) normalised primary directions from
     ``camera.eye``; ``clusters`` the prebuilt ClusterSet of ``soup`` (None:
@@ -111,38 +181,56 @@ def render_wavefront_cols(soup: TriangleSoup, camera: Camera, sun_position,
     _check_config(config)
     clusters = megakernel._treelet(soup, clusters)
     want_counts = config.traversal_stats
+    payload, n_pay = _payload_cols(soup, config)
     res = megakernel.closest_hit_common_origin(
-        soup, camera.eye, dir_cols, clusters=clusters,
-        payload=_payload_cols(soup),
+        soup, camera.eye, dir_cols, clusters=clusters, payload=payload,
         with_counts=want_counts, normal_cols=True, table_cols=table_cols)
     (hit, pay), counts1 = (res[:2], res[2]) if want_counts else (res, None)
     mask = hit.mask
-    point = _hit_points(camera.eye, dir_cols, hit, pay[0:3])
+    if config.reference_compat:
+        point = _compat_points(hit, pay, n_pay)
+    else:
+        point = _hit_points(camera.eye, dir_cols, hit, pay[0:3])
     sl = tuple(sun_position[a] - point[a] for a in range(3))
     sl_inv = torch.rsqrt(sl[0] * sl[0] + sl[1] * sl[1] + sl[2] * sl[2])
     sun_line = tuple(c * sl_inv for c in sl)
 
     counts2 = None
     if config.shadows:
-        res2 = megakernel.any_hit_to_point(
-            soup, sun_position, point, skip=~mask, clusters=clusters,
-            with_counts=want_counts)
+        if config.reference_compat:
+            # The reference's query: an unbounded ray from the hit point
+            # toward the sun, so occluders beyond the sun darken too.
+            res2 = megakernel.any_hit(
+                soup, _scene_center(soup), point, sun_line, skip=~mask,
+                clusters=clusters, with_counts=want_counts)
+        else:
+            res2 = megakernel.any_hit_to_point(
+                soup, sun_position, point, skip=~mask, clusters=clusters,
+                with_counts=want_counts)
         occluded, counts2 = res2 if want_counts else (res2, None)
     else:
         occluded = torch.zeros_like(mask)
 
-    shade = shading_mod.smooth_shading_cols(sun_line, pay[3:12], dir_cols,
-                                            hit.u, hit.v)
+    if config.mode == "smooth":
+        shade = shading_mod.smooth_shading_cols(
+            sun_line, pay[3:12], dir_cols, hit.u, hit.v,
+            reference_compat=config.reference_compat)
+    else:
+        shade = shading_mod.flat_shading_cols(pay[0:3], guard=mask)
+        if config.mode == "normal":   # no lighting, no shadows
+            occluded = torch.zeros_like(occluded)
     lit = mask & ~occluded
     color = tuple(torch.where(lit, s, 0.0) for s in shade)
-    stats = _wavefront_stats(mask, occluded, dir_cols[0].shape[0], config,
-                             counts1, counts2)
+    stats = _wavefront_stats(mask, occluded, dir_cols[0].shape[0], soup,
+                             config, counts1, counts2)
     return color, stats
 
 
-def _wavefront_stats(mask, occluded, R, config, counts1, counts2):
-    """rays/hits counts, and the measured traversal counters when
-    ``config.traversal_stats`` is set. Values are 0-dim int64 tensors."""
+def _wavefront_stats(mask, occluded, R, soup, config, counts1, counts2):
+    """rays/hits counts, and the traversal counters when
+    ``config.traversal_stats`` is set: measured by the walk (``counts1``,
+    ``counts2``), or for brute force no steps and R x T pair tests per
+    wavefront. Values are 0-dim int64 tensors."""
     primary_hits = mask.sum()
     shadow_hits = (mask & occluded).sum()
     stats = {
@@ -152,13 +240,77 @@ def _wavefront_stats(mask, occluded, R, config, counts1, counts2):
         "shadow_hits": shadow_hits,
     }
     if config.traversal_stats:
-        c2 = counts2 or {k: 0 for k in counts1}
-        stats["traversal_steps"] = (counts1["traversal_steps"]
-                                    + c2["traversal_steps"])
-        stats["intersections"] = counts1["mt_pairs"] + c2["mt_pairs"]
-        stats["mt_block_visits"] = (counts1["mt_block_visits"]
-                                    + c2["mt_block_visits"])
+        if counts1 is not None:
+            c2 = counts2 or {k: 0 for k in counts1}
+            stats["traversal_steps"] = (counts1["traversal_steps"]
+                                        + c2["traversal_steps"])
+            stats["intersections"] = counts1["mt_pairs"] + c2["mt_pairs"]
+            stats["mt_block_visits"] = (counts1["mt_block_visits"]
+                                        + c2["mt_block_visits"])
+        else:
+            zero = torch.zeros((), dtype=torch.int64, device=mask.device)
+            stats["traversal_steps"] = zero
+            stats["intersections"] = zero + (
+                R * soup.num_triangles * (2 if config.shadows else 1))
     return stats
+
+
+def render_wavefront(soup: TriangleSoup, camera: Camera, sun_position,
+                     dirs: torch.Tensor, config: RenderConfig, clusters=None,
+                     table_cols=None):
+    """Render a flat wavefront of (R, 3) primary directions -> ((R, 3)
+    colours, stats). The megakernel backend runs
+    :func:`render_wavefront_cols`; brute force keeps the dense (R, 3)
+    form: it is the oracle, not a performance path."""
+    _check_config(config)
+    if config.backend == "megakernel":
+        cols, stats = render_wavefront_cols(
+            soup, camera, sun_position, tuple(dirs.unbind(-1)), config,
+            clusters=clusters, table_cols=table_cols)
+        return torch.stack(cols, dim=-1), stats
+
+    hit = _closest_primary(soup, camera, dirs, config.backend)
+    mask = hit.mask
+    prim = torch.where(mask, hit.prim_id, 0).long()
+    u, v = hit.u, hit.v
+    if config.mode == "smooth":
+        if soup.corner_normals is None:
+            raise ValueError("smooth shading requires corner_normals")
+        rec = torch.cat([soup.n, soup.corner_normals.reshape(-1, 9)],
+                        dim=-1)[prim]
+        n, corners = rec[:, :3], rec[:, 3:].reshape(-1, 3, 3)
+    else:
+        n, corners = soup.n[prim], None
+    if config.reference_compat:
+        p0 = soup.p0[prim]
+        p1 = p0 - soup.e1[prim]
+        p2 = soup.e2[prim] + p0
+        point = (u[:, None] * p0 + v[:, None] * p1
+                 + (1.0 - u - v)[:, None] * p2)
+    else:
+        t_safe = torch.where(mask, hit.t, 0.0)
+        point = camera.eye + t_safe[:, None] * dirs
+    point = point + SELF_INTERSECT_OFFSET * _normalize(n)
+    sun_line = _normalize(sun_position[None, :] - point)
+
+    if config.shadows:
+        occluded = _any_shadow(soup, point, sun_line, config.backend,
+                               skip=~mask)
+    else:
+        occluded = torch.zeros_like(mask)
+    if config.mode == "smooth":
+        shade = shading_mod.smooth_shading(
+            sun_line, corners, dirs, u, v,
+            reference_compat=config.reference_compat)
+    else:
+        shade = shading_mod.flat_shading(n)
+        if config.mode == "normal":
+            occluded = torch.zeros_like(occluded)
+    lit = mask & ~occluded
+    color = torch.where(lit[:, None], shade, 0.0)
+    stats = _wavefront_stats(mask, occluded, dirs.shape[0], soup, config,
+                             None, None)
+    return color, stats
 
 
 def render_pipeline(vertices: torch.Tensor, faces: torch.Tensor,
@@ -174,6 +326,7 @@ def render_pipeline(vertices: torch.Tensor, faces: torch.Tensor,
     """
     if faces.shape[0] == 0:
         raise ValueError("scene has no triangles")
+    _check_config(config)
     if spheres is not None:
         raise NotImplementedError("spheres are not ported yet (ROADMAP "
                                   "item M12)")
@@ -181,7 +334,13 @@ def render_pipeline(vertices: torch.Tensor, faces: torch.Tensor,
         raise NotImplementedError(
             f"{vertices.dtype} vertices: only float32 is ported; float64 "
             "is ROADMAP item M14")
-    soup = triangle_soup(vertices, faces, with_normals=True)
+    soup = triangle_soup(vertices, faces,
+                         with_normals=config.mode == "smooth")
+    if config.backend == "bruteforce":
+        dirs = camera_rays(camera, config.width, config.height).reshape(-1, 3)
+        color, stats = render_wavefront(soup, camera, sun_position, dirs,
+                                        config)
+        return color.reshape(config.height, config.width, 3), stats
     planes = camera_ray_columns(camera, config.width, config.height)
     dir_cols = tuple(tiling.swizzle_plane(p) for p in planes)
     color, stats = render_wavefront_cols(

@@ -15,6 +15,7 @@ import torch
 from ceres_tpu_torch.accel.clusters import ClusterSet
 from ceres_tpu_torch.models.camera import Camera
 from ceres_tpu_torch.models.mesh import TriangleSoup
+from ceres_tpu_torch.models.transform import Transform
 
 
 def tensor(x, device=None) -> torch.Tensor:
@@ -46,3 +47,8 @@ def camera(src, device=None) -> Camera:
     """A ``Camera`` (eye, dir, up, fov), dtype kept."""
     return Camera(eye=tensor(src.eye, device), dir=tensor(src.dir, device),
                   up=tensor(src.up, device), fov=tensor(src.fov, device))
+
+
+def transform(src, device=None) -> Transform:
+    """A ``Transform`` (matrix ``a``, translation ``v``), dtype kept."""
+    return Transform(a=tensor(src.a, device), v=tensor(src.v, device))

@@ -36,14 +36,36 @@ its own line:
      executed visits;
   8. JAX reference, large scene: ``render()`` of the 4x bunny at 64 x 64
      (the treelet cut built on the card) against
-     ``tests/fixtures/torch_port_bunny_subdiv4_64.npz``.
+     ``tests/fixtures/torch_port_bunny_subdiv4_64.npz``;
+  9. kernel vs plain (the reference-exact path and the ray window), on
+     each path's full-size inputs: the generic shadow walk (K3) on the
+     bunny compat frame at 1080p (61 blocks, resident) and streamed on
+     dragon at 960 x 540 (268 blocks: past the 256-block budget of
+     generic weights), its two-level form (K7b) streamed and resident on
+     the 4x bunny at 1080p, and the windowed closest walk (K4) flat on
+     bunny 1080p and two-level streamed on the 4x bunny 1080p, with
+     per-ray windows a user asks for: the second surface behind each
+     first hit (depth peeling) and a near/far clip for the rest; the
+     4x bunny's windowed search runs as a path through
+     ``closest_hit_common_origin(tmin=, tmax=)``;
+ 10. reference-exact path: ``render_pipeline`` with
+     ``reference_compat=True`` on the bunny 1080p frame (SweepSAH cut,
+     winner table) and on the 4x bunny 1080p (treelet cut): exactly the
+     closest and generic shadow variants of each scene must launch; image
+     finite and not black; ms/frame median (min/max), rays/s, visits;
+ 11. C++ reference: the ``bunny_scene()`` and ``dragon_scene()`` presets
+     at 64 x 64, reference-exact, on both backends, against the PPMs the
+     C++ reference rendered (``tests/fixtures/*_ref.ppm``): >= 99.5% of
+     pixels within 2.5/255 and the rays/hits it printed, exactly; and the
+     windowed entry point on two parallel triangles.
 
 Each path runs with the launch counts set to 0 just before it and read
 just after. Any failed check exits non-zero. The line before last is the
-kernels' JSON record; the last line is the device record. Needs no
-network and no JAX.
+kernels' JSON record (every variant a path launches); the last line is
+the device record. Needs no network and no JAX.
 """
 
+import dataclasses
 import json
 import os
 import statistics
@@ -66,13 +88,27 @@ REPLACES = {"walk_closest": "ceres_tpu/ops/megakernel.py:776",
             "walk_closest_stream": "ceres_tpu/ops/megakernel.py:477",
             "walk_any_dest_stream": "ceres_tpu/ops/megakernel.py:477",
             "walk_closest_hier_stream": "ceres_tpu/ops/megakernel.py:723",
-            "walk_any_dest_hier_stream": "ceres_tpu/ops/megakernel.py:657"}
+            "walk_any_dest_hier_stream": "ceres_tpu/ops/megakernel.py:657",
+            "walk_any": "ceres_tpu/ops/megakernel.py:604",
+            "walk_any_stream": "ceres_tpu/ops/megakernel.py:477",
+            "walk_any_hier_stream": "ceres_tpu/ops/megakernel.py:657",
+            "walk_closest_window": "ceres_tpu/ops/megakernel.py:645",
+            "walk_closest_window_hier_stream":
+                "ceres_tpu/ops/megakernel.py:471"}
 W, H = 1920, 1080
 FRAMES = 10
 LARGE_FRAMES = 5
 # Each large scene's path and the variants it must launch.
 LARGE = {3: ("walk_closest_stream", "walk_any_dest_stream"),
          4: ("walk_closest_hier_stream", "walk_any_dest_hier_stream")}
+# The C++ reference's fixtures: (PPM, rays, hits) it printed.
+CPP = {"bunny": ("bunny_64_smooth_ref.ppm", 4645, 804),
+       "dragon": ("dragon_64_static_ref.ppm", 4415, 492)}
+# Modes of the walk: (wrapper, plain version) names in ops.walk.
+WALKS = {"closest": ("walk_closest", "_walk_closest_plain"),
+         "closest_window": ("walk_closest", "_walk_closest_plain"),
+         "any_dest": ("walk_any_dest", "_walk_any_dest_plain"),
+         "any": ("walk_any", "_walk_any_plain")}
 
 
 def fail(msg):
@@ -151,9 +187,42 @@ def walk_inputs(vt, ft, cam, cs, width, height):
     return closest, shadow
 
 
+def compat_inputs(vt, ft, cam, cs, width, height, windows=False):
+    """The reference-exact path's generic shadow-walk (args, opts): rays
+    from each compat hit point toward the sun, as ``render_wavefront_cols``
+    casts them. With ``windows``, also the windowed closest walk's inputs:
+    tmin a little past each ray's first hit (the second surface) and a
+    near/far clip of [0.1, 1.0] for the rays that missed."""
+    import ceres_tpu_torch as ct
+    from ceres_tpu_torch.models.camera import camera_ray_columns
+    from ceres_tpu_torch.ops import megakernel as mk
+    from ceres_tpu_torch.render import renderer
+    from ceres_tpu_torch.utils import tiling
+
+    soup = ct.triangle_soup(vt, ft, with_normals=True)
+    dirs = tuple(tiling.swizzle_plane(p)
+                 for p in camera_ray_columns(cam, width, height))
+    config = ct.RenderConfig(width=width, height=height, backend="megakernel",
+                             reference_compat=True)
+    payload, n_pay = renderer._payload_cols(soup, config)
+    hit, pay = mk.closest_hit_common_origin(soup, cam.eye, dirs, clusters=cs,
+                                            payload=payload, normal_cols=True)
+    point = renderer._compat_points(hit, pay, n_pay)
+    sun = torch.as_tensor(SUN, device=vt.device)
+    sl = tuple(sun[a] - point[a] for a in range(3))
+    inv = torch.rsqrt(sl[0] * sl[0] + sl[1] * sl[1] + sl[2] * sl[2])
+    generic = mk._any_inputs(cs, renderer._scene_center(soup), point,
+                             tuple(c * inv for c in sl), ~hit.mask)
+    if not windows:
+        return generic
+    tmin = torch.where(hit.mask, hit.t * 1.0001, 0.1)
+    tmax = torch.where(hit.mask, 1e30, 1.0)
+    return generic, (soup, dirs, tmin, tmax)
+
+
 def positives(mode, out, args):
     """Hits of a plain output, so that an empty comparison shows."""
-    if mode == "closest":
+    if mode.startswith("closest"):
         return int((out >= 0).sum())
     return int(((out == 1) & (args[4] == 0)).sum())
 
@@ -163,9 +232,7 @@ def compare(mode, args, opts, reps, plain_ref=None):
     (out, steps, ms) reuses a plain run of the same inputs."""
     from ceres_tpu_torch.ops import walk
 
-    kernel = walk.walk_closest if mode == "closest" else walk.walk_any_dest
-    plain = (walk._walk_closest_plain if mode == "closest"
-             else walk._walk_any_dest_plain)
+    kernel, plain = (getattr(walk, name) for name in WALKS[mode])
     if plain_ref is None:
         (out_p, steps_p), plain_ms = timed_once(lambda: plain(*args, **opts))
         plain_ref = (out_p, int(steps_p), plain_ms)
@@ -211,7 +278,7 @@ def frame_times(frame, n):
     return times, walls
 
 
-def render_path(vt, ft, cam, cs, sun, label, frames, card):
+def render_path(vt, ft, cam, cs, sun, label, frames, card, compat=False):
     """One path's run: launches and stats of one frame with the counts
     reset just before it, then the timed frames. Returns (launches,
     stats, median ms)."""
@@ -219,12 +286,12 @@ def render_path(vt, ft, cam, cs, sun, label, frames, card):
     from ceres_tpu_torch.ops import walk
     from ceres_tpu_torch.render.renderer import prepare_winner_table
 
-    config = ct.RenderConfig(width=W, height=H)
+    config = ct.RenderConfig(width=W, height=H, backend="megakernel",
+                             reference_compat=compat)
     table = prepare_winner_table(ct.triangle_soup(vt, ft), cs, config)
     walk.reset_launches()
     image, stats = ct.render_pipeline(
-        vt, ft, cam, sun, ct.RenderConfig(width=W, height=H,
-                                          traversal_stats=True),
+        vt, ft, cam, sun, dataclasses.replace(config, traversal_stats=True),
         clusters=cs, table_cols=table)
     torch.cuda.synchronize()
     launches = {k: n for k, n in walk.launches.items() if n}
@@ -242,7 +309,8 @@ def render_path(vt, ft, cam, cs, sun, label, frames, card):
 
     times, walls = frame_times(frame, frames)
     ms = statistics.median(times)
-    print(f"{label} {W}x{H} smooth+shadows; launches {launches}; rays "
+    mode = "reference-exact smooth+shadows" if compat else "smooth+shadows"
+    print(f"{label} {W}x{H} {mode}; launches {launches}; rays "
           f"{stats['rays']} hits {stats['hits']} primary_hits "
           f"{stats['primary_hits']} shadow_hits {stats['shadow_hits']} "
           f"executed visits {stats['traversal_steps']}; ms/frame median "
@@ -250,6 +318,21 @@ def render_path(vt, ft, cam, cs, sun, label, frames, card):
           f"median {statistics.median(walls):.3f}); rays/s "
           f"{stats['rays'] / (ms / 1e3):.4e} [{card}]", flush=True)
     return launches, stats, ms
+
+
+def merge(counts, more):
+    """Launch counts of two path runs, summed per variant."""
+    return {k: counts.get(k, 0) + more.get(k, 0) for k in {*counts, *more}}
+
+
+def read_ppm(path):
+    """A binary PPM as (H, W, 3) floats in [0, 1]."""
+    with open(path, "rb") as fh:
+        check(fh.readline().strip() == b"P6", f"{path}: not a P6 PPM")
+        w, h = map(int, fh.readline().split())
+        fh.readline()
+        data = np.frombuffer(fh.read(), np.uint8)
+    return data.reshape(h, w, 3).astype(np.float64) / 255.0
 
 
 def against_fixture(img, st, path, label):
@@ -330,7 +413,8 @@ def main():
     with np.load(FIXTURE) as ref:
         size = ref["image"].shape[0]
     img, st = ct.render_pipeline(vt, ft, cam, sun,
-                                 ct.RenderConfig(width=size, height=size),
+                                 ct.RenderConfig(width=size, height=size,
+                                                 backend="megakernel"),
                                  clusters=cs)
     against_fixture(img, st, FIXTURE,
                     f"phase 5 JAX reference: bunny {size}x{size}")
@@ -382,9 +466,135 @@ def main():
     with np.load(LARGE_FIXTURE) as ref:
         size = ref["image"].shape[0]
     img, st = ct.render(v, f, camera(v, EYE, "cpu"), SUN, width=size,
-                        height=size, device=dev, traversal_stats=True)
+                        height=size, device=dev, backend="megakernel",
+                        traversal_stats=True)
     against_fixture(img, st, LARGE_FIXTURE,
                     f"phase 8 JAX reference: bunny x4 {size}x{size}")
+
+    # Phase 9: the reference-exact path's kernels and the window.
+    from ceres_tpu_torch.ops import megakernel as mk
+
+    for name, w, h in (("bunny", W, H), ("dragon", 960, 540)):
+        vt, ft, cam, cs = scene(name, dev)
+        (args, opts) = compat_inputs(vt, ft, cam, cs, w, h)
+        check(opts["S"] == 1 and opts["stream"] == (name == "dragon"),
+              f"{name}: generic walk S {opts['S']} stream {opts['stream']}")
+        kname = walk._variant("any", 1, opts["stream"])
+        r, _ = compare("any", args, opts, reps=20 if name == "bunny" else 5)
+        report(9, kname, f"{name} {w}x{h} compat shadow rays "
+               f"({args[1].shape[0]} tiles, {cs.num_clusters} clusters)", r,
+               card)
+        results[kname] = r
+    vt, ft, cam, cs = scene("bunny", dev)
+    _, (soup, dirs, tmin, tmax) = compat_inputs(vt, ft, cam, cs, W, H,
+                                                windows=True)
+    args, opts = mk._closest_inputs(cs, cam.eye, dirs, tmin, tmax)
+    check(opts.get("window") and opts["S"] == 1 and not opts["stream"],
+          f"bunny window: {opts}")
+    r, _ = compare("closest_window", args, opts, reps=20)
+    report(9, "walk_closest_window", f"bunny {W}x{H} second surface / clip "
+           f"({args[1].shape[0]} tiles, {cs.num_clusters} clusters)", r, card)
+    results["walk_closest_window"] = r
+
+    vt, ft, cam, cs, _ = large[4]
+    generic, (soup, dirs, tmin, tmax) = compat_inputs(vt, ft, cam, cs, W, H,
+                                                      windows=True)
+    label = (f"bunny x4 {W}x{H} ({ft.shape[0]} triangles, {cs.num_clusters} "
+             f"blocks")
+    args, opts = generic
+    check(opts["S"] == 32 and opts["stream"], f"{label}: generic {opts}")
+    plain_ref = None
+    for stream in (True, False):
+        kname = walk._variant("any", opts["S"], stream)
+        r, plain_ref = compare("any", args, dict(opts, stream=stream), reps=5,
+                               plain_ref=plain_ref)
+        report(9, kname, f"{label}, compat shadow rays, S = {opts['S']})", r,
+               card)
+        if stream:
+            results[kname] = r
+    # The windowed entry point on the 4x bunny, as a path.
+    walk.reset_launches()
+    whit = mk.closest_hit_common_origin(soup, cam.eye, dirs, clusters=cs,
+                                        tmin=tmin, tmax=tmax)
+    torch.cuda.synchronize()
+    launches = {k: n for k, n in walk.launches.items() if n}
+    check(set(launches) == {"walk_closest_window_hier_stream"},
+          f"bunny x4 windowed search launched {launches}")
+    check(bool((whit.t[whit.mask] >= tmin[whit.mask] * (1 - 1e-6)).all()),
+          "bunny x4 windowed search: a hit before its tmin")
+    print(f"phase 9 windowed entry point, bunny x4 {W}x{H}: launches "
+          f"{launches}; second-surface hits {int(whit.mask.sum())}",
+          flush=True)
+    path_launches.update(launches)
+    args, opts = mk._closest_inputs(cs, cam.eye, dirs, tmin, tmax)
+    check(opts.get("window") and opts["S"] == 32 and opts["stream"],
+          f"{label}: window {opts}")
+    r, _ = compare("closest_window", args, opts, reps=5)
+    report(9, "walk_closest_window_hier_stream",
+           f"{label}, second surface / clip, S = {opts['S']})", r, card)
+    results["walk_closest_window_hier_stream"] = r
+
+    # Phase 10: the reference-exact path at full width.
+    vt, ft, cam, cs = scene("bunny", dev)
+    launches, _, _ = render_path(vt, ft, cam, cs, sun,
+                                 "phase 10 reference-exact bunny path:",
+                                 FRAMES, card, compat=True)
+    check(set(launches) == {"walk_closest", "walk_any"},
+          f"compat bunny path did not launch exactly K1 and K3: {launches}")
+    path_launches = merge(path_launches, launches)
+    vt, ft, cam, cs, build_ms = large[4]
+    launches, _, _ = render_path(
+        vt, ft, cam, cs, sun, f"phase 10 reference-exact bunny x4 path "
+        f"({ft.shape[0]} triangles, {cs.num_clusters} blocks, S "
+        f"{cs.super_S}):", LARGE_FRAMES, card, compat=True)
+    check(set(launches) == {"walk_closest_hier_stream",
+                            "walk_any_hier_stream"},
+          f"compat bunny x4 path did not launch exactly K6 and K7b "
+          f"(streamed): {launches}")
+    path_launches = merge(path_launches, launches)
+
+    # Phase 11: against the C++ reference's own renders.
+    from ceres_tpu_torch.render import scenes
+
+    walk.reset_launches()
+    for name in ("bunny", "dragon"):
+        sc = scenes.bunny_scene() if name == "bunny" else scenes.dragon_scene()
+        ppm, rays, hits = CPP[name]
+        ref = read_ppm(os.path.join(ROOT, "tests", "fixtures", ppm))
+        for backend in ("megakernel", "bruteforce"):
+            img, st = ct.render(sc.vertices, sc.faces, sc.camera, sc.sun,
+                                width=64, height=64, backend=backend,
+                                reference_compat=True, device=dev)
+            diff = np.abs(img.cpu().numpy() - ref).max(axis=-1)
+            within = float((diff <= 2.5 / 255.0).mean())
+            got = (int(st["rays"]), int(st["hits"]))
+            print(f"phase 11 C++ reference: {name} 64x64 {backend}: pixels "
+                  f"within 2.5/255 {within:.4%} (limit 99.5%); rays/hits "
+                  f"{got} (C++ {rays}/{hits})", flush=True)
+            check(within >= 0.995 and got == (rays, hits),
+                  f"{name} {backend} differs from the C++ reference")
+    soup = ct.triangle_soup(
+        torch.as_tensor([[-2, -2, 2], [2, -2, 2], [0, 2, 2], [-2, -2, 5],
+                         [2, -2, 5], [0, 2, 5]], dtype=torch.float32,
+                        device=dev),
+        torch.as_tensor([[0, 1, 2], [3, 4, 5]], device=dev),
+        with_normals=False)
+    eye = torch.zeros(3, device=dev)
+    d = torch.as_tensor([[0.0, 0.0, 1.0]], device=dev)
+    near = mk.closest_hit_common_origin(soup, eye, d, tmin=3.0)
+    gone = [mk.closest_hit_common_origin(soup, eye, d, **kw).mask[0]
+            for kw in ({"tmax": 1.0}, {"tmin": 3.0, "tmax": 4.0})]
+    ok = (bool(near.mask[0]) and int(near.prim_id[0]) == 1
+          and abs(float(near.t[0]) - 5.0) <= 5e-5 and not any(map(bool, gone)))
+    print(f"phase 11 window: two planes at t = 2 and 5, tmin 3 -> prim "
+          f"{int(near.prim_id[0])} t {float(near.t[0]):.6f}; tmax 1 and "
+          f"[3, 4] -> {[bool(g) for g in gone]}", flush=True)
+    check(ok, "the windowed entry point is wrong on two planes")
+    torch.cuda.synchronize()
+    path_launches = merge(path_launches,
+                          {k: n for k, n in walk.launches.items() if n})
+    missing = [k for k in REPLACES if not path_launches.get(k)]
+    check(not missing, f"no path launched {missing}")
 
     kernels = [{"name": k, "route": "cuda", "source": KERNEL_SOURCE,
                 "replaces": REPLACES[k], "launches": path_launches[k],

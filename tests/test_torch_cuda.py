@@ -8,11 +8,13 @@ Needs no JAX, so it runs where the card is:
 ``cuda`` tests skip. Kernel and plain version must agree exactly (slot
 ids, occlusion flags, executed visits): the kernels are built with
 ``--fmad=false`` and written in the plain versions' operation order.
-Inputs come from the port's own main path at small sizes: bunny (61
+Inputs come from the port's own paths at small sizes: bunny (61
 clusters), dragon (268 clusters: cluster-id masking past 256) and a
 random soup with rays in every direction. Every variant is held there:
-flat and two-level (forced by a threshold of 1 block, as the CPU tests
-force it), each with weights staged per visit and streamed.
+each mode (closest, closest with a per-ray window, the shadow segments
+from the sun, and the reference-exact generic shadow rays), flat and
+two-level (forced by a threshold of 1 block, as the CPU tests force it),
+each with weights staged per visit and streamed.
 """
 
 import os
@@ -63,14 +65,32 @@ def _inputs(name, dev):
                                             normal_cols=True)
     points = _hit_points(eye, dirs, hit, pay)
     sun = torch.as_tensor(SUN, device=dev)
+    sl = tuple(sun[a] - points[a] for a in range(3))
+    inv = torch.rsqrt(sl[0] * sl[0] + sl[1] * sl[1] + sl[2] * sl[2])
+    sun_line = tuple(c * inv for c in sl)
+    # Windows: the second surface behind each first hit (depth peeling),
+    # and a near/far clip for the rays that missed.
+    tmin = torch.where(hit.mask, hit.t * 1.0001, 0.05)
+    tmax = torch.where(hit.mask, 1e30, 8.0)
     out = {}
     for walk_form, threshold in (("flat", prepass._HIER_MIN_CLUSTERS),
                                  ("hier", 1)):
         with pytest.MonkeyPatch.context() as mp:
             mp.setattr(prepass, "_HIER_MIN_CLUSTERS", threshold)
-            out[walk_form] = (mk._closest_inputs(cs, eye, dirs),
-                              mk._any_dest_inputs(cs, sun, points, ~hit.mask))
+            out[walk_form] = {
+                "closest": mk._closest_inputs(cs, eye, dirs),
+                "closest_window": mk._closest_inputs(cs, eye, dirs, tmin,
+                                                     tmax),
+                "any_dest": mk._any_dest_inputs(cs, sun, points, ~hit.mask),
+                "any": mk._any_inputs(cs, soup.p0.mean(0), points, sun_line,
+                                      ~hit.mask)}
     return out
+
+
+KERNELS = {"closest": (walk.walk_closest, walk._walk_closest_plain),
+           "closest_window": (walk.walk_closest, walk._walk_closest_plain),
+           "any_dest": (walk.walk_any_dest, walk._walk_any_dest_plain),
+           "any": (walk.walk_any, walk._walk_any_plain)}
 
 
 @pytest.fixture(scope="module", params=["random", "bunny", "dragon"])
@@ -83,22 +103,21 @@ def card_inputs(request):
 @pytest.mark.cuda
 @pytest.mark.parametrize("stream", [False, True])
 @pytest.mark.parametrize("walk_form", ["flat", "hier"])
-@pytest.mark.parametrize("mode", ["closest", "any_dest"])
+@pytest.mark.parametrize("mode", list(KERNELS))
 def test_kernel_equals_plain(card_inputs, mode, walk_form, stream):
-    closest, shadow = card_inputs[walk_form]
-    args, opts = closest if mode == "closest" else shadow
+    args, opts = card_inputs[walk_form][mode]
     opts = dict(opts, stream=stream)
     assert (opts["S"] > 1) == (walk_form == "hier")
-    kernel = walk.walk_closest if mode == "closest" else walk.walk_any_dest
-    plain = (walk._walk_closest_plain if mode == "closest"
-             else walk._walk_any_dest_plain)
+    assert opts.get("window", False) == (mode == "closest_window")
+    kernel, plain = KERNELS[mode]
     name = walk._variant(mode, opts["S"], stream)
     before = dict(walk.launches)
     out_k, steps_k = kernel(*args, **opts)
     out_p, steps_p = plain(*args, **opts)
     torch.cuda.synchronize()
     assert walk.launches[name] == before[name] + 1
-    positive = out_p >= 0 if mode == "closest" else (out_p == 1) & (args[4] == 0)
+    positive = (out_p >= 0 if mode.startswith("closest")
+                else (out_p == 1) & (args[4] == 0))
     assert int(positive.sum()) > 0
     assert torch.equal(out_k, out_p)
     assert int(steps_k) == int(steps_p) > 0
@@ -106,7 +125,7 @@ def test_kernel_equals_plain(card_inputs, mode, walk_form, stream):
 
 @pytest.mark.cuda
 def test_kernel_rejects_mixed_devices(card_inputs):
-    (counts, keys, rays, w), _ = card_inputs["flat"][0]
+    (counts, keys, rays, w), _ = card_inputs["flat"]["closest"]
     with pytest.raises(ValueError, match="counts"):
         walk.walk_closest(counts.cpu(), keys, rays, w)
 
@@ -123,7 +142,8 @@ def test_render_on_card_matches_cpu():
     cam = ct.Camera.make(eye=eye, dir=verts.mean(axis=0) - eye, up=(0, 1, 0),
                          fov=60.0)
     out = {dev: ct.render(verts, faces, cam, SUN, width=96, height=64,
-                          device=dev) for dev in ("cpu", "cuda")}
+                          backend="megakernel", device=dev)
+           for dev in ("cpu", "cuda")}
     (img_c, st_c), (img_g, st_g) = out["cpu"], out["cuda"]
     assert img_g.device.type == "cuda"
     assert int(st_g["rays"]) == 96 * 64 + int(st_g["primary_hits"])
@@ -133,6 +153,29 @@ def test_render_on_card_matches_cpu():
         assert abs(int(st_g[k]) - int(st_c[k])) <= 0.001 * 96 * 64
     off = (img_g.cpu() - img_c).abs().amax(-1) > 1e-4
     assert off.float().mean() < 0.005
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["megakernel", "bruteforce"])
+def test_compat_render_on_card_matches_cpp(backend):
+    # The reference-exact path on the card (generic shadow walk, or the
+    # brute-force oracle's full-float32 products) against the rays/hits
+    # the C++ reference printed for its bunny fixture.
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the walk kernels have no CPU mode")
+    from ceres_tpu_torch.render import scenes
+
+    sc = scenes.bunny_scene()
+    prev = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("medium")   # TF32 allowed globally
+    try:
+        img, st = ct.render(sc.vertices, sc.faces, sc.camera, sc.sun,
+                            width=64, height=64, backend=backend,
+                            reference_compat=True, device="cuda")
+    finally:
+        torch.set_float32_matmul_precision(prev)
+    assert img.device.type == "cuda" and bool(torch.isfinite(img).all())
+    assert (int(st["rays"]), int(st["hits"])) == (4645, 804)
 
 
 def test_kernel_source_constants_match_python():
@@ -145,6 +188,7 @@ def test_kernel_source_constants_match_python():
     assert int(const("kC")) == walk.CLUSTER_SIZE
     assert int(const("kR")) == walk.TILE
     assert int(const("kPlanes")) == walk.WEIGHT_PLANES
+    assert int(const("kPlanesGeneric")) == walk.GENERIC_PLANES
     assert int(const("kPrunePad")) == walk._PRUNE_PAD
     assert int(const("kBigCleanI"), 16) == walk._BIG_CLEAN_I
     assert int(const("kBigI"), 16) == int(np.float32(walk._BIG).view(np.int32))

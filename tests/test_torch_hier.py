@@ -316,7 +316,8 @@ def test_render_default_structure_matches_jax(bunny):
                                  mode="smooth", backend="megakernel",
                                  traversal_stats=True)
     pimg, pst = ct.render(verts, faces, convert.camera(cam), SUN, width=64,
-                          height=64, traversal_stats=True)
+                          height=64, backend="megakernel",
+                          traversal_stats=True)
     jimg, pimg = np.asarray(jimg), pimg.numpy()
     off = np.abs(pimg - jimg).max(-1) > 1e-4
     assert off.mean() < 0.005

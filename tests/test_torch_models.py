@@ -141,3 +141,116 @@ def test_smooth_shading_cols():
         torch.as_tensor(v))
     for g, r in zip(got, ref):
         _close(g, r, SHADING_ATOL)
+
+
+def test_smooth_shading_cols_reference_compat():
+    rng = np.random.default_rng(5)
+    R = 1024
+    sun, view = _unit(rng, R), _unit(rng, R)
+    corners = np.concatenate([_unit(rng, R) for _ in range(3)])
+    u = rng.random(R, dtype=np.float32) * 0.5
+    v = rng.random(R, dtype=np.float32) * 0.5
+    args = []
+    for compat in (False, True):
+        ref = jshading.smooth_shading_cols(
+            tuple(jnp.asarray(c) for c in sun),
+            tuple(jnp.asarray(c) for c in corners),
+            tuple(jnp.asarray(c) for c in view), jnp.asarray(u),
+            jnp.asarray(v), reference_compat=compat)
+        got = pshading.smooth_shading_cols(
+            tuple(torch.as_tensor(c) for c in sun),
+            tuple(torch.as_tensor(c) for c in corners),
+            tuple(torch.as_tensor(c) for c in view), torch.as_tensor(u),
+            torch.as_tensor(v), reference_compat=compat)
+        for g, r in zip(got, ref):
+            _close(g, r, SHADING_ATOL)
+        args.append(got)
+    # The two weightings differ: the reference mis-pairs (u, v).
+    assert max(float((a - b).abs().max())
+               for a, b in zip(args[0], args[1])) > 1e-3
+
+
+@pytest.mark.parametrize("compat", [False, True])
+def test_dense_shading_forms(compat):
+    rng = np.random.default_rng(6)
+    R = 512
+    sun, view, n = (_unit(rng, R).T for _ in range(3))
+    corners = np.stack([_unit(rng, R).T for _ in range(3)], axis=1)
+    u = rng.random(R, dtype=np.float32) * 0.5
+    v = rng.random(R, dtype=np.float32) * 0.5
+    _close(pshading.lambertian(torch.as_tensor(sun), torch.as_tensor(n)),
+           jshading.lambertian(jnp.asarray(sun), jnp.asarray(n)))
+    _close(pshading.blinn_phong_spec(torch.as_tensor(sun), torch.as_tensor(n),
+                                     torch.as_tensor(view)),
+           jshading.blinn_phong_spec(jnp.asarray(sun), jnp.asarray(n),
+                                     jnp.asarray(view)), SHADING_ATOL)
+    _close(pshading.corner_shade(torch.as_tensor(sun), torch.as_tensor(n),
+                                 torch.as_tensor(view)),
+           jshading.corner_shade(jnp.asarray(sun), jnp.asarray(n),
+                                 jnp.asarray(view)), SHADING_ATOL)
+    _close(pshading.smooth_shading(
+        torch.as_tensor(sun), torch.as_tensor(corners), torch.as_tensor(view),
+        torch.as_tensor(u), torch.as_tensor(v), reference_compat=compat),
+        jshading.smooth_shading(
+            jnp.asarray(sun), jnp.asarray(corners), jnp.asarray(view),
+            jnp.asarray(u), jnp.asarray(v), reference_compat=compat),
+        SHADING_ATOL)
+    big = n * 3.0
+    _close(pshading.flat_shading(torch.as_tensor(big)),
+           jshading.flat_shading(jnp.asarray(big)))
+
+
+def test_flat_shading_cols_guard():
+    rng = np.random.default_rng(7)
+    n = rng.standard_normal((3, 300)).astype(np.float32)
+    n[:, :20] = 0.0                       # misses: zero normals
+    guard = np.ones(300, bool)
+    guard[:20] = False
+    got = pshading.flat_shading_cols(tuple(torch.as_tensor(c) for c in n),
+                                     guard=torch.as_tensor(guard))
+    ref = jshading.flat_shading_cols(tuple(jnp.asarray(c) for c in n),
+                                     guard=jnp.asarray(guard))
+    for g, r in zip(got, ref):
+        assert torch.isfinite(g).all()
+        _close(g, r, SHADING_ATOL)
+
+
+@pytest.mark.parametrize("cam", _cameras())
+def test_camera_rays(cam):
+    ref = jcam.camera_rays(jcam.Camera.make(**cam), 70, 45)
+    got = pcam.camera_rays(convert.camera(jcam.Camera.make(**cam)), 70, 45)
+    assert tuple(got.shape) == (45, 70, 3)
+    _close(got, ref)
+    rows = pcam.camera_rays_rows(convert.camera(jcam.Camera.make(**cam)), 70,
+                                 45, 10, 7)
+    _close(rows, jcam.camera_rays_rows(jcam.Camera.make(**cam), 70, 45, 10, 7))
+    np.testing.assert_array_equal(rows.numpy(), got[10:17].numpy())
+
+
+@pytest.mark.parametrize("axis, degrees", [(0, 90.0), (1, -145.0), (2, 33.0)])
+def test_rotate_vertices_about_axis(bunny, axis, degrees):
+    from ceres_tpu.models import transform as jtf
+    from ceres_tpu_torch.models import transform as ptf
+
+    verts = bunny[0]
+    ref = np.asarray(jtf.rotate_vertices_about_axis(verts, axis, degrees))
+    got = ptf.rotate_vertices_about_axis(verts, axis, degrees)
+    assert got.dtype == torch.float32
+    _close(got, ref, 2e-6 * np.abs(ref).max())
+
+
+def test_transform_composition():
+    from ceres_tpu.models import transform as jtf
+    from ceres_tpu_torch.models import transform as ptf
+
+    pts = np.random.default_rng(8).standard_normal((50, 3)).astype(np.float32)
+    ref = (jtf.Transform.identity().rotate((1.0, 2.0, 0.5), 0.7).scale(1.5)
+           .translate((0.1, -0.2, 3.0)).rotate((0.0, 0.0, 1.0), -1.1))
+    got = (ptf.Transform.identity().rotate((1.0, 2.0, 0.5), 0.7).scale(1.5)
+           .translate((0.1, -0.2, 3.0)).rotate((0.0, 0.0, 1.0), -1.1))
+    _close(got.a, ref.a)
+    _close(got.v, ref.v)
+    _close(ptf.transform_mesh_vertices(got, torch.as_tensor(pts)),
+           jtf.transform_mesh_vertices(ref, jnp.asarray(pts)), 1e-5)
+    conv = convert.transform(ref)
+    _close(conv(torch.as_tensor(pts)), ref(jnp.asarray(pts)), 1e-5)

@@ -70,7 +70,8 @@ def _jax_render(verts, faces, cam, cs, size):
 def _port_render(verts, faces, cam, cs, size):
     image, stats = ct.render_pipeline(
         torch.as_tensor(verts), torch.as_tensor(faces), convert.camera(cam),
-        torch.as_tensor(SUN), ct.RenderConfig(width=size, height=size),
+        torch.as_tensor(SUN),
+        ct.RenderConfig(width=size, height=size, backend="megakernel"),
         clusters=convert.cluster_set(cs))
     return image.numpy(), {k: int(v) for k, v in stats.items()}
 
@@ -115,16 +116,14 @@ def test_render_matches_jax(scene):
 def test_render_entry_point_builds_its_own_cut(bunny):
     verts, faces = bunny
     cam = _bench_camera(verts)
-    image, stats = ct.render(verts, faces, cam, SUN, width=32, height=32)
+    image, stats = ct.render(verts, faces, cam, SUN, width=32, height=32,
+                             backend="megakernel")
     assert image.shape == (32, 32, 3) and torch.isfinite(image).all()
     assert int(stats["rays"]) == 32 * 32 + int(stats["primary_hits"])
     assert int(stats["primary_hits"]) > 0
 
 
 @pytest.mark.parametrize("kwargs, item", [
-    ({"backend": "bruteforce"}, "M8"),
-    ({"reference_compat": True}, "M8"),
-    ({"mode": "flat"}, "M8"),
     ({"f64_exact": True}, "M14"),
 ])
 def test_unported_options_name_their_roadmap_item(bunny, kwargs, item):
@@ -178,7 +177,9 @@ def test_port_matches_fixture(scene):
 def test_port_imports_without_jax():
     code = ("import sys; sys.modules['jax'] = None\n"
             "import ceres_tpu_torch, ceres_tpu_torch.render.renderer, "
-            "ceres_tpu_torch.ops._build, ceres_tpu_torch.utils.convert\n"
+            "ceres_tpu_torch.render.scenes, ceres_tpu_torch.ops._build, "
+            "ceres_tpu_torch.ops.intersect, ceres_tpu_torch.ops.walk, "
+            "ceres_tpu_torch.models.transform, ceres_tpu_torch.utils.convert\n"
             "assert not any(m == 'jax' or m.startswith(('jax.', 'ceres_tpu.'))"
             " for m in sys.modules if sys.modules[m] is not None)\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
