@@ -30,7 +30,8 @@
 // _walk_any_plain).
 //
 // What one block computes. One block per tile of kR = 512 rays, one ray per
-// thread. The tile's candidates arrive as one sorted int32 key row
+// thread (the flat walk; the two-level walk spreads a tile over a cluster
+// of blocks, below). The tile's candidates arrive as one sorted int32 key row
 // (entry-bound f32 bits with the low cid bits cleared | candidate id). The
 // block walks the row front to back while
 //     k < count  &&  (key_k & ~cmask) <= prune,
@@ -50,45 +51,77 @@
 // the two-level gate (member_entry) already subtracts it.
 //
 // Flat walk: a candidate is one cluster. Two-level walk: a candidate is a
-// super of up to S <= 32 consecutive clusters (first[sid] + s). Lanes
-// 0..S-1 of warp 0 slab-test the tile's ray hull (hull row) against the S
-// member boxes (bbox) into S entry bounds in shared memory; then every
-// thread repeatedly takes the live member with the smallest entry (ties to
-// the lowest slot), visits it while that entry is <= the live prune, and
-// refreshes the prune after every member visit. Executed member visits are
-// the traversal statistic.
+// super of up to S <= 32 consecutive clusters (first[sid] + s). Lane s of
+// every warp slab-tests the tile's ray hull (hull row) against member box s
+// (bbox) into its entry bound; the warp then repeatedly takes the live
+// member with the smallest entry (ties to the lowest slot: a warp min and a
+// ballot), visits it while that entry is <= the live prune, and refreshes
+// the prune after every member visit. Executed member visits are the
+// traversal statistic.
+//
+// The two-level walk runs one tile on a thread-block cluster of kK CTAs
+// (Hopper clusters, each CTA on its own SM). CTA c holds 512 / kK of the
+// tile's rays, each on kK neighbouring threads of a warp, and every block
+// visit's 128 triangles: thread g of a ray takes lanes j = i kK + g, and
+// the ray's threads combine their key minima (or occlusion flags) with
+// xor shuffles. A key keeps its lane in its low bits, so the combined min
+// is the whole block's key min exactly (ties to the lower lane) and the
+// strict < on the best key keeps the earlier visit. So the state of a ray
+// lives in one CTA, and all a visit exchanges across the cluster is each
+// CTA's part of the tile prune: one int, sent with st.async into every
+// other CTA's shared memory (distributed shared memory), which counts the
+// bytes on an mbarrier of the receiving CTA. Every CTA takes the max of the
+// kK parts, so all compute the same prune and take the same trip count. No
+// cluster barrier and no memory fence per visit (a cluster barrier costs a
+// GPU-wide fence and an L1 invalidation each time): two part buffers
+// alternate, and a CTA sends visit n + 1's part only after it has read
+// visit n's, so buffer reuse needs no handshake of its own. Between
+// sending and waiting each CTA visits the next member in entry order (the
+// prune can only fall, so that visit is speculative and dropped if the
+// prune falls below its entry) and prefetches the one after it, so the
+// exchange overlaps the next visit's arithmetic. kK is a constant, from
+// the card's times of K6 and K7a on the 4x bunny (PERF.md, with the
+// designs that measured slower there: CTAs that split each block's lanes
+// and exchange every ray's key per visit, faster on the closest walk and
+// slower on the shadow walk; a ray's threads in separate warps).
 //
 // Streamed weights. The TPU kernel fetched each visit's block by DMA from
-// HBM into VMEM and prefetched visit k + 1 during visit k. Here the block
-// goes into one of two shared-memory buffers as 16-byte cp.async copies
-// (320 for 10 planes, 512 for 16: one per thread at most), the next visit's
-// block is copied into the other buffer while the current one is walked,
-// and cp.async.wait_group orders the two. In the flat walk "the next visit"
-// is candidate k + 1; in the two-level walk it is the next live member in
-// priority order, fetched speculatively when its entry is within the
+// HBM into VMEM and prefetched visit k + 1 during visit k. Here the flat
+// walk's block goes into one of two shared-memory buffers as 16-byte
+// cp.async copies (320 for 10 planes, 512 for 16: one per thread at most),
+// the next visit's block is copied into the other buffer while the current
+// one is walked, and cp.async.wait_group orders the two. "The next visit"
+// is candidate k + 1 there; in the two-level walk it is the member after
+// the next live one in priority order (4-byte copies, which lay the block
+// out as records), fetched speculatively when its entry is within the
 // current prune (the prune only falls). A copy still in flight at an early
 // exit is drained. The resident variants stage each block synchronously, as
 // the bunny kernels always did. Both forms give the same outputs.
 //
-// What bounds it on an H100. Each member visit is 512 x 128 ray-triangle
-// pairs at about 25 fp32 operations each (about 43 for generic rays), on the
-// CUDA cores, plus a block-wide barrier: ~18 us for one block. One block
-// walks one tile, so on big scenes the kernel takes as long as its slowest
-// tile (at 1.27M triangles one tile runs 3,120 member visits). Weights are 5
-// KB (8 KB generic) per visit per block; a 1.27M-triangle scene holds 100
-// MB of them (160 MB generic), more than the 50 MB L2. Streaming hides their
-// fetch behind the previous visit, and measured no faster than staging: the
-// fetch is small against the arithmetic. Tensor cores are no use here: the
-// search needs full fp32.
+// What bounds it on an H100. Each visit is 512 x 128 ray-triangle pairs at
+// 26-30 fp32 operations each (44 for generic rays), on the CUDA cores: the
+// work is compute-bound (weights are 5 KB, 8 KB generic, per visit). One
+// tile's walk is one sequence under one tile-wide prune, and visits per
+// tile are heavy-tailed: at 1.27M triangles one tile runs 3,120 member
+// visits, at ~18 us each for one 512-thread block, so with one block per
+// tile that tile alone was the whole kernel while the other SMs idled.
+// Tensor cores are no use here: the search needs full fp32.
 //
-// What the design does about it. One thread per ray keeps each visit free
-// of cross-thread reductions except the block max for the prune (warp
-// shuffles plus 16 shared-memory slots). Shared-memory weight reads are
+// What the design does about it. One thread per ray keeps each flat visit
+// free of cross-thread reductions except the block max for the prune (a
+// warp redux plus 16 shared-memory slots). Shared-memory weight reads are
 // warp broadcasts (all threads read the same triangle). The shadow kernels
-// skip rays already occluded and leave a ray at its first occluder. A
-// super's member entries are one warp's work, once per super visit.
-// Splitting a heavy tile over several blocks, several rays per thread and
-// FMA contraction are later work.
+// skip rays already occluded and leave a ray at its first occluder. The
+// two-level walk spreads each tile over a cluster of kK SMs (above) with
+// kK threads a ray, so a warp idles once its 32 / kK rays are occluded,
+// stages each block triangle-major so a pair reads 3 float4 (4 generic)
+// instead of 10 (16) scalars, runs a thread's sign tests in chunks with no
+// branch per pair (a hit mask first, then t and the key only for the few
+// hits), takes the next member with a warp min instead of a scan, reads
+// each super's key, first member and boxes a candidate ahead, and
+// synchronises a member visit with one block barrier and one mbarrier wait
+// (hidden behind the next visit). FMA contraction and several rays per
+// thread are later work.
 //
 // Exactness. Built with --fmad=false and written in the plain version's
 // operation order, so kernel and plain version agree bit for bit on the
@@ -101,7 +134,10 @@
 // sign of a zero exactly as the plain version and the JAX package do.
 
 #include <climits>
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -109,6 +145,10 @@ constexpr int kC = 128;            // triangles per cluster (CLUSTER_SIZE)
 constexpr int kIdxMask = kC - 1;   // lane bits of a winner key
 constexpr int kR = 512;            // rays per tile (TILE) = threads per block
 constexpr int kWarps = kR / 32;
+constexpr int kK = 8;              // two-level walk: CTAs a tile, threads a ray
+constexpr int kL = kC / kK;        // and triangles of a block a thread
+// A portable cluster size; 1 (no split) serves as a control in sweeps.
+static_assert(kK == 1 || kK == 2 || kK == 4 || kK == 8, "cluster size");
 constexpr int kPlanes = 10;        // common-origin planes: cu.xyz, cv.xyz, n.xyz, tn
 constexpr int kPlanesGeneric = 16; // generic planes: those 10, e2.xyz, e1.xyz
 constexpr int kSuperMax = 32;      // _SUPER_MAX: member slots in one uint32
@@ -218,46 +258,143 @@ __device__ __forceinline__ void wait_async() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
-// Möller-Trumbore terms of this ray against triangle j of the staged block
-// sw, in the plain version's order: det and t numerators, the sign s of
-// det, and uvw = min(u, v, det - u - v) * s, the barycentric sign test.
-template <int M>
-__device__ __forceinline__ void numerators(const float* sw, int j,
-                                           const Ray<M>& r, float& nd,
-                                           float& nt, float& s, float& uvw) {
-  float nu = r.dx * sw[0 * kC + j] + r.dy * sw[1 * kC + j] + r.dz * sw[2 * kC + j];
-  float nv = r.dx * sw[3 * kC + j] + r.dy * sw[4 * kC + j] + r.dz * sw[5 * kC + j];
-  nd = r.dx * sw[6 * kC + j] + r.dy * sw[7 * kC + j] + r.dz * sw[8 * kC + j];
-  nt = sw[9 * kC + j];
-  if (M == kAny) {
-    nu = nu - (r.cx * sw[10 * kC + j] + r.cy * sw[11 * kC + j] + r.cz * sw[12 * kC + j]);
-    nv = nv - (r.cx * sw[13 * kC + j] + r.cy * sw[14 * kC + j] + r.cz * sw[15 * kC + j]);
-    nt = nt - (r.ox * sw[6 * kC + j] + r.oy * sw[7 * kC + j] + r.oz * sw[8 * kC + j]);
-  }
+// The sign s of det and uvw = min(u, v, det - u - v) * s, the barycentric
+// sign test, from the u, v and det numerators.
+__device__ __forceinline__ void sign_test(float nu, float nv, float nd,
+                                          float& s, float& uvw) {
   s = nd >= 0.f ? 1.f : -1.f;
   uvw = fminf(fminf(nu * s, nv * s), (nd - nu - nv) * s);
 }
 
-// Closest-hit visit of one cluster (weights sw, packed id base cid * kC):
-// update this ray's best t key and winner slot. With the window, a pair
-// with t outside [tmin, tmax] is a miss.
+// A flat walk's staged block, plane-major as stored: plane q of triangle j
+// at p[q * kC + j].
 template <int M>
-__device__ __forceinline__ void visit_closest(const float* sw, int cid,
-                                              const Ray<M>& r, int& best,
-                                              int& pid) {
+struct Planes {
+  const float* sw;
+
+  // Möller-Trumbore terms of ray r against triangle j, in the plain
+  // version's order: det and t numerators, s and uvw (sign_test).
+  __device__ __forceinline__ void terms(int j, const Ray<M>& r, float& nd,
+                                        float& nt, float& s,
+                                        float& uvw) const {
+    float nu = r.dx * sw[0 * kC + j] + r.dy * sw[1 * kC + j] + r.dz * sw[2 * kC + j];
+    float nv = r.dx * sw[3 * kC + j] + r.dy * sw[4 * kC + j] + r.dz * sw[5 * kC + j];
+    nd = r.dx * sw[6 * kC + j] + r.dy * sw[7 * kC + j] + r.dz * sw[8 * kC + j];
+    nt = sw[9 * kC + j];
+    if (M == kAny) {
+      nu = nu - (r.cx * sw[10 * kC + j] + r.cy * sw[11 * kC + j] + r.cz * sw[12 * kC + j]);
+      nv = nv - (r.cx * sw[13 * kC + j] + r.cy * sw[14 * kC + j] + r.cz * sw[15 * kC + j]);
+      nt = nt - (r.ox * sw[6 * kC + j] + r.oy * sw[7 * kC + j] + r.oz * sw[8 * kC + j]);
+    }
+    sign_test(nu, nv, nd, s, uvw);
+  }
+};
+
+// A two-level walk's staged block, triangle-major: one record of
+// rec_floats(M) floats per triangle, read as float4s
+//   [cu.xyz, tn] [cv.xyz, e2.x] [n.xyz, e2.y] ([e1.xyz, e2.z] generic),
+// so a pair takes 3 (generic 4) shared-memory loads instead of 10 (16).
+// The threads of a warp read kK neighbouring records at once; at 12 floats
+// (generic: 16 and 4 of padding) those fall in distinct banks.
+__host__ __device__ constexpr int rec_floats(int m) {
+  return m == kAny ? 20 : 12;
+}
+// Where plane q (walk.py's plane order) sits in a record, and all 16 as
+// 4-bit fields of one constant (a shift and a mask at run time).
+__host__ __device__ constexpr int rec_slot(int q) {
+  return q < 3 ? q : q < 6 ? q + 1 : q < 9 ? q + 2 : q == 9 ? 3
+         : q == 10 ? 7 : q == 11 ? 11 : q == 12 ? 15 : q - 1;
+}
+__host__ __device__ constexpr unsigned long long rec_slots() {
+  unsigned long long t = 0;
+  for (int q = 0; q < kPlanesGeneric; ++q) {
+    t |= static_cast<unsigned long long>(rec_slot(q)) << (4 * q);
+  }
+  return t;
+}
+
+template <int M>
+struct Records {
+  const float* p;
+
+  __device__ __forceinline__ void terms(int j, const Ray<M>& r, float& nd,
+                                        float& nt, float& s,
+                                        float& uvw) const {
+    const float4* q = reinterpret_cast<const float4*>(p) + j * (rec_floats(M) / 4);
+    const float4 a = q[0], b = q[1], c = q[2];
+    float nu = r.dx * a.x + r.dy * a.y + r.dz * a.z;
+    float nv = r.dx * b.x + r.dy * b.y + r.dz * b.z;
+    nd = r.dx * c.x + r.dy * c.y + r.dz * c.z;
+    nt = a.w;
+    if (M == kAny) {
+      const float4 e = q[3];
+      nu = nu - (r.cx * b.w + r.cy * c.w + r.cz * e.w);
+      nv = nv - (r.cx * e.x + r.cy * e.y + r.cz * e.z);
+      nt = nt - (r.ox * c.x + r.oy * c.y + r.oz * c.z);
+    }
+    sign_test(nu, nv, nd, s, uvw);
+  }
+
+  // Only the det and t numerators of terms, bit for bit the same.
+  __device__ __forceinline__ void t_terms(int j, const Ray<M>& r, float& nd,
+                                          float& nt) const {
+    const float4* q = reinterpret_cast<const float4*>(p) + j * (rec_floats(M) / 4);
+    const float4 a = q[0], c = q[2];
+    nd = r.dx * c.x + r.dy * c.y + r.dz * c.z;
+    nt = a.w;
+    if (M == kAny) nt = nt - (r.ox * c.x + r.oy * c.y + r.oz * c.z);
+  }
+};
+
+// Whether a pair is a hit in front of the origin (closest modes, kAny):
+// inside the triangle, t >= 0, det != 0.
+__device__ __forceinline__ bool front_hit(float nd, float nt, float s,
+                                          float uvw) {
+  return fminf(uvw, nt * s) >= 0.f && nd != 0.f;
+}
+
+// Whether a pair occludes: kAnyDest, between the sun (t = 0) and the
+// receiving point (t = 1), short of the point by _DEST_EPS; kAny, at
+// t >= 0, however far.
+template <int M>
+__device__ __forceinline__ bool occludes(float nd, float nt, float s,
+                                         float uvw) {
+  if (M == kAny) return front_hit(nd, nt, s, uvw);
+  const bool win = ((nt - kDestScale * nd) * s <= 0.f) && (nt * s >= 0.f);
+  return uvw >= 0.f && nd != 0.f && win;
+}
+
+// The winner key of a front hit of triangle lane j: (t bits with the lane
+// bits cleared) | j, t = nt * rcp(nd). False if the window rejects t (a
+// t outside [tmin, tmax] is a miss).
+template <int M>
+__device__ __forceinline__ bool hit_key(float nd, float nt, int j,
+                                        const Ray<M>& r, int& key) {
+  const float t = nt * __frcp_rn(nd);
+  key = (__float_as_int(t) & ~kIdxMask) | j;
+  return M != kClosestWindow || (t >= r.tmin && t <= r.tmax);
+}
+
+// The smallest winner key of ray r over the kC triangles of a flat
+// visit: hit_key, or kBigCleanI | lane for a miss.
+template <int M>
+__device__ __forceinline__ int min_key(const Planes<M>& blk,
+                                       const Ray<M>& r) {
   int kmin = INT_MAX;
   for (int j = 0; j < kC; ++j) {
     float nd, nt, s, uvw;
-    numerators<M>(sw, j, r, nd, nt, s, uvw);
-    int key = kBigCleanI | j;
-    if (fminf(uvw, nt * s) >= 0.f && nd != 0.f) {
-      const float t = nt * __frcp_rn(nd);
-      if (M != kClosestWindow || (t >= r.tmin && t <= r.tmax)) {
-        key = (__float_as_int(t) & ~kIdxMask) | j;
-      }
-    }
+    blk.terms(j, r, nd, nt, s, uvw);
+    int key = kBigCleanI | j, h;
+    if (front_hit(nd, nt, s, uvw) && hit_key<M>(nd, nt, j, r, h)) key = h;
     kmin = min(kmin, key);
   }
+  return kmin;
+}
+
+// Take the key min of a visit of block cid: a strictly smaller t key
+// updates this ray's best key and winner slot.
+__device__ __forceinline__ void take_key(int kmin, int cid, int& best,
+                                         int& pid) {
   const int t_new = kmin & ~kIdxMask;
   if (t_new < best) {
     best = t_new;
@@ -265,39 +402,29 @@ __device__ __forceinline__ void visit_closest(const float* sw, int cid,
   }
 }
 
-// Shadow visit of one cluster. kAnyDest: set occ if a triangle lies between
-// the sun (t = 0) and the receiving point (t = 1), short of the point by
-// _DEST_EPS. kAny: set occ if a triangle lies at t >= 0, however far.
-// Occluded rays skip the loop; the loop stops at the first occluder.
+// Whether a triangle of a flat visit occludes ray r (occludes). Stops at
+// the first occluder.
 template <int M>
-__device__ __forceinline__ void visit_occlusion(const float* sw,
-                                                const Ray<M>& r, int& occ) {
-  if (occ != 0) return;
+__device__ __forceinline__ int occluded(const Planes<M>& blk,
+                                        const Ray<M>& r) {
   for (int j = 0; j < kC; ++j) {
     float nd, nt, s, uvw;
-    numerators<M>(sw, j, r, nd, nt, s, uvw);
-    bool ok;
-    if (M == kAny) {
-      ok = fminf(uvw, nt * s) >= 0.f && nd != 0.f;
-    } else {
-      const bool win = ((nt - kDestScale * nd) * s <= 0.f) && (nt * s >= 0.f);
-      ok = uvw >= 0.f && nd != 0.f && win;
-    }
-    if (ok) {
-      occ = 1;
-      return;
-    }
+    blk.terms(j, r, nd, nt, s, uvw);
+    if (occludes<M>(nd, nt, s, uvw)) return 1;
   }
+  return 0;
 }
 
+// A flat visit of cluster cid (weights sw): closest modes update best and
+// pid; occlusion modes set occ (occluded rays skip the loop).
 template <int M>
 __device__ __forceinline__ void visit(const float* sw, int cid,
                                       const Ray<M>& r, int& best, int& pid,
                                       int& occ) {
   if (occlusion(M)) {
-    visit_occlusion<M>(sw, r, occ);
+    if (occ == 0) occ = occluded<M>(Planes<M>{sw}, r);
   } else {
-    visit_closest<M>(sw, cid, r, best, pid);
+    take_key(min_key<M>(Planes<M>{sw}, r), cid, best, pid);
   }
 }
 
@@ -360,15 +487,37 @@ walk_flat(const int* __restrict__ counts, const int* __restrict__ keys,
   if (threadIdx.x == 0) visits[tile] = k;
 }
 
-// Entry bound (int bits) of the tile hull against member slot s of one
-// super's boxes bb (kBoxRows x S): the _interval_entry slab test, the box
-// widened by the tile's origin hull (zero for common-origin wavefronts).
-__device__ __forceinline__ int member_entry(const float* hl, const float* bb,
-                                            int s, int S) {
+// One super candidate of a tile's key row, read a candidate ahead: its key,
+// its first member and, in lane s of each warp, member s's box (bbox rows
+// lo.xyz, hi.xyz, empty).
+struct Head {
+  int key, fs;
+  float box[kBoxRows - 1];
+};
+
+__device__ __forceinline__ void load_head(Head& h, const int* krow, int k,
+                                          const float* bbox,
+                                          const int* first, int cmask,
+                                          int S) {
+  const int lane = threadIdx.x & 31;
+  h.key = krow[k];
+  const int sid = h.key & cmask;
+  h.fs = first[sid];
+  const float* bb = bbox + (size_t)sid * kBoxRows * S + lane;
+#pragma unroll
+  for (int a = 0; a < kBoxRows - 1; ++a) h.box[a] = lane < S ? bb[a * S] : 0.f;
+}
+
+// Entry bound (int bits) of the tile hull against one member box (Head):
+// the _interval_entry slab test, the box widened by the tile's origin hull
+// (zero for common-origin wavefronts).
+__device__ __forceinline__ int member_entry(const float* hl,
+                                            const float* box) {
   float tn = 0.f, tf = 0.f;
+#pragma unroll
   for (int a = 0; a < 3; ++a) {
-    const float la = bb[a * S + s] - hl[12 + a];        // lo - origin hull hi
-    const float ha = bb[(3 + a) * S + s] - hl[9 + a];   // hi - origin hull lo
+    const float la = box[a] - hl[12 + a];        // lo - origin hull hi
+    const float ha = box[3 + a] - hl[9 + a];     // hi - origin hull lo
     const float c0 = la * hl[a];
     const float c1 = la * hl[3 + a];
     const float c2 = ha * hl[a];
@@ -384,105 +533,291 @@ __device__ __forceinline__ int member_entry(const float* hl, const float* bb,
   }
   tn = xmax(tn, 0.f);
   const bool ok = (tn * kPadLo <= xmin(tf, __int_as_float(kBigI)) * kPadHi)
-                  && bb[6 * S + s] == 0.f;
+                  && box[6] == 0.f;
   return ok ? __float_as_int(tn) : kBigI;
 }
 
-// The live slot (bit set in rem) with the smallest entry, ties to the lowest
-// slot; *m gets that entry, INT_MAX if no slot is live.
-__device__ __forceinline__ int next_member(const int* sent, unsigned rem,
-                                           int S, int* m) {
-  int best = INT_MAX, slot = 0;
-  for (int j = 0; j < S; ++j) {
-    if (((rem >> j) & 1u) && sent[j] < best) {
-      best = sent[j];
-      slot = j;
+// The live member (bit set in rem; lane s of the warp holds member s's
+// entry ent) with the smallest entry, ties to the lowest slot, returned to
+// every lane of the warp; *m gets that entry, INT_MAX if none is live.
+__device__ __forceinline__ int next_member(int ent, unsigned rem, int* m) {
+  const int lane = threadIdx.x & 31;
+  const bool live = (rem >> lane) & 1u;
+  const int v = live ? ent : INT_MAX;
+  *m = __reduce_min_sync(0xffffffffu, v);
+  const unsigned at = __ballot_sync(0xffffffffu, live && v == *m);
+  return at ? __ffs(at) - 1 : 0;
+}
+
+// Max over the CTA of this thread's part of the prune (the ray's min(best,
+// root exit), or its root exit while unoccluded), returned to every thread:
+// a warp redux, the 16 warps' maxima through sred (a buffer the previous
+// call did not use: one barrier a call) and a second redux.
+template <int M>
+__device__ __forceinline__ int block_part(int best, int occ, int tcap,
+                                          int* sred) {
+  int v = occlusion(M) ? (occ > 0 ? kNegI : tcap) : min(best, tcap);
+  v = __reduce_max_sync(0xffffffffu, v);
+  if ((threadIdx.x & 31) == 0) sred[threadIdx.x >> 5] = v;
+  __syncthreads();
+  return __reduce_max_sync(0xffffffffu, sred[threadIdx.x & (kWarps - 1)]);
+}
+
+// Copy block blk (planes x kC, plane-major) into dst as triangle records
+// (Records). Streamed: 4-byte cp.async copies and one committed group per
+// thread; else plain copies.
+template <int M, bool kAsync>
+__device__ __forceinline__ void stage_block(float* dst, const float* w,
+                                            int blk) {
+  constexpr int kN = planes_of(M) * kC;
+  const float* src = w + (size_t)blk * kN;
+#pragma unroll
+  for (int base = 0; base < kN; base += kR) {
+    const int i = base + threadIdx.x;
+    if (kN % kR != 0 && i >= kN) break;
+    const int q = i / kC, j = i % kC;
+    float* d = dst + j * rec_floats(M) + ((rec_slots() >> (4 * q)) & 15);
+    if (kAsync) {
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+                   :: "r"(static_cast<unsigned>(__cvta_generic_to_shared(d))),
+                      "l"(src + i) : "memory");
+    } else {
+      *d = src[i];
     }
   }
-  *m = best;
-  return slot;
+  if (kAsync) asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// A thread's lanes go in chunks of up to 32 without a branch per pair: the
+// sign tests of a chunk first, into a mask, then only the hits.
+constexpr int kChunk = kL < 32 ? kL : 32;
+
+// One member visit (weights sw) for ray r, whose kK threads take lanes
+// j = i kK + g, i < kL (g = this thread's place among them): the smallest
+// hit_key over the block, INT_MAX if none (a miss never updates best, so
+// its key need not be kept), or the occlusion flag (0 for a ray already
+// occluded: the flags are OR-ed into occ). The kK threads of a ray are
+// neighbours in their warp and combine their parts with xor shuffles, so
+// all of them return the ray's result.
+template <int M>
+__device__ __forceinline__ int visit_result(const float* sw, int occ,
+                                            const Ray<M>& r, int g) {
+  const Records<M> blk{sw};
+  int v = occlusion(M) ? 0 : INT_MAX;
+  if (!(occlusion(M) && occ != 0)) {
+#pragma unroll
+    for (int base = 0; base < kL; base += kChunk) {
+      unsigned hits = 0;
+#pragma unroll
+      for (int i = 0; i < kChunk; ++i) {
+        float nd, nt, s, uvw;
+        blk.terms((base + i) * kK + g, r, nd, nt, s, uvw);
+        const bool hit = occlusion(M) ? occludes<M>(nd, nt, s, uvw)
+                                      : front_hit(nd, nt, s, uvw);
+        hits |= hit ? 1u << i : 0u;
+      }
+      if (occlusion(M)) {
+        if (hits) {
+          v = 1;
+          break;
+        }
+        continue;
+      }
+      for (; hits; hits &= hits - 1) {
+        const int j = (base + __ffs(hits) - 1) * kK + g;
+        float nd, nt;
+        int key;
+        blk.t_terms(j, r, nd, nt);
+        if (hit_key<M>(nd, nt, j, r, key)) v = min(v, key);
+      }
+    }
+  }
+#pragma unroll
+  for (int off = 1; off < kK; off <<= 1) {
+    const int y = __shfl_xor_sync(0xffffffffu, v, off);
+    v = occlusion(M) ? (v | y) : min(v, y);
+  }
+  return v;
+}
+
+// Distributed shared memory. A shared address of this CTA mapped into the
+// cluster window of CTA `rank`.
+__device__ __forceinline__ unsigned cta_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ unsigned cluster_addr(unsigned a, int rank) {
+  unsigned out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(out) : "r"(a), "r"(rank));
+  return out;
+}
+
+// Store v at a (another CTA's shared memory) and count its 4 bytes on the
+// mbarrier at bar in that CTA: no fence and no cluster barrier.
+__device__ __forceinline__ void store_remote(unsigned a, int v, unsigned bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, [%2];\n"
+      :: "r"(a), "r"(v), "r"(bar) : "memory");
+}
+
+// Arm this CTA's mbarrier at bar for its next phase: one arrival, and
+// `bytes` to come from other CTAs' store_remote.
+__device__ __forceinline__ void expect_bytes(unsigned bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+// Wait until the phase of parity `parity` of the mbarrier at bar is over.
+// A phase that does not end within ~2^34 cycles (seconds) is a fault: trap
+// (the launch fails) rather than hang the card.
+__device__ __forceinline__ void wait_phase(unsigned bar, unsigned parity) {
+  const long long t0 = clock64();
+  while (true) {
+    unsigned done;
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+    if (done) return;
+    if (clock64() - t0 > (1ll << 34)) __trap();
+  }
 }
 
 template <int M, bool kStream>
-__global__ void __launch_bounds__(kR)
+__global__ void __cluster_dims__(kK, 1, 1) __launch_bounds__(kR)
 walk_hier(const int* __restrict__ counts, const int* __restrict__ keys,
           const float* __restrict__ rays, const float* __restrict__ w,
           const int* __restrict__ occ0, const float* __restrict__ hull,
           const float* __restrict__ bbox, const int* __restrict__ first,
           int* __restrict__ out, int* __restrict__ visits, int n_rays,
           int n_s, int cmask, int S) {
-  constexpr int kFloats = planes_of(M) * kC;
-  __shared__ __align__(16) float sw[2][kFloats];
-  __shared__ int sred[kWarps];
-  __shared__ int sent[kSuperMax];
+  // Three block buffers: the member being visited, the next member
+  // (computed while the prune exchange completes) and the one after it
+  // (prefetched meanwhile).
+  __shared__ __align__(16) float sw[3][kC * rec_floats(M)];
+  // Every CTA's part of the prune, in two buffers (visits alternate), each
+  // with the mbarrier that counts the other CTAs' bytes into it; and the
+  // parts of the first prune.
+  __shared__ int spart[2][kK];
+  __shared__ __align__(8) unsigned long long sbar[2];
+  __shared__ int sfirst[kK];
+  __shared__ int sred[2][kWarps];
   __shared__ float shl[kHullCols];
+  constexpr unsigned kExchangeBytes = (kK - 1) * sizeof(int);
 
-  const int tile = blockIdx.x;
-  const int ray = tile * kR + threadIdx.x;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int tile = blockIdx.x / kK;
+  const int lane = threadIdx.x & 31;
+  const int g = threadIdx.x % kK;
+  const int ray = tile * kR + rank * (kR / kK) + threadIdx.x / kK;
   const Ray<M> r(rays, n_rays, ray);
   const int count = counts[tile];
   const int* krow = keys + (size_t)tile * n_s;
   if (threadIdx.x < kHullCols) {
     shl[threadIdx.x] = hull[(size_t)tile * kHullCols + threadIdx.x];
   }
+  if (kK > 1 && threadIdx.x == 0) {
+    for (int p = 0; p < 2; ++p) {
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n"
+                   :: "r"(cta_addr(&sbar[p])) : "memory");
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int p = 0; p < 2; ++p) expect_bytes(cta_addr(&sbar[p]), kExchangeBytes);
+  }
 
   int best = kBigCleanI;
   int pid = -1;
   int occ = occlusion(M) ? occ0[ray] : 0;
-  int prune = tile_prune<M>(best, occ, r.tcap, sred);  // syncs shl too
+  int red = 0;  // which sred buffer the next block_part uses
+  int part = block_part<M>(best, occ, r.tcap, sred[red]);  // syncs shl
+  red ^= 1;
+  if (threadIdx.x < kK) *cluster.map_shared_rank(&sfirst[rank], threadIdx.x) = part;
+  cluster.sync();  // every CTA runs, its mbarriers armed and its part sent
+  int prune = __reduce_max_sync(0xffffffffu, sfirst[lane % kK]) + kPrunePad;
   const unsigned all = S == kSuperMax ? 0xffffffffu : ((1u << S) - 1u);
 
   int nvis = 0;
-  for (int k = 0; k < count && (krow[k] & ~cmask) <= prune; ++k) {
-    const int sid = krow[k] & cmask;
-    const int fs = first[sid];
-    __syncthreads();  // every thread is done with sent and the buffers
-    if (threadIdx.x < S) {
-      sent[threadIdx.x] = member_entry(shl, bbox + (size_t)sid * kBoxRows * S,
-                                       threadIdx.x, S);
+  Head h;
+  if (count > 0) load_head(h, krow, 0, bbox, first, cmask, S);
+  for (int k = 0; k < count && (h.key & ~cmask) <= prune; ++k) {
+    const int fs = h.fs;
+    const int ent = lane < S ? member_entry(shl, h.box) : INT_MAX;
+    if (k + 1 < count) {  // in flight while this super's members are walked
+      load_head(h, krow, k + 1, bbox, first, cmask, S);
     }
-    __syncthreads();
-
+    // Members in entry order: s (being visited), s2 after it.
     unsigned rem = all;
     int m;
-    int s = next_member(sent, rem, S, &m);
+    int s = next_member(ent, rem, &m);
     if (m > prune) continue;
-    if (kStream) stage_async<kFloats>(sw[0], w + (size_t)(fs + s) * kFloats);
-    int b = 0;
+    rem &= ~(1u << s);
+    int m2;
+    int s2 = next_member(ent, rem, &m2);
+    __syncthreads();  // the last visit's speculative reads of sw are done
+    int b = 0;  // sw[b] holds s, sw[(b + 1) % 3] s2
+    stage_block<M, kStream>(sw[b], w, fs + s);
+    if (m2 <= prune) stage_block<M, kStream>(sw[(b + 1) % 3], w, fs + s2);
+    if (kStream) wait_async<0>();
+    __syncthreads();
+    int x = visit_result<M>(sw[b], occ, r, g);
+    bool ahead = false;  // a prefetch is in flight
     while (true) {
-      rem &= ~(1u << s);
-      int m2;
-      const int s2 = next_member(sent, rem, S, &m2);
-      const float* cur = sw[0];
-      bool ahead = false;
-      if (kStream) {
-        ahead = m2 <= prune;  // speculative: the prune may fall first
-        if (ahead) {
-          stage_async<kFloats>(sw[b ^ 1], w + (size_t)(fs + s2) * kFloats);
-          wait_async<1>();
-        } else {
-          wait_async<0>();
-        }
-        cur = sw[b];
+      // Take visit s, then send this CTA's part of the new prune to the
+      // other CTAs. Buffer p was last read two visits ago: every CTA has
+      // read it, as each sent its previous part only after reading it.
+      if (occlusion(M)) {
+        occ |= x;
       } else {
-        __syncthreads();  // every thread is done with the previous member
-        stage_sync<kFloats>(sw[0], w + (size_t)(fs + s) * kFloats);
+        take_key(x, fs + s, best, pid);
       }
-      __syncthreads();
+      if (kStream && ahead) wait_async<0>();  // block_part's barrier publishes it
+      part = block_part<M>(best, occ, r.tcap, sred[red]);
+      red ^= 1;
+      const int p = nvis & 1;
+      if (kK > 1 && threadIdx.x == 0) {
+        const unsigned a = cta_addr(&spart[p][rank]);
+        const unsigned bar = cta_addr(&sbar[p]);
+#pragma unroll
+        for (int c = 1; c < kK; ++c) {
+          const int to = (rank + c) % kK;
+          store_remote(cluster_addr(a, to), part, cluster_addr(bar, to));
+        }
+      }
+      // Meanwhile: prefetch the member after s2, and visit s2, both
+      // speculatively (the prune may fall below their entries). sw[(b + 2)
+      // % 3] was last read before the barrier above.
+      const unsigned rem2 = rem & ~(1u << s2);
+      int m3;
+      const int s3 = next_member(ent, rem2, &m3);
+      const bool go2 = m2 <= prune;
+      ahead = go2 && m3 <= prune;
+      if (ahead) stage_block<M, kStream>(sw[(b + 2) % 3], w, fs + s3);
+      int x2 = 0;
+      if (go2) x2 = visit_result<M>(sw[(b + 1) % 3], occ, r, g);
 
-      visit<M>(cur, fs + s, r, best, pid, occ);
-      prune = tile_prune<M>(best, occ, r.tcap, sred);
-      ++nvis;
-      if (m2 > prune) {
-        if (ahead) wait_async<0>();  // drain the speculative fetch
-        break;
+      if (kK > 1) {  // the other CTAs' parts are in; re-arm
+        const unsigned bar = cta_addr(&sbar[p]);
+        wait_phase(bar, (nvis >> 1) & 1);
+        if (threadIdx.x == 0) expect_bytes(bar, kExchangeBytes);
       }
+      const int v = lane < kK && lane != rank ? spart[p][lane] : part;
+      prune = __reduce_max_sync(0xffffffffu, v) + kPrunePad;
+      ++nvis;
+      if (m2 > prune) break;
+      rem = rem2;
       s = s2;
-      b ^= 1;
+      s2 = s3;
+      m2 = m3;
+      x = x2;
+      b = (b + 1) % 3;
     }
+    if (kStream && ahead) wait_async<0>();  // drain a prefetch left behind
   }
-  out[ray] = occlusion(M) ? occ : pid;
-  if (threadIdx.x == 0) visits[tile] = nvis;
+  cluster.sync();  // no CTA leaves while another may still send to it
+  if (g == 0) out[ray] = occlusion(M) ? occ : pid;
+  if (rank == 0 && threadIdx.x == 0) visits[tile] = nvis;
 }
 
 template <int M>
@@ -515,12 +850,14 @@ int launch_hier(bool stream_w, const int* counts, const int* keys,
   if (err != cudaSuccess) return (int)err;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int n_rays = n_tiles * kR;
+  // One cluster of kK CTAs a tile (__cluster_dims__): a launch the card
+  // cannot place is refused, and cudaGetLastError reports it.
   if (stream_w) {
-    walk_hier<M, true><<<n_tiles, kR, 0, st>>>(
+    walk_hier<M, true><<<n_tiles * kK, kR, 0, st>>>(
         counts, keys, rays, w, occ0, hull, bbox, first, out, visits, n_rays,
         n_s, cmask, S);
   } else {
-    walk_hier<M, false><<<n_tiles, kR, 0, st>>>(
+    walk_hier<M, false><<<n_tiles * kK, kR, 0, st>>>(
         counts, keys, rays, w, occ0, hull, bbox, first, out, visits, n_rays,
         n_s, cmask, S);
   }

@@ -44,7 +44,7 @@ and for the two-level walk (``prepass._hier_setup``):
 Each returns (out (n_tiles * 512,) int32, steps), with ``out`` the packed
 winner slot id (cid * C + lane, -1 for a miss) or the occlusion flag, and
 ``steps`` the executed block visits (0-dim int64), the traversal
-statistic.
+statistic, or with ``per_tile=True`` each tile's (n_tiles,) int64.
 """
 
 from __future__ import annotations
@@ -133,7 +133,14 @@ def _check(mode, counts, keys, rays, w, occ0, hull, bbox, first, S):
         raise ValueError("w must be 16-byte aligned (cp.async copies)")
 
 
-def _launch(mode, counts, keys, rays, w, occ0, hull, bbox, first, S, stream):
+def _steps(visits, per_tile):
+    """Executed visits per tile -> their sum (0-dim int64), or the
+    (n_tiles,) int64 tensor itself with ``per_tile``."""
+    return visits.long() if per_tile else visits.sum()
+
+
+def _launch(mode, counts, keys, rays, w, occ0, hull, bbox, first, S, stream,
+            per_tile):
     from ceres_tpu_torch.ops import _build
 
     if rays.device.type != "cuda":
@@ -158,11 +165,11 @@ def _launch(mode, counts, keys, rays, w, occ0, hull, bbox, first, S, stream):
         raise RuntimeError(f"{fn} kernel launch failed: "
                            f"{lib.ceres_error_string(err).decode()} ({err})")
     launches[_variant(mode, S, stream)] += 1
-    return out, visits.sum()
+    return out, _steps(visits, per_tile)
 
 
 def walk_closest(counts, keys, rays, w, hull=None, bbox=None, first=None, *,
-                 S=1, stream=False, window=False):
+                 S=1, stream=False, window=False, per_tile=False):
     """Closest hit per ray: (packed slot ids, steps). ``window=True``:
     ``rays`` carries tmin and tmax rows, and a hit counts only with t in
     [tmin, tmax]."""
@@ -170,33 +177,33 @@ def walk_closest(counts, keys, rays, w, hull=None, bbox=None, first=None, *,
     _check(mode, counts, keys, rays, w, None, hull, bbox, first, S)
     if rays.device.type == "cpu":
         return _walk_closest_plain(counts, keys, rays, w, hull, bbox, first,
-                                   S=S, window=window)
+                                   S=S, window=window, per_tile=per_tile)
     return _launch(mode, counts, keys, rays, w, None, hull, bbox, first, S,
-                   stream)
+                   stream, per_tile)
 
 
 def walk_any_dest(counts, keys, rays, w, occ0, hull=None, bbox=None,
-                  first=None, *, S=1, stream=False):
+                  first=None, *, S=1, stream=False, per_tile=False):
     """Occlusion of each segment from the common origin (t = 0) to its
     receiving point (t = 1): (flags, steps)."""
     _check("any_dest", counts, keys, rays, w, occ0, hull, bbox, first, S)
     if rays.device.type == "cpu":
         return _walk_any_dest_plain(counts, keys, rays, w, occ0, hull, bbox,
-                                    first, S=S)
+                                    first, S=S, per_tile=per_tile)
     return _launch("any_dest", counts, keys, rays, w, occ0, hull, bbox, first,
-                   S, stream)
+                   S, stream, per_tile)
 
 
 def walk_any(counts, keys, rays, w, occ0, hull=None, bbox=None, first=None,
-             *, S=1, stream=False):
+             *, S=1, stream=False, per_tile=False):
     """Occlusion of rays with their own origins: any triangle at t >= 0,
     however far (flags, steps)."""
     _check("any", counts, keys, rays, w, occ0, hull, bbox, first, S)
     if rays.device.type == "cpu":
         return _walk_any_plain(counts, keys, rays, w, occ0, hull, bbox, first,
-                               S=S)
+                               S=S, per_tile=per_tile)
     return _launch("any", counts, keys, rays, w, occ0, hull, bbox, first, S,
-                   stream)
+                   stream, per_tile)
 
 
 # ---------------------------------------------------------------------------
@@ -225,6 +232,33 @@ def _numerators(r, wj):
     s = torch.where(nd >= 0, 1.0, -1.0)
     uvw = torch.minimum(torch.minimum(nu * s, nv * s), (nd - nu - nv) * s)
     return uvw, nd, nt, s
+
+
+def _pair_keys(r, wj, window=False):
+    """Winner keys of every (ray, triangle) pair of a closest visit,
+    (t, R, C) int32: the t bits with the lane bits cleared | the lane, or
+    _BIG_CLEAN's bits | the lane for a miss (with ``window``, also a t
+    outside the ray's [tmin, tmax], rows 4 and 5 of r). The key min over
+    the lanes is the visit's closest hit, ties to the lower lane."""
+    uvw, nd, nt, s = _numerators(r, wj)
+    ok = (torch.minimum(uvw, nt * s) >= 0) & (nd != 0)
+    t = torch.where(ok, nt * torch.reciprocal(nd), _BIG_CLEAN)
+    if window:
+        tmin, tmax = r[4][:, :, None], r[5][:, :, None]
+        t = torch.where((t >= tmin) & (t <= tmax), t, _BIG_CLEAN)
+    lane = torch.arange(CLUSTER_SIZE, dtype=torch.int32, device=wj.device)
+    return (t.view(torch.int32) & ~_IMASK) | lane
+
+
+def _pair_hits(r, wj, mode):
+    """Occluding (ray, triangle) pairs of a shadow visit, (t, R, C) bool:
+    mode ``any_dest`` between the origin and the receiver, ``any`` at
+    t >= 0."""
+    uvw, nd, nt, s = _numerators(r, wj)
+    if mode == "any":
+        return (torch.minimum(uvw, nt * s) >= 0) & (nd != 0)
+    win = ((nt - _DEST_SCALE * nd) * s <= 0) & (nt * s >= 0)
+    return (uvw >= 0) & (nd != 0) & win
 
 
 def _member_entries(hull, bb):
@@ -266,7 +300,8 @@ def _walk(counts, keys, rays, tcap_row, state, prune_of, visit, hier=None):
     ``state`` is a tuple of (n_tiles, R) tensors, updated in place;
     ``prune_of(tcap, *state)`` is the per-tile prune and ``visit(bid, r,
     *state)`` the new state of the visiting tiles, given their ray rows
-    r (rows, t, R). Returns the executed block visits (0-dim int64).
+    r (rows, t, R). Returns the executed block visits per tile
+    ((n_tiles,) int64).
     """
     n_tiles, n_k = keys.shape
     cmask = (1 << _cid_bits(n_k)) - 1
@@ -310,7 +345,7 @@ def _walk(counts, keys, rays, tcap_row, state, prune_of, visit, hier=None):
             rows = go.nonzero().squeeze(1)
             live[rows, s[rows].long()] = False
             visit_blocks(tiles[rows], first[sid[rows]] + s[rows])
-    return visits.sum()
+    return visits
 
 
 def _hier(hull, bbox, first, S):
@@ -318,7 +353,8 @@ def _hier(hull, bbox, first, S):
 
 
 def _walk_closest_plain(counts, keys, rays, w, hull=None, bbox=None,
-                        first=None, *, S=1, stream=False, window=False):
+                        first=None, *, S=1, stream=False, window=False,
+                        per_tile=False):
     """Plain version of the closest kernels: per ray the best t key, ties
     to the lower lane and the earlier visit; with the window, pairs with
     t outside [tmin, tmax] count as misses. ``stream`` is accepted, so a
@@ -326,7 +362,6 @@ def _walk_closest_plain(counts, keys, rays, w, hull=None, bbox=None,
     del stream
     mode = "closest_window" if window else "closest"
     n_rays = rays.shape[1]
-    lane = torch.arange(CLUSTER_SIZE, dtype=torch.int32, device=keys.device)
     best = torch.full((n_rays // TILE, TILE), _BIG_CLEAN_I, dtype=torch.int32,
                       device=keys.device)
     pid = torch.full_like(best, -1)
@@ -335,46 +370,40 @@ def _walk_closest_plain(counts, keys, rays, w, hull=None, bbox=None,
         return torch.minimum(best, tcap).amax(dim=1) + _PRUNE_PAD
 
     def visit(bid, r, best, pid):
-        uvw, nd, nt, s = _numerators(r, w[bid.long()])
-        ok = (torch.minimum(uvw, nt * s) >= 0) & (nd != 0)
-        t = torch.where(ok, nt * torch.reciprocal(nd), _BIG_CLEAN)
-        if window:
-            tmin, tmax = r[4][:, :, None], r[5][:, :, None]
-            t = torch.where((t >= tmin) & (t <= tmax), t, _BIG_CLEAN)
-        kmin = ((t.view(torch.int32) & ~_IMASK) | lane).amin(dim=2)
+        kmin = _pair_keys(r, w[bid.long()], window).amin(dim=2)
         t_new = kmin & ~_IMASK
         better = t_new < best
         return (torch.where(better, t_new, best),
                 torch.where(better, bid[:, None] * CLUSTER_SIZE
                             + (kmin & _IMASK), pid))
 
-    steps = _walk(counts, keys, rays, _TCAP_ROW[mode], (best, pid), prune_of,
-                  visit, _hier(hull, bbox, first, S))
-    return pid.reshape(-1), steps
+    visits = _walk(counts, keys, rays, _TCAP_ROW[mode], (best, pid),
+                   prune_of, visit, _hier(hull, bbox, first, S))
+    return pid.reshape(-1), _steps(visits, per_tile)
 
 
 def _walk_any_dest_plain(counts, keys, rays, w, occ0, hull=None, bbox=None,
-                         first=None, *, S=1, stream=False):
+                         first=None, *, S=1, stream=False, per_tile=False):
     """Plain version of the common-origin shadow kernels: per ray, any
     occluder between the origin (t = 0) and the receiver (t = 1 -
     _DEST_EPS). ``stream`` is ignored, as in ``_walk_closest_plain``."""
     del stream
     return _occlusion_plain("any_dest", counts, keys, rays, w, occ0, hull,
-                            bbox, first, S)
+                            bbox, first, S, per_tile)
 
 
 def _walk_any_plain(counts, keys, rays, w, occ0, hull=None, bbox=None,
-                    first=None, *, S=1, stream=False):
+                    first=None, *, S=1, stream=False, per_tile=False):
     """Plain version of the generic-origin shadow kernels: per ray, any
     triangle at t >= 0 from its own origin, with no upper bound.
     ``stream`` is ignored, as in ``_walk_closest_plain``."""
     del stream
     return _occlusion_plain("any", counts, keys, rays, w, occ0, hull, bbox,
-                            first, S)
+                            first, S, per_tile)
 
 
 def _occlusion_plain(mode, counts, keys, rays, w, occ0, hull, bbox, first,
-                     S):
+                     S, per_tile):
     """The occlusion walk of ``mode`` (any_dest or any)."""
     occ = occ0.reshape(-1, TILE).clone()
 
@@ -382,14 +411,9 @@ def _occlusion_plain(mode, counts, keys, rays, w, occ0, hull, bbox, first,
         return torch.where(occ > 0, _NEG_I, tcap).amax(dim=1) + _PRUNE_PAD
 
     def visit(bid, r, occ):
-        uvw, nd, nt, s = _numerators(r, w[bid.long()])
-        if mode == "any":
-            ok = (torch.minimum(uvw, nt * s) >= 0) & (nd != 0)
-        else:
-            win = ((nt - _DEST_SCALE * nd) * s <= 0) & (nt * s >= 0)
-            ok = (uvw >= 0) & (nd != 0) & win
-        return (occ | ok.any(dim=2).to(torch.int32),)
+        hits = _pair_hits(r, w[bid.long()], mode)
+        return (occ | hits.any(dim=2).to(torch.int32),)
 
-    steps = _walk(counts, keys, rays, _TCAP_ROW[mode], (occ,), prune_of,
-                  visit, _hier(hull, bbox, first, S))
-    return occ.reshape(-1), steps
+    visits = _walk(counts, keys, rays, _TCAP_ROW[mode], (occ,), prune_of,
+                   visit, _hier(hull, bbox, first, S))
+    return occ.reshape(-1), _steps(visits, per_tile)

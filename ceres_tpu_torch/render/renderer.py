@@ -361,6 +361,7 @@ def render(vertices, faces, camera: Camera, sun_position,
 
     Inputs may be numpy arrays or tensors; everything runs on ``device``
     (default: the device of ``vertices`` if it is a tensor, else the
+    card; without one it raises: pass ``device="cpu"`` to render on the
     CPU). Without ``clusters`` the LBVH treelet cut is built on the
     device first, as the JAX package's ``render`` does. For frame loops,
     build the structure once (accel.clusters.build_clusters_treelet, or
@@ -369,8 +370,13 @@ def render(vertices, faces, camera: Camera, sun_position,
     """
     config = dataclasses.replace(config or RenderConfig(), **kwargs)
     if device is None:
-        device = (vertices.device if isinstance(vertices, torch.Tensor)
-                  else torch.device("cpu"))
+        if isinstance(vertices, torch.Tensor):
+            device = vertices.device
+        elif torch.cuda.is_available():
+            device = torch.device("cuda")
+        else:
+            raise RuntimeError("render: no CUDA card for numpy inputs; pass "
+                               "device='cpu' to render on the CPU")
     vertices = torch.as_tensor(vertices, device=device)
     faces = torch.as_tensor(faces, device=device)
     sun_position = torch.as_tensor(sun_position, dtype=torch.float32,

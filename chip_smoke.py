@@ -43,7 +43,8 @@ its own line:
      dragon at 960 x 540 (268 blocks: past the 256-block budget of
      generic weights), its two-level form (K7b) streamed and resident on
      the 4x bunny at 1080p, and the windowed closest walk (K4) flat on
-     bunny 1080p and two-level streamed on the 4x bunny 1080p, with
+     bunny 1080p and two-level streamed and resident on the 4x bunny
+     1080p, with
      per-ray windows a user asks for: the second surface behind each
      first hit (depth peeling) and a near/far clip for the rest; the
      4x bunny's windowed search runs as a path through
@@ -59,6 +60,15 @@ its own line:
      pixels within 2.5/255 and the rays/hits it printed, exactly; and the
      windowed entry point on two parallel triangles.
 
+Every kernel-vs-plain check holds each tile's executed visits, not only
+their sum, and prints the kernel's bound: the larger of its fp32
+operations (executed visits x 512 rays x 128 triangles x FLOPS_PER_PAIR)
+over the card's fp32 peak and the bytes it must move over the memory
+rate, with the share of it the kernel reached. Each two-level kernel
+also gets a line of its own: the cluster size K of ``walk.cu``, its
+visits, the heaviest tile's visits and the time per member visit they
+imply, kernel ms, bound and share.
+
 Each path runs with the launch counts set to 0 just before it and read
 just after. Any failed check exits non-zero. The line before last is the
 kernels' JSON record (every variant a path launches); the last line is
@@ -68,6 +78,7 @@ the device record. Needs no network and no JAX.
 import dataclasses
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -109,6 +120,17 @@ WALKS = {"closest": ("walk_closest", "_walk_closest_plain"),
          "closest_window": ("walk_closest", "_walk_closest_plain"),
          "any_dest": ("walk_any_dest", "_walk_any_dest_plain"),
          "any": ("walk_any", "_walk_any_plain")}
+# fp32 operations per ray-triangle pair of a visit, counted from walk.cu
+# (every multiply, add, min and comparison on every pair): the
+# numerators, 15 (33 for generic rays), the sign test, 8, and the mode's
+# accept, 4 (closest, any) or 8 (any_dest). The reciprocal and window
+# tests of the few accepted pairs are left out.
+FLOPS_PER_PAIR = {"closest": 27, "closest_window": 27, "any_dest": 31,
+                  "any": 45}
+# One H100 SXM at its 700 W limit (NVIDIA's data sheet): fp32 outside the
+# tensor cores, and HBM3.
+PEAK_FLOPS = 67e12
+PEAK_BYTES = 3.35e12
 
 
 def fail(msg):
@@ -227,33 +249,74 @@ def positives(mode, out, args):
     return int(((out == 1) & (args[4] == 0)).sum())
 
 
+def hier_ctas():
+    """K, the CTAs of the cluster that walks one tile in the two-level
+    kernels (the constant kK of walk.cu)."""
+    with open(os.path.join(ROOT, KERNEL_SOURCE)) as fh:
+        return int(re.search(r"constexpr int kK = (\d+);", fh.read()).group(1))
+
+
+def bound(mode, args, opts, steps):
+    """(ms, "operations" or "bytes"): the least time the card could take
+    for a walk of ``steps`` executed visits. Operations: steps x 512 x 128
+    pairs at FLOPS_PER_PAIR over PEAK_FLOPS. Bytes: the ray rows, counts,
+    keys, start flags and two-level inputs read once, each visit's weight
+    block, and the outputs written once, over PEAK_BYTES."""
+    counts, keys, rays, w = args[:4]
+    inputs = [counts, keys, rays, *args[4:]]
+    inputs += [opts[k] for k in ("hull", "bbox", "first")
+               if opts.get(k) is not None]
+    nbytes = (sum(x.numel() * x.element_size() for x in inputs)
+              + steps * w[0].numel() * 4 + rays.shape[1] * 4 + counts.numel() * 4)
+    ops = steps * 512 * 128 * FLOPS_PER_PAIR[mode]
+    t_ops, t_bytes = ops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
 def compare(mode, args, opts, reps, plain_ref=None):
-    """Kernel against plain version on the same inputs. ``plain_ref``
-    (out, steps, ms) reuses a plain run of the same inputs."""
+    """Kernel against plain version on the same inputs, executed visits
+    held tile by tile. ``plain_ref`` (out, per-tile visits, ms) reuses a
+    plain run of the same inputs."""
     from ceres_tpu_torch.ops import walk
 
     kernel, plain = (getattr(walk, name) for name in WALKS[mode])
     if plain_ref is None:
-        (out_p, steps_p), plain_ms = timed_once(lambda: plain(*args, **opts))
-        plain_ref = (out_p, int(steps_p), plain_ms)
-    out_p, steps_p, plain_ms = plain_ref
-    out_k, steps_k = kernel(*args, **opts)
+        (out_p, tiles_p), plain_ms = timed_once(
+            lambda: plain(*args, **opts, per_tile=True))
+        plain_ref = (out_p, tiles_p, plain_ms)
+    out_p, tiles_p, plain_ms = plain_ref
+    out_k, tiles_k = kernel(*args, **opts, per_tile=True)
     torch.cuda.synchronize()
     diff = (out_k.long() - out_p.long()).abs()
+    steps = int(tiles_k.sum())
+    bound_ms, bound_by = bound(mode, args, opts, steps)
+    ms = cuda_ms(lambda: kernel(*args, **opts), reps)
     return {"mismatches": int((diff > 0).sum()), "max_abs_err": int(diff.max()),
-            "steps": int(steps_k), "plain_steps": steps_p,
-            "positives": positives(mode, out_p, args),
-            "ms": cuda_ms(lambda: kernel(*args, **opts), reps),
-            "plain_ms": plain_ms}, plain_ref
+            "steps": steps, "plain_steps": int(tiles_p.sum()),
+            "tiles_off": int((tiles_k != tiles_p).sum()),
+            "max_tile": int(tiles_k.max()),
+            "positives": positives(mode, out_p, args), "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "S": opts["S"]}, plain_ref
 
 
 def report(phase, kname, label, r, card):
     print(f"phase {phase} {kname} {label}: mismatches {r['mismatches']} "
           f"max_abs_err {r['max_abs_err']} steps {r['steps']}/"
-          f"{r['plain_steps']} positives {r['positives']} kernel "
-          f"{r['ms']:.4f} ms plain {r['plain_ms']:.2f} ms [{card}]",
+          f"{r['plain_steps']} tiles with other visits {r['tiles_off']} "
+          f"positives {r['positives']} kernel {r['ms']:.4f} ms plain "
+          f"{r['plain_ms']:.2f} ms bound {r['bound_ms']:.4f} ms "
+          f"({r['bound_by']}, share {r['bound_ms'] / r['ms']:.2%}) [{card}]",
           flush=True)
-    check(r["mismatches"] == 0 and r["steps"] == r["plain_steps"],
+    if r["S"] > 1:
+        print(f"phase {phase} {kname} two-level: K {hier_ctas()}; executed "
+              f"visits {r['steps']}; heaviest tile {r['max_tile']} visits, "
+              f"{r['ms'] * 1e3 / r['max_tile']:.3f} us per member visit; "
+              f"kernel {r['ms']:.4f} ms; bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}); share {r['bound_ms'] / r['ms']:.2%} "
+              f"[{card}]", flush=True)
+    check(r["mismatches"] == 0 and r["steps"] == r["plain_steps"]
+          and r["tiles_off"] == 0,
           f"{kname} disagrees with its plain version on {label}")
     check(r["positives"] > 0, f"{kname} found nothing on {label}")
 
@@ -529,10 +592,16 @@ def main():
     args, opts = mk._closest_inputs(cs, cam.eye, dirs, tmin, tmax)
     check(opts.get("window") and opts["S"] == 32 and opts["stream"],
           f"{label}: window {opts}")
-    r, _ = compare("closest_window", args, opts, reps=5)
-    report(9, "walk_closest_window_hier_stream",
-           f"{label}, second surface / clip, S = {opts['S']})", r, card)
-    results["walk_closest_window_hier_stream"] = r
+    plain_ref = None
+    for stream in (True, False):
+        kname = walk._variant("closest_window", opts["S"], stream)
+        r, plain_ref = compare("closest_window", args,
+                               dict(opts, stream=stream), reps=5,
+                               plain_ref=plain_ref)
+        report(9, kname, f"{label}, second surface / clip, S = {opts['S']})",
+               r, card)
+        if stream:
+            results[kname] = r
 
     # Phase 10: the reference-exact path at full width.
     vt, ft, cam, cs = scene("bunny", dev)
@@ -596,10 +665,14 @@ def main():
     missing = [k for k in REPLACES if not path_launches.get(k)]
     check(not missing, f"no path launched {missing}")
 
+    # No PyTorch call computes a front-to-back walk with early exit:
+    # library_ms is null for every variant.
     kernels = [{"name": k, "route": "cuda", "source": KERNEL_SOURCE,
                 "replaces": REPLACES[k], "launches": path_launches[k],
                 "max_abs_err": results[k]["max_abs_err"],
-                "ms": results[k]["ms"], "plain_ms": results[k]["plain_ms"]}
+                "ms": results[k]["ms"], "plain_ms": results[k]["plain_ms"],
+                "bound_ms": results[k]["bound_ms"],
+                "bound_by": results[k]["bound_by"], "library_ms": None}
                for k in REPLACES]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -66,7 +66,8 @@ def test_compat_matches_cpp_reference(name, backend):
     ref = _read_ppm(os.path.join(FIXTURES, ppm)).astype(np.float64) / 255.0
     sc = _scene(name)
     img, stats = ct.render(sc.vertices, sc.faces, sc.camera, sc.sun, width=64,
-                           height=64, backend=backend, reference_compat=True)
+                           height=64, backend=backend, reference_compat=True,
+                           device="cpu")
     diff = np.abs(img.numpy() - ref).max(axis=-1)
     assert (diff <= 2.5 / 255.0).mean() >= 0.995, (
         f"max diff {diff.max():.4f}, "
@@ -163,7 +164,8 @@ def test_flat_modes_ignore_compat_without_shadows():
     sc = pscenes.bunny_scene()
     imgs = [ct.render(sc.vertices, sc.faces, sc.camera, sc.sun, width=32,
                       height=32, mode="flat", shadows=False,
-                      reference_compat=compat)[0] for compat in (False, True)]
+                      reference_compat=compat, device="cpu")[0]
+            for compat in (False, True)]
     assert torch.equal(imgs[0], imgs[1]) and imgs[0].max() > 0
 
 

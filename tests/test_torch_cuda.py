@@ -15,8 +15,17 @@ each mode (closest, closest with a per-ray window, the shadow segments
 from the sun, and the reference-exact generic shadow rays), flat and
 two-level (forced by a threshold of 1 block, as the CPU tests force it),
 each with weights staged per visit and streamed.
+
+The two-level walk runs each tile on a cluster of CTAs that split its
+rays and exchange the prune, with every block's lanes split over the
+threads of a ray, so it is held again tile by tile (executed visits per
+tile, not only their sum): with S = 2, 7 and 32 member slots, with
+equal-t triangles in neighbouring lanes of one block (ties across the
+threads of a ray), and on a tile of over 1,000 member visits (the 3x
+bunny at 256 x 256).
 """
 
+import dataclasses
 import os
 import re
 
@@ -25,8 +34,10 @@ import pytest
 import torch
 
 import ceres_tpu_torch as ct
+from ceres_tpu_torch.accel.clusters import build_clusters_treelet
 from ceres_tpu_torch.accel.cuts import build_clusters_quality
 from ceres_tpu_torch.models.camera import camera_ray_columns
+from ceres_tpu_torch.models.mesh import subdivide
 from ceres_tpu_torch.ops import megakernel as mk
 from ceres_tpu_torch.ops import prepass, walk
 from ceres_tpu_torch.render.renderer import _hit_points
@@ -39,8 +50,18 @@ SUN = (-50.0, 100.0, 0.0)
 EYES = {"bunny": (0.0, 0.1, -0.3), "dragon": (0.0, 2.5, -12.0)}
 
 
-def _inputs(name, dev):
-    """(closest inputs, shadow inputs) as the main path builds them."""
+def _uniform_supers(cs, S):
+    """``cs`` with supers of S consecutive blocks."""
+    n_c = cs.num_clusters
+    first = torch.clamp(torch.arange(-(-n_c // S), dtype=torch.int32,
+                                     device=cs.lo.device) * S, max=n_c)
+    return dataclasses.replace(cs, super_first=first, super_S=S)
+
+
+def _inputs(name, dev, S=None, size=(256, 160)):
+    """Each mode's walk inputs, flat and two-level, as the main path
+    builds them. ``bunny3`` is the 3x subdivided bunny on its treelet
+    cut; ``S`` replaces the supers by runs of S blocks."""
     if name == "random":
         rng = np.random.default_rng(5)
         verts = rng.standard_normal((90, 3)).astype(np.float32)
@@ -50,17 +71,24 @@ def _inputs(name, dev):
         dirs = tuple(torch.as_tensor(c / np.linalg.norm(d, axis=0),
                                      device=dev) for c in d)
     else:
-        verts, faces = ct.load_obj(os.path.join(ROOT, "data", f"{name}.obj"))
-        eye = np.asarray(EYES[name], np.float32)
+        mesh = "bunny" if name == "bunny3" else name
+        verts, faces = ct.load_obj(os.path.join(ROOT, "data", f"{mesh}.obj"))
+        if name == "bunny3":
+            verts, faces = subdivide(verts, faces, 3)
+        eye = np.asarray(EYES[mesh], np.float32)
         cam = ct.Camera.make(eye=eye, dir=verts.mean(axis=0) - eye,
                              up=(0, 1, 0), fov=60.0, device=dev)
         dirs = tuple(tiling.swizzle_plane(p)
-                     for p in camera_ray_columns(cam, 256, 160))
+                     for p in camera_ray_columns(cam, *size))
     vt = torch.as_tensor(verts, device=dev)
     ft = torch.as_tensor(faces, device=dev)
     eye = torch.as_tensor(eye, device=dev)
     soup = ct.triangle_soup(vt, ft)
-    cs = build_clusters_quality(ct.triangle_soup(vt, ft, with_normals=False))
+    bare = ct.triangle_soup(vt, ft, with_normals=False)
+    cs = (build_clusters_treelet(bare) if name == "bunny3"
+          else build_clusters_quality(bare))
+    if S is not None:
+        cs = _uniform_supers(cs, S)
     hit, pay = mk.closest_hit_common_origin(soup, eye, dirs, clusters=cs,
                                             normal_cols=True)
     points = _hit_points(eye, dirs, hit, pay)
@@ -121,6 +149,63 @@ def test_kernel_equals_plain(card_inputs, mode, walk_form, stream):
     assert int(positive.sum()) > 0
     assert torch.equal(out_k, out_p)
     assert int(steps_k) == int(steps_p) > 0
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the walk kernels have no CPU mode")
+    return torch.device("cuda", 0)
+
+
+@pytest.fixture(scope="module", params=[2, 7, 32])
+def supers(request):
+    return request.param, _inputs("bunny", _card(), S=request.param)["hier"]
+
+
+@pytest.fixture(scope="module")
+def heavy():
+    return _inputs("bunny3", _card(), size=(256, 256))["hier"]
+
+
+def _same_per_tile(mode, args, opts):
+    """The two-level kernel against its plain version, outputs and
+    executed visits tile by tile. Returns the plain per-tile visits."""
+    kernel, plain = KERNELS[mode]
+    out_k, tiles_k = kernel(*args, **opts, per_tile=True)
+    out_p, tiles_p = plain(*args, **opts, per_tile=True)
+    torch.cuda.synchronize()
+    positive = (out_p >= 0 if mode.startswith("closest")
+                else (out_p == 1) & (args[4] == 0))
+    assert int(positive.sum()) > 0
+    assert torch.equal(out_k, out_p)
+    assert torch.equal(tiles_k, tiles_p) and int(tiles_p.sum()) > 0
+    return tiles_p
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ties", [False, True])
+@pytest.mark.parametrize("stream", [False, True])
+@pytest.mark.parametrize("mode", list(KERNELS))
+def test_cluster_walk_equals_plain_per_tile(supers, mode, stream, ties):
+    S, inputs = supers
+    args, opts = inputs[mode]
+    assert opts["S"] == S
+    if ties:   # odd lanes repeat the even ones: equal t in other threads
+        w = args[3].clone()
+        w[..., 1::2] = w[..., 0::2]
+        args = (*args[:3], w, *args[4:])
+    _same_per_tile(mode, args, dict(opts, stream=stream))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stream", [False, True])
+@pytest.mark.parametrize("mode", list(KERNELS))
+def test_cluster_walk_heavy_tile(heavy, mode, stream):
+    args, opts = heavy[mode]
+    assert opts["S"] > 1
+    tiles = _same_per_tile(mode, args, dict(opts, stream=stream))
+    if mode == "closest":
+        assert int(tiles.max()) > 1000
 
 
 @pytest.mark.cuda

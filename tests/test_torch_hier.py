@@ -317,7 +317,7 @@ def test_render_default_structure_matches_jax(bunny):
                                  traversal_stats=True)
     pimg, pst = ct.render(verts, faces, convert.camera(cam), SUN, width=64,
                           height=64, backend="megakernel",
-                          traversal_stats=True)
+                          traversal_stats=True, device="cpu")
     jimg, pimg = np.asarray(jimg), pimg.numpy()
     off = np.abs(pimg - jimg).max(-1) > 1e-4
     assert off.mean() < 0.005

@@ -117,9 +117,25 @@ def test_render_entry_point_builds_its_own_cut(bunny):
     verts, faces = bunny
     cam = _bench_camera(verts)
     image, stats = ct.render(verts, faces, cam, SUN, width=32, height=32,
-                             backend="megakernel")
+                             backend="megakernel", device="cpu")
     assert image.shape == (32, 32, 3) and torch.isfinite(image).all()
     assert int(stats["rays"]) == 32 * 32 + int(stats["primary_hits"])
+    assert int(stats["primary_hits"]) > 0
+
+
+@pytest.mark.parametrize("device", [None, "cpu"])
+def test_render_runs_on_the_card_unless_asked(bunny, monkeypatch, device):
+    # numpy inputs and no device: render() asks for the card, and with no
+    # card it raises rather than fall back; device="cpu" renders here.
+    verts, faces = bunny
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    kw = dict(width=16, height=16, backend="megakernel", device=device)
+    if device is None:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            ct.render(verts, faces, _bench_camera(verts), SUN, **kw)
+        return
+    image, stats = ct.render(verts, faces, _bench_camera(verts), SUN, **kw)
+    assert image.device.type == "cpu" and image.shape == (16, 16, 3)
     assert int(stats["primary_hits"]) > 0
 
 
@@ -130,7 +146,7 @@ def test_unported_options_name_their_roadmap_item(bunny, kwargs, item):
     verts, faces = bunny
     with pytest.raises(NotImplementedError, match=item):
         ct.render(verts, faces, _bench_camera(verts), SUN, width=32,
-                  height=32, **kwargs)
+                  height=32, device="cpu", **kwargs)
 
 
 def test_unported_inputs_name_their_roadmap_item(bunny):
@@ -138,10 +154,10 @@ def test_unported_inputs_name_their_roadmap_item(bunny):
     cam = _bench_camera(verts)
     with pytest.raises(NotImplementedError, match="M14"):
         ct.render(verts.astype(np.float64), faces, cam, SUN, width=32,
-                  height=32)
+                  height=32, device="cpu")
     with pytest.raises(NotImplementedError, match="M12"):
         ct.render(verts, faces, cam, SUN, width=32, height=32,
-                  spheres=(np.zeros((1, 3)), np.ones(1)))
+                  spheres=(np.zeros((1, 3)), np.ones(1)), device="cpu")
 
 
 def _fixture_render(verts, faces):

@@ -16,6 +16,13 @@ boundary can go either way. Tolerances:
   * executed visits within 1%.
 The kernels themselves are held to these plain versions on the card by
 ``tests/test_torch_cuda.py``, which needs no JAX.
+
+Also the two-level kernel's combination rule: its K threads of a ray
+split each visit's 128 lanes into K slices (thread g takes lanes
+i K + g), each takes its slice's smallest hit key (or occlusion flag),
+and they combine the K results by min (or OR) before the strict < on the
+best key. That must give the unsliced plain visit's result exactly, ties
+across slices included.
 """
 
 import numpy as np
@@ -32,6 +39,7 @@ from ceres_tpu.ops import megakernel as jmk
 from ceres_tpu.utils import tiling as jtiling
 
 from ceres_tpu_torch.ops import walk
+from ceres_tpu_torch.ops.prepass import _cid_bits
 from ceres_tpu_torch.utils import convert
 
 torch.set_num_threads(1)
@@ -213,3 +221,112 @@ def test_wrapper_rejects_bad_inputs(scene):
         walk.walk_closest(counts, keys.to(torch.int64), rays, w)
     with pytest.raises(ValueError, match="w"):
         walk.walk_closest(counts, keys, rays, w[:, :8])
+
+
+@pytest.fixture(scope="module")
+def visits(scene):
+    """One visit per live tile, its first candidate block: (ray rows
+    (rows, t, R), block weights (t, planes, C), block ids) for each mode,
+    as the plain walk's visit sees them. The window rows and the generic
+    rays' origins (seeded, near the common origin) are made up here: the
+    rule under test is the combination, whatever the geometry."""
+    rng = np.random.default_rng(3)
+    out = {}
+    for mode, (_, args) in (("closest", _closest_args(scene)),
+                            ("any_dest", _shadow_args(scene))):
+        counts, keys, rays, w = args[:4]
+        live = counts > 0
+        cmask = (1 << _cid_bits(keys.shape[1])) - 1
+        bid = (keys[live, 0] & cmask).long()
+        r = rays.reshape(rays.shape[0], -1, walk.TILE)[:, live]
+        out[mode] = (r, w[bid], bid)
+    r, wj, bid = out["closest"]
+    shape = r.shape[1:]
+    window = torch.as_tensor(np.stack([rng.uniform(0.0, 0.2, shape),
+                                       rng.uniform(0.2, 16.0, shape)]),
+                             dtype=torch.float32)
+    out["closest_window"] = (torch.cat([r, window]), wj, bid)
+    o = torch.as_tensor(rng.normal(0.0, 0.05, (3, *shape)),
+                        dtype=torch.float32)
+    c = torch.linalg.cross(r[:3], o, dim=0)
+    edges = [np.asarray(x).reshape(-1, walk.CLUSTER_SIZE, 3)[bid.numpy()]
+             for x in (scene[0].e2, scene[0].e1)]
+    e = torch.as_tensor(np.concatenate(edges, -1).transpose(0, 2, 1),
+                        dtype=torch.float32)
+    out["any"] = (torch.cat([r[:3], c, o, r[3:4]]), torch.cat([wj, e], 1),
+                  bid)
+    return out
+
+
+def _slice_parts(pairs, K, occlusion):
+    """Each of a ray's K threads' result for its lanes j = i K + g (last
+    axis: g), as walk.cu's ``visit_result`` forms it: the OR of the hit
+    flags, or the min of the hit keys with INT_MAX where it has no hit (a
+    miss key's t bits are _BIG_CLEAN's, and the kernel drops it)."""
+    sliced = pairs.reshape(*pairs.shape[:2], -1, K)
+    if occlusion:
+        return sliced.any(dim=2)
+    hit = (sliced & ~walk._IMASK) != walk._BIG_CLEAN_I
+    big = torch.iinfo(torch.int32).max
+    return torch.where(hit, sliced, big).amin(dim=2)
+
+
+def _combine(parts, occlusion):
+    """The K parts combined as the kernel's xor shuffles combine them:
+    steps 1, 2, 4, ..., after which every thread holds the same result."""
+    K = parts.shape[-1]
+    g = torch.arange(K)
+    off = 1
+    while off < K:
+        y = parts[..., g ^ off]
+        parts = parts | y if occlusion else torch.minimum(parts, y)
+        off *= 2
+    assert bool((parts == parts[..., :1]).all())
+    return parts[..., 0]
+
+
+def _take(kmin, best, pid, bid):
+    """The strict < on the best key (``take_key`` in walk.cu)."""
+    t_new = kmin & ~walk._IMASK
+    better = t_new < best
+    return (torch.where(better, t_new, best),
+            torch.where(better, bid[:, None] * walk.CLUSTER_SIZE
+                        + (kmin & walk._IMASK), pid))
+
+
+@pytest.mark.parametrize("ties", [False, True])
+@pytest.mark.parametrize("mode", ["closest", "closest_window", "any_dest",
+                                  "any"])
+def test_sliced_visit_combines_to_the_plain_visit(visits, mode, ties):
+    r, wj, bid = visits[mode]
+    if ties:   # odd lanes repeat the even ones: equal t in other threads
+        wj = wj.clone()
+        wj[..., 1::2] = wj[..., 0::2]
+    occlusion = mode.startswith("any")
+    if occlusion:
+        pairs = walk._pair_hits(r, wj, mode)
+        full = pairs.any(dim=2)
+        assert int(full.sum()) > 0
+    else:
+        pairs = walk._pair_keys(r, wj, window=mode == "closest_window")
+        full = pairs.amin(dim=2)
+        hit = (full & ~walk._IMASK) != walk._BIG_CLEAN_I
+        assert int(hit.sum()) > 0
+        if ties:   # the lower lane wins a tie across threads
+            assert bool(((full & walk._IMASK)[hit] % 2 == 0).all())
+    for K in (1, 2, 4, 8):
+        got = _combine(_slice_parts(pairs, K, occlusion), occlusion)
+        if occlusion:
+            assert torch.equal(got, full), K
+            continue
+        # The same winner key on every ray with a hit, and the same best
+        # and winner after the strict <, from no hit yet and again on a
+        # second visit of the same keys (another block id), which keeps
+        # the first visit's winner.
+        assert torch.equal(got[hit], full[hit]), K
+        start = torch.full_like(full, walk._BIG_CLEAN_I)
+        best, pid = _take(got, start, torch.full_like(full, -1), bid)
+        ref = _take(full, start, torch.full_like(full, -1), bid)
+        assert torch.equal(best, ref[0]) and torch.equal(pid, ref[1]), K
+        again = _take(got, best, pid, bid + 1)
+        assert torch.equal(again[0], best) and torch.equal(again[1], pid)
