@@ -60,24 +60,23 @@ def _nvcc() -> str:
                        "are built from ceres_tpu_torch/ops/csrc at first use")
 
 
-def library_path(source: str = _SOURCE) -> str:
-    """Where the library for ``source`` (default: the package's) and the
-    flags lives."""
-    with open(source, "rb") as fh:
+def library_path() -> str:
+    """Where the library for the current source and flags lives."""
+    with open(_SOURCE, "rb") as fh:
         digest = hashlib.sha256(fh.read() + " ".join(NVCC_FLAGS).encode())
     return os.path.join(BUILD_DIR, f"walk_{digest.hexdigest()[:16]}.so")
 
 
-def build(source: str = _SOURCE) -> str:
+def build() -> str:
     """Compile the kernels unless the library for this source exists.
     Returns its path; the compiler's report (registers, shared memory,
     spills) is kept beside it as ``.log``."""
-    path = library_path(source)
+    path = library_path()
     if os.path.isfile(path):
         return path
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{path}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, source]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, _SOURCE]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
@@ -89,12 +88,10 @@ def build(source: str = _SOURCE) -> str:
 
 
 @functools.lru_cache(maxsize=None)
-def load(source: str = _SOURCE) -> ctypes.CDLL:
+def load() -> ctypes.CDLL:
     """Build if needed, load once per process, and declare the C
-    signatures (every pointer and the stream as ``c_void_p``). Another
-    ``source`` (a copy of walk.cu with other constants, for a sweep)
-    loads as a library of its own."""
-    lib = ctypes.CDLL(build(source))
+    signatures (every pointer and the stream as ``c_void_p``)."""
+    lib = ctypes.CDLL(build())
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = list(argtypes)

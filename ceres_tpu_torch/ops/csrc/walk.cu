@@ -147,8 +147,7 @@ constexpr int kR = 512;            // rays per tile (TILE) = threads per block
 constexpr int kWarps = kR / 32;
 constexpr int kK = 8;              // two-level walk: CTAs a tile, threads a ray
 constexpr int kL = kC / kK;        // and triangles of a block a thread
-// A portable cluster size; 1 (no split) serves as a control in sweeps.
-static_assert(kK == 1 || kK == 2 || kK == 4 || kK == 8, "cluster size");
+static_assert(kK == 2 || kK == 4 || kK == 8, "a portable cluster size");
 constexpr int kPlanes = 10;        // common-origin planes: cu.xyz, cv.xyz, n.xyz, tn
 constexpr int kPlanesGeneric = 16; // generic planes: those 10, e2.xyz, e1.xyz
 constexpr int kSuperMax = 32;      // _SUPER_MAX: member slots in one uint32
@@ -215,20 +214,23 @@ __device__ __forceinline__ float xmax(float a, float b) {
   return a > b ? a : b;
 }
 
-// Max of v over the block, returned to every thread. Its first barrier also
-// orders every thread's reads of the current weight buffer before any later
-// write to it.
+// Max of v over the block, returned to every thread: a warp redux, the 16
+// warps' maxima through sred and a second redux. One barrier: the caller
+// puts a barrier of its own between two calls on one sred, or alternates
+// two sred buffers.
 __device__ __forceinline__ int block_max(int v, int* sred) {
-  for (int off = 16; off > 0; off >>= 1) {
-    v = max(v, __shfl_xor_sync(0xffffffffu, v, off));
-  }
-  __syncthreads();  // earlier readers of sred are done
+  v = __reduce_max_sync(0xffffffffu, v);
   if ((threadIdx.x & 31) == 0) sred[threadIdx.x >> 5] = v;
   __syncthreads();
-  int m = sred[0];
-#pragma unroll
-  for (int i = 1; i < kWarps; ++i) m = max(m, sred[i]);
-  return m;
+  return __reduce_max_sync(0xffffffffu, sred[threadIdx.x & (kWarps - 1)]);
+}
+
+// This ray's part of the tile prune: min(best t key, root exit) (closest),
+// or the root exit while unoccluded (occlusion; -1.0f's bits once
+// occluded, which drop out of the max).
+template <int M>
+__device__ __forceinline__ int prune_part(int best, int occ, int tcap) {
+  return occlusion(M) ? (occ > 0 ? kNegI : tcap) : min(best, tcap);
 }
 
 // Synchronous staging of one cluster's kFloats weights (every thread takes
@@ -266,29 +268,25 @@ __device__ __forceinline__ void sign_test(float nu, float nv, float nd,
   uvw = fminf(fminf(nu * s, nv * s), (nd - nu - nv) * s);
 }
 
-// A flat walk's staged block, plane-major as stored: plane q of triangle j
-// at p[q * kC + j].
+// Möller-Trumbore terms of this ray against triangle j of a flat walk's
+// staged block sw (plane-major, as stored: plane q of triangle j at
+// sw[q * kC + j]), in the plain version's order: det and t numerators, s
+// and uvw (sign_test).
 template <int M>
-struct Planes {
-  const float* sw;
-
-  // Möller-Trumbore terms of ray r against triangle j, in the plain
-  // version's order: det and t numerators, s and uvw (sign_test).
-  __device__ __forceinline__ void terms(int j, const Ray<M>& r, float& nd,
-                                        float& nt, float& s,
-                                        float& uvw) const {
-    float nu = r.dx * sw[0 * kC + j] + r.dy * sw[1 * kC + j] + r.dz * sw[2 * kC + j];
-    float nv = r.dx * sw[3 * kC + j] + r.dy * sw[4 * kC + j] + r.dz * sw[5 * kC + j];
-    nd = r.dx * sw[6 * kC + j] + r.dy * sw[7 * kC + j] + r.dz * sw[8 * kC + j];
-    nt = sw[9 * kC + j];
-    if (M == kAny) {
-      nu = nu - (r.cx * sw[10 * kC + j] + r.cy * sw[11 * kC + j] + r.cz * sw[12 * kC + j]);
-      nv = nv - (r.cx * sw[13 * kC + j] + r.cy * sw[14 * kC + j] + r.cz * sw[15 * kC + j]);
-      nt = nt - (r.ox * sw[6 * kC + j] + r.oy * sw[7 * kC + j] + r.oz * sw[8 * kC + j]);
-    }
-    sign_test(nu, nv, nd, s, uvw);
+__device__ __forceinline__ void numerators(const float* sw, int j,
+                                           const Ray<M>& r, float& nd,
+                                           float& nt, float& s, float& uvw) {
+  float nu = r.dx * sw[0 * kC + j] + r.dy * sw[1 * kC + j] + r.dz * sw[2 * kC + j];
+  float nv = r.dx * sw[3 * kC + j] + r.dy * sw[4 * kC + j] + r.dz * sw[5 * kC + j];
+  nd = r.dx * sw[6 * kC + j] + r.dy * sw[7 * kC + j] + r.dz * sw[8 * kC + j];
+  nt = sw[9 * kC + j];
+  if (M == kAny) {
+    nu = nu - (r.cx * sw[10 * kC + j] + r.cy * sw[11 * kC + j] + r.cz * sw[12 * kC + j]);
+    nv = nv - (r.cx * sw[13 * kC + j] + r.cy * sw[14 * kC + j] + r.cz * sw[15 * kC + j]);
+    nt = nt - (r.ox * sw[6 * kC + j] + r.oy * sw[7 * kC + j] + r.oz * sw[8 * kC + j]);
   }
-};
+  sign_test(nu, nv, nd, s, uvw);
+}
 
 // A two-level walk's staged block, triangle-major: one record of
 // rec_floats(M) floats per triangle, read as float4s
@@ -375,22 +373,6 @@ __device__ __forceinline__ bool hit_key(float nd, float nt, int j,
   return M != kClosestWindow || (t >= r.tmin && t <= r.tmax);
 }
 
-// The smallest winner key of ray r over the kC triangles of a flat
-// visit: hit_key, or kBigCleanI | lane for a miss.
-template <int M>
-__device__ __forceinline__ int min_key(const Planes<M>& blk,
-                                       const Ray<M>& r) {
-  int kmin = INT_MAX;
-  for (int j = 0; j < kC; ++j) {
-    float nd, nt, s, uvw;
-    blk.terms(j, r, nd, nt, s, uvw);
-    int key = kBigCleanI | j, h;
-    if (front_hit(nd, nt, s, uvw) && hit_key<M>(nd, nt, j, r, h)) key = h;
-    kmin = min(kmin, key);
-  }
-  return kmin;
-}
-
 // Take the key min of a visit of block cid: a strictly smaller t key
 // updates this ray's best key and winner slot.
 __device__ __forceinline__ void take_key(int kmin, int cid, int& best,
@@ -402,37 +384,49 @@ __device__ __forceinline__ void take_key(int kmin, int cid, int& best,
   }
 }
 
-// Whether a triangle of a flat visit occludes ray r (occludes). Stops at
-// the first occluder.
+// Closest-hit visit of one cluster (weights sw, packed id base cid * kC):
+// the key min over its kC triangles (a miss is kBigCleanI | lane), taken
+// into this ray's best t key and winner slot.
 template <int M>
-__device__ __forceinline__ int occluded(const Planes<M>& blk,
-                                        const Ray<M>& r) {
+__device__ __forceinline__ void visit_closest(const float* sw, int cid,
+                                              const Ray<M>& r, int& best,
+                                              int& pid) {
+  int kmin = INT_MAX;
   for (int j = 0; j < kC; ++j) {
     float nd, nt, s, uvw;
-    blk.terms(j, r, nd, nt, s, uvw);
-    if (occludes<M>(nd, nt, s, uvw)) return 1;
+    numerators<M>(sw, j, r, nd, nt, s, uvw);
+    int key = kBigCleanI | j, h;
+    if (front_hit(nd, nt, s, uvw) && hit_key<M>(nd, nt, j, r, h)) key = h;
+    kmin = min(kmin, key);
   }
-  return 0;
+  take_key(kmin, cid, best, pid);
 }
 
-// A flat visit of cluster cid (weights sw): closest modes update best and
-// pid; occlusion modes set occ (occluded rays skip the loop).
+// Shadow visit of one cluster: set occ if a triangle occludes (occludes).
+// Occluded rays skip the loop; the loop stops at the first occluder.
+template <int M>
+__device__ __forceinline__ void visit_occlusion(const float* sw,
+                                                const Ray<M>& r, int& occ) {
+  if (occ != 0) return;
+  for (int j = 0; j < kC; ++j) {
+    float nd, nt, s, uvw;
+    numerators<M>(sw, j, r, nd, nt, s, uvw);
+    if (occludes<M>(nd, nt, s, uvw)) {
+      occ = 1;
+      return;
+    }
+  }
+}
+
 template <int M>
 __device__ __forceinline__ void visit(const float* sw, int cid,
                                       const Ray<M>& r, int& best, int& pid,
                                       int& occ) {
   if (occlusion(M)) {
-    if (occ == 0) occ = occluded<M>(Planes<M>{sw}, r);
+    visit_occlusion<M>(sw, r, occ);
   } else {
-    take_key(min_key<M>(Planes<M>{sw}, r), cid, best, pid);
+    visit_closest<M>(sw, cid, r, best, pid);
   }
-}
-
-template <int M>
-__device__ __forceinline__ int tile_prune(int best, int occ, int tcap,
-                                          int* sred) {
-  return block_max(occlusion(M) ? (occ > 0 ? kNegI : tcap) : min(best, tcap),
-                   sred) + kPrunePad;
 }
 
 template <int M, bool kStream>
@@ -454,7 +448,8 @@ walk_flat(const int* __restrict__ counts, const int* __restrict__ keys,
   int best = kBigCleanI;  // closest: best t key (low lane bits clear)
   int pid = -1;           // closest: packed slot id of the winner
   int occ = occlusion(M) ? occ0[ray] : 0;
-  int prune = tile_prune<M>(best, occ, r.tcap, sred);
+  // Two block_max calls on sred are a loop's barriers apart.
+  int prune = block_max(prune_part<M>(best, occ, r.tcap), sred) + kPrunePad;
 
   if (kStream && count > 0) {
     stage_async<kFloats>(sw[0], w + (size_t)(krow[0] & cmask) * kFloats);
@@ -479,7 +474,7 @@ walk_flat(const int* __restrict__ counts, const int* __restrict__ keys,
     __syncthreads();
 
     visit<M>(cur, cid, r, best, pid, occ);
-    prune = tile_prune<M>(best, occ, r.tcap, sred);
+    prune = block_max(prune_part<M>(best, occ, r.tcap), sred) + kPrunePad;
     ++k;
   }
   if (kStream) wait_async<0>();  // drain the prefetch an early exit left
@@ -547,20 +542,6 @@ __device__ __forceinline__ int next_member(int ent, unsigned rem, int* m) {
   *m = __reduce_min_sync(0xffffffffu, v);
   const unsigned at = __ballot_sync(0xffffffffu, live && v == *m);
   return at ? __ffs(at) - 1 : 0;
-}
-
-// Max over the CTA of this thread's part of the prune (the ray's min(best,
-// root exit), or its root exit while unoccluded), returned to every thread:
-// a warp redux, the 16 warps' maxima through sred (a buffer the previous
-// call did not use: one barrier a call) and a second redux.
-template <int M>
-__device__ __forceinline__ int block_part(int best, int occ, int tcap,
-                                          int* sred) {
-  int v = occlusion(M) ? (occ > 0 ? kNegI : tcap) : min(best, tcap);
-  v = __reduce_max_sync(0xffffffffu, v);
-  if ((threadIdx.x & 31) == 0) sred[threadIdx.x >> 5] = v;
-  __syncthreads();
-  return __reduce_max_sync(0xffffffffu, sred[threadIdx.x & (kWarps - 1)]);
 }
 
 // Copy block blk (planes x kC, plane-major) into dst as triangle records
@@ -702,6 +683,7 @@ walk_hier(const int* __restrict__ counts, const int* __restrict__ keys,
   __shared__ int spart[2][kK];
   __shared__ __align__(8) unsigned long long sbar[2];
   __shared__ int sfirst[kK];
+  // block_max's buffers: a member visit has one barrier, so calls alternate.
   __shared__ int sred[2][kWarps];
   __shared__ float shl[kHullCols];
   constexpr unsigned kExchangeBytes = (kK - 1) * sizeof(int);
@@ -718,7 +700,7 @@ walk_hier(const int* __restrict__ counts, const int* __restrict__ keys,
   if (threadIdx.x < kHullCols) {
     shl[threadIdx.x] = hull[(size_t)tile * kHullCols + threadIdx.x];
   }
-  if (kK > 1 && threadIdx.x == 0) {
+  if (threadIdx.x == 0) {
     for (int p = 0; p < 2; ++p) {
       asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n"
                    :: "r"(cta_addr(&sbar[p])) : "memory");
@@ -730,8 +712,8 @@ walk_hier(const int* __restrict__ counts, const int* __restrict__ keys,
   int best = kBigCleanI;
   int pid = -1;
   int occ = occlusion(M) ? occ0[ray] : 0;
-  int red = 0;  // which sred buffer the next block_part uses
-  int part = block_part<M>(best, occ, r.tcap, sred[red]);  // syncs shl
+  int red = 0;  // which sred buffer the next block_max uses
+  int part = block_max(prune_part<M>(best, occ, r.tcap), sred[red]);  // syncs shl
   red ^= 1;
   if (threadIdx.x < kK) *cluster.map_shared_rank(&sfirst[rank], threadIdx.x) = part;
   cluster.sync();  // every CTA runs, its mbarriers armed and its part sent
@@ -772,11 +754,11 @@ walk_hier(const int* __restrict__ counts, const int* __restrict__ keys,
       } else {
         take_key(x, fs + s, best, pid);
       }
-      if (kStream && ahead) wait_async<0>();  // block_part's barrier publishes it
-      part = block_part<M>(best, occ, r.tcap, sred[red]);
+      if (kStream && ahead) wait_async<0>();  // block_max's barrier publishes it
+      part = block_max(prune_part<M>(best, occ, r.tcap), sred[red]);
       red ^= 1;
       const int p = nvis & 1;
-      if (kK > 1 && threadIdx.x == 0) {
+      if (threadIdx.x == 0) {
         const unsigned a = cta_addr(&spart[p][rank]);
         const unsigned bar = cta_addr(&sbar[p]);
 #pragma unroll
@@ -797,7 +779,7 @@ walk_hier(const int* __restrict__ counts, const int* __restrict__ keys,
       int x2 = 0;
       if (go2) x2 = visit_result<M>(sw[(b + 1) % 3], occ, r, g);
 
-      if (kK > 1) {  // the other CTAs' parts are in; re-arm
+      {  // the other CTAs' parts are in; re-arm
         const unsigned bar = cta_addr(&sbar[p]);
         wait_phase(bar, (nvis >> 1) & 1);
         if (threadIdx.x == 0) expect_bytes(bar, kExchangeBytes);

@@ -145,7 +145,8 @@ def _closest_search(cs, eye, dir_cols, tmin=None, tmax=None):
     """Detached winner search: (packed slot ids (R,) int32, counters)."""
     R = dir_cols[0].shape[0]
     args, opts = _closest_inputs(cs, eye, dir_cols, tmin, tmax)
-    pidx, steps = walk.walk_closest(*args, **opts)
+    pidx, visits = walk.walk_closest(*args, **opts)
+    steps = visits.sum()
     return pidx[:R], {"traversal_steps": steps, "mt_block_visits": steps}
 
 
@@ -264,7 +265,8 @@ def any_hit(soup: TriangleSoup, origin_shift, origins, dirs, skip=None,
     if skip is None:
         skip = torch.zeros(R, dtype=torch.bool, device=cs.lo.device)
     args, opts = _any_inputs(cs, origin_shift, origins, dirs, skip)
-    occ, steps = walk.walk_any(*args, **opts)
+    occ, visits = walk.walk_any(*args, **opts)
+    steps = visits.sum()
     result = (occ[:R] == 1) & ~skip
     if with_counts:
         return result, {"traversal_steps": steps, "mt_block_visits": steps,
@@ -317,7 +319,8 @@ def any_hit_to_point(soup: TriangleSoup, dest, points, skip=None,
     if skip is None:
         skip = torch.zeros(R, dtype=torch.bool, device=cs.lo.device)
     args, opts = _any_dest_inputs(cs, dest, points, skip)
-    occ, steps = walk.walk_any_dest(*args, **opts)
+    occ, visits = walk.walk_any_dest(*args, **opts)
+    steps = visits.sum()
     result = (occ[:R] == 1) & ~skip
     if with_counts:
         return result, {"traversal_steps": steps, "mt_block_visits": steps,

@@ -41,10 +41,10 @@ and for the two-level walk (``prepass._hier_setup``):
   hull   (n_tiles, 16) f32 per-tile hull scalars;
   bbox   (n_s, 8, S) f32 member boxes;
   first  (n_s,) int32 first fine block of each super.
-Each returns (out (n_tiles * 512,) int32, steps), with ``out`` the packed
-winner slot id (cid * C + lane, -1 for a miss) or the occlusion flag, and
-``steps`` the executed block visits (0-dim int64), the traversal
-statistic, or with ``per_tile=True`` each tile's (n_tiles,) int64.
+Each returns (out (n_tiles * 512,) int32, visits), with ``out`` the
+packed winner slot id (cid * C + lane, -1 for a miss) or the occlusion
+flag, and ``visits`` (n_tiles,) int32 each tile's executed block visits,
+the traversal statistic.
 """
 
 from __future__ import annotations
@@ -133,14 +133,7 @@ def _check(mode, counts, keys, rays, w, occ0, hull, bbox, first, S):
         raise ValueError("w must be 16-byte aligned (cp.async copies)")
 
 
-def _steps(visits, per_tile):
-    """Executed visits per tile -> their sum (0-dim int64), or the
-    (n_tiles,) int64 tensor itself with ``per_tile``."""
-    return visits.long() if per_tile else visits.sum()
-
-
-def _launch(mode, counts, keys, rays, w, occ0, hull, bbox, first, S, stream,
-            per_tile):
+def _launch(mode, counts, keys, rays, w, occ0, hull, bbox, first, S, stream):
     from ceres_tpu_torch.ops import _build
 
     if rays.device.type != "cuda":
@@ -165,45 +158,45 @@ def _launch(mode, counts, keys, rays, w, occ0, hull, bbox, first, S, stream,
         raise RuntimeError(f"{fn} kernel launch failed: "
                            f"{lib.ceres_error_string(err).decode()} ({err})")
     launches[_variant(mode, S, stream)] += 1
-    return out, _steps(visits, per_tile)
+    return out, visits
 
 
 def walk_closest(counts, keys, rays, w, hull=None, bbox=None, first=None, *,
-                 S=1, stream=False, window=False, per_tile=False):
-    """Closest hit per ray: (packed slot ids, steps). ``window=True``:
+                 S=1, stream=False, window=False):
+    """Closest hit per ray: (packed slot ids, visits). ``window=True``:
     ``rays`` carries tmin and tmax rows, and a hit counts only with t in
     [tmin, tmax]."""
     mode = "closest_window" if window else "closest"
     _check(mode, counts, keys, rays, w, None, hull, bbox, first, S)
     if rays.device.type == "cpu":
         return _walk_closest_plain(counts, keys, rays, w, hull, bbox, first,
-                                   S=S, window=window, per_tile=per_tile)
+                                   S=S, window=window)
     return _launch(mode, counts, keys, rays, w, None, hull, bbox, first, S,
-                   stream, per_tile)
+                   stream)
 
 
 def walk_any_dest(counts, keys, rays, w, occ0, hull=None, bbox=None,
-                  first=None, *, S=1, stream=False, per_tile=False):
+                  first=None, *, S=1, stream=False):
     """Occlusion of each segment from the common origin (t = 0) to its
-    receiving point (t = 1): (flags, steps)."""
+    receiving point (t = 1): (flags, visits)."""
     _check("any_dest", counts, keys, rays, w, occ0, hull, bbox, first, S)
     if rays.device.type == "cpu":
         return _walk_any_dest_plain(counts, keys, rays, w, occ0, hull, bbox,
-                                    first, S=S, per_tile=per_tile)
+                                    first, S=S)
     return _launch("any_dest", counts, keys, rays, w, occ0, hull, bbox, first,
-                   S, stream, per_tile)
+                   S, stream)
 
 
 def walk_any(counts, keys, rays, w, occ0, hull=None, bbox=None, first=None,
-             *, S=1, stream=False, per_tile=False):
+             *, S=1, stream=False):
     """Occlusion of rays with their own origins: any triangle at t >= 0,
-    however far (flags, steps)."""
+    however far (flags, visits)."""
     _check("any", counts, keys, rays, w, occ0, hull, bbox, first, S)
     if rays.device.type == "cpu":
         return _walk_any_plain(counts, keys, rays, w, occ0, hull, bbox, first,
-                               S=S, per_tile=per_tile)
+                               S=S)
     return _launch("any", counts, keys, rays, w, occ0, hull, bbox, first, S,
-                   stream, per_tile)
+                   stream)
 
 
 # ---------------------------------------------------------------------------
@@ -301,7 +294,7 @@ def _walk(counts, keys, rays, tcap_row, state, prune_of, visit, hier=None):
     ``prune_of(tcap, *state)`` is the per-tile prune and ``visit(bid, r,
     *state)`` the new state of the visiting tiles, given their ray rows
     r (rows, t, R). Returns the executed block visits per tile
-    ((n_tiles,) int64).
+    ((n_tiles,) int32).
     """
     n_tiles, n_k = keys.shape
     cmask = (1 << _cid_bits(n_k)) - 1
@@ -309,7 +302,7 @@ def _walk(counts, keys, rays, tcap_row, state, prune_of, visit, hier=None):
     tcap = rays[tcap_row].view(torch.int32).reshape(n_tiles, TILE)
     prune = prune_of(tcap, *state)
     done = torch.zeros(n_tiles, dtype=torch.bool, device=keys.device)
-    visits = torch.zeros(n_tiles, dtype=torch.int64, device=keys.device)
+    visits = torch.zeros(n_tiles, dtype=torch.int32, device=keys.device)
 
     def visit_blocks(tiles, bid):
         visits[tiles] += 1
@@ -353,8 +346,7 @@ def _hier(hull, bbox, first, S):
 
 
 def _walk_closest_plain(counts, keys, rays, w, hull=None, bbox=None,
-                        first=None, *, S=1, stream=False, window=False,
-                        per_tile=False):
+                        first=None, *, S=1, stream=False, window=False):
     """Plain version of the closest kernels: per ray the best t key, ties
     to the lower lane and the earlier visit; with the window, pairs with
     t outside [tmin, tmax] count as misses. ``stream`` is accepted, so a
@@ -379,41 +371,50 @@ def _walk_closest_plain(counts, keys, rays, w, hull=None, bbox=None,
 
     visits = _walk(counts, keys, rays, _TCAP_ROW[mode], (best, pid),
                    prune_of, visit, _hier(hull, bbox, first, S))
-    return pid.reshape(-1), _steps(visits, per_tile)
+    return pid.reshape(-1), visits
 
 
 def _walk_any_dest_plain(counts, keys, rays, w, occ0, hull=None, bbox=None,
-                         first=None, *, S=1, stream=False, per_tile=False):
+                         first=None, *, S=1, stream=False):
     """Plain version of the common-origin shadow kernels: per ray, any
     occluder between the origin (t = 0) and the receiver (t = 1 -
     _DEST_EPS). ``stream`` is ignored, as in ``_walk_closest_plain``."""
     del stream
     return _occlusion_plain("any_dest", counts, keys, rays, w, occ0, hull,
-                            bbox, first, S, per_tile)
+                            bbox, first, S)[:2]
 
 
 def _walk_any_plain(counts, keys, rays, w, occ0, hull=None, bbox=None,
-                    first=None, *, S=1, stream=False, per_tile=False):
+                    first=None, *, S=1, stream=False):
     """Plain version of the generic-origin shadow kernels: per ray, any
     triangle at t >= 0 from its own origin, with no upper bound.
     ``stream`` is ignored, as in ``_walk_closest_plain``."""
     del stream
     return _occlusion_plain("any", counts, keys, rays, w, occ0, hull, bbox,
-                            first, S, per_tile)
+                            first, S)[:2]
 
 
 def _occlusion_plain(mode, counts, keys, rays, w, occ0, hull, bbox, first,
-                     S, per_tile):
-    """The occlusion walk of ``mode`` (any_dest or any)."""
+                     S):
+    """The occlusion walk of ``mode`` (any_dest or any): (flags, visits
+    per tile, pairs), with ``pairs`` (0-dim int64) the ray-triangle pairs
+    the walk had to test: in each visit, for each ray not yet occluded,
+    the lanes up to its first occluder, or all C. The kernels skip the
+    other pairs, so their bound counts these."""
     occ = occ0.reshape(-1, TILE).clone()
+    tested = torch.zeros(occ.shape, dtype=torch.int64, device=occ.device)
 
-    def prune_of(tcap, occ):
+    def prune_of(tcap, occ, tested):
         return torch.where(occ > 0, _NEG_I, tcap).amax(dim=1) + _PRUNE_PAD
 
-    def visit(bid, r, occ):
+    def visit(bid, r, occ, tested):
         hits = _pair_hits(r, w[bid.long()], mode)
-        return (occ | hits.any(dim=2).to(torch.int32),)
+        hit = hits.any(dim=2)
+        upto = torch.where(hit, hits.to(torch.uint8).argmax(dim=2) + 1,
+                           CLUSTER_SIZE)
+        return (occ | hit.to(torch.int32),
+                tested + torch.where(occ == 0, upto, 0))
 
-    visits = _walk(counts, keys, rays, _TCAP_ROW[mode], (occ,), prune_of,
-                   visit, _hier(hull, bbox, first, S))
-    return occ.reshape(-1), _steps(visits, per_tile)
+    visits = _walk(counts, keys, rays, _TCAP_ROW[mode], (occ, tested),
+                   prune_of, visit, _hier(hull, bbox, first, S))
+    return occ.reshape(-1), visits, tested.sum()

@@ -62,9 +62,13 @@ its own line:
 
 Every kernel-vs-plain check holds each tile's executed visits, not only
 their sum, and prints the kernel's bound: the larger of its fp32
-operations (executed visits x 512 rays x 128 triangles x FLOPS_PER_PAIR)
-over the card's fp32 peak and the bytes it must move over the memory
-rate, with the share of it the kernel reached. Each two-level kernel
+operations (the ray-triangle pairs this run's data needs x
+FLOPS_PER_PAIR) over the card's fp32 peak and the bytes it must move
+over the memory rate, with the share of it the kernel reached. The
+closest walks test every ray against every lane of every executed
+visit (visits x 512 x 128 pairs); the shadow walks skip rays already
+occluded and stop a ray at its first occluder, so their pairs are the
+plain walk's count of exactly those. Each two-level kernel
 also gets a line of its own: the cluster size K of ``walk.cu``, its
 visits, the heaviest tile's visits and the time per member visit they
 imply, kernel ms, bound and share.
@@ -115,11 +119,9 @@ LARGE = {3: ("walk_closest_stream", "walk_any_dest_stream"),
 # The C++ reference's fixtures: (PPM, rays, hits) it printed.
 CPP = {"bunny": ("bunny_64_smooth_ref.ppm", 4645, 804),
        "dragon": ("dragon_64_static_ref.ppm", 4415, 492)}
-# Modes of the walk: (wrapper, plain version) names in ops.walk.
-WALKS = {"closest": ("walk_closest", "_walk_closest_plain"),
-         "closest_window": ("walk_closest", "_walk_closest_plain"),
-         "any_dest": ("walk_any_dest", "_walk_any_dest_plain"),
-         "any": ("walk_any", "_walk_any_plain")}
+# Modes of the walk and their wrappers in ops.walk.
+WALKS = {"closest": "walk_closest", "closest_window": "walk_closest",
+         "any_dest": "walk_any_dest", "any": "walk_any"}
 # fp32 operations per ray-triangle pair of a visit, counted from walk.cu
 # (every multiply, add, min and comparison on every pair): the
 # numerators, 15 (33 for generic rays), the sign test, 8, and the mode's
@@ -256,43 +258,60 @@ def hier_ctas():
         return int(re.search(r"constexpr int kK = (\d+);", fh.read()).group(1))
 
 
-def bound(mode, args, opts, steps):
+def plain_run(mode, args, opts):
+    """The plain version on the kernel's inputs: (out, visits per tile,
+    pairs), ``pairs`` the ray-triangle pairs the walk had to test: every
+    ray against every lane of every visit (closest modes), or each ray
+    not yet occluded up to its first occluder (occlusion modes, counted
+    by the plain walk)."""
+    from ceres_tpu_torch.ops import walk
+
+    if mode.startswith("closest"):
+        out, tiles = walk._walk_closest_plain(*args, **opts)
+        return out, tiles, int(tiles.sum()) * walk.TILE * walk.CLUSTER_SIZE
+    out, tiles, pairs = walk._occlusion_plain(
+        mode, *args, *(opts.get(k) for k in ("hull", "bbox", "first")),
+        opts["S"])
+    return out, tiles, int(pairs)
+
+
+def bound(mode, args, opts, steps, pairs):
     """(ms, "operations" or "bytes"): the least time the card could take
-    for a walk of ``steps`` executed visits. Operations: steps x 512 x 128
-    pairs at FLOPS_PER_PAIR over PEAK_FLOPS. Bytes: the ray rows, counts,
-    keys, start flags and two-level inputs read once, each visit's weight
-    block, and the outputs written once, over PEAK_BYTES."""
+    for a walk of ``steps`` executed visits that tests ``pairs``
+    ray-triangle pairs. Operations: pairs at FLOPS_PER_PAIR over
+    PEAK_FLOPS. Bytes: the ray rows, counts, keys, start flags and
+    two-level inputs read once, each visit's weight block, and the
+    outputs written once, over PEAK_BYTES."""
     counts, keys, rays, w = args[:4]
     inputs = [counts, keys, rays, *args[4:]]
     inputs += [opts[k] for k in ("hull", "bbox", "first")
                if opts.get(k) is not None]
     nbytes = (sum(x.numel() * x.element_size() for x in inputs)
               + steps * w[0].numel() * 4 + rays.shape[1] * 4 + counts.numel() * 4)
-    ops = steps * 512 * 128 * FLOPS_PER_PAIR[mode]
+    ops = pairs * FLOPS_PER_PAIR[mode]
     t_ops, t_bytes = ops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
 def compare(mode, args, opts, reps, plain_ref=None):
     """Kernel against plain version on the same inputs, executed visits
-    held tile by tile. ``plain_ref`` (out, per-tile visits, ms) reuses a
-    plain run of the same inputs."""
+    held tile by tile. ``plain_ref`` (out, per-tile visits, pairs, ms)
+    reuses a plain run of the same inputs."""
     from ceres_tpu_torch.ops import walk
 
-    kernel, plain = (getattr(walk, name) for name in WALKS[mode])
+    kernel = getattr(walk, WALKS[mode])
     if plain_ref is None:
-        (out_p, tiles_p), plain_ms = timed_once(
-            lambda: plain(*args, **opts, per_tile=True))
-        plain_ref = (out_p, tiles_p, plain_ms)
-    out_p, tiles_p, plain_ms = plain_ref
-    out_k, tiles_k = kernel(*args, **opts, per_tile=True)
+        plain_ref, plain_ms = timed_once(lambda: plain_run(mode, args, opts))
+        plain_ref = (*plain_ref, plain_ms)
+    out_p, tiles_p, pairs, plain_ms = plain_ref
+    out_k, tiles_k = kernel(*args, **opts)
     torch.cuda.synchronize()
     diff = (out_k.long() - out_p.long()).abs()
     steps = int(tiles_k.sum())
-    bound_ms, bound_by = bound(mode, args, opts, steps)
+    bound_ms, bound_by = bound(mode, args, opts, steps, pairs)
     ms = cuda_ms(lambda: kernel(*args, **opts), reps)
     return {"mismatches": int((diff > 0).sum()), "max_abs_err": int(diff.max()),
-            "steps": steps, "plain_steps": int(tiles_p.sum()),
+            "steps": steps, "plain_steps": int(tiles_p.sum()), "pairs": pairs,
             "tiles_off": int((tiles_k != tiles_p).sum()),
             "max_tile": int(tiles_k.max()),
             "positives": positives(mode, out_p, args), "ms": ms,
@@ -304,7 +323,7 @@ def report(phase, kname, label, r, card):
     print(f"phase {phase} {kname} {label}: mismatches {r['mismatches']} "
           f"max_abs_err {r['max_abs_err']} steps {r['steps']}/"
           f"{r['plain_steps']} tiles with other visits {r['tiles_off']} "
-          f"positives {r['positives']} kernel {r['ms']:.4f} ms plain "
+          f"pairs tested {r['pairs']} positives {r['positives']} kernel {r['ms']:.4f} ms plain "
           f"{r['plain_ms']:.2f} ms bound {r['bound_ms']:.4f} ms "
           f"({r['bound_by']}, share {r['bound_ms'] / r['ms']:.2%}) [{card}]",
           flush=True)

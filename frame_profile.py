@@ -1,14 +1,12 @@
 """Where one frame's device time goes, on one NVIDIA card.
 
-    python -m ceres_tpu_torch.tools.frame_profile [--scene bunny4]
-        [--compat] [--frames 3]
+    python3 frame_profile.py [--scene bunny4] [--compat] [--frames 3]
 
-Run from the repository root. Renders ``chip_smoke.py``'s frame of the
-scene (``bunny``: bunny.obj on the SweepSAH cut; ``bunny3``/``bunny4``:
-the 3x/4x subdivided bunny on the device treelet cut; 1920 x 1080, the
-sun and camera of ``bench.py``; ``--compat``: reference-exact) through
-``render_pipeline`` with a prebuilt cut and winner table, as a frame loop
-would. Prints the card's name and power limit, ms/frame (median of CUDA
+Renders ``chip_smoke.py``'s frame of the scene (``bunny``: bunny.obj on
+the SweepSAH cut; ``bunny3``/``bunny4``: the 3x/4x subdivided bunny on
+the device treelet cut; 1920 x 1080, the sun and camera of ``bench.py``;
+``--compat``: reference-exact) through ``render_pipeline`` with a
+prebuilt cut and winner table, as a frame loop would. Prints the card's name and power limit, ms/frame (median of CUDA
 events over the frames), then from a ``torch.profiler`` trace of the same
 number of frames: device time per frame (the sum of the kernels', copies'
 and fills' durations), device operations per frame, the busy share (the
@@ -27,8 +25,7 @@ import sys
 
 import torch
 
-ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))))
+ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
 def _union(intervals):

@@ -140,15 +140,15 @@ def test_kernel_equals_plain(card_inputs, mode, walk_form, stream):
     kernel, plain = KERNELS[mode]
     name = walk._variant(mode, opts["S"], stream)
     before = dict(walk.launches)
-    out_k, steps_k = kernel(*args, **opts)
-    out_p, steps_p = plain(*args, **opts)
+    out_k, visits_k = kernel(*args, **opts)
+    out_p, visits_p = plain(*args, **opts)
     torch.cuda.synchronize()
     assert walk.launches[name] == before[name] + 1
     positive = (out_p >= 0 if mode.startswith("closest")
                 else (out_p == 1) & (args[4] == 0))
     assert int(positive.sum()) > 0
     assert torch.equal(out_k, out_p)
-    assert int(steps_k) == int(steps_p) > 0
+    assert torch.equal(visits_k, visits_p) and int(visits_p.sum()) > 0
 
 
 def _card():
@@ -171,8 +171,8 @@ def _same_per_tile(mode, args, opts):
     """The two-level kernel against its plain version, outputs and
     executed visits tile by tile. Returns the plain per-tile visits."""
     kernel, plain = KERNELS[mode]
-    out_k, tiles_k = kernel(*args, **opts, per_tile=True)
-    out_p, tiles_p = plain(*args, **opts, per_tile=True)
+    out_k, tiles_k = kernel(*args, **opts)
+    out_p, tiles_p = plain(*args, **opts)
     torch.cuda.synchronize()
     positive = (out_p >= 0 if mode.startswith("closest")
                 else (out_p == 1) & (args[4] == 0))

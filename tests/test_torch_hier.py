@@ -156,8 +156,8 @@ def _port_closest(scene, **opts_override):
     args, opts = pmk._closest_inputs(convert.cluster_set(cs), _port(eye),
                                      _port(dirs))
     opts.update(opts_override)
-    pidx, steps = walk.walk_closest(*args, **opts)
-    return pidx.numpy()[:dirs[0].shape[0]], int(steps), opts
+    pidx, visits = walk.walk_closest(*args, **opts)
+    return pidx.numpy()[:dirs[0].shape[0]], int(visits.sum()), opts
 
 
 def _jax_shadow(scene):
@@ -172,9 +172,9 @@ def _port_shadow(scene, **opts_override):
     args, opts = pmk._any_dest_inputs(convert.cluster_set(cs), _port(sun),
                                       _port(points), _port(skip))
     opts.update(opts_override)
-    occ, steps = walk.walk_any_dest(*args, **opts)
+    occ, visits = walk.walk_any_dest(*args, **opts)
     R = points[0].shape[0]
-    return (occ.numpy()[:R] == 1) & ~np.asarray(skip), int(steps), opts
+    return (occ.numpy()[:R] == 1) & ~np.asarray(skip), int(visits.sum()), opts
 
 
 def test_super_inputs_are_bit_equal(scene):

@@ -173,7 +173,7 @@ def _shadow_margin(cs, dest, d, ray):
 def test_closest_plain_matches_pallas(scene):
     jax_args, port_args = _closest_args(scene)
     ref, ref_steps = _jax_walk(jax_args, "closest")
-    got, steps = walk.walk_closest(*port_args)
+    got, visits = walk.walk_closest(*port_args)
     got = got.numpy()
     R = scene[2][0].shape[0]
     ref, got = ref[:R], got[:R]
@@ -186,13 +186,13 @@ def test_closest_plain_matches_pallas(scene):
         ta = _slot_t(cs, eye, dirs, got[ray], ray)
         tb = _slot_t(cs, eye, dirs, ref[ray], ray)
         assert abs(ta - tb) <= 1e-5 * max(abs(ta), abs(tb))
-    assert abs(int(steps) - ref_steps) <= 0.01 * ref_steps
+    assert abs(int(visits.sum()) - ref_steps) <= 0.01 * ref_steps
 
 
 def test_any_dest_plain_matches_pallas(scene):
     jax_args, port_args = _shadow_args(scene)
     ref, ref_steps = _jax_walk(jax_args, "any_dest")
-    got, steps = walk.walk_any_dest(*port_args)
+    got, visits = walk.walk_any_dest(*port_args)
     got = got.numpy()
     occ0 = port_args[4].numpy()
     assert ((ref == 1) & (occ0 == 0)).sum() > 0
@@ -202,7 +202,7 @@ def test_any_dest_plain_matches_pallas(scene):
     d = tuple(np.asarray(points[a] - sun[a]) for a in range(3))
     for ray in differ:   # boundary cases only
         assert abs(_shadow_margin(cs, sun, d, ray)) <= 1e-6
-    assert abs(int(steps) - ref_steps) <= 0.01 * ref_steps
+    assert abs(int(visits.sum()) - ref_steps) <= 0.01 * ref_steps
 
 
 def test_plain_versions_do_not_count_launches(scene):
@@ -221,6 +221,28 @@ def test_wrapper_rejects_bad_inputs(scene):
         walk.walk_closest(counts, keys.to(torch.int64), rays, w)
     with pytest.raises(ValueError, match="w"):
         walk.walk_closest(counts, keys, rays, w[:, :8])
+
+
+def test_occlusion_plain_counts_the_pairs_it_tests(scene):
+    # The pairs a shadow walk has to test (what the kernels' bound
+    # counts): in each visit, each ray not yet occluded, up to its first
+    # occluder. With zero weights nothing occludes, so that is every lane
+    # of every visit for each ray live from the start; with the scene's
+    # weights an occluded ray stops early and then drops out.
+    _, (counts, keys, rays, w, occ0) = _shadow_args(scene)
+    live = (occ0 == 0).reshape(-1, walk.TILE).sum(dim=1)
+
+    def run(w):
+        return walk._occlusion_plain("any_dest", counts, keys, rays, w, occ0,
+                                     None, None, None, 1)
+
+    _, visits, pairs = run(torch.zeros_like(w))
+    every = int((visits * live).sum()) * walk.CLUSTER_SIZE
+    assert int(pairs) == every > 0
+    occ, visits, pairs = run(w)
+    assert 0 < int(pairs) < int((visits * live).sum()) * walk.CLUSTER_SIZE
+    out, tiles = walk.walk_any_dest(counts, keys, rays, w, occ0)
+    assert torch.equal(occ, out) and torch.equal(visits, tiles)
 
 
 @pytest.fixture(scope="module")
