@@ -96,6 +96,8 @@ def load() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
+    lib.ceres_walk_resident_clusters.argtypes = [_I] * 4
+    lib.ceres_walk_resident_clusters.restype = _I
     lib.ceres_error_string.argtypes = [ctypes.c_int]
     lib.ceres_error_string.restype = ctypes.c_char_p
     return lib

@@ -19,26 +19,27 @@
 //                   accept; features [d, d x o, o, 1]): the
 //                   reference-exact shadow rays, from any_hit.
 // Each as
-//   walk_flat<M, false>   flat, resident;
-//   walk_flat<M, true>    flat, streamed weights (stream=True: _copy /
-//                         start_fetch / wait_fetch, fetch_wait and the drain
-//                         at early exit);
-//   walk_hier<M, *>       two-level (S > 1: block_entries, the in-super
-//                         priority walk).
+//   walk_flat<M>                   flat, resident: one block a tile;
+//   walk_tile<M, true, K, false>   flat, streamed weights (stream=True:
+//                                  _copy / start_fetch / wait_fetch,
+//                                  fetch_wait and the drain at early exit);
+//   walk_tile<M, *, K, true>       two-level (S > 1: block_entries, the
+//                                  in-super priority walk);
+// walk_tile walks one tile on a thread-block cluster of K CTAs (below).
 // The plain PyTorch versions that define the exact results are in
 // ceres_tpu_torch/ops/walk.py (_walk_closest_plain, _walk_any_dest_plain,
 // _walk_any_plain).
 //
-// What one block computes. One block per tile of kR = 512 rays, one ray per
-// thread (the flat walk; the two-level walk spreads a tile over a cluster
-// of blocks, below). The tile's candidates arrive as one sorted int32 key row
-// (entry-bound f32 bits with the low cid bits cleared | candidate id). The
-// block walks the row front to back while
+// What one tile's walk computes. A tile is kR = 512 rays: one block with one
+// ray per thread (the resident flat walk), or a cluster of blocks (the
+// streamed flat walk and the two-level walk, below). The tile's candidates
+// arrive as one sorted int32 key row (entry-bound f32 bits with the low cid
+// bits cleared | candidate id). The walk takes the row front to back while
 //     k < count  &&  (key_k & ~cmask) <= prune,
 // where prune is the tile's maximum over rays of min(best t key, root exit)
 // (closest) or of the root exit of the still unoccluded rays (occlusion),
-// plus kPrunePad int ulps. The prune is block-uniform, so every thread takes
-// the same trip count and the barriers in the loops are safe. Per visit the
+// plus kPrunePad int ulps. The prune is tile-uniform, so every thread takes
+// the same trip count and the barriers in the loops are safe. Per visit a
 // block has a cluster's weight planes in shared memory (10 x 128 floats, 5
 // KB, for common-origin rays; 16 x 128, 8 KB, for generic rays) and each
 // thread runs Möller-Trumbore against the 128 triangles.
@@ -59,11 +60,11 @@
 // the prune after every member visit. Executed member visits are the
 // traversal statistic.
 //
-// The two-level walk runs one tile on a thread-block cluster of kK CTAs
-// (Hopper clusters, each CTA on its own SM). CTA c holds 512 / kK of the
-// tile's rays, each on kK neighbouring threads of a warp, and every block
-// visit's 128 triangles: thread g of a ray takes lanes j = i kK + g, and
-// the ray's threads combine their key minima (or occlusion flags) with
+// The streamed flat walk and the two-level walk (walk_tile) run one tile on
+// a thread-block cluster of K CTAs (Hopper clusters, each CTA on its own
+// SM; K = kKFlat and kK). CTA c holds 512 / K of the tile's rays, each on K
+// neighbouring threads of a warp, and every block visit's 128 triangles:
+// thread g of a ray takes lanes j = i K + g, and the ray's threads combine their key minima (or occlusion flags) with
 // xor shuffles. A key keeps its lane in its low bits, so the combined min
 // is the whole block's key min exactly (ties to the lower lane) and the
 // strict < on the best key keeps the earlier visit. So the state of a ray
@@ -71,56 +72,64 @@
 // CTA's part of the tile prune: one int, sent with st.async into every
 // other CTA's shared memory (distributed shared memory), which counts the
 // bytes on an mbarrier of the receiving CTA. Every CTA takes the max of the
-// kK parts, so all compute the same prune and take the same trip count. No
+// K parts, so all compute the same prune and take the same trip count. No
 // cluster barrier and no memory fence per visit (a cluster barrier costs a
 // GPU-wide fence and an L1 invalidation each time): two part buffers
 // alternate, and a CTA sends visit n + 1's part only after it has read
 // visit n's, so buffer reuse needs no handshake of its own. Between
-// sending and waiting each CTA visits the next member in entry order (the
-// prune can only fall, so that visit is speculative and dropped if the
-// prune falls below its entry) and prefetches the one after it, so the
-// exchange overlaps the next visit's arithmetic. kK is a constant, from
-// the card's times of K6 and K7a on the 4x bunny (PERF.md, with the
+// sending and waiting each CTA visits the next block in visiting order
+// (the next candidate of the key row, or the next member in entry order;
+// the prune can only fall, so that visit is speculative, and dropped
+// uncounted if the prune falls below its entry) and prefetches the one
+// after it, so the exchange overlaps the next visit's arithmetic. One loop
+// (TileWalk::run) serves both walks, fed by the key row (Row) or by a
+// super's live members (Members). The first prune needs no exchange: every
+// CTA takes it over all the tile's 512 rays. A tile that it lets visit
+// nothing (most tiles of a frame see no candidate) returns before any
+// cluster barrier, and the opening cluster barrier's wait comes after the
+// first visit. kK and kKFlat are constants, from the card's times of K6
+// and K7a on the 4x bunny and of K5 on the 3x bunny (PERF.md, with the
 // designs that measured slower there: CTAs that split each block's lanes
 // and exchange every ray's key per visit, faster on the closest walk and
 // slower on the shadow walk; a ray's threads in separate warps).
 //
 // Streamed weights. The TPU kernel fetched each visit's block by DMA from
-// HBM into VMEM and prefetched visit k + 1 during visit k. Here the flat
-// walk's block goes into one of two shared-memory buffers as 16-byte
-// cp.async copies (320 for 10 planes, 512 for 16: one per thread at most),
-// the next visit's block is copied into the other buffer while the current
-// one is walked, and cp.async.wait_group orders the two. "The next visit"
-// is candidate k + 1 there; in the two-level walk it is the member after
-// the next live one in priority order (4-byte copies, which lay the block
-// out as records), fetched speculatively when its entry is within the
-// current prune (the prune only falls). A copy still in flight at an early
-// exit is drained. The resident variants stage each block synchronously, as
-// the bunny kernels always did. Both forms give the same outputs.
+// HBM into VMEM and prefetched visit k + 1 during visit k. Here a block
+// goes into one of three shared-memory buffers as 4-byte cp.async copies,
+// which lay it out as triangle records: the block being visited, the next
+// in visiting order (visited ahead of the prune exchange) and the one
+// after it, fetched when its entry is within the current prune (the prune
+// only falls) while the other two are walked. A copy still in flight at an
+// early exit is drained. The resident two-level variants fill the same
+// buffers with plain copies; the resident flat walk (walk_flat) stages each
+// block synchronously, plane-major, as the bunny kernels always did. Both
+// forms give the same outputs.
 //
 // What bounds it on an H100. Each visit is 512 x 128 ray-triangle pairs at
 // 26-30 fp32 operations each (44 for generic rays), on the CUDA cores: the
 // work is compute-bound (weights are 5 KB, 8 KB generic, per visit). One
 // tile's walk is one sequence under one tile-wide prune, and visits per
 // tile are heavy-tailed: at 1.27M triangles one tile runs 3,120 member
-// visits, at ~18 us each for one 512-thread block, so with one block per
-// tile that tile alone was the whole kernel while the other SMs idled.
+// visits (at 318k, flat, 698), at ~18 us each for one 512-thread block, so
+// with one block per tile that tile alone was the whole kernel while the
+// other SMs idled.
 // Tensor cores are no use here: the search needs full fp32.
 //
-// What the design does about it. One thread per ray keeps each flat visit
-// free of cross-thread reductions except the block max for the prune (a
-// warp redux plus 16 shared-memory slots). Shared-memory weight reads are
-// warp broadcasts (all threads read the same triangle). The shadow kernels
-// skip rays already occluded and leave a ray at its first occluder. The
-// two-level walk spreads each tile over a cluster of kK SMs (above) with
-// kK threads a ray, so a warp idles once its 32 / kK rays are occluded,
+// What the design does about it. In the resident flat walk one thread per
+// ray keeps each visit free of cross-thread reductions except the block
+// max for the prune (a warp redux plus 16 shared-memory slots), and
+// shared-memory weight reads are warp broadcasts (all threads read the
+// same triangle). The shadow kernels skip rays already occluded and leave
+// a ray at its first occluder. The cluster walk spreads each tile over a
+// cluster of K SMs (above) with K threads a ray, so a warp idles once its
+// 32 / K rays are occluded,
 // stages each block triangle-major so a pair reads 3 float4 (4 generic)
 // instead of 10 (16) scalars, runs a thread's sign tests in chunks with no
 // branch per pair (a hit mask first, then t and the key only for the few
 // hits), takes the next member with a warp min instead of a scan, reads
-// each super's key, first member and boxes a candidate ahead, and
-// synchronises a member visit with one block barrier and one mbarrier wait
-// (hidden behind the next visit). FMA contraction and several rays per
+// each super's key, first member and boxes a candidate ahead (the flat
+// walk its row's keys two ahead), and synchronises a visit with one block
+// barrier and one mbarrier wait (hidden behind the next visit). FMA contraction and several rays per
 // thread are later work.
 //
 // Exactness. Built with --fmad=false and written in the plain version's
@@ -146,8 +155,7 @@ constexpr int kIdxMask = kC - 1;   // lane bits of a winner key
 constexpr int kR = 512;            // rays per tile (TILE) = threads per block
 constexpr int kWarps = kR / 32;
 constexpr int kK = 8;              // two-level walk: CTAs a tile, threads a ray
-constexpr int kL = kC / kK;        // and triangles of a block a thread
-static_assert(kK == 2 || kK == 4 || kK == 8, "a portable cluster size");
+constexpr int kKFlat = 8;          // streamed flat walk: the same
 constexpr int kPlanes = 10;        // common-origin planes: cu.xyz, cv.xyz, n.xyz, tn
 constexpr int kPlanesGeneric = 16; // generic planes: those 10, e2.xyz, e1.xyz
 constexpr int kSuperMax = 32;      // _SUPER_MAX: member slots in one uint32
@@ -240,21 +248,6 @@ __device__ __forceinline__ void stage_sync(float* dst, const float* src) {
   for (int i = threadIdx.x; i < kFloats; i += kR) dst[i] = src[i];
 }
 
-// Asynchronous staging: threads 0..kFloats/4-1 each start one 16-byte copy,
-// and every thread commits a group, so all threads count the same groups.
-template <int kFloats>
-__device__ __forceinline__ void stage_async(float* dst, const float* src) {
-  static_assert(kFloats % 4 == 0 && kFloats / 4 <= kR,
-                "one 16-byte copy per thread at most");
-  if (threadIdx.x < kFloats / 4) {
-    const unsigned s = static_cast<unsigned>(
-        __cvta_generic_to_shared(dst + 4 * threadIdx.x));
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
-                 :: "r"(s), "l"(src + 4 * threadIdx.x) : "memory");
-  }
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
 template <int N>
 __device__ __forceinline__ void wait_async() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
@@ -288,11 +281,11 @@ __device__ __forceinline__ void numerators(const float* sw, int j,
   sign_test(nu, nv, nd, s, uvw);
 }
 
-// A two-level walk's staged block, triangle-major: one record of
+// The cluster walk's staged block, triangle-major: one record of
 // rec_floats(M) floats per triangle, read as float4s
 //   [cu.xyz, tn] [cv.xyz, e2.x] [n.xyz, e2.y] ([e1.xyz, e2.z] generic),
 // so a pair takes 3 (generic 4) shared-memory loads instead of 10 (16).
-// The threads of a warp read kK neighbouring records at once; at 12 floats
+// The threads of a warp read K neighbouring records at once; at 12 floats
 // (generic: 16 and 4 of padding) those fall in distinct banks.
 __host__ __device__ constexpr int rec_floats(int m) {
   return m == kAny ? 20 : 12;
@@ -429,14 +422,16 @@ __device__ __forceinline__ void visit(const float* sw, int cid,
   }
 }
 
-template <int M, bool kStream>
+// The resident flat walk: one block a tile, one ray a thread, each visit's
+// block staged synchronously.
+template <int M>
 __global__ void __launch_bounds__(kR)
 walk_flat(const int* __restrict__ counts, const int* __restrict__ keys,
           const float* __restrict__ rays, const float* __restrict__ w,
           const int* __restrict__ occ0, int* __restrict__ out,
           int* __restrict__ visits, int n_rays, int n_c, int cmask) {
   constexpr int kFloats = planes_of(M) * kC;
-  __shared__ __align__(16) float sw[2][kFloats];
+  __shared__ __align__(16) float sw[kFloats];
   __shared__ int sred[kWarps];
 
   const int tile = blockIdx.x;
@@ -451,33 +446,17 @@ walk_flat(const int* __restrict__ counts, const int* __restrict__ keys,
   // Two block_max calls on sred are a loop's barriers apart.
   int prune = block_max(prune_part<M>(best, occ, r.tcap), sred) + kPrunePad;
 
-  if (kStream && count > 0) {
-    stage_async<kFloats>(sw[0], w + (size_t)(krow[0] & cmask) * kFloats);
-  }
   int k = 0;
   while (k < count && (krow[k] & ~cmask) <= prune) {
     const int cid = krow[k] & cmask;
-    const float* cur = sw[0];
     __syncthreads();  // every thread is done with the previous cluster
-    if (kStream) {
-      if (k + 1 < count) {  // prefetch visit k + 1, wait for visit k
-        stage_async<kFloats>(sw[(k + 1) & 1],
-                             w + (size_t)(krow[k + 1] & cmask) * kFloats);
-        wait_async<1>();
-      } else {
-        wait_async<0>();
-      }
-      cur = sw[k & 1];
-    } else {
-      stage_sync<kFloats>(sw[0], w + (size_t)cid * kFloats);
-    }
+    stage_sync<kFloats>(sw, w + (size_t)cid * kFloats);
     __syncthreads();
 
-    visit<M>(cur, cid, r, best, pid, occ);
+    visit<M>(sw, cid, r, best, pid, occ);
     prune = block_max(prune_part<M>(best, occ, r.tcap), sred) + kPrunePad;
     ++k;
   }
-  if (kStream) wait_async<0>();  // drain the prefetch an early exit left
   out[ray] = occlusion(M) ? occ : pid;
   if (threadIdx.x == 0) visits[tile] = k;
 }
@@ -569,20 +548,20 @@ __device__ __forceinline__ void stage_block(float* dst, const float* w,
   if (kAsync) asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
-// A thread's lanes go in chunks of up to 32 without a branch per pair: the
-// sign tests of a chunk first, into a mask, then only the hits.
-constexpr int kChunk = kL < 32 ? kL : 32;
-
-// One member visit (weights sw) for ray r, whose kK threads take lanes
-// j = i kK + g, i < kL (g = this thread's place among them): the smallest
+// One block visit (weights sw) for ray r, whose K threads take lanes
+// j = i K + g, i < kC / K (g = this thread's place among them): the smallest
 // hit_key over the block, INT_MAX if none (a miss never updates best, so
 // its key need not be kept), or the occlusion flag (0 for a ray already
-// occluded: the flags are OR-ed into occ). The kK threads of a ray are
-// neighbours in their warp and combine their parts with xor shuffles, so
-// all of them return the ray's result.
-template <int M>
+// occluded: the flags are OR-ed into occ). A thread's lanes go in chunks of
+// up to 32 without a branch per pair: the sign tests of a chunk first, into
+// a mask, then only the hits. The K threads of a ray are neighbours in
+// their warp and combine their parts with xor shuffles, so all of them
+// return the ray's result.
+template <int M, int K>
 __device__ __forceinline__ int visit_result(const float* sw, int occ,
                                             const Ray<M>& r, int g) {
+  constexpr int kL = kC / K;
+  constexpr int kChunk = kL < 32 ? kL : 32;
   const Records<M> blk{sw};
   int v = occlusion(M) ? 0 : INT_MAX;
   if (!(occlusion(M) && occ != 0)) {
@@ -592,7 +571,7 @@ __device__ __forceinline__ int visit_result(const float* sw, int occ,
 #pragma unroll
       for (int i = 0; i < kChunk; ++i) {
         float nd, nt, s, uvw;
-        blk.terms((base + i) * kK + g, r, nd, nt, s, uvw);
+        blk.terms((base + i) * K + g, r, nd, nt, s, uvw);
         const bool hit = occlusion(M) ? occludes<M>(nd, nt, s, uvw)
                                       : front_hit(nd, nt, s, uvw);
         hits |= hit ? 1u << i : 0u;
@@ -605,7 +584,7 @@ __device__ __forceinline__ int visit_result(const float* sw, int occ,
         continue;
       }
       for (; hits; hits &= hits - 1) {
-        const int j = (base + __ffs(hits) - 1) * kK + g;
+        const int j = (base + __ffs(hits) - 1) * K + g;
         float nd, nt;
         int key;
         blk.t_terms(j, r, nd, nt);
@@ -614,7 +593,7 @@ __device__ __forceinline__ int visit_result(const float* sw, int occ,
     }
   }
 #pragma unroll
-  for (int off = 1; off < kK; off <<= 1) {
+  for (int off = 1; off < K; off <<= 1) {
     const int y = __shfl_xor_sync(0xffffffffu, v, off);
     v = occlusion(M) ? (v | y) : min(v, y);
   }
@@ -665,141 +644,308 @@ __device__ __forceinline__ void wait_phase(unsigned bar, unsigned parity) {
   }
 }
 
-template <int M, bool kStream>
-__global__ void __cluster_dims__(kK, 1, 1) __launch_bounds__(kR)
-walk_hier(const int* __restrict__ counts, const int* __restrict__ keys,
-          const float* __restrict__ rays, const float* __restrict__ w,
-          const int* __restrict__ occ0, const float* __restrict__ hull,
-          const float* __restrict__ bbox, const int* __restrict__ first,
-          int* __restrict__ out, int* __restrict__ visits, int n_rays,
-          int n_s, int cmask, int S) {
-  // Three block buffers: the member being visited, the next member
-  // (computed while the prune exchange completes) and the one after it
-  // (prefetched meanwhile).
-  __shared__ __align__(16) float sw[3][kC * rec_floats(M)];
-  // Every CTA's part of the prune, in two buffers (visits alternate), each
-  // with the mbarrier that counts the other CTAs' bytes into it; and the
-  // parts of the first prune.
-  __shared__ int spart[2][kK];
-  __shared__ __align__(8) unsigned long long sbar[2];
-  __shared__ int sfirst[kK];
-  // block_max's buffers: a member visit has one barrier, so calls alternate.
-  __shared__ int sred[2][kWarps];
-  __shared__ float shl[kHullCols];
-  constexpr unsigned kExchangeBytes = (kK - 1) * sizeof(int);
+// The cluster barrier in its two halves, so that work can sit between them.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
 
-  cg::cluster_group cluster = cg::this_cluster();
-  const int rank = static_cast<int>(cluster.block_rank());
-  const int tile = blockIdx.x / kK;
-  const int lane = threadIdx.x & 31;
-  const int g = threadIdx.x % kK;
-  const int ray = tile * kR + rank * (kR / kK) + threadIdx.x / kK;
-  const Ray<M> r(rays, n_rays, ray);
-  const int count = counts[tile];
-  const int* krow = keys + (size_t)tile * n_s;
-  if (threadIdx.x < kHullCols) {
-    shl[threadIdx.x] = hull[(size_t)tile * kHullCols + threadIdx.x];
-  }
-  if (threadIdx.x == 0) {
-    for (int p = 0; p < 2; ++p) {
-      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n"
-                   :: "r"(cta_addr(&sbar[p])) : "memory");
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    for (int p = 0; p < 2; ++p) expect_bytes(cta_addr(&sbar[p]), kExchangeBytes);
+// Where a run of block visits comes from. pop() takes the next block in
+// visiting order and returns its id, with its entry bound in *m (INT_MAX
+// once none is left, which no prune reaches); it may be called past the end.
+//
+// The flat walk: the candidates of the tile's sorted key row, each key read
+// two candidates ahead of its use.
+struct Row {
+  const int* krow;
+  int count, cmask, pos, k0, k1;
+
+  __device__ __forceinline__ Row(const int* krow, int count, int cmask)
+      : krow(krow), count(count), cmask(cmask), pos(0) {
+    k0 = 0 < count ? krow[0] : 0;
+    k1 = 1 < count ? krow[1] : 0;
   }
 
-  int best = kBigCleanI;
-  int pid = -1;
-  int occ = occlusion(M) ? occ0[ray] : 0;
-  int red = 0;  // which sred buffer the next block_max uses
-  int part = block_max(prune_part<M>(best, occ, r.tcap), sred[red]);  // syncs shl
-  red ^= 1;
-  if (threadIdx.x < kK) *cluster.map_shared_rank(&sfirst[rank], threadIdx.x) = part;
-  cluster.sync();  // every CTA runs, its mbarriers armed and its part sent
-  int prune = __reduce_max_sync(0xffffffffu, sfirst[lane % kK]) + kPrunePad;
-  const unsigned all = S == kSuperMax ? 0xffffffffu : ((1u << S) - 1u);
+  __device__ __forceinline__ int pop(int* m) {
+    const int key = k0;
+    *m = pos < count ? (key & ~cmask) : INT_MAX;
+    k0 = k1;
+    k1 = pos + 2 < count ? krow[pos + 2] : 0;
+    ++pos;
+    return key & cmask;
+  }
+};
 
-  int nvis = 0;
-  Head h;
-  if (count > 0) load_head(h, krow, 0, bbox, first, cmask, S);
-  for (int k = 0; k < count && (h.key & ~cmask) <= prune; ++k) {
-    const int fs = h.fs;
-    const int ent = lane < S ? member_entry(shl, h.box) : INT_MAX;
-    if (k + 1 < count) {  // in flight while this super's members are walked
-      load_head(h, krow, k + 1, bbox, first, cmask, S);
-    }
-    // Members in entry order: s (being visited), s2 after it.
-    unsigned rem = all;
-    int m;
-    int s = next_member(ent, rem, &m);
-    if (m > prune) continue;
+// The two-level walk: the members of one super (first block fs) still to
+// visit (bit set in rem), smallest entry first; lane s of each warp holds
+// member s's entry ent.
+struct Members {
+  int ent;
+  unsigned rem;
+  int fs;
+
+  __device__ __forceinline__ int pop(int* m) {
+    const int s = next_member(ent, rem, m);
     rem &= ~(1u << s);
-    int m2;
-    int s2 = next_member(ent, rem, &m2);
-    __syncthreads();  // the last visit's speculative reads of sw are done
-    int b = 0;  // sw[b] holds s, sw[(b + 1) % 3] s2
-    stage_block<M, kStream>(sw[b], w, fs + s);
-    if (m2 <= prune) stage_block<M, kStream>(sw[(b + 1) % 3], w, fs + s2);
+    return fs + s;
+  }
+};
+
+// What the CTAs of a tile's cluster keep in shared memory.
+template <int M, int K>
+struct TileShared {
+  // Three block buffers: the block being visited, the next one (computed
+  // while the prune exchange completes) and the one after it (prefetched
+  // meanwhile).
+  alignas(16) float sw[3][kC * rec_floats(M)];
+  // Every CTA's part of the prune, in two buffers (visits alternate), each
+  // with the mbarrier that counts the other CTAs' bytes into it.
+  alignas(8) unsigned long long bar[2];
+  int part[2][K];
+  // block_max's buffers: a visit has one barrier, so calls alternate.
+  int red[2][kWarps];
+  float hull[kHullCols];  // two-level walk: the tile's hull row
+};
+
+// One CTA's state of a tile walk on a cluster of K CTAs.
+template <int M, bool kStream, int K>
+struct TileWalk {
+  static_assert(K == 2 || K == 4 || K == 8, "a portable cluster size");
+  static constexpr unsigned kExchangeBytes = (K - 1) * sizeof(int);
+
+  TileShared<M, K>& sh;
+  const float* w;
+  const Ray<M>& r;
+  int rank, g;         // this CTA in its cluster; this thread among its ray's
+  int occ, prune;
+  int best = kBigCleanI;  // closest: best t key (low lane bits clear)
+  int pid = -1;           // closest: packed slot id of the winner
+  int red = 1;            // which red buffer the next block_max uses
+  int nvis = 0;           // executed block visits of the tile
+  bool joined = false;    // past the opening cluster barrier's wait
+
+  // Visit src's blocks in order while the next entry is within the tile
+  // prune, which every visit renews across the cluster.
+  template <class Src>
+  __device__ __forceinline__ void run(Src& src) {
+    const int lane = threadIdx.x & 31;
+    // Blocks in visiting order: cur (being visited), nxt after it.
+    int m, m2;
+    int cur = src.pop(&m);
+    if (m > prune) return;
+    int nxt = src.pop(&m2);
+    __syncthreads();  // the last run's speculative reads of sw are done
+    int b = 0;  // sw[b] holds cur, sw[(b + 1) % 3] nxt
+    stage_block<M, kStream>(sh.sw[b], w, cur);
+    if (m2 <= prune) stage_block<M, kStream>(sh.sw[(b + 1) % 3], w, nxt);
     if (kStream) wait_async<0>();
     __syncthreads();
-    int x = visit_result<M>(sw[b], occ, r, g);
+    int x = visit_result<M, K>(sh.sw[b], occ, r, g);
+    if (!joined) {  // every CTA of the cluster runs, its mbarriers armed
+      cluster_wait();
+      joined = true;
+    }
     bool ahead = false;  // a prefetch is in flight
     while (true) {
-      // Take visit s, then send this CTA's part of the new prune to the
+      // Take visit cur, then send this CTA's part of the new prune to the
       // other CTAs. Buffer p was last read two visits ago: every CTA has
       // read it, as each sent its previous part only after reading it.
       if (occlusion(M)) {
         occ |= x;
       } else {
-        take_key(x, fs + s, best, pid);
+        take_key(x, cur, best, pid);
       }
       if (kStream && ahead) wait_async<0>();  // block_max's barrier publishes it
-      part = block_max(prune_part<M>(best, occ, r.tcap), sred[red]);
+      const int part = block_max(prune_part<M>(best, occ, r.tcap), sh.red[red]);
       red ^= 1;
       const int p = nvis & 1;
       if (threadIdx.x == 0) {
-        const unsigned a = cta_addr(&spart[p][rank]);
-        const unsigned bar = cta_addr(&sbar[p]);
+        const unsigned a = cta_addr(&sh.part[p][rank]);
+        const unsigned bar = cta_addr(&sh.bar[p]);
 #pragma unroll
-        for (int c = 1; c < kK; ++c) {
-          const int to = (rank + c) % kK;
+        for (int c = 1; c < K; ++c) {
+          const int to = (rank + c) % K;
           store_remote(cluster_addr(a, to), part, cluster_addr(bar, to));
         }
       }
-      // Meanwhile: prefetch the member after s2, and visit s2, both
+      // Meanwhile: prefetch the block after nxt, and visit nxt, both
       // speculatively (the prune may fall below their entries). sw[(b + 2)
       // % 3] was last read before the barrier above.
-      const unsigned rem2 = rem & ~(1u << s2);
       int m3;
-      const int s3 = next_member(ent, rem2, &m3);
+      const int after = src.pop(&m3);
       const bool go2 = m2 <= prune;
       ahead = go2 && m3 <= prune;
-      if (ahead) stage_block<M, kStream>(sw[(b + 2) % 3], w, fs + s3);
+      if (ahead) stage_block<M, kStream>(sh.sw[(b + 2) % 3], w, after);
       int x2 = 0;
-      if (go2) x2 = visit_result<M>(sw[(b + 1) % 3], occ, r, g);
+      if (go2) x2 = visit_result<M, K>(sh.sw[(b + 1) % 3], occ, r, g);
 
       {  // the other CTAs' parts are in; re-arm
-        const unsigned bar = cta_addr(&sbar[p]);
+        const unsigned bar = cta_addr(&sh.bar[p]);
         wait_phase(bar, (nvis >> 1) & 1);
         if (threadIdx.x == 0) expect_bytes(bar, kExchangeBytes);
       }
-      const int v = lane < kK && lane != rank ? spart[p][lane] : part;
+      const int v = lane < K && lane != rank ? sh.part[p][lane] : part;
       prune = __reduce_max_sync(0xffffffffu, v) + kPrunePad;
       ++nvis;
-      if (m2 > prune) break;
-      rem = rem2;
-      s = s2;
-      s2 = s3;
+      if (m2 > prune) break;  // nxt's visit, if made, is dropped
+      cur = nxt;
+      nxt = after;
       m2 = m3;
       x = x2;
       b = (b + 1) % 3;
     }
     if (kStream && ahead) wait_async<0>();  // drain a prefetch left behind
   }
-  cluster.sync();  // no CTA leaves while another may still send to it
-  if (g == 0) out[ray] = occlusion(M) ? occ : pid;
-  if (rank == 0 && threadIdx.x == 0) visits[tile] = nvis;
+};
+
+// CTAs of walk_tile that an SM should hold at once, which sets the
+// kernel's register budget: the shadow walks, bound by the fixed cost of a
+// CTA's visit and not by its arithmetic, run faster two to an SM (64
+// registers a thread); the closest walks with the registers of one.
+__host__ __device__ constexpr int min_ctas(int m) {
+  return occlusion(m) ? 2 : 1;
+}
+
+// One tile on a cluster of K CTAs: the streamed flat walk (kHier false;
+// hull, bbox and first unused) and the two-level walk.
+template <int M, bool kStream, int K, bool kHier>
+__global__ void __launch_bounds__(kR, min_ctas(M))
+walk_tile(const int* __restrict__ counts, const int* __restrict__ keys,
+          const float* __restrict__ rays, const float* __restrict__ w,
+          const int* __restrict__ occ0, const float* __restrict__ hull,
+          const float* __restrict__ bbox, const int* __restrict__ first,
+          int* __restrict__ out, int* __restrict__ visits, int n_rays,
+          int n_k, int cmask, int S) {
+  __shared__ TileShared<M, K> sh;
+
+  const int rank = static_cast<int>(cg::this_cluster().block_rank());
+  const int tile = blockIdx.x / K;
+  const int lane = threadIdx.x & 31;
+  const int ray = tile * kR + rank * (kR / K) + threadIdx.x / K;
+  const int count = counts[tile];
+  const int* krow = keys + (size_t)tile * n_k;
+  const int occ = occlusion(M) ? occ0[ray] : 0;
+
+  // The first prune, over all the tile's rays (thread t reads ray t's
+  // part), so every CTA of the cluster has it without an exchange; and
+  // whether it lets the walk start at all. A tile that visits nothing
+  // (most tiles of a frame see no candidate) ends here, in every CTA of
+  // its cluster alike, before any cluster barrier.
+  bool walks = count > 0;
+  int prune = 0;
+  if (walks) {
+    if (kHier && threadIdx.x < kHullCols) {
+      sh.hull[threadIdx.x] = hull[(size_t)tile * kHullCols + threadIdx.x];
+    }
+    const int t = tile * kR + threadIdx.x;
+    const int part = prune_part<M>(
+        kBigCleanI, occlusion(M) ? occ0[t] : 0,
+        __float_as_int(rays[tcap_row(M) * n_rays + t]));
+    prune = block_max(part, sh.red[0]) + kPrunePad;  // syncs sh.hull
+    walks = (krow[0] & ~cmask) <= prune;
+  }
+  if (!walks) {
+    if (threadIdx.x % K == 0) out[ray] = occlusion(M) ? occ : -1;
+    if (rank == 0 && threadIdx.x == 0) visits[tile] = 0;
+    return;
+  }
+
+  if (threadIdx.x == 0) {
+    for (int p = 0; p < 2; ++p) {
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n"
+                   :: "r"(cta_addr(&sh.bar[p])) : "memory");
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int p = 0; p < 2; ++p) {
+      expect_bytes(cta_addr(&sh.bar[p]), TileWalk<M, kStream, K>::kExchangeBytes);
+    }
+  }
+  // The opening cluster barrier: no CTA sends before every CTA has armed
+  // its mbarriers. Its wait comes after the first visit (TileWalk::run).
+  cluster_arrive();
+
+  const Ray<M> r(rays, n_rays, ray);
+  TileWalk<M, kStream, K> t{sh, w, r, rank, static_cast<int>(threadIdx.x % K),
+                            occ, prune};
+  if (kHier) {
+    const unsigned all = S == kSuperMax ? 0xffffffffu : ((1u << S) - 1u);
+    Head h;
+    load_head(h, krow, 0, bbox, first, cmask, S);
+    for (int k = 0; k < count && (h.key & ~cmask) <= t.prune; ++k) {
+      Members src{lane < S ? member_entry(sh.hull, h.box) : INT_MAX, all, h.fs};
+      if (k + 1 < count) {  // in flight while this super's members are walked
+        load_head(h, krow, k + 1, bbox, first, cmask, S);
+      }
+      t.run(src);
+    }
+  } else {
+    Row src(krow, count, cmask);
+    t.run(src);
+  }
+  if (!t.joined) cluster_wait();
+  // No CTA leaves while another may still send to it.
+  cluster_arrive();
+  cluster_wait();
+  if (t.g == 0) out[ray] = occlusion(M) ? t.occ : t.pid;
+  if (rank == 0 && threadIdx.x == 0) visits[tile] = t.nvis;
+}
+
+// The launch of walk_tile on n_tiles clusters of K CTAs (attr is the
+// caller's, and must outlive the configuration).
+inline cudaLaunchConfig_t tile_launch(int n_tiles, int K, cudaStream_t st,
+                                      cudaLaunchAttribute* attr) {
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = K;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(n_tiles * K);
+  cfg.blockDim = dim3(kR);
+  cfg.stream = st;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// Launch walk_tile. A launch the card cannot place is refused, and the
+// error is returned.
+template <int M, bool kStream, int K, bool kHier>
+int launch_tile(cudaStream_t st, const int* counts, const int* keys,
+                const float* rays, const float* w, const int* occ0,
+                const float* hull, const float* bbox, const int* first,
+                int* out, int* visits, int n_tiles, int n_k, int cmask,
+                int S) {
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = tile_launch(n_tiles, K, st, &attr);
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, walk_tile<M, kStream, K, kHier>, counts, keys, rays, w, occ0,
+      hull, bbox, first, out, visits, n_tiles * kR, n_k, cmask, S);
+  return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
+}
+
+// How many clusters of walk_tile the card holds at once (its registers and
+// shared memory against the SMs of a cluster), or -cudaError_t.
+template <int M, bool kStream, int K, bool kHier>
+int resident_clusters() {
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = tile_launch(1, K, nullptr, &attr);
+  int n = 0;
+  const cudaError_t err = cudaOccupancyMaxActiveClusters(
+      &n, walk_tile<M, kStream, K, kHier>, &cfg);
+  return err != cudaSuccess ? -(int)err : n;
+}
+
+template <int M>
+int resident_clusters(bool hier, bool stream_w) {
+  if (hier) {
+    return stream_w ? resident_clusters<M, true, kK, true>()
+                    : resident_clusters<M, false, kK, true>();
+  }
+  // The resident flat walk runs on single blocks.
+  return stream_w ? resident_clusters<M, true, kKFlat, false>()
+                  : -(int)cudaErrorInvalidValue;
 }
 
 template <int M>
@@ -810,14 +956,13 @@ int launch_flat(bool stream_w, const int* counts, const int* keys,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int n_rays = n_tiles * kR;
   if (stream_w) {
-    walk_flat<M, true><<<n_tiles, kR, 0, st>>>(
-        counts, keys, rays, w, occ0, out, visits, n_rays, n_c, cmask);
-  } else {
-    walk_flat<M, false><<<n_tiles, kR, 0, st>>>(
-        counts, keys, rays, w, occ0, out, visits, n_rays, n_c, cmask);
+    return launch_tile<M, true, kKFlat, false>(
+        st, counts, keys, rays, w, occ0, nullptr, nullptr, nullptr, out,
+        visits, n_tiles, n_c, cmask, 1);
   }
+  walk_flat<M><<<n_tiles, kR, 0, st>>>(counts, keys, rays, w, occ0, out,
+                                       visits, n_tiles * kR, n_c, cmask);
   return (int)cudaGetLastError();
 }
 
@@ -831,19 +976,14 @@ int launch_hier(bool stream_w, const int* counts, const int* keys,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int n_rays = n_tiles * kR;
-  // One cluster of kK CTAs a tile (__cluster_dims__): a launch the card
-  // cannot place is refused, and cudaGetLastError reports it.
   if (stream_w) {
-    walk_hier<M, true><<<n_tiles * kK, kR, 0, st>>>(
-        counts, keys, rays, w, occ0, hull, bbox, first, out, visits, n_rays,
-        n_s, cmask, S);
-  } else {
-    walk_hier<M, false><<<n_tiles * kK, kR, 0, st>>>(
-        counts, keys, rays, w, occ0, hull, bbox, first, out, visits, n_rays,
-        n_s, cmask, S);
+    return launch_tile<M, true, kK, true>(st, counts, keys, rays, w, occ0,
+                                          hull, bbox, first, out, visits,
+                                          n_tiles, n_s, cmask, S);
   }
-  return (int)cudaGetLastError();
+  return launch_tile<M, false, kK, true>(st, counts, keys, rays, w, occ0,
+                                         hull, bbox, first, out, visits,
+                                         n_tiles, n_s, cmask, S);
 }
 
 }  // namespace
@@ -943,6 +1083,21 @@ extern "C" int ceres_walk_any_hier(const int* counts, const int* keys,
   return launch_hier<kAny>(stream_w != 0, counts, keys, rays, w, occ0, hull,
                            bbox, first, out, visits, n_tiles, n_s, cmask, S,
                            device, stream);
+}
+
+// Clusters of a cluster walk (mode as walk.py orders RAY_ROWS; two-level or
+// streamed flat) that the card holds at once, or -cudaError_t.
+extern "C" int ceres_walk_resident_clusters(int mode, int hier, int stream_w,
+                                            int device) {
+  const cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return -(int)err;
+  switch (mode) {
+    case kClosest: return resident_clusters<kClosest>(hier, stream_w);
+    case kClosestWindow: return resident_clusters<kClosestWindow>(hier, stream_w);
+    case kAnyDest: return resident_clusters<kAnyDest>(hier, stream_w);
+    case kAny: return resident_clusters<kAny>(hier, stream_w);
+  }
+  return -(int)cudaErrorInvalidValue;
 }
 
 extern "C" const char* ceres_error_string(int err) {

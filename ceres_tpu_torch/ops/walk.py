@@ -14,7 +14,9 @@ The wrappers replace the variants of the JAX package's Pallas walk
 
 each flat or two-level (``S > 1``), with weights staged per visit or
 streamed (``stream=True``). The kernels are CUDA C++ for sm_90a in
-``csrc/walk.cu``. Each wrapper dispatches on the device of its tensors:
+``csrc/walk.cu``: the streamed flat and the two-level forms walk each
+tile on a thread-block cluster, the resident flat form on one block.
+Each wrapper dispatches on the device of its tensors:
 
   * CPU tensors go to the plain version (the CPU tests run it);
   * CUDA tensors launch the kernel, or raise: there is no fallback.
@@ -96,6 +98,21 @@ launches = {_variant(m, S, st): 0 for m in RAY_ROWS
 def reset_launches() -> None:
     for name in launches:
         launches[name] = 0
+
+
+def resident_clusters(mode: str, S: int, stream: bool,
+                      device: torch.device) -> int:
+    """How many thread-block clusters of a cluster walk (two-level, or
+    streamed flat) ``device`` holds at once: each walks one tile."""
+    from ceres_tpu_torch.ops import _build
+
+    lib = _build.load()
+    n = lib.ceres_walk_resident_clusters(list(RAY_ROWS).index(mode),
+                                         int(S > 1), int(stream), device.index)
+    if n < 0:
+        raise RuntimeError(f"{_variant(mode, S, stream)}: "
+                           f"{lib.ceres_error_string(-n).decode()} ({-n})")
+    return n
 
 
 def _check(mode, counts, keys, rays, w, occ0, hull, bbox, first, S):

@@ -68,10 +68,11 @@ over the memory rate, with the share of it the kernel reached. The
 closest walks test every ray against every lane of every executed
 visit (visits x 512 x 128 pairs); the shadow walks skip rays already
 occluded and stop a ray at its first occluder, so their pairs are the
-plain walk's count of exactly those. Each two-level kernel
-also gets a line of its own: the cluster size K of ``walk.cu``, its
-visits, the heaviest tile's visits and the time per member visit they
-imply, kernel ms, bound and share.
+plain walk's count of exactly those. Each kernel also gets a line of its
+own: its form (two-level or flat streamed, with the cluster size K of
+``walk.cu``, or flat resident), its visits, the heaviest tile's visits
+and the time per visit of that tile they imply, kernel ms, bound and
+share.
 
 Each path runs with the launch counts set to 0 just before it and read
 just after. Any failed check exits non-zero. The line before last is the
@@ -251,11 +252,13 @@ def positives(mode, out, args):
     return int(((out == 1) & (args[4] == 0)).sum())
 
 
-def hier_ctas():
-    """K, the CTAs of the cluster that walks one tile in the two-level
-    kernels (the constant kK of walk.cu)."""
+def cluster_ctas(name):
+    """K, the CTAs of the cluster that walks one tile: the constant kK
+    (the two-level kernels) or kKFlat (the streamed flat kernels) of
+    walk.cu."""
     with open(os.path.join(ROOT, KERNEL_SOURCE)) as fh:
-        return int(re.search(r"constexpr int kK = (\d+);", fh.read()).group(1))
+        return int(re.search(rf"constexpr int {name} = (\d+);",
+                             fh.read()).group(1))
 
 
 def plain_run(mode, args, opts):
@@ -316,7 +319,7 @@ def compare(mode, args, opts, reps, plain_ref=None):
             "max_tile": int(tiles_k.max()),
             "positives": positives(mode, out_p, args), "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "S": opts["S"]}, plain_ref
+            "S": opts["S"], "stream": opts["stream"]}, plain_ref
 
 
 def report(phase, kname, label, r, card):
@@ -328,12 +331,17 @@ def report(phase, kname, label, r, card):
           f"({r['bound_by']}, share {r['bound_ms'] / r['ms']:.2%}) [{card}]",
           flush=True)
     if r["S"] > 1:
-        print(f"phase {phase} {kname} two-level: K {hier_ctas()}; executed "
-              f"visits {r['steps']}; heaviest tile {r['max_tile']} visits, "
-              f"{r['ms'] * 1e3 / r['max_tile']:.3f} us per member visit; "
-              f"kernel {r['ms']:.4f} ms; bound {r['bound_ms']:.4f} ms "
-              f"({r['bound_by']}); share {r['bound_ms'] / r['ms']:.2%} "
-              f"[{card}]", flush=True)
+        form = f"two-level: K {cluster_ctas('kK')}"
+    elif r["stream"]:
+        form = f"flat streamed: K {cluster_ctas('kKFlat')}"
+    else:
+        form = "flat resident: one block a tile"
+    print(f"phase {phase} {kname} {form}; executed visits {r['steps']}; "
+          f"heaviest tile {r['max_tile']} visits, "
+          f"{r['ms'] * 1e3 / max(r['max_tile'], 1):.3f} us per visit of it; "
+          f"kernel {r['ms']:.4f} ms; bound {r['bound_ms']:.4f} ms "
+          f"({r['bound_by']}); share {r['bound_ms'] / r['ms']:.2%} [{card}]",
+          flush=True)
     check(r["mismatches"] == 0 and r["steps"] == r["plain_steps"]
           and r["tiles_off"] == 0,
           f"{kname} disagrees with its plain version on {label}")
@@ -468,6 +476,13 @@ def main():
     with open(_build.library_path()[:-3] + ".log") as fh:
         ptxas = " | ".join(line.strip() for line in fh if "registers" in line)
     print(f"phase 2 build: {build_s:.1f} s ({ptxas})", flush=True)
+    fit = {walk._variant(mode, S, True)[5:]:
+           walk.resident_clusters(mode, S, True, dev)
+           for mode in walk.RAY_ROWS for S in (1, 2)}
+    print(f"phase 2 clusters of K CTAs (kK {cluster_ctas('kK')}, kKFlat "
+          f"{cluster_ctas('kKFlat')}) the card holds at once, one tile "
+          f"each: {fit}", flush=True)
+    check(min(fit.values()) > 0, "a cluster walk does not fit the card")
 
     # Phase 3: K1 and K2 against their plain versions.
     results = {}

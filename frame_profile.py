@@ -11,7 +11,10 @@ events over the frames), then from a ``torch.profiler`` trace of the same
 number of frames: device time per frame (the sum of the kernels', copies'
 and fills' durations), device operations per frame, the busy share (the
 union of their intervals over the traced span), and the largest kernels
-by device time per frame, the walk kernels among them.
+by device time per frame, the walk kernels among them. For the default
+frame also the CUDA-event time of building each walk's inputs (weights,
+root-exit caps and the culling prepass: slab tests of every tile against
+every block or super, and the key sort), the layer under the kernels.
 """
 
 from __future__ import annotations
@@ -39,6 +42,27 @@ def _union(intervals):
             total += b - end
             end = b
     return total
+
+
+def walk_input_times(vt, ft, cam, cs, sun):
+    """CUDA-event ms of building the closest and the shadow walk's inputs
+    of the default frame, as ``render_pipeline`` builds them."""
+    import chip_smoke as smoke
+    import ceres_tpu_torch as ct
+    from ceres_tpu_torch.models.camera import camera_ray_columns
+    from ceres_tpu_torch.ops import megakernel as mk
+    from ceres_tpu_torch.render import renderer
+    from ceres_tpu_torch.utils import tiling
+
+    soup = ct.triangle_soup(vt, ft, with_normals=True)
+    dirs = tuple(tiling.swizzle_plane(p)
+                 for p in camera_ray_columns(cam, smoke.W, smoke.H))
+    hit, pay = mk.closest_hit_common_origin(soup, cam.eye, dirs, clusters=cs,
+                                            normal_cols=True)
+    points = renderer._hit_points(cam.eye, dirs, hit, pay)
+    return (smoke.cuda_ms(lambda: mk._closest_inputs(cs, cam.eye, dirs), 5),
+            smoke.cuda_ms(lambda: mk._any_dest_inputs(cs, sun, points,
+                                                      ~hit.mask), 5))
 
 
 def main() -> None:
@@ -109,6 +133,11 @@ def main() -> None:
           f"({walk_ms / device_ms:.1%}) [{card}]", flush=True)
     for name, t in by_name.most_common(8):
         print(f"  {t:9.3f} ms/frame  {name[:110]}", flush=True)
+    if not args.compat:
+        closest_ms, shadow_ms = walk_input_times(vt, ft, cam, cs, sun)
+        print(f"{label}: walk inputs (weights, caps, prepass keys and sort) "
+              f"closest {closest_ms:.3f} ms, shadow {shadow_ms:.3f} ms "
+              f"[{card}]", flush=True)
 
 
 if __name__ == "__main__":

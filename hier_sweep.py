@@ -1,21 +1,31 @@
-"""The two-level walk kernels at each cluster size K, on one NVIDIA card.
+"""The cluster walk kernels at each cluster size K, on one NVIDIA card.
 
-    python3 hier_sweep.py [--ks 2,4,8] [--out ceres_tpu_torch/_build/sweep]
+    python3 hier_sweep.py [--ks 2,4,8] [--flat-ks 2,4,8]
+                          [--out ceres_tpu_torch/_build/sweep]
 
-For each K, copies what ``chip_smoke.py`` reads (itself, the package
-without built kernels, ``data/`` and ``tests/fixtures/``) into OUT/K<k>,
-sets the constant kK of ``ceres_tpu_torch/ops/csrc/walk.cu`` there to
-K, builds every copy's kernels in parallel (one nvcc each) and then
-runs each copy's ``chip_smoke.py`` in turn: it holds every variant to
-its plain version (outputs and every tile's executed visits) and times
-it with CUDA events, on the 4x bunny at 1920 x 1080 among the other
-paths. Each log
-goes to OUT/smoke_K<k>.log. Prints, per K, the two-level kernels' lines
-(visits, the heaviest tile, us per member visit, ms, bound, share) and
-the 4x bunny frames' lines, beside the card's name and power limit.
+``ceres_tpu_torch/ops/csrc/walk.cu`` has two cluster sizes: the constant
+kK (the two-level kernels) and kKFlat (the streamed flat kernels). For
+each K of ``--ks`` (kKFlat as committed) and each of ``--flat-ks`` (kK
+as committed), copies what ``chip_smoke.py`` reads (itself, the package
+without built kernels, ``data/`` and ``tests/fixtures/``) into
+OUT/<constant><k>, sets the constant there, builds every copy's kernels
+in parallel (one nvcc each) and then runs each copy's ``chip_smoke.py``
+in turn: it holds every variant to its plain version (outputs and every
+tile's executed visits) and times it with CUDA events, on the 3x and 4x
+bunny at 1920 x 1080 among the other paths. Each log goes to
+OUT/smoke_<constant><k>.log. Prints, per copy, every kernel's line
+(form and K, visits, the heaviest tile, us per visit of it, ms, bound,
+share) and the frames' lines, beside the card's name and power limit.
 Exits non-zero if a copy fails. Another commit is timed the same way by
 running its own ``chip_smoke.py`` (``git archive`` it into a directory
 that .gitignore lists).
+
+Then, with the kernels as committed, where the streamed flat kernels'
+time goes on the 3x bunny's 1080p inputs (``--ks "" --flat-ks ""`` runs
+this alone): each of K5 closest and
+any_dest timed on all tiles, on its heaviest tile alone, without the
+heaviest 1% of its tiles, and with every key row cut to no candidate
+(the cost of starting 4,080 clusters that visit nothing).
 """
 
 import argparse
@@ -29,10 +39,13 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SOURCE = os.path.join("ceres_tpu_torch", "ops", "csrc", "walk.cu")
 SKIP = shutil.ignore_patterns("_build", "__pycache__")
-LINES = re.compile(r"two-level: K|^phase (7|10) .*bunny x4")
+LINES = re.compile(r"(two-level|flat streamed|flat resident): |"
+                   r"^phase (4|7|10) .*path")
 
 
-def copy_with_k(k, dst):
+def copy_with(name, k, dst):
+    """A copy of the smoke test's inputs in dst with constant ``name`` of
+    walk.cu set to k."""
     shutil.rmtree(dst, ignore_errors=True)
     for part in ("ceres_tpu_torch", "data", os.path.join("tests", "fixtures")):
         shutil.copytree(os.path.join(ROOT, part), os.path.join(dst, part),
@@ -40,17 +53,59 @@ def copy_with_k(k, dst):
     shutil.copy(os.path.join(ROOT, "chip_smoke.py"), dst)
     path = os.path.join(dst, SOURCE)
     with open(path) as fh:
-        text, n = re.subn(r"constexpr int kK = \d+;",
-                          f"constexpr int kK = {k};", fh.read())
+        text, n = re.subn(rf"constexpr int {name} = \d+;",
+                          f"constexpr int {name} = {k};", fh.read())
     if n != 1:
-        sys.exit(f"{SOURCE} has no single kK constant")
+        sys.exit(f"{SOURCE} has no single {name} constant")
     with open(path, "w") as fh:
         fh.write(text)
+
+
+def flat_floor(card):
+    """Time K5 closest and any_dest on the 3x bunny's 1080p inputs with
+    the key rows of some tiles cut to no candidate."""
+    import torch
+
+    sys.path.insert(0, ROOT)
+    import chip_smoke as smoke
+    import ceres_tpu_torch as ct
+    from ceres_tpu_torch.accel.clusters import build_clusters_treelet
+    from ceres_tpu_torch.models.mesh import subdivide
+    from ceres_tpu_torch.ops import walk
+
+    dev = torch.device("cuda", 0)
+    v, f = subdivide(*ct.load_obj(os.path.join(ROOT, "data", "bunny.obj")), 3)
+    vt, ft = torch.as_tensor(v, device=dev), torch.as_tensor(f, device=dev)
+    cs = build_clusters_treelet(ct.triangle_soup(vt, ft, with_normals=False))
+    inputs = smoke.walk_inputs(vt, ft, smoke.camera(v, smoke.EYE, dev), cs,
+                               smoke.W, smoke.H)
+    for mode, (args, opts) in zip(("closest", "any_dest"), inputs):
+        kernel = getattr(walk, smoke.WALKS[mode])
+        counts = args[0]
+        visits = kernel(*args, **opts)[1]
+        order = visits.argsort(descending=True)
+        top = order[:max(1, counts.numel() // 100)]
+        only = torch.zeros_like(counts)
+        only[order[0]] = counts[order[0]]
+        rest = counts.clone()
+        rest[top] = 0
+        cuts = {"all tiles": counts, "the heaviest tile alone": only,
+                f"without the heaviest {top.numel()} tiles": rest,
+                "no candidates": torch.zeros_like(counts)}
+        for label, c in cuts.items():
+            run = (c, *args[1:])
+            n = int(kernel(*run, **opts)[1].sum())
+            ms = smoke.cuda_ms(lambda: kernel(*run, **opts), 10)
+            print(f"floor {walk._variant(mode, 1, True)} {label}: visits {n} "
+                  f"(heaviest tile {int(visits[order[0]])}, "
+                  f"{int((visits > 0).sum())} of {counts.numel()} tiles "
+                  f"visit); kernel {ms:.4f} ms [{card}]", flush=True)
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--ks", default="2,4,8")
+    ap.add_argument("--flat-ks", default="2,4,8")
     ap.add_argument("--out", default=os.path.join(ROOT, "ceres_tpu_torch",
                                                   "_build", "sweep"))
     args = ap.parse_args()
@@ -60,40 +115,44 @@ def main():
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip()
     print(card, flush=True)
-    ks = [int(x) for x in args.ks.split(",")]
-    dirs = {k: os.path.join(out, f"K{k}") for k in ks}
-    for k, d in dirs.items():
-        copy_with_k(k, d)
+    copies = [(name, int(k)) for name, ks in (("kK", args.ks),
+                                               ("kKFlat", args.flat_ks))
+              for k in ks.split(",") if k]
+    dirs = {f"{name}{k}": os.path.join(out, f"{name}{k}")
+            for name, k in copies}
+    for (name, k), d in zip(copies, dirs.values()):
+        copy_with(name, k, d)
     build = "from ceres_tpu_torch.ops import _build; _build.build()"
-    procs = {k: subprocess.Popen([sys.executable, "-c", build], cwd=d,
-                                 stdout=subprocess.PIPE,
-                                 stderr=subprocess.STDOUT, text=True)
-             for k, d in dirs.items()}
+    procs = {tag: subprocess.Popen([sys.executable, "-c", build], cwd=d,
+                                   stdout=subprocess.PIPE,
+                                   stderr=subprocess.STDOUT, text=True)
+             for tag, d in dirs.items()}
     failed = []
-    for k, proc in procs.items():
+    for tag, proc in procs.items():
         log = proc.communicate()[0]
         if proc.returncode != 0:
-            print(f"K={k}: build failed\n{log[-2000:]}", flush=True)
-            failed.append(k)
-    for k, d in dirs.items():
-        if k in failed:
+            print(f"{tag}: build failed\n{log[-2000:]}", flush=True)
+            failed.append(tag)
+    for tag, d in dirs.items():
+        if tag in failed:
             continue
         t0 = time.perf_counter()
-        log = os.path.join(out, f"smoke_K{k}.log")
+        log = os.path.join(out, f"smoke_{tag}.log")
         with open(log, "w") as fh:
             rc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=d,
                                 stdout=fh, stderr=subprocess.STDOUT).returncode
-        print(f"K={k}: chip_smoke.py rc={rc} "
+        print(f"{tag}: chip_smoke.py rc={rc} "
               f"{time.perf_counter() - t0:.0f} s", flush=True)
         with open(log) as fh:
             for line in fh:
                 if LINES.search(line):
-                    print(f"K={k}: {line.strip()[:400]}", flush=True)
+                    print(f"{tag}: {line.strip()[:420]}", flush=True)
         if rc != 0:
-            failed.append(k)
+            failed.append(tag)
         shutil.rmtree(d, ignore_errors=True)
     if failed:
-        sys.exit(f"failed at K = {failed}")
+        sys.exit(f"failed: {failed}")
+    flat_floor(card.splitlines()[0])
 
 
 if __name__ == "__main__":

@@ -16,13 +16,16 @@ from the sun, and the reference-exact generic shadow rays), flat and
 two-level (forced by a threshold of 1 block, as the CPU tests force it),
 each with weights staged per visit and streamed.
 
-The two-level walk runs each tile on a cluster of CTAs that split its
-rays and exchange the prune, with every block's lanes split over the
-threads of a ray, so it is held again tile by tile (executed visits per
-tile, not only their sum): with S = 2, 7 and 32 member slots, with
-equal-t triangles in neighbouring lanes of one block (ties across the
-threads of a ray), and on a tile of over 1,000 member visits (the 3x
-bunny at 256 x 256).
+The two-level walk and the streamed flat walk run each tile on a cluster
+of CTAs that split its rays and exchange the prune, with every block's
+lanes split over the threads of a ray, and visit the next block ahead of
+the exchange, so they are held again tile by tile (executed visits per
+tile, not only their sum): with equal-t triangles in neighbouring lanes
+of one block (ties across the threads of a ray), on the 3x bunny at
+256 x 256, where one tile makes over 1,000 visits while most make none,
+and, two-level, with S = 2, 7 and 32 member slots; flat, on key rows cut
+to 0 and 1 candidates and on tiles whose walk ends by dropping the
+visit made ahead (``dropped_speculation``).
 """
 
 import dataclasses
@@ -164,12 +167,12 @@ def supers(request):
 
 @pytest.fixture(scope="module")
 def heavy():
-    return _inputs("bunny3", _card(), size=(256, 256))["hier"]
+    return _inputs("bunny3", _card(), size=(256, 256))
 
 
 def _same_per_tile(mode, args, opts):
-    """The two-level kernel against its plain version, outputs and
-    executed visits tile by tile. Returns the plain per-tile visits."""
+    """A kernel against its plain version, outputs and executed visits
+    tile by tile. Returns the plain per-tile visits."""
     kernel, plain = KERNELS[mode]
     out_k, tiles_k = kernel(*args, **opts)
     out_p, tiles_p = plain(*args, **opts)
@@ -190,10 +193,8 @@ def test_cluster_walk_equals_plain_per_tile(supers, mode, stream, ties):
     S, inputs = supers
     args, opts = inputs[mode]
     assert opts["S"] == S
-    if ties:   # odd lanes repeat the even ones: equal t in other threads
-        w = args[3].clone()
-        w[..., 1::2] = w[..., 0::2]
-        args = (*args[:3], w, *args[4:])
+    if ties:
+        args = with_ties(args)
     _same_per_tile(mode, args, dict(opts, stream=stream))
 
 
@@ -201,11 +202,157 @@ def test_cluster_walk_equals_plain_per_tile(supers, mode, stream, ties):
 @pytest.mark.parametrize("stream", [False, True])
 @pytest.mark.parametrize("mode", list(KERNELS))
 def test_cluster_walk_heavy_tile(heavy, mode, stream):
-    args, opts = heavy[mode]
+    args, opts = heavy["hier"][mode]
     assert opts["S"] > 1
     tiles = _same_per_tile(mode, args, dict(opts, stream=stream))
     if mode == "closest":
         assert int(tiles.max()) > 1000
+
+
+def with_ties(args):
+    """``args`` with each block's odd lanes repeating its even ones: equal
+    t in neighbouring lanes, which other threads of a ray hold."""
+    w = args[3].clone()
+    w[..., 1::2] = w[..., 0::2]
+    return (*args[:3], w, *args[4:])
+
+
+def with_short_rows(args):
+    """``args`` with every third tile's key row cut to no candidate and
+    every third to one."""
+    counts = args[0]
+    tile = torch.arange(counts.numel(), device=counts.device)
+    cut = torch.where(tile % 3 == 0, 0, torch.where(tile % 3 == 1, 1, 1 << 30))
+    return (torch.minimum(counts, cut.to(torch.int32)), *args[1:])
+
+
+def prune_trace(mode, args, opts, tile):
+    """One tile's plain walk alone: (the tile prune before visit 0 and
+    after each executed visit, the executed visits)."""
+    rays = slice(tile * walk.TILE, (tile + 1) * walk.TILE)
+    one = (args[0][tile:tile + 1], args[1][tile:tile + 1],
+           args[2][:, rays].contiguous(), args[3], *(a[rays] for a in args[4:]))
+    trace = []
+    plain_walk = walk._walk
+
+    def traced(counts, keys, rays, tcap_row, state, prune_of, visit, hier=None):
+        def recorded(*a):
+            prune = prune_of(*a)
+            trace.append(int(prune[0]))
+            return prune
+        return plain_walk(counts, keys, rays, tcap_row, state, recorded, visit,
+                          hier)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(walk, "_walk", traced)
+        _, visits = KERNELS[mode][1](*one, **opts)
+    assert len(trace) == int(visits[0]) + 1
+    return trace, int(visits[0])
+
+
+def _cmask(keys):
+    return (1 << prepass._cid_bits(keys.shape[1])) - 1
+
+
+def with_dropped_speculation(mode, args, opts, limit=3):
+    """(``args`` with up to ``limit`` tiles changed, those tiles): in each,
+    some visit j lowers the tile prune, and the key row is cut to j + 2
+    candidates with candidate j + 1's entry set just inside the prune in
+    force during visit j, so outside the prune that visit leaves. The
+    cluster walk visits candidate j + 1 ahead of the prune exchange and
+    must then drop that visit, uncounted. A shadow walk's prune falls
+    only with its tile's last unoccluded ray, so there the rays that no
+    block occludes start as skipped."""
+    out, visits = KERNELS[mode][1](*args, **opts)
+    counts, keys = args[0].clone(), args[1].clone()
+    args = (counts, keys, *args[2:])
+    if len(args) > 4:
+        occ0 = args[4] | (out == 0).to(torch.int32)
+        args = (*args[:4], occ0)
+    cmask = _cmask(keys)
+    cut = []
+    for tile in ((visits > 0) & (counts > 1)).nonzero().flatten().tolist():
+        trace, v = prune_trace(mode, args, opts, tile)
+        falls = [j for j in range(min(v, int(counts[tile]) - 1))
+                 if (trace[j] & ~cmask) > trace[j + 1]]
+        if falls:
+            j = falls[0]
+            keys[tile, j + 1] = (trace[j] & ~cmask) | (keys[tile, j + 1] & cmask)
+            counts[tile] = j + 2
+            cut.append(tile)
+            if len(cut) == limit:
+                break
+    return args, cut
+
+
+def dropped_speculation(mode, args, opts, visits, tiles):
+    """Those of ``tiles`` whose flat walk ends with candidates left and
+    the next entry within the prune in force during the last visit, but
+    outside the prune it left."""
+    counts, keys = args[0], args[1]
+    found = []
+    for tile in tiles:
+        trace, v = prune_trace(mode, args, opts, tile)
+        assert v == int(visits[tile])
+        if 0 < v < int(counts[tile]):
+            entry = int(keys[tile, v]) & ~_cmask(keys)
+            assert entry > trace[v]
+            if entry <= trace[v - 1]:
+                found.append(tile)
+    return found
+
+
+@pytest.fixture(scope="module")
+def flat_bunny():
+    return _inputs("bunny", _card())["flat"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stream", [False, True])
+@pytest.mark.parametrize("mode", list(KERNELS))
+def test_flat_walk_ties_across_threads(card_inputs, mode, stream):
+    args, opts = card_inputs["flat"][mode]
+    assert opts["S"] == 1
+    _same_per_tile(mode, with_ties(args), dict(opts, stream=stream))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stream", [False, True])
+@pytest.mark.parametrize("mode", list(KERNELS))
+def test_flat_walk_short_rows(card_inputs, mode, stream):
+    args, opts = card_inputs["flat"][mode]
+    args = with_short_rows(args)
+    assert int((args[0] == 0).sum()) > 0 and int((args[0] == 1).sum()) > 0
+    tiles = _same_per_tile(mode, args, dict(opts, stream=stream))
+    assert bool((tiles <= args[0]).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stream", [False, True])
+@pytest.mark.parametrize("mode", list(KERNELS))
+def test_flat_walk_heavy_tile(heavy, mode, stream):
+    # 4,968 blocks (not a power of two), a streamed flat walk. On the CPU
+    # the plain closest walk of these inputs makes 8,619 visits over 128
+    # tiles, 1,146 of them in one tile (17 times the mean of 67.3) and
+    # none in 93; the shadow walk 23,171 with 2,065 in one tile.
+    args, opts = heavy["flat"][mode]
+    assert opts["S"] == 1 and opts["stream"] and args[1].shape[1] == 4968
+    tiles = _same_per_tile(mode, args, dict(opts, stream=stream))
+    if mode == "closest":
+        assert int(tiles.max()) >= 10 * float(tiles.float().mean())
+        assert int((tiles == 0).sum()) > tiles.numel() // 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stream", [False, True])
+@pytest.mark.parametrize("mode", list(KERNELS))
+def test_flat_walk_drops_speculative_visit(flat_bunny, mode, stream):
+    args, opts = flat_bunny[mode]
+    opts = dict(opts, stream=stream)
+    args, cut = with_dropped_speculation(mode, args, opts)
+    assert cut, "no visit of these inputs lowers its tile's prune"
+    tiles = _same_per_tile(mode, args, opts)
+    assert dropped_speculation(mode, args, opts, tiles, cut) == cut
 
 
 @pytest.mark.cuda

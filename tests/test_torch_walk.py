@@ -23,9 +23,19 @@ i K + g), each takes its slice's smallest hit key (or occlusion flag),
 and they combine the K results by min (or OR) before the strict < on the
 best key. That must give the unsliced plain visit's result exactly, ties
 across slices included.
+
+And the two fixtures that the card tests of the cluster walk rest on
+(``tests/test_torch_cuda.py``), each held to the JAX walk, outputs and
+the visits of single tiles, and to the property it is for: the 3x
+subdivided bunny at 256 x 256, a streamed flat walk where one tile makes
+many times the mean visits; and key rows cut so that a walk ends right
+after the visit that lowers its prune, with the next entry inside the old
+prune and outside the new one (the visit the cluster walk makes ahead
+and must drop).
 """
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 import torch
@@ -34,6 +44,7 @@ from ceres_tpu.accel import clusters as jcl
 from ceres_tpu.accel.cuts import build_clusters_quality as jax_quality
 from ceres_tpu.models.camera import Camera as JaxCamera
 from ceres_tpu.models.camera import camera_ray_columns as jax_ray_columns
+from ceres_tpu.models.mesh import subdivide as jax_subdivide
 from ceres_tpu.models.mesh import triangle_soup as jax_soup
 from ceres_tpu.ops import megakernel as jmk
 from ceres_tpu.utils import tiling as jtiling
@@ -41,6 +52,8 @@ from ceres_tpu.utils import tiling as jtiling
 from ceres_tpu_torch.ops import walk
 from ceres_tpu_torch.ops.prepass import _cid_bits
 from ceres_tpu_torch.utils import convert
+
+from test_torch_cuda import dropped_speculation, with_dropped_speculation
 
 torch.set_num_threads(1)
 
@@ -170,31 +183,26 @@ def _shadow_margin(cs, dest, d, ray):
     return float((m / np.abs(nd)).max())
 
 
-def test_closest_plain_matches_pallas(scene):
-    jax_args, port_args = _closest_args(scene)
-    ref, ref_steps = _jax_walk(jax_args, "closest")
-    got, visits = walk.walk_closest(*port_args)
-    got = got.numpy()
-    R = scene[2][0].shape[0]
+def _winners_match(scene, ref, got):
+    """Winner slot ids equal but for near ties. Returns the rays that
+    differ."""
+    cs, eye, dirs = scene[:3]
+    R = dirs[0].shape[0]
     ref, got = ref[:R], got[:R]
     assert (ref >= 0).sum() > 0
     differ = np.nonzero(got != ref)[0]
     assert len(differ) <= 0.001 * R, len(differ)
-    cs, eye, dirs = scene[:3]
     for ray in differ:   # near ties only
         assert got[ray] >= 0 and ref[ray] >= 0
         ta = _slot_t(cs, eye, dirs, got[ray], ray)
         tb = _slot_t(cs, eye, dirs, ref[ray], ray)
         assert abs(ta - tb) <= 1e-5 * max(abs(ta), abs(tb))
-    assert abs(int(visits.sum()) - ref_steps) <= 0.01 * ref_steps
+    return differ
 
 
-def test_any_dest_plain_matches_pallas(scene):
-    jax_args, port_args = _shadow_args(scene)
-    ref, ref_steps = _jax_walk(jax_args, "any_dest")
-    got, visits = walk.walk_any_dest(*port_args)
-    got = got.numpy()
-    occ0 = port_args[4].numpy()
+def _flags_match(scene, ref, got, occ0):
+    """Occlusion flags equal but for boundary cases. Returns the rays
+    that differ."""
     assert ((ref == 1) & (occ0 == 0)).sum() > 0
     differ = np.nonzero(got != ref)[0]
     assert len(differ) <= 0.001 * len(ref), len(differ)
@@ -202,7 +210,107 @@ def test_any_dest_plain_matches_pallas(scene):
     d = tuple(np.asarray(points[a] - sun[a]) for a in range(3))
     for ray in differ:   # boundary cases only
         assert abs(_shadow_margin(cs, sun, d, ray)) <= 1e-6
+    return differ
+
+
+def test_closest_plain_matches_pallas(scene):
+    jax_args, port_args = _closest_args(scene)
+    ref, ref_steps = _jax_walk(jax_args, "closest")
+    got, visits = walk.walk_closest(*port_args)
+    _winners_match(scene, ref, got.numpy())
     assert abs(int(visits.sum()) - ref_steps) <= 0.01 * ref_steps
+
+
+def test_any_dest_plain_matches_pallas(scene):
+    jax_args, port_args = _shadow_args(scene)
+    ref, ref_steps = _jax_walk(jax_args, "any_dest")
+    got, visits = walk.walk_any_dest(*port_args)
+    _flags_match(scene, ref, got.numpy(), port_args[4].numpy())
+    assert abs(int(visits.sum()) - ref_steps) <= 0.01 * ref_steps
+
+
+def _tile_visits_match(jax_args, mode, tiles, visits, differ):
+    """Each of ``tiles`` alone through the JAX walk (which skips a tile
+    with no candidate and reports only the sum of visits): the port's
+    executed visits of that tile, exactly, or within 1% if one of its
+    rays is among ``differ`` (another near-tie winner or boundary flag
+    moves the prune)."""
+    counts = jax_args[0]
+    for tile in tiles:
+        only = jnp.zeros_like(counts).at[tile].set(counts[tile])
+        _, steps = _jax_walk((only, *jax_args[1:]), mode)
+        got = int(visits[tile])
+        if not np.any(differ // walk.TILE == tile):
+            assert got == steps, (tile, got, steps)
+        else:
+            assert abs(got - steps) <= 0.01 * steps + 1, (tile, got, steps)
+
+
+@pytest.fixture(scope="module")
+def heavy_flat(bunny):
+    """The closest walk's inputs on the 3x subdivided bunny (317,952
+    triangles; the treelet cut's 4,968 blocks take the streamed flat
+    walk) for 256 x 256 primary rays."""
+    verts, faces = jax_subdivide(*bunny, 3)
+    cs = jax.jit(jcl.build_clusters_treelet)(
+        jax_soup(jnp.asarray(verts), jnp.asarray(faces), with_normals=False))
+    eye = np.asarray(EYES["bunny"], np.float32)
+    cam = JaxCamera.make(eye=eye, dir=verts.mean(axis=0) - eye, up=(0, 1, 0),
+                         fov=60.0)
+    dirs = tuple(jtiling.swizzle_plane(p)
+                 for p in jax_ray_columns(cam, 256, 256))
+    scene = (cs, jnp.asarray(eye), dirs)
+    return scene, _inputs(cs, scene[1], dirs,
+                          jnp.zeros(dirs[0].shape, bool), "closest")
+
+
+def test_heavy_flat_tile_matches_pallas(heavy_flat):
+    scene, (jax_args, port_args) = heavy_flat
+    assert port_args[1].shape == (128, 4968)
+    got, visits = walk.walk_closest(*port_args)
+    # What the fixture is for: one tile far above the mean (1,146 visits
+    # of 8,619 over 128 tiles, 17 times the mean), most tiles with none.
+    heaviest = int(visits.argmax())
+    assert int(visits[heaviest]) >= 10 * float(visits.float().mean())
+    assert int((visits == 0).sum()) > visits.numel() // 2
+    ref, ref_steps = _jax_walk(jax_args, "closest")
+    differ = _winners_match(scene, ref, got.numpy())
+    assert abs(int(visits.sum()) - ref_steps) <= 0.01 * ref_steps
+    if len(differ) == 0:
+        assert int(visits.sum()) == ref_steps
+    busy = visits.argsort(descending=True)[:3].tolist()
+    idle = int((visits == 0).nonzero()[0])
+    _tile_visits_match(jax_args, "closest", [*busy, idle], visits, differ)
+
+
+@pytest.fixture(scope="module")
+def bunny_scene(bunny):
+    return _mesh_scene(*bunny, EYES["bunny"])
+
+
+@pytest.mark.parametrize("mode", ["closest", "any_dest"])
+def test_dropped_speculation_matches_pallas(bunny_scene, mode):
+    scene = bunny_scene
+    jax_args, port_args = (_closest_args(scene) if mode == "closest"
+                           else _shadow_args(scene))
+    wrapper = walk.walk_closest if mode == "closest" else walk.walk_any_dest
+    port_args, cut = with_dropped_speculation(mode, port_args, {})
+    assert cut, "no visit of these inputs lowers its tile's prune"
+    got, visits = wrapper(*port_args)
+    # What the fixture is for: each cut walk ends with a candidate left
+    # whose entry is inside the last visit's prune and outside the new one.
+    assert dropped_speculation(mode, port_args, {}, visits, cut) == cut
+    assert all(int(visits[t]) == int(port_args[0][t]) - 1 for t in cut)
+    jax_args = (jnp.asarray(port_args[0].numpy()),
+                jnp.asarray(port_args[1].numpy()), *jax_args[2:4],
+                None if mode == "closest" else jnp.asarray(port_args[4].numpy()))
+    ref, ref_steps = _jax_walk(jax_args, mode)
+    if mode == "closest":
+        differ = _winners_match(scene, ref, got.numpy())
+    else:
+        differ = _flags_match(scene, ref, got.numpy(), port_args[4].numpy())
+    assert abs(int(visits.sum()) - ref_steps) <= 0.01 * ref_steps
+    _tile_visits_match(jax_args, mode, cut, visits, differ)
 
 
 def test_plain_versions_do_not_count_launches(scene):
