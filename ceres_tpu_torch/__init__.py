@@ -13,20 +13,28 @@ subdivided bunny up to 1.27M triangles on the device treelet cut):
   kernels     ceres_tpu_torch.ops (culling prepass, CUDA walk kernels:
               flat or two-level, weights staged or streamed)
   renderer    ceres_tpu_torch.render
+
+``__all__`` is the JAX package's list; ``render_pipeline``, the frame
+loop's entry point, is importable from here too.
 """
 
 from ceres_tpu_torch.io.obj import load_obj
-from ceres_tpu_torch.models.camera import Camera
-from ceres_tpu_torch.models.mesh import TriangleSoup, triangle_soup
+from ceres_tpu_torch.models.camera import Camera, camera_rays
+from ceres_tpu_torch.models.mesh import (Mesh, TriangleSoup, triangle_soup,
+                                         vertex_normals)
+from ceres_tpu_torch.models.transform import Transform
 from ceres_tpu_torch.render.renderer import (RenderConfig, render,
                                              render_pipeline)
 
 __all__ = [
     "Camera",
-    "RenderConfig",
+    "camera_rays",
+    "Mesh",
     "TriangleSoup",
+    "triangle_soup",
+    "vertex_normals",
+    "Transform",
     "load_obj",
     "render",
-    "render_pipeline",
-    "triangle_soup",
+    "RenderConfig",
 ]

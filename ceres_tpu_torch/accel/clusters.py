@@ -104,7 +104,7 @@ def build_clusters(soup: TriangleSoup,
     num_clusters = -(-T // C)
     pad = num_clusters * C - T
     dev = soup.p0.device
-    order = morton.morton_order(lbvh_mod._centers(soup))
+    order = morton.morton_order(soup.centers().detach())
     perm = torch.cat([order, torch.full((pad,), -1, dtype=torch.int32,
                                         device=dev)])
     valid = (perm >= 0)[:, None]

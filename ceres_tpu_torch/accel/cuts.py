@@ -28,6 +28,9 @@ from ceres_tpu_torch.accel.clusters import (CLUSTER_SIZE, ClusterSet,
                                             _super_slots)
 from ceres_tpu_torch.models.mesh import TriangleSoup
 
+# The JAX package's other quality builders, not ported yet.
+_UNPORTED_BUILDERS = ("binned", "sbvh", "ploc", "reinsert")
+
 
 def _cut_flatbvh(bvh: gb.FlatBvh, cluster_size: int):
     """Greedy maximal-subtree cut. Returns (prim id lists, lo, hi,
@@ -145,12 +148,15 @@ def build_clusters_quality(soup: TriangleSoup, builder: str = "sweep",
     the frame loop, like the reference's pre-loop BVH build.
 
     Only ``builder="sweep"`` is ported; binned, sbvh, ploc and reinsert
-    wait for ROADMAP item M9.
+    wait for ROADMAP item M9. Any other name raises ``ValueError``, as in
+    the JAX package.
     """
-    if builder != "sweep":
+    if builder in _UNPORTED_BUILDERS:
         raise NotImplementedError(
             f"builder {builder!r} is not ported yet (ROADMAP item M9); "
             "use builder='sweep'")
+    if builder != "sweep":
+        raise ValueError(f"unknown builder: {builder}")
     p0 = soup.p0.detach().cpu().numpy()
     p1 = p0 - soup.e1.detach().cpu().numpy()
     p2 = soup.e2.detach().cpu().numpy() + p0

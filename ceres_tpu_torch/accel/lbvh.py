@@ -85,14 +85,6 @@ def _delta_fn(hi_keys, lo_keys, n):
     return delta
 
 
-def _centers(soup: TriangleSoup) -> torch.Tensor:
-    """Triangle centroids as the JAX package builds them under ``jit``:
-    XLA rewrites the division by 3 into a multiply by f32(1/3)."""
-    p0 = soup.p0.detach()
-    total = p0 + (p0 - soup.e1.detach()) + (p0 + soup.e2.detach())
-    return total * torch.tensor(1.0 / 3.0, dtype=total.dtype)
-
-
 def _corner_bounds(p0, p1, p2):
     """Per-triangle AABB (lo, hi) of three corner arrays, XLA min/max."""
     return (minmax.fmin(minmax.fmin(p0, p1), p2),
@@ -105,7 +97,7 @@ def build_lbvh(soup: TriangleSoup) -> Lbvh:
     if T < 2:
         raise ValueError("LBVH needs at least 2 triangles")
     dev = soup.p0.device
-    centers = _centers(soup)
+    centers = soup.centers().detach()
     codes = morton.morton_codes(centers, minmax.amin(centers, 0),
                                 minmax.amax(centers, 0))
     order = torch.argsort(codes, stable=True)

@@ -19,6 +19,25 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ceres_tpu_torch.utils import minmax
+
+
+@dataclasses.dataclass(frozen=True)
+class Mesh:
+    """An indexed triangle mesh: (V, 3) float vertices and (F, 3) int32
+    faces."""
+
+    vertices: torch.Tensor
+    faces: torch.Tensor
+
+    @property
+    def num_vertices(self) -> int:
+        return self.vertices.shape[0]
+
+    @property
+    def num_faces(self) -> int:
+        return self.faces.shape[0]
+
 
 @dataclasses.dataclass(frozen=True)
 class TriangleSoup:
@@ -38,6 +57,31 @@ class TriangleSoup:
     @property
     def num_triangles(self) -> int:
         return self.p0.shape[0]
+
+    @property
+    def p1(self) -> torch.Tensor:
+        return self.p0 - self.e1
+
+    @property
+    def p2(self) -> torch.Tensor:
+        return self.p0 + self.e2
+
+    def bounds(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """Per-triangle AABBs: ((F, 3) lo, (F, 3) hi), with XLA's min and
+        max (-0 below +0)."""
+        p0, p1, p2 = self.p0, self.p1, self.p2
+        return (minmax.fmin(minmax.fmin(p0, p1), p2),
+                minmax.fmax(minmax.fmax(p0, p1), p2))
+
+    def centers(self) -> torch.Tensor:
+        """Triangle centroids, (F, 3): the sum of the corners times f32(1/3),
+        as XLA computes the JAX package's division by 3 under ``jit``."""
+        total = self.p0 + self.p1 + self.p2
+        return total * torch.tensor(1.0 / 3.0, dtype=total.dtype)
+
+    def areas(self) -> torch.Tensor:
+        """Triangle areas, |n| / 2, (F,)."""
+        return 0.5 * torch.linalg.vector_norm(self.n, dim=-1)
 
 
 def cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -86,6 +130,14 @@ def triangle_soup(vertices: torch.Tensor, faces: torch.Tensor,
     corner = vertex_normals(vertices, faces)[f] if with_normals else None
     return TriangleSoup(p0=p0, e1=e1, e2=e2, n=cross(e1, e2),
                         corner_normals=corner)
+
+
+def soup_from_points(p0: torch.Tensor, p1: torch.Tensor,
+                     p2: torch.Tensor) -> TriangleSoup:
+    """Triangle records straight from three (F, 3) corner-point tensors."""
+    e1 = p0 - p1
+    e2 = p2 - p0
+    return TriangleSoup(p0=p0, e1=e1, e2=e2, n=cross(e1, e2))
 
 
 def subdivide(vertices, faces, levels: int = 1):

@@ -1,5 +1,5 @@
 // Per-tile front-to-back cluster walk: the closest-hit and shadow kernels,
-// flat or two-level, with weights staged synchronously or streamed.
+// flat or two-level, with weights resident or streamed.
 //
 // Replaces the variants of the JAX package's Pallas walk kernel
 // (ceres_tpu/ops/megakernel.py, _make_walk_kernel launched by _walk_pallas).
@@ -19,7 +19,7 @@
 //                   accept; features [d, d x o, o, 1]): the
 //                   reference-exact shadow rays, from any_hit.
 // Each as
-//   walk_flat<M>                   flat, resident: one block a tile;
+//   walk_solo<M>                   flat, resident: one CTA a tile;
 //   walk_tile<M, true, K, false>   flat, streamed weights (stream=True:
 //                                  _copy / start_fetch / wait_fetch,
 //                                  fetch_wait and the drain at early exit);
@@ -31,10 +31,10 @@
 // _walk_any_plain).
 //
 // What one tile's walk computes. A tile is kR = 512 rays: one block with one
-// ray per thread (the resident flat walk), or a cluster of blocks (the
-// streamed flat walk and the two-level walk, below). The tile's candidates
-// arrive as one sorted int32 key row (entry-bound f32 bits with the low cid
-// bits cleared | candidate id). The walk takes the row front to back while
+// ray per thread (the resident flat walk, walk_solo, below), or a cluster
+// of blocks (the streamed flat walk and the two-level walk, below). The
+// tile's candidates arrive as one sorted int32 key row (entry-bound f32
+// bits with the low cid bits cleared | candidate id). The walk takes the row front to back while
 //     k < count  &&  (key_k & ~cmask) <= prune,
 // where prune is the tile's maximum over rays of min(best t key, root exit)
 // (closest) or of the root exit of the still unoccluded rays (occlusion),
@@ -101,9 +101,9 @@
 // after it, fetched when its entry is within the current prune (the prune
 // only falls) while the other two are walked. A copy still in flight at an
 // early exit is drained. The resident two-level variants fill the same
-// buffers with plain copies; the resident flat walk (walk_flat) stages each
-// block synchronously, plane-major, as the bunny kernels always did. Both
-// forms give the same outputs.
+// buffers with plain copies; the resident flat walk (walk_solo) copies each
+// block with cp.async into one of two buffers while the block before it is
+// visited. All forms give the same outputs.
 //
 // What bounds it on an H100. Each visit is 512 x 128 ray-triangle pairs at
 // 26-30 fp32 operations each (44 for generic rays), on the CUDA cores: the
@@ -115,22 +115,24 @@
 // other SMs idled.
 // Tensor cores are no use here: the search needs full fp32.
 //
-// What the design does about it. In the resident flat walk one thread per
-// ray keeps each visit free of cross-thread reductions except the block
-// max for the prune (a warp redux plus 16 shared-memory slots), and
-// shared-memory weight reads are warp broadcasts (all threads read the
-// same triangle). The shadow kernels skip rays already occluded and leave
-// a ray at its first occluder. The cluster walk spreads each tile over a
-// cluster of K SMs (above) with K threads a ray, so a warp idles once its
-// 32 / K rays are occluded,
-// stages each block triangle-major so a pair reads 3 float4 (4 generic)
-// instead of 10 (16) scalars, runs a thread's sign tests in chunks with no
-// branch per pair (a hit mask first, then t and the key only for the few
-// hits), takes the next member with a warp min instead of a scan, reads
-// each super's key, first member and boxes a candidate ahead (the flat
-// walk its row's keys two ahead), and synchronises a visit with one block
-// barrier and one mbarrier wait (hidden behind the next visit). FMA contraction and several rays per
-// thread are later work.
+// What the design does about it. Every walk stages each block
+// triangle-major, so a pair reads 3 float4 (4 generic) instead of 10 (16)
+// scalars, and runs a thread's sign tests in chunks with no branch per pair
+// (a hit mask first, then t and the key only for the few hits: one visit
+// body, visit_result, for every variant). The shadow kernels leave a ray at
+// its first occluder. The cluster walk spreads each tile over a cluster of
+// K SMs (above) with K threads a ray, so a warp idles once its 32 / K rays
+// are occluded, takes the next member with a warp min instead of a scan,
+// reads each super's key, first member and boxes a candidate ahead (the
+// flat walk its row's keys two ahead), and synchronises a visit with one
+// block barrier and one mbarrier wait (hidden behind the next visit). The
+// resident flat walk keeps a light tile (most make one to three visits) on
+// one CTA, one ray a thread: weight reads are warp broadcasts (every thread
+// reads the same record), the next block is copied during the visit, a
+// visit has one block barrier (the prune max), and the shadow walks hand
+// the live rays to the leading warps at each prune max, so no warp walks
+// occluded rays. FMA contraction and several rays per thread are later
+// work.
 //
 // Exactness. Built with --fmad=false and written in the plain version's
 // operation order, so kernel and plain version agree bit for bit on the
@@ -241,13 +243,6 @@ __device__ __forceinline__ int prune_part(int best, int occ, int tcap) {
   return occlusion(M) ? (occ > 0 ? kNegI : tcap) : min(best, tcap);
 }
 
-// Synchronous staging of one cluster's kFloats weights (every thread takes
-// part; the caller orders it with barriers).
-template <int kFloats>
-__device__ __forceinline__ void stage_sync(float* dst, const float* src) {
-  for (int i = threadIdx.x; i < kFloats; i += kR) dst[i] = src[i];
-}
-
 template <int N>
 __device__ __forceinline__ void wait_async() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
@@ -259,26 +254,6 @@ __device__ __forceinline__ void sign_test(float nu, float nv, float nd,
                                           float& s, float& uvw) {
   s = nd >= 0.f ? 1.f : -1.f;
   uvw = fminf(fminf(nu * s, nv * s), (nd - nu - nv) * s);
-}
-
-// Möller-Trumbore terms of this ray against triangle j of a flat walk's
-// staged block sw (plane-major, as stored: plane q of triangle j at
-// sw[q * kC + j]), in the plain version's order: det and t numerators, s
-// and uvw (sign_test).
-template <int M>
-__device__ __forceinline__ void numerators(const float* sw, int j,
-                                           const Ray<M>& r, float& nd,
-                                           float& nt, float& s, float& uvw) {
-  float nu = r.dx * sw[0 * kC + j] + r.dy * sw[1 * kC + j] + r.dz * sw[2 * kC + j];
-  float nv = r.dx * sw[3 * kC + j] + r.dy * sw[4 * kC + j] + r.dz * sw[5 * kC + j];
-  nd = r.dx * sw[6 * kC + j] + r.dy * sw[7 * kC + j] + r.dz * sw[8 * kC + j];
-  nt = sw[9 * kC + j];
-  if (M == kAny) {
-    nu = nu - (r.cx * sw[10 * kC + j] + r.cy * sw[11 * kC + j] + r.cz * sw[12 * kC + j]);
-    nv = nv - (r.cx * sw[13 * kC + j] + r.cy * sw[14 * kC + j] + r.cz * sw[15 * kC + j]);
-    nt = nt - (r.ox * sw[6 * kC + j] + r.oy * sw[7 * kC + j] + r.oz * sw[8 * kC + j]);
-  }
-  sign_test(nu, nv, nd, s, uvw);
 }
 
 // The cluster walk's staged block, triangle-major: one record of
@@ -375,90 +350,6 @@ __device__ __forceinline__ void take_key(int kmin, int cid, int& best,
     best = t_new;
     pid = cid * kC + (kmin & kIdxMask);
   }
-}
-
-// Closest-hit visit of one cluster (weights sw, packed id base cid * kC):
-// the key min over its kC triangles (a miss is kBigCleanI | lane), taken
-// into this ray's best t key and winner slot.
-template <int M>
-__device__ __forceinline__ void visit_closest(const float* sw, int cid,
-                                              const Ray<M>& r, int& best,
-                                              int& pid) {
-  int kmin = INT_MAX;
-  for (int j = 0; j < kC; ++j) {
-    float nd, nt, s, uvw;
-    numerators<M>(sw, j, r, nd, nt, s, uvw);
-    int key = kBigCleanI | j, h;
-    if (front_hit(nd, nt, s, uvw) && hit_key<M>(nd, nt, j, r, h)) key = h;
-    kmin = min(kmin, key);
-  }
-  take_key(kmin, cid, best, pid);
-}
-
-// Shadow visit of one cluster: set occ if a triangle occludes (occludes).
-// Occluded rays skip the loop; the loop stops at the first occluder.
-template <int M>
-__device__ __forceinline__ void visit_occlusion(const float* sw,
-                                                const Ray<M>& r, int& occ) {
-  if (occ != 0) return;
-  for (int j = 0; j < kC; ++j) {
-    float nd, nt, s, uvw;
-    numerators<M>(sw, j, r, nd, nt, s, uvw);
-    if (occludes<M>(nd, nt, s, uvw)) {
-      occ = 1;
-      return;
-    }
-  }
-}
-
-template <int M>
-__device__ __forceinline__ void visit(const float* sw, int cid,
-                                      const Ray<M>& r, int& best, int& pid,
-                                      int& occ) {
-  if (occlusion(M)) {
-    visit_occlusion<M>(sw, r, occ);
-  } else {
-    visit_closest<M>(sw, cid, r, best, pid);
-  }
-}
-
-// The resident flat walk: one block a tile, one ray a thread, each visit's
-// block staged synchronously.
-template <int M>
-__global__ void __launch_bounds__(kR)
-walk_flat(const int* __restrict__ counts, const int* __restrict__ keys,
-          const float* __restrict__ rays, const float* __restrict__ w,
-          const int* __restrict__ occ0, int* __restrict__ out,
-          int* __restrict__ visits, int n_rays, int n_c, int cmask) {
-  constexpr int kFloats = planes_of(M) * kC;
-  __shared__ __align__(16) float sw[kFloats];
-  __shared__ int sred[kWarps];
-
-  const int tile = blockIdx.x;
-  const int ray = tile * kR + threadIdx.x;
-  const Ray<M> r(rays, n_rays, ray);
-  const int count = counts[tile];
-  const int* krow = keys + (size_t)tile * n_c;
-
-  int best = kBigCleanI;  // closest: best t key (low lane bits clear)
-  int pid = -1;           // closest: packed slot id of the winner
-  int occ = occlusion(M) ? occ0[ray] : 0;
-  // Two block_max calls on sred are a loop's barriers apart.
-  int prune = block_max(prune_part<M>(best, occ, r.tcap), sred) + kPrunePad;
-
-  int k = 0;
-  while (k < count && (krow[k] & ~cmask) <= prune) {
-    const int cid = krow[k] & cmask;
-    __syncthreads();  // every thread is done with the previous cluster
-    stage_sync<kFloats>(sw, w + (size_t)cid * kFloats);
-    __syncthreads();
-
-    visit<M>(sw, cid, r, best, pid, occ);
-    prune = block_max(prune_part<M>(best, occ, r.tcap), sred) + kPrunePad;
-    ++k;
-  }
-  out[ray] = occlusion(M) ? occ : pid;
-  if (threadIdx.x == 0) visits[tile] = k;
 }
 
 // One super candidate of a tile's key row, read a candidate ahead: its key,
@@ -892,6 +783,168 @@ walk_tile(const int* __restrict__ counts, const int* __restrict__ keys,
   if (rank == 0 && threadIdx.x == 0) visits[tile] = t.nvis;
 }
 
+// The resident flat walk: one CTA a tile (walk_solo). One CTA walks the
+// whole tile, so the new prune is known right after each visit's block
+// max: there is no exchange and no visit ahead of it. Each visit's block
+// is staged with cp.async into one of two buffers as triangle records
+// while the block before it is visited (Row reads the key row two
+// candidates ahead), and one block barrier a visit, the prune max, follows
+// the copy wait. A prefetched block whose entry the new prune excludes is
+// dropped uncounted.
+//
+// The shadow walks hand the tile's live rays to the leading threads: at
+// every prune max the 16 warps also publish the ballot of their still
+// unoccluded rays and the ray each thread walked, and thread u takes the
+// u-th live ray of that list (live_entry), in list order. So a warp walks
+// only live rays, and warps past the live count skip the visit; the
+// occlusion flags go into a 512-bit mask, read once at the end.
+template <int M>
+struct SoloShared {
+  alignas(16) float sw[2][kC * rec_floats(M)];  // the block and the next
+  // Alternating with the visits (one barrier each): the warps' maxima of
+  // the prune, and (shadow walks) their live ballots and each thread's ray.
+  int red[2][kWarps];
+  unsigned live[2][kWarps];
+  int ids[2][occlusion(M) ? kR : 1];
+  unsigned occm[kWarps];  // shadow walks: rays occluded during the walk
+};
+
+// The position of the k-th set bit (from 0) of m, which has more than k.
+__device__ __forceinline__ int nth_bit(unsigned m, int k) {
+  int pos = 0;
+#pragma unroll
+  for (int w = 16; w > 0; w >>= 1) {
+    const int c = __popc(m & ((1u << w) - 1u));
+    if (k >= c) {
+      k -= c;
+      m >>= w;
+      pos += w;
+    }
+  }
+  return pos;
+}
+
+// The u-th set bit of the 16 warps' ballots msk taken in order (warp v's
+// bit l stands for thread 32 v + l): that thread, or -1 past the last.
+__device__ __forceinline__ int live_entry(const unsigned* msk, int u) {
+  int before = 0;
+#pragma unroll
+  for (int v = 0; v < kWarps; ++v) {
+    const int c = __popc(msk[v]);
+    if (u >= before && u < before + c) return 32 * v + nth_bit(msk[v], u - before);
+    before += c;
+  }
+  return -1;
+}
+
+// One CTA an SM as the launch bound: the compiler gives a thread 72-90
+// registers, and the kernels ran up to 16% faster than at two CTAs an SM
+// (64 registers) on the card (PERF.md, PR 6).
+template <int M>
+__global__ void __launch_bounds__(kR, 1)
+walk_solo(const int* __restrict__ counts, const int* __restrict__ keys,
+          const float* __restrict__ rays, const float* __restrict__ w,
+          const int* __restrict__ occ0, int* __restrict__ out,
+          int* __restrict__ visits, int n_rays, int n_k, int cmask) {
+  __shared__ SoloShared<M> sh;
+
+  const int tile = blockIdx.x;
+  const int t = threadIdx.x;
+  const int lane = t & 31;
+  const int base = tile * kR;
+  const int count = counts[tile];
+  const int occ = occlusion(M) ? occ0[base + t] : 0;
+  if (count == 0) {  // most tiles of a frame see no candidate
+    out[base + t] = occlusion(M) ? occ : -1;
+    if (t == 0) visits[tile] = 0;
+    return;
+  }
+
+  // Closest walks: thread t walks ray t throughout. Shadow walks: thread
+  // t walks ray rid of the tile (-1: none), chosen at every prune max.
+  int rid = t;
+  Ray<M> r(rays, n_rays, base + t);
+  int best = kBigCleanI;  // closest: best t key (low lane bits clear)
+  int pid = -1;           // closest: packed slot id of the winner
+  int red = 0;            // the buffers of the next prune max
+  if (occlusion(M) && t < kWarps) sh.occm[t] = 0;
+
+  // The prune max: the part of each thread's ray (live: a shadow ray not
+  // yet occluded), and for the shadow walks the handover of live rays.
+  auto prune_max = [&](bool live) {
+    const int part = occlusion(M) ? (live ? r.tcap : kNegI)
+                                  : min(best, r.tcap);
+    const int v = __reduce_max_sync(0xffffffffu, part);
+    if (lane == 0) sh.red[red][t >> 5] = v;
+    if (occlusion(M)) {
+      const unsigned bal = __ballot_sync(0xffffffffu, live);
+      if (lane == 0) sh.live[red][t >> 5] = bal;
+      sh.ids[red][t] = rid;
+    }
+    __syncthreads();
+    const int prune = __reduce_max_sync(0xffffffffu, sh.red[red][lane & (kWarps - 1)]);
+    if (occlusion(M)) {
+      const int at = live_entry(sh.live[red], t);
+      rid = at < 0 ? -1 : sh.ids[red][at];
+    }
+    red ^= 1;
+    return prune + kPrunePad;
+  };
+
+  int prune = prune_max(occ == 0);
+  Row src(keys + (size_t)tile * n_k, count, cmask);
+  int m, m2;
+  int cur = src.pop(&m);
+  int nvis = 0;
+  if (m <= prune) {
+    int nxt = src.pop(&m2);
+    bool ahead = m2 <= prune;
+    int b = 0;  // sh.sw[b] holds cur, sh.sw[b ^ 1] nxt
+    stage_block<M, true>(sh.sw[b], w, cur);
+    if (ahead) {
+      stage_block<M, true>(sh.sw[b ^ 1], w, nxt);
+      wait_async<1>();
+    } else {
+      wait_async<0>();
+    }
+    int held = t;  // the ray in r
+    auto hold = [&] {
+      if (occlusion(M) && rid >= 0 && rid != held) {
+        r = Ray<M>(rays, n_rays, base + rid);
+        held = rid;
+      }
+    };
+    hold();
+    __syncthreads();
+    while (true) {
+      bool live = true;  // closest walks: unused
+      if (occlusion(M)) {
+        const int x = rid >= 0 ? visit_result<M, 1>(sh.sw[b], 0, r, 0) : 0;
+        if (x) atomicOr(&sh.occm[rid >> 5], 1u << (rid & 31));
+        live = rid >= 0 && !x;
+      } else {
+        take_key(visit_result<M, 1>(sh.sw[b], 0, r, 0), cur, best, pid);
+      }
+      if (ahead) wait_async<0>();  // the prune max's barrier publishes it
+      prune = prune_max(live);
+      ++nvis;
+      if (m2 > prune) break;  // nxt, if copied ahead, is dropped
+      cur = nxt;
+      b ^= 1;
+      nxt = src.pop(&m2);
+      ahead = m2 <= prune;  // sh.sw[b ^ 1] was last read before the barrier
+      if (ahead) stage_block<M, true>(sh.sw[b ^ 1], w, nxt);
+      hold();
+    }
+  }
+  if (occlusion(M)) {
+    out[base + t] = occ | ((sh.occm[t >> 5] >> lane) & 1);
+  } else {
+    out[base + t] = pid;
+  }
+  if (t == 0) visits[tile] = nvis;
+}
+
 // The launch of walk_tile on n_tiles clusters of K CTAs (attr is the
 // caller's, and must outlive the configuration).
 inline cudaLaunchConfig_t tile_launch(int n_tiles, int K, cudaStream_t st,
@@ -937,15 +990,27 @@ int resident_clusters() {
   return err != cudaSuccess ? -(int)err : n;
 }
 
+// How many CTAs of walk_solo the card holds at once, or -cudaError_t.
 template <int M>
-int resident_clusters(bool hier, bool stream_w) {
+int resident_solo(int device) {
+  int per_sm = 0, sms = 0;
+  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, walk_solo<M>, kR, 0);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  }
+  return err != cudaSuccess ? -(int)err : per_sm * sms;
+}
+
+template <int M>
+int resident_clusters(bool hier, bool stream_w, int device) {
   if (hier) {
     return stream_w ? resident_clusters<M, true, kK, true>()
                     : resident_clusters<M, false, kK, true>();
   }
-  // The resident flat walk runs on single blocks.
+  // The resident flat walk runs on single CTAs.
   return stream_w ? resident_clusters<M, true, kKFlat, false>()
-                  : -(int)cudaErrorInvalidValue;
+                  : resident_solo<M>(device);
 }
 
 template <int M>
@@ -961,7 +1026,7 @@ int launch_flat(bool stream_w, const int* counts, const int* keys,
         st, counts, keys, rays, w, occ0, nullptr, nullptr, nullptr, out,
         visits, n_tiles, n_c, cmask, 1);
   }
-  walk_flat<M><<<n_tiles, kR, 0, st>>>(counts, keys, rays, w, occ0, out,
+  walk_solo<M><<<n_tiles, kR, 0, st>>>(counts, keys, rays, w, occ0, out,
                                        visits, n_tiles * kR, n_c, cmask);
   return (int)cudaGetLastError();
 }
@@ -1085,17 +1150,19 @@ extern "C" int ceres_walk_any_hier(const int* counts, const int* keys,
                            device, stream);
 }
 
-// Clusters of a cluster walk (mode as walk.py orders RAY_ROWS; two-level or
-// streamed flat) that the card holds at once, or -cudaError_t.
+// Tiles a walk (mode as walk.py orders RAY_ROWS) has on the card at once:
+// clusters of a cluster walk (two-level or streamed flat), or CTAs of the
+// resident flat walk; or -cudaError_t.
 extern "C" int ceres_walk_resident_clusters(int mode, int hier, int stream_w,
                                             int device) {
   const cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return -(int)err;
   switch (mode) {
-    case kClosest: return resident_clusters<kClosest>(hier, stream_w);
-    case kClosestWindow: return resident_clusters<kClosestWindow>(hier, stream_w);
-    case kAnyDest: return resident_clusters<kAnyDest>(hier, stream_w);
-    case kAny: return resident_clusters<kAny>(hier, stream_w);
+    case kClosest: return resident_clusters<kClosest>(hier, stream_w, device);
+    case kClosestWindow:
+      return resident_clusters<kClosestWindow>(hier, stream_w, device);
+    case kAnyDest: return resident_clusters<kAnyDest>(hier, stream_w, device);
+    case kAny: return resident_clusters<kAny>(hier, stream_w, device);
   }
   return -(int)cudaErrorInvalidValue;
 }

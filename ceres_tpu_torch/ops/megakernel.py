@@ -303,7 +303,8 @@ def _any_inputs(cs, shift, origins, dirs, skip):
 
 
 def any_hit_to_point(soup: TriangleSoup, dest, points, skip=None,
-                     clusters=None, with_counts=False):
+                     clusters=None, with_counts=False, exact_f64=False,
+                     regroup=None):
     """Occlusion between each ``points[i]`` and the common point ``dest``:
     the shadow wavefront, every ray aimed at the one sun.
 
@@ -311,9 +312,16 @@ def any_hit_to_point(soup: TriangleSoup, dest, points, skip=None,
     point (t = 1), so it is a common-origin wavefront. An occluder lies
     strictly between light and receiver. ``skip`` marks rays whose answer
     is irrelevant (no primary hit); they generate no traversal work.
-    Boolean, detached. The JAX package's receiver regrouping (off by
-    default there) waits for ROADMAP item M13.
+    Boolean, detached. ``exact_f64`` waits for ROADMAP item M14, and the
+    JAX package's receiver regrouping (``regroup=True``; off by default
+    there, as here) for M13.
     """
+    if exact_f64:
+        raise NotImplementedError("exact_f64 is not ported yet (ROADMAP "
+                                  "item M14)")
+    if regroup not in (None, False):
+        raise NotImplementedError("shadow-receiver regrouping is not ported "
+                                  "yet (ROADMAP item M13)")
     R = _cols(points)[0].shape[0]
     cs = _treelet(soup, clusters)
     if skip is None:

@@ -15,7 +15,8 @@ The wrappers replace the variants of the JAX package's Pallas walk
 each flat or two-level (``S > 1``), with weights staged per visit or
 streamed (``stream=True``). The kernels are CUDA C++ for sm_90a in
 ``csrc/walk.cu``: the streamed flat and the two-level forms walk each
-tile on a thread-block cluster, the resident flat form on one block.
+tile on a thread-block cluster, the resident flat form on one CTA
+(``walk_solo``).
 Each wrapper dispatches on the device of its tensors:
 
   * CPU tensors go to the plain version (the CPU tests run it);
@@ -102,8 +103,9 @@ def reset_launches() -> None:
 
 def resident_clusters(mode: str, S: int, stream: bool,
                       device: torch.device) -> int:
-    """How many thread-block clusters of a cluster walk (two-level, or
-    streamed flat) ``device`` holds at once: each walks one tile."""
+    """How many tiles a walk has on ``device`` at once: thread-block
+    clusters of a cluster walk (two-level, or streamed flat), or CTAs of
+    the resident flat walk."""
     from ceres_tpu_torch.ops import _build
 
     lib = _build.load()

@@ -26,6 +26,17 @@ def data_dir() -> str:
         os.path.abspath(__file__)))), "data")
 
 
+DATA_DIR = data_dir()
+
+
+def bunny_path() -> str:
+    return os.path.join(data_dir(), "bunny.obj")
+
+
+def dragon_path() -> str:
+    return os.path.join(data_dir(), "dragon.obj")
+
+
 @dataclasses.dataclass
 class Scene:
     vertices: np.ndarray
@@ -59,7 +70,7 @@ def load_scene(obj_path: str, eye=(0.0, 0.1, -0.3),
 def bunny_scene(rotate_degrees: float = -145.0) -> Scene:
     """The bunny preset: eye (0, .1, -.3), up y, fov 60, sun (-50, 100, 0),
     mesh rotated about y."""
-    return load_scene(os.path.join(data_dir(), "bunny.obj"),
+    return load_scene(bunny_path(),
                       eye=(0.0, 0.1, -0.3), up=(0.0, 1.0, 0.0), fov=60.0,
                       sun=(-50.0, 100.0, 0.0), rotate_axis="y",
                       rotate_degrees=rotate_degrees, name="bunny")
@@ -69,7 +80,7 @@ def dragon_scene() -> Scene:
     """The reference's static preset: dragon rotated 90 degrees about x,
     eye (0, -15, 2), direction (0, 1, 0), up z, fov 60, sun (-50, -20,
     0)."""
-    return load_scene(os.path.join(data_dir(), "dragon.obj"),
+    return load_scene(dragon_path(),
                       eye=(0.0, -15.0, 2.0), direction=(0.0, 1.0, 0.0),
                       up=(0.0, 0.0, 1.0), fov=60.0, sun=(-50.0, -20.0, 0.0),
                       rotate_axis="x", rotate_degrees=90.0, name="dragon")

@@ -13,6 +13,7 @@ its own line:
 
   1. device: require CUDA; print the card and its power limit;
   2. build: compile the walk kernels from ``ceres_tpu_torch/ops/csrc``;
+     the tiles each walk holds on the card at once;
   3. kernel vs plain (bunny): K1 and K2 against their plain PyTorch
      versions on the bunny path's inputs (1920 x 1080: 4,080 tiles over
      61 clusters) and on dragon at 960 x 540 (268 clusters: cluster-id
@@ -70,7 +71,8 @@ visit (visits x 512 x 128 pairs); the shadow walks skip rays already
 occluded and stop a ray at its first occluder, so their pairs are the
 plain walk's count of exactly those. Each kernel also gets a line of its
 own: its form (two-level or flat streamed, with the cluster size K of
-``walk.cu``, or flat resident), its visits, the heaviest tile's visits
+``walk.cu``, or flat resident: one CTA a tile, with its registers), its
+visits, the heaviest tile's visits
 and the time per visit of that tile they imply, kernel ms, bound and
 share.
 
@@ -252,6 +254,31 @@ def positives(mode, out, args):
     return int(((out == 1) & (args[4] == 0)).sum())
 
 
+def build_log():
+    """nvcc's -Xptxas=-v report of the kernels' build."""
+    from ceres_tpu_torch.ops import _build
+
+    with open(_build.library_path()[:-3] + ".log") as fh:
+        return fh.read()
+
+
+def solo_registers():
+    """Registers a thread of each mode's resident flat walk
+    (walk_solo<M>) takes, from the build's report."""
+    from ceres_tpu_torch.ops import walk
+
+    regs, fn = {}, ""
+    for line in build_log().splitlines():
+        entry = re.search(r"Compiling entry function '(\S+)'", line)
+        used = re.search(r"Used (\d+) registers", line)
+        if entry:
+            fn = entry.group(1)
+        elif used and "walk_solo" in fn:
+            mode = int(re.search(r"walk_soloILi(\d+)EE", fn).group(1))
+            regs[list(walk.RAY_ROWS)[mode]] = int(used.group(1))
+    return regs
+
+
 def cluster_ctas(name):
     """K, the CTAs of the cluster that walks one tile: the constant kK
     (the two-level kernels) or kKFlat (the streamed flat kernels) of
@@ -319,7 +346,7 @@ def compare(mode, args, opts, reps, plain_ref=None):
             "max_tile": int(tiles_k.max()),
             "positives": positives(mode, out_p, args), "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "S": opts["S"], "stream": opts["stream"]}, plain_ref
+            "S": opts["S"], "stream": opts["stream"], "mode": mode}, plain_ref
 
 
 def report(phase, kname, label, r, card):
@@ -335,7 +362,8 @@ def report(phase, kname, label, r, card):
     elif r["stream"]:
         form = f"flat streamed: K {cluster_ctas('kKFlat')}"
     else:
-        form = "flat resident: one block a tile"
+        form = (f"flat resident: one CTA a tile (walk_solo, "
+                f"{solo_registers()[r['mode']]} registers)")
     print(f"phase {phase} {kname} {form}; executed visits {r['steps']}; "
           f"heaviest tile {r['max_tile']} visits, "
           f"{r['ms'] * 1e3 / max(r['max_tile'], 1):.3f} us per visit of it; "
@@ -473,16 +501,20 @@ def main():
     t0 = time.perf_counter()
     _build.load()
     build_s = time.perf_counter() - t0
-    with open(_build.library_path()[:-3] + ".log") as fh:
-        ptxas = " | ".join(line.strip() for line in fh if "registers" in line)
+    ptxas = " | ".join(line.strip() for line in build_log().splitlines()
+                       if "registers" in line)
     print(f"phase 2 build: {build_s:.1f} s ({ptxas})", flush=True)
-    fit = {walk._variant(mode, S, True)[5:]:
-           walk.resident_clusters(mode, S, True, dev)
-           for mode in walk.RAY_ROWS for S in (1, 2)}
-    print(f"phase 2 clusters of K CTAs (kK {cluster_ctas('kK')}, kKFlat "
-          f"{cluster_ctas('kKFlat')}) the card holds at once, one tile "
-          f"each: {fit}", flush=True)
-    check(min(fit.values()) > 0, "a cluster walk does not fit the card")
+    regs = solo_registers()
+    check(set(regs) == set(walk.RAY_ROWS),
+          f"no register report for every walk_solo: {regs}")
+    fit = {walk._variant(mode, S, stream)[5:]:
+           walk.resident_clusters(mode, S, stream, dev)
+           for mode in walk.RAY_ROWS for S, stream in ((1, False), (1, True),
+                                                      (2, True))}
+    print(f"phase 2 tiles the card holds at once (clusters of K CTAs, kK "
+          f"{cluster_ctas('kK')}, kKFlat {cluster_ctas('kKFlat')}; resident "
+          f"flat: CTAs, walk_solo registers {regs}): {fit}", flush=True)
+    check(min(fit.values()) > 0, "a walk does not fit the card")
 
     # Phase 3: K1 and K2 against their plain versions.
     results = {}

@@ -2,6 +2,7 @@
 
     python3 hier_sweep.py [--ks 2,4,8] [--flat-ks 2,4,8]
                           [--out ceres_tpu_torch/_build/sweep]
+    python3 hier_sweep.py --turns _checkout/parent
 
 ``ceres_tpu_torch/ops/csrc/walk.cu`` has two cluster sizes: the constant
 kK (the two-level kernels) and kKFlat (the streamed flat kernels). For
@@ -18,14 +19,17 @@ OUT/smoke_<constant><k>.log. Prints, per copy, every kernel's line
 share) and the frames' lines, beside the card's name and power limit.
 Exits non-zero if a copy fails. Another commit is timed the same way by
 running its own ``chip_smoke.py`` (``git archive`` it into a directory
-that .gitignore lists).
+that .gitignore lists), or in turns with this one: ``--turns DIR`` builds
+both checkouts' kernels in parallel and runs ``chip_smoke.py`` in DIR,
+here, here and in DIR (parent, change, change, parent), printing the same
+lines of each run, and does nothing else.
 
-Then, with the kernels as committed, where the streamed flat kernels'
-time goes on the 3x bunny's 1080p inputs (``--ks "" --flat-ks ""`` runs
-this alone): each of K5 closest and
-any_dest timed on all tiles, on its heaviest tile alone, without the
+Then, with the kernels as committed, where the flat kernels' time goes
+on 1080p inputs (``--ks "" --flat-ks ""`` runs this alone): each of K5
+closest and any_dest on the 3x bunny, and of the resident K1 and K2 on
+the bunny, timed on all tiles, on its heaviest tile alone, without the
 heaviest 1% of its tiles, and with every key row cut to no candidate
-(the cost of starting 4,080 clusters that visit nothing).
+(the cost of starting 4,080 tiles that visit nothing).
 """
 
 import argparse
@@ -62,8 +66,9 @@ def copy_with(name, k, dst):
 
 
 def flat_floor(card):
-    """Time K5 closest and any_dest on the 3x bunny's 1080p inputs with
-    the key rows of some tiles cut to no candidate."""
+    """Time the flat kernels on 1080p inputs with the key rows of some
+    tiles cut to no candidate: K5 closest and any_dest on the 3x bunny,
+    and the resident K1 and K2 on the bunny."""
     import torch
 
     sys.path.insert(0, ROOT)
@@ -71,14 +76,26 @@ def flat_floor(card):
     import ceres_tpu_torch as ct
     from ceres_tpu_torch.accel.clusters import build_clusters_treelet
     from ceres_tpu_torch.models.mesh import subdivide
-    from ceres_tpu_torch.ops import walk
 
     dev = torch.device("cuda", 0)
     v, f = subdivide(*ct.load_obj(os.path.join(ROOT, "data", "bunny.obj")), 3)
     vt, ft = torch.as_tensor(v, device=dev), torch.as_tensor(f, device=dev)
     cs = build_clusters_treelet(ct.triangle_soup(vt, ft, with_normals=False))
-    inputs = smoke.walk_inputs(vt, ft, smoke.camera(v, smoke.EYE, dev), cs,
-                               smoke.W, smoke.H)
+    cut_tiles(card, smoke.walk_inputs(vt, ft, smoke.camera(v, smoke.EYE, dev),
+                                      cs, smoke.W, smoke.H))
+    cut_tiles(card, smoke.walk_inputs(*smoke.scene("bunny", dev), smoke.W,
+                                      smoke.H))
+
+
+def cut_tiles(card, inputs):
+    """Each walk of ``inputs`` (closest, any_dest) timed on all tiles, on
+    its heaviest tile alone, without the heaviest 1% of its tiles, and
+    with no candidates at all."""
+    import torch
+
+    import chip_smoke as smoke
+    from ceres_tpu_torch.ops import walk
+
     for mode, (args, opts) in zip(("closest", "any_dest"), inputs):
         kernel = getattr(walk, smoke.WALKS[mode])
         counts = args[0]
@@ -96,32 +113,16 @@ def flat_floor(card):
             run = (c, *args[1:])
             n = int(kernel(*run, **opts)[1].sum())
             ms = smoke.cuda_ms(lambda: kernel(*run, **opts), 10)
-            print(f"floor {walk._variant(mode, 1, True)} {label}: visits {n} "
+            print(f"floor {walk._variant(mode, 1, opts['stream'])} {label}: "
+                  f"visits {n} "
                   f"(heaviest tile {int(visits[order[0]])}, "
                   f"{int((visits > 0).sum())} of {counts.numel()} tiles "
                   f"visit); kernel {ms:.4f} ms [{card}]", flush=True)
 
 
-def main():
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--ks", default="2,4,8")
-    ap.add_argument("--flat-ks", default="2,4,8")
-    ap.add_argument("--out", default=os.path.join(ROOT, "ceres_tpu_torch",
-                                                  "_build", "sweep"))
-    args = ap.parse_args()
-    out = os.path.abspath(args.out)
-    os.makedirs(out, exist_ok=True)
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True).stdout.strip()
-    print(card, flush=True)
-    copies = [(name, int(k)) for name, ks in (("kK", args.ks),
-                                               ("kKFlat", args.flat_ks))
-              for k in ks.split(",") if k]
-    dirs = {f"{name}{k}": os.path.join(out, f"{name}{k}")
-            for name, k in copies}
-    for (name, k), d in zip(copies, dirs.values()):
-        copy_with(name, k, d)
+def build_all(dirs):
+    """Build each checkout's kernels, one nvcc each, all at once. Returns
+    the tags whose build failed."""
     build = "from ceres_tpu_torch.ops import _build; _build.build()"
     procs = {tag: subprocess.Popen([sys.executable, "-c", build], cwd=d,
                                    stdout=subprocess.PIPE,
@@ -133,21 +134,64 @@ def main():
         if proc.returncode != 0:
             print(f"{tag}: build failed\n{log[-2000:]}", flush=True)
             failed.append(tag)
+    return failed
+
+
+def smoke(tag, d, out):
+    """Run d's chip_smoke.py, its log in out; print its kernel and frame
+    lines. Returns the exit code."""
+    t0 = time.perf_counter()
+    log = os.path.join(out, f"smoke_{tag}.log")
+    with open(log, "w") as fh:
+        rc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=d,
+                            stdout=fh, stderr=subprocess.STDOUT).returncode
+    print(f"{tag}: chip_smoke.py rc={rc} "
+          f"{time.perf_counter() - t0:.0f} s", flush=True)
+    with open(log) as fh:
+        for line in fh:
+            if LINES.search(line):
+                print(f"{tag}: {line.strip()[:420]}", flush=True)
+    return rc
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--ks", default="2,4,8")
+    ap.add_argument("--flat-ks", default="2,4,8")
+    ap.add_argument("--turns", metavar="DIR",
+                    help="time DIR's chip_smoke.py against this one's in "
+                    "turns (DIR, here, here, DIR), and nothing else")
+    ap.add_argument("--out", default=os.path.join(ROOT, "ceres_tpu_torch",
+                                                  "_build", "sweep"))
+    args = ap.parse_args()
+    out = os.path.abspath(args.out)
+    os.makedirs(out, exist_ok=True)
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True).stdout.strip()
+    print(card, flush=True)
+    if args.turns:
+        dirs = {"parent": os.path.abspath(args.turns), "change": ROOT}
+        failed = build_all(dirs)
+        turns = ("parent", "change", "change", "parent")
+        for i, tag in enumerate(turns):
+            if tag not in failed and smoke(f"{tag}{i}", dirs[tag], out) != 0:
+                failed.append(tag)
+        if failed:
+            sys.exit(f"failed: {failed}")
+        return
+    copies = [(name, int(k)) for name, ks in (("kK", args.ks),
+                                               ("kKFlat", args.flat_ks))
+              for k in ks.split(",") if k]
+    dirs = {f"{name}{k}": os.path.join(out, f"{name}{k}")
+            for name, k in copies}
+    for (name, k), d in zip(copies, dirs.values()):
+        copy_with(name, k, d)
+    failed = build_all(dirs)
     for tag, d in dirs.items():
         if tag in failed:
             continue
-        t0 = time.perf_counter()
-        log = os.path.join(out, f"smoke_{tag}.log")
-        with open(log, "w") as fh:
-            rc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=d,
-                                stdout=fh, stderr=subprocess.STDOUT).returncode
-        print(f"{tag}: chip_smoke.py rc={rc} "
-              f"{time.perf_counter() - t0:.0f} s", flush=True)
-        with open(log) as fh:
-            for line in fh:
-                if LINES.search(line):
-                    print(f"{tag}: {line.strip()[:420]}", flush=True)
-        if rc != 0:
+        if smoke(tag, d, out) != 0:
             failed.append(tag)
         shutil.rmtree(d, ignore_errors=True)
     if failed:

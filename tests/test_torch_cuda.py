@@ -26,6 +26,13 @@ of one block (ties across the threads of a ray), on the 3x bunny at
 and, two-level, with S = 2, 7 and 32 member slots; flat, on key rows cut
 to 0 and 1 candidates and on tiles whose walk ends by dropping the
 visit made ahead (``dropped_speculation``).
+
+The resident flat walk runs each tile on one CTA, copies the next block
+while it visits one, and in the shadow modes hands the tile's live rays
+to the leading threads at every visit. It is held on tiles whose walk
+ends by dropping the copied block, right after the first visit or a
+later one, and on tiles where each warp keeps one live ray after the
+first visit.
 """
 
 import dataclasses
@@ -254,13 +261,15 @@ def _cmask(keys):
     return (1 << prepass._cid_bits(keys.shape[1])) - 1
 
 
-def with_dropped_speculation(mode, args, opts, limit=3):
+def with_dropped_speculation(mode, args, opts, limit=3, later=False):
     """(``args`` with up to ``limit`` tiles changed, those tiles): in each,
-    some visit j lowers the tile prune, and the key row is cut to j + 2
+    some visit j lowers the tile prune (the first such visit, or with
+    ``later`` the first after visit 0), and the key row is cut to j + 2
     candidates with candidate j + 1's entry set just inside the prune in
     force during visit j, so outside the prune that visit leaves. The
     cluster walk visits candidate j + 1 ahead of the prune exchange and
-    must then drop that visit, uncounted. A shadow walk's prune falls
+    must then drop that visit, uncounted; the resident walk copies its
+    block during visit j and must drop it. A shadow walk's prune falls
     only with its tile's last unoccluded ray, so there the rays that no
     block occludes start as skipped."""
     out, visits = KERNELS[mode][1](*args, **opts)
@@ -273,7 +282,7 @@ def with_dropped_speculation(mode, args, opts, limit=3):
     cut = []
     for tile in ((visits > 0) & (counts > 1)).nonzero().flatten().tolist():
         trace, v = prune_trace(mode, args, opts, tile)
-        falls = [j for j in range(min(v, int(counts[tile]) - 1))
+        falls = [j for j in range(int(later), min(v, int(counts[tile]) - 1))
                  if (trace[j] & ~cmask) > trace[j + 1]]
         if falls:
             j = falls[0]
@@ -353,6 +362,55 @@ def test_flat_walk_drops_speculative_visit(flat_bunny, mode, stream):
     assert cut, "no visit of these inputs lowers its tile's prune"
     tiles = _same_per_tile(mode, args, opts)
     assert dropped_speculation(mode, args, opts, tiles, cut) == cut
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("later", [False, True])
+@pytest.mark.parametrize("mode", list(KERNELS))
+def test_solo_walk_drops_prefetched_block(card_inputs, mode, later):
+    # The resident walk copies block j + 1 while it visits block j (before
+    # the loop for j = 0, in it after); here the prune falls below block
+    # j + 1's entry right after visit j, so the copy is dropped uncounted.
+    args, opts = card_inputs["flat"][mode]
+    opts = dict(opts, stream=False)
+    args, cut = with_dropped_speculation(mode, args, opts, limit=8,
+                                         later=later)
+    assert cut, "no visit of these inputs lowers its tile's prune"
+    tiles = _same_per_tile(mode, args, opts)
+    assert dropped_speculation(mode, args, opts, tiles, cut) == cut
+
+
+def with_one_live_ray_a_warp(mode, args):
+    """Shadow-walk ``args`` where each warp of a tile keeps one live ray
+    past the tile's first candidate block: the rays that block occludes,
+    and the warp's first other live ray, start live; every other ray of
+    the warp starts as skipped."""
+    counts, keys, rays, w, occ0 = args
+    n_tiles = counts.numel()
+    cmask = _cmask(keys)
+    first = (keys[:, 0] & cmask).long()
+    r = rays.reshape(rays.shape[0], n_tiles, walk.TILE)
+    hit = walk._pair_hits(r, w[first], mode).any(dim=2)    # (tiles, 512)
+    other = (occ0.reshape(n_tiles, walk.TILE) == 0) & ~hit
+    warp = other.reshape(n_tiles, -1, 32)
+    keep = warp & (warp.to(torch.int32).cumsum(dim=2) == 1)
+    start = hit | keep.reshape(n_tiles, walk.TILE)
+    start &= (counts > 0)[:, None]
+    occ = torch.where(start, 0, 1).to(torch.int32).reshape(-1)
+    return (counts, keys, rays, w, occ | occ0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["any_dest", "any"])
+def test_solo_shadow_walk_one_live_ray_a_warp(card_inputs, mode):
+    # After its first visit each warp of a tile holds one live ray: the
+    # resident shadow walk hands those rays to the leading threads, so the
+    # warps behind them walk nothing, with outputs and visits unchanged.
+    args, opts = card_inputs["flat"][mode]
+    args = with_one_live_ray_a_warp(mode, args)
+    opts = dict(opts, stream=False)
+    tiles = _same_per_tile(mode, args, opts)
+    assert int((tiles > 1).sum()) > 0
 
 
 @pytest.mark.cuda

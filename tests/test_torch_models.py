@@ -254,3 +254,75 @@ def test_transform_composition():
            jtf.transform_mesh_vertices(ref, jnp.asarray(pts)), 1e-5)
     conv = convert.transform(ref)
     _close(conv(torch.as_tensor(pts)), ref(jnp.asarray(pts)), 1e-5)
+
+
+def test_package_exports_match_jax():
+    import ceres_tpu
+    import ceres_tpu_torch
+
+    assert ceres_tpu_torch.__all__ == ceres_tpu.__all__
+    for name in ceres_tpu_torch.__all__:
+        assert getattr(ceres_tpu_torch, name) is not None, name
+    assert ceres_tpu_torch.vertex_normals is pmesh.vertex_normals
+    assert ceres_tpu_torch.camera_rays is pcam.camera_rays
+
+
+def test_mesh(bunny):
+    verts, faces = bunny
+    ref = jmesh.Mesh(vertices=jnp.asarray(verts), faces=jnp.asarray(faces))
+    got = pmesh.Mesh(vertices=torch.as_tensor(verts),
+                     faces=torch.as_tensor(faces))
+    assert (got.num_vertices, got.num_faces) == (ref.num_vertices,
+                                                 ref.num_faces)
+    np.testing.assert_array_equal(got.vertices.numpy(), np.asarray(ref.vertices))
+    np.testing.assert_array_equal(got.faces.numpy(), np.asarray(ref.faces))
+
+
+@pytest.mark.parametrize("source", ["random", "bunny"])
+def test_soup_corners_bounds_centers_areas(source, bunny):
+    import jax
+
+    verts, faces = _random_mesh(9) if source == "random" else bunny
+    ref = jmesh.triangle_soup(jnp.asarray(verts), jnp.asarray(faces),
+                              with_normals=False)
+    got = pmesh.triangle_soup(torch.as_tensor(verts), torch.as_tensor(faces),
+                              with_normals=False)
+    # One addition or subtraction of exact gathers, and XLA's min/max
+    # (-0 below +0): bit-equal.
+    for name in ("p1", "p2"):
+        np.testing.assert_array_equal(getattr(got, name).numpy(),
+                                      np.asarray(getattr(ref, name)))
+    for g, r in zip(got.bounds(), ref.bounds()):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(r))
+    # centers: bit-equal to the jitted JAX function, whose division by 3
+    # XLA turns into a multiply by f32(1/3).
+    jit_centers = jax.jit(lambda s: s.centers())(ref)
+    np.testing.assert_array_equal(got.centers().numpy(),
+                                  np.asarray(jit_centers))
+    _close(got.centers(), ref.centers())
+    _close(got.areas(), ref.areas())
+
+
+def test_soup_from_points(bunny):
+    verts, faces = bunny
+    p = [verts[faces[:, k]] for k in range(3)]
+    ref = jmesh.soup_from_points(*(jnp.asarray(x) for x in p))
+    got = pmesh.soup_from_points(*(torch.as_tensor(x) for x in p))
+    for name in ("p0", "e1", "e2"):
+        np.testing.assert_array_equal(getattr(got, name).numpy(),
+                                      np.asarray(getattr(ref, name)))
+    _close(got.n, ref.n)
+    assert got.corner_normals is None and ref.corner_normals is None
+
+
+def test_scene_paths_match_jax():
+    from ceres_tpu.render import scenes as jscenes
+    from ceres_tpu_torch.render import scenes as pscenes
+
+    assert pscenes.DATA_DIR == jscenes.DATA_DIR == pscenes.data_dir()
+    assert pscenes.bunny_path() == jscenes.bunny_path()
+    assert pscenes.dragon_path() == jscenes.dragon_path()
+    for path in (pscenes.bunny_path(), pscenes.dragon_path()):
+        assert os.path.isfile(path)
+    np.testing.assert_array_equal(load_obj(pscenes.bunny_path())[1],
+                                  pscenes.bunny_scene().faces)

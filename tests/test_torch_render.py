@@ -149,6 +149,47 @@ def test_unported_options_name_their_roadmap_item(bunny, kwargs, item):
                   height=32, device="cpu", **kwargs)
 
 
+@pytest.mark.parametrize("kwargs, item", [
+    ({"exact_f64": True}, "M14"),
+    ({"regroup": 128}, "M13"),
+    ({"regroup": True}, "M13"),
+])
+def test_unported_shadow_options_name_their_roadmap_item(bunny, kwargs, item):
+    # any_hit_to_point takes the JAX package's exact_f64= and regroup=: an
+    # option not ported yet names its item; regroup=None or False (off,
+    # the JAX default) runs the walk.
+    verts, faces = bunny
+    soup = ct.triangle_soup(torch.as_tensor(verts), torch.as_tensor(faces),
+                            with_normals=False)
+    sun = torch.as_tensor(SUN)
+    points = soup.p0[:64] + 0.25 * soup.e2[:64]
+    with pytest.raises(NotImplementedError, match=item):
+        pmk.any_hit_to_point(soup, sun, points, **kwargs)
+    base = pmk.any_hit_to_point(soup, sun, points)
+    assert base.shape == (64,)
+    assert torch.equal(pmk.any_hit_to_point(soup, sun, points, regroup=False,
+                                            exact_f64=False), base)
+
+
+@pytest.mark.parametrize("builder", ["nonsense", "lbvh"])
+def test_unknown_builder_raises_as_jax(bunny, builder):
+    # build_clusters_quality knows sweep (ported) and binned, sbvh, ploc and
+    # reinsert (ROADMAP item M9); any other name is a ValueError in both
+    # packages ("lbvh" is the treelet cut's name, not a quality builder).
+    from ceres_tpu_torch.accel.cuts import build_clusters_quality
+
+    verts, faces = bunny
+    with pytest.raises(ValueError, match=f"unknown builder: {builder}"):
+        jax_quality(jax_soup(jnp.asarray(verts), jnp.asarray(faces),
+                             with_normals=False), builder=builder)
+    soup = ct.triangle_soup(torch.as_tensor(verts), torch.as_tensor(faces),
+                            with_normals=False)
+    with pytest.raises(ValueError, match=f"unknown builder: {builder}"):
+        build_clusters_quality(soup, builder=builder)
+    with pytest.raises(NotImplementedError, match="M9"):
+        build_clusters_quality(soup, builder="sbvh")
+
+
 def test_unported_inputs_name_their_roadmap_item(bunny):
     verts, faces = bunny
     cam = _bench_camera(verts)

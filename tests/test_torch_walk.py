@@ -24,6 +24,11 @@ and they combine the K results by min (or OR) before the strict < on the
 best key. That must give the unsliced plain visit's result exactly, ties
 across slices included.
 
+And the resident shadow walk's handover: at every visit thread u takes
+the u-th live ray of the list the threads walked before (their ballots
+and rays). A Python model of that rule must give the plain walk's flags
+and visits tile by tile.
+
 And the two fixtures that the card tests of the cluster walk rest on
 (``tests/test_torch_cuda.py``), each held to the JAX walk, outputs and
 the visits of single tiles, and to the property it is for: the 3x
@@ -460,3 +465,106 @@ def test_sliced_visit_combines_to_the_plain_visit(visits, mode, ties):
         assert torch.equal(best, ref[0]) and torch.equal(pid, ref[1]), K
         again = _take(got, best, pid, bid + 1)
         assert torch.equal(again[0], best) and torch.equal(again[1], pid)
+
+
+def _nth_bit(m, k):
+    """walk.cu's nth_bit: the position of the k-th set bit (from 0) of m,
+    by halving."""
+    pos = 0
+    for w in (16, 8, 4, 2, 1):
+        c = bin(m & ((1 << w) - 1)).count("1")
+        if k >= c:
+            k -= c
+            m >>= w
+            pos += w
+    return pos
+
+
+def _live_entry(ballots, u):
+    """walk.cu's live_entry: the u-th set bit of the 16 warps' ballots in
+    order, as a thread index, or -1 past the last."""
+    before = 0
+    for v, m in enumerate(ballots):
+        c = bin(m).count("1")
+        if before <= u < before + c:
+            return 32 * v + _nth_bit(m, u - before)
+        before += c
+    return -1
+
+
+def _ballots(flags):
+    """The 16 warps' ballots of per-thread flags (a (512,) bool list)."""
+    return [sum(1 << lane for lane in range(32) if flags[32 * v + lane])
+            for v in range(walk.TILE // 32)]
+
+
+def _solo_shadow_model(mode, counts, keys, rays, w, occ0):
+    """A Python model of walk.cu's resident shadow walk (walk_solo): at
+    every prune max thread u takes the u-th live ray of the list the
+    threads walked (their ballots and rays), visits it alone, and an
+    occluded ray leaves the list. Returns (flags, visits per tile), and
+    checks that the handover keeps exactly the live rays, in ray order, on
+    the leading threads."""
+    n_tiles = counts.numel()
+    cmask = (1 << _cid_bits(keys.shape[1])) - 1
+    r = rays.reshape(rays.shape[0], n_tiles, walk.TILE)
+    tcap = rays[-1].view(torch.int32).reshape(n_tiles, walk.TILE)
+    occ = occ0.reshape(n_tiles, walk.TILE)
+    out = occ.clone()
+    visits = torch.zeros(n_tiles, dtype=torch.int32)
+    for tile in range(n_tiles):
+        occluded = torch.zeros(walk.TILE, dtype=torch.bool)
+        rid = list(range(walk.TILE))       # each thread's ray
+        live = (occ[tile] == 0).tolist()   # per thread
+
+        def prune_max():
+            parts = [int(tcap[tile, rid[u]]) if live[u] else walk._NEG_I
+                     for u in range(walk.TILE)]
+            ballots = _ballots(live)
+            new = [_live_entry(ballots, u) for u in range(walk.TILE)]
+            rid[:] = [rid[at] if at >= 0 else -1 for at in new]
+            return max(parts) + walk._PRUNE_PAD
+
+        prune = prune_max()
+        for k in range(int(counts[tile])):
+            if int(keys[tile, k]) & ~cmask > prune:
+                break
+            # The handover: the live rays, ascending, on threads 0, 1, ...
+            alive = (~occluded & (occ[tile] == 0)).nonzero().flatten().tolist()
+            assert rid == alive + [-1] * (walk.TILE - len(alive))
+            bid = int(keys[tile, k]) & cmask
+            held = torch.as_tensor(alive, dtype=torch.long)
+            hit = walk._pair_hits(r[:, tile:tile + 1, held], w[bid][None],
+                                  mode).any(dim=2)[0]
+            occluded[held[hit]] = True
+            live = [u < len(alive) and not bool(hit[u])
+                    for u in range(walk.TILE)]
+            prune = prune_max()
+            visits[tile] += 1
+        out[tile] |= occluded.to(torch.int32)
+    return out.reshape(-1), visits
+
+
+def test_nth_bit_and_live_entry():
+    rng = np.random.default_rng(12)
+    for m in [1, 0x80000000, 0xFFFFFFFF, *rng.integers(1, 1 << 32, 50)]:
+        bits = [i for i in range(32) if (int(m) >> i) & 1]
+        assert [_nth_bit(int(m), k) for k in range(len(bits))] == bits
+    flags = list(rng.random(walk.TILE) < 0.3)
+    flags[:32] = [False] * 32    # an empty warp
+    order = [t for t in range(walk.TILE) if flags[t]]
+    ballots = _ballots(flags)
+    assert [_live_entry(ballots, u) for u in range(walk.TILE)] == (
+        order + [-1] * (walk.TILE - len(order)))
+
+
+def test_solo_shadow_handover_gives_the_plain_walk(scene):
+    # The shadow walk hands the live rays to the leading threads at every
+    # prune max: the same flags and visits per tile as the plain walk,
+    # and rays that start occluded or go occluded drop out of the list.
+    _, (counts, keys, rays, w, occ0) = _shadow_args(scene)
+    flags, visits = _solo_shadow_model("any_dest", counts, keys, rays, w, occ0)
+    ref, ref_visits = walk._walk_any_dest_plain(counts, keys, rays, w, occ0)
+    assert int(((ref == 1) & (occ0 == 0)).sum()) > 0
+    assert torch.equal(flags, ref) and torch.equal(visits, ref_visits)
+    assert int(ref_visits.max()) > 1
