@@ -1,7 +1,8 @@
 """Triangle clusters, the walk's acceleration structure (counterpart of
 ``ceres_tpu/accel/clusters.py``: ``CLUSTER_SIZE``, ``ClusterSet``,
-``_check_soup_size``, ``build_clusters``, ``build_clusters_treelet`` and
-the common-origin weights of ``cluster_weights_common_origin_packed``).
+``_check_soup_size``, ``build_clusters``, ``build_clusters_treelet``,
+``refit_clusters`` and the common-origin weights of
+``cluster_weights_common_origin_packed``).
 
 A cluster is a group of at most C = 128 spatially coherent triangles
 with one AABB. A ray tile slab-tests the box, and on overlap the walk
@@ -11,7 +12,9 @@ The device builders run in torch on the soup's device: the morton-run
 cut (``build_clusters``) and the LBVH treelet cut
 (``build_clusters_treelet``, the default structure of ``render()``),
 with the JAX package's static budgets and fallbacks, so cluster count,
-super width and the walk variant they select are the same.
+super width and the walk variant they select are the same. A structure
+built once is refitted to moved vertices (``refit_clusters``), as the
+train step does every step.
 """
 
 from __future__ import annotations
@@ -103,24 +106,32 @@ def build_clusters(soup: TriangleSoup,
     C = cluster_size
     num_clusters = -(-T // C)
     pad = num_clusters * C - T
-    dev = soup.p0.device
     order = morton.morton_order(soup.centers().detach())
     perm = torch.cat([order, torch.full((pad,), -1, dtype=torch.int32,
-                                        device=dev)])
+                                        device=soup.p0.device)])
+    return ClusterSet(*_pack_records(perm, soup, num_clusters, C), perm=perm)
+
+
+def _pack_records(perm, soup: TriangleSoup, n_c: int, C: int):
+    """(p0, e1, e2, n, lo, hi) of the n_c clusters of C slots that
+    ``perm`` fills from ``soup``: records gathered (zero at padding
+    slots, differentiable w.r.t. the soup) and each box the exact bound
+    of its member triangles, (+inf, -inf) for an empty cluster,
+    detached."""
     valid = (perm >= 0)[:, None]
     gather = perm.clamp(min=0).long()
 
     def pack(x):
-        return torch.where(valid, x[gather], 0.0).reshape(num_clusters, C, 3)
+        return torch.where(valid, x[gather], 0.0).reshape(n_c, C, 3)
 
     p0, e1, e2, n = (pack(x) for x in (soup.p0, soup.e1, soup.e2, soup.n))
     pd = p0.detach()
     tri_lo, tri_hi = lbvh_mod._corner_bounds(pd, pd - e1.detach(),
                                              pd + e2.detach())
-    vmask = valid.reshape(num_clusters, C, 1)
+    vmask = valid.reshape(n_c, C, 1)
     lo = minmax.amin(torch.where(vmask, tri_lo, torch.inf), 1)
     hi = minmax.amax(torch.where(vmask, tri_hi, -torch.inf), 1)
-    return ClusterSet(p0=p0, e1=e1, e2=e2, n=n, lo=lo, hi=hi, perm=perm)
+    return p0, e1, e2, n, lo, hi
 
 
 def _scatter_box(index, values, n_rows, fill, reduce):
@@ -200,6 +211,24 @@ def build_clusters_treelet(soup: TriangleSoup,
             max=n_cap)
     return ClusterSet(p0=p0, e1=e1, e2=e2, n=n, lo=lo, hi=hi, perm=perm,
                       super_first=super_first.to(torch.int32), super_S=S)
+
+
+def refit_clusters(clusters: ClusterSet, soup: TriangleSoup) -> ClusterSet:
+    """Refit a cluster structure to moved vertices of the same mesh.
+
+    The cut (``perm``) and the super level (``super_first``,
+    ``super_S``) are kept; the records are gathered again from ``soup``
+    (zero at padding slots) and each box is recomputed as the exact bound
+    of its member triangles, (+inf, -inf) for an empty cluster. A gather
+    and a segmented min/max in place of the LBVH build: boxes stay exact
+    at any deformation, only their tightness degrades. The boxes are
+    detached; the records stay differentiable w.r.t. ``soup``.
+    """
+    return ClusterSet(
+        *_pack_records(clusters.perm, soup, clusters.num_clusters,
+                       clusters.cluster_size),
+        perm=clusters.perm, super_first=clusters.super_first,
+        super_S=clusters.super_S)
 
 
 def cluster_weights_common_origin(clusters: ClusterSet,

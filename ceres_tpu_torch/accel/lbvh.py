@@ -1,7 +1,8 @@
 """LBVH: Karras-style linear BVH from a sort and vectorised searches, in
 torch on the soup's device (counterpart of ``ceres_tpu/accel/lbvh.py``:
 ``Lbvh``, ``_delta_fn``, ``build_lbvh``, ``_child_box``,
-``_refit_boxes``, ``cluster_cut``, ``super_cut``).
+``_refit_boxes``, ``refit``, ``sah_cost``, ``cluster_cut``,
+``super_cut``).
 
 T leaves (one per triangle, in morton order) and T - 1 internal nodes.
 Internal node i covers the sorted range [range_lo[i], range_hi[i]] and
@@ -14,8 +15,6 @@ leading-zero count is exact integer arithmetic, scatters filter their
 out-of-range indices as XLA's ``mode="drop"`` drops them, and box
 unions use XLA's min/max (``utils.minmax``). Index arithmetic runs in
 int64 and is returned as int32, as in the JAX package.
-
-Not ported yet: ``refit`` and ``sah_cost`` (ROADMAP M9/M10).
 """
 
 from __future__ import annotations
@@ -178,18 +177,53 @@ def _child_box(c, node_lo, node_hi, leaf_lo, leaf_hi):
 
 def _refit_boxes(left, right, leaf_lo, leaf_hi):
     """Bottom-up AABBs by MAX_DEPTH dense passes of child gather + min/max:
-    every pass finalises the next level up. The unions run on
-    ``minmax.ordered`` int keys, XLA's float order taken exactly."""
+    every pass finalises the next level up. The unions take XLA's float
+    order exactly: on ``minmax.ordered`` int keys, or, where the leaf
+    boxes carry gradients, with ``minmax.fmin``/``fmax`` on the floats
+    (the same values, and gradients split at ties as ``jnp.minimum``
+    splits them)."""
     n1 = left.shape[0]
     inf = torch.tensor(float("inf"), device=leaf_lo.device)
-    node_lo = minmax.ordered(inf).expand(n1, 3)
-    node_hi = minmax.ordered(-inf).expand(n1, 3)
-    leaf_lo, leaf_hi = minmax.ordered(leaf_lo), minmax.ordered(leaf_hi)
+    grad = leaf_lo.requires_grad or leaf_hi.requires_grad
+    key = (lambda x: x) if grad else minmax.ordered
+    unkey = (lambda x: x) if grad else minmax.from_ordered
+    lower, upper = ((minmax.fmin, minmax.fmax) if grad
+                    else (torch.minimum, torch.maximum))
+    node_lo = key(inf).expand(n1, 3)
+    node_hi = key(-inf).expand(n1, 3)
+    leaf_lo, leaf_hi = key(leaf_lo), key(leaf_hi)
     for _ in range(MAX_DEPTH):
         llo, lhi = _child_box(left, node_lo, node_hi, leaf_lo, leaf_hi)
         rlo, rhi = _child_box(right, node_lo, node_hi, leaf_lo, leaf_hi)
-        node_lo, node_hi = torch.minimum(llo, rlo), torch.maximum(lhi, rhi)
-    return minmax.from_ordered(node_lo), minmax.from_ordered(node_hi)
+        node_lo, node_hi = lower(llo, rlo), upper(lhi, rhi)
+    return unkey(node_lo), unkey(node_hi)
+
+
+def refit(bvh: Lbvh, soup: TriangleSoup) -> Lbvh:
+    """Recompute every AABB of ``bvh`` for moved vertices, keeping the
+    topology: leaf boxes from the soup's corners in sorted order, then
+    the node boxes bottom-up. Differentiable w.r.t. the soup."""
+    order = bvh.order.long()
+    p0 = soup.p0[order]
+    leaf_lo, leaf_hi = _corner_bounds(p0, (soup.p0 - soup.e1)[order],
+                                      (soup.p0 + soup.e2)[order])
+    node_lo, node_hi = _refit_boxes(bvh.left, bvh.right, leaf_lo, leaf_hi)
+    return dataclasses.replace(bvh, node_lo=node_lo, node_hi=node_hi,
+                               leaf_lo=leaf_lo, leaf_hi=leaf_hi)
+
+
+def sah_cost(bvh: Lbvh, traversal_cost: float = 1.0) -> torch.Tensor:
+    """Whole-tree SAH cost with leaves of one triangle, normalised by the
+    root's half area: (traversal_cost * sum(inner half areas) + sum(leaf
+    half areas)) / root half area."""
+
+    def half_area(lo, hi):
+        d = hi - lo
+        return d[..., 0] * (d[..., 1] + d[..., 2]) + d[..., 1] * d[..., 2]
+
+    inner = half_area(bvh.node_lo, bvh.node_hi).sum() * traversal_cost
+    leaves = half_area(bvh.leaf_lo, bvh.leaf_hi).sum()
+    return (inner + leaves) / half_area(bvh.node_lo[0], bvh.node_hi[0])
 
 
 def _starts(T, cut, range_lo, leaf_cut, device):

@@ -1,0 +1,233 @@
+"""Inverse rendering: fit scene parameters to a target image (counterpart
+of ``ceres_tpu/diff/inverse.py``: ``TrainState``, ``image_loss``,
+``_camera_with``, ``make_train_step``, ``fit_vertices``).
+
+BASELINE config 4: gradients w.r.t. vertex positions and camera pose,
+and an inverse-rendering fit on the bunny. A train step renders, takes
+the photometric loss, runs ``backward`` and steps Adam. The gradients
+are autograd's over plain torch ops: the walk kernels return integers
+computed on detached float32 copies, and every value a pixel depends on
+is recomputed at the winners (``ops.megakernel``), so there is no custom
+autograd function. ``torch.optim.Adam`` takes the place of
+``optax.adam``: the same update lr * m_hat / (sqrt(v_hat) + eps) with
+b1, b2, eps = 0.9, 0.999, 1e-8, rounded in another order.
+
+Not ported yet: the train step over a device mesh (``mesh=``, ROADMAP
+item M16).
+"""
+
+from __future__ import annotations
+
+import os
+import re
+from typing import NamedTuple, Optional
+
+import torch
+
+from ceres_tpu_torch.accel.clusters import (build_clusters_treelet,
+                                            refit_clusters)
+from ceres_tpu_torch.models.camera import Camera
+from ceres_tpu_torch.models.mesh import triangle_soup
+from ceres_tpu_torch.render.renderer import (RenderConfig, render_pipeline,
+                                             resolve_device)
+
+# Checkpoints kept in ``checkpoint_dir``, newest first (orbax's
+# ``max_to_keep=2`` in the JAX package).
+_KEEP = 2
+_CKPT = re.compile(r"^(\d+)\.pt$")
+
+
+class TrainState(NamedTuple):
+    """Parameters and optimizer state of a fit.
+
+    ``params``: {"vertices": (V, 3) [, "eye", "dir"]}, leaf tensors that
+    require gradients. ``opt_state``: per parameter name, Adam's state
+    as ``torch.optim.Adam`` keeps it ({"step", "exp_avg", "exp_avg_sq"};
+    an empty dict before the first step).
+    """
+
+    params: dict
+    opt_state: dict
+
+
+def image_loss(rendered: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """Mean squared photometric error."""
+    return torch.mean((rendered - target) ** 2)
+
+
+def _camera_with(camera: Camera, params: dict) -> Camera:
+    return Camera(eye=params.get("eye", camera.eye),
+                  dir=params.get("dir", camera.dir),
+                  up=camera.up, fov=params.get("fov", camera.fov))
+
+
+def _refuse_mesh(mesh) -> None:
+    if mesh is not None:
+        raise NotImplementedError("the train step over a device mesh is not "
+                                  "ported yet (ROADMAP item M16)")
+
+
+def make_train_step(faces, camera: Camera, sun, config: RenderConfig,
+                    optimizer: torch.optim.Optimizer, mesh=None,
+                    clusters0=None):
+    """A train step ``(state, target) -> (state, loss)``.
+
+    ``optimizer`` is built over the leaf tensors of the ``params`` the
+    step is given (``torch.optim.Adam(params.values(), lr=...)``). The
+    step hands it ``state.opt_state``, zeroes the gradients, renders,
+    takes ``image_loss`` against ``target``, runs ``backward`` and steps
+    the optimizer. Parameters and Adam's state change in place, as
+    ``torch.optim`` changes them; the returned state holds the same
+    tensors, and the loss is detached.
+
+    With ``clusters0`` (a ClusterSet built from the initial vertices)
+    each step refits it to the current vertices, detached, instead of
+    building the treelet cut anew: a gather and a segmented min/max in
+    place of the LBVH build. Without it the megakernel backend builds
+    the cut inside every step.
+    """
+    _refuse_mesh(mesh)
+
+    def loss_fn(params, target):
+        clusters = None
+        if clusters0 is not None:
+            soup = triangle_soup(params["vertices"].detach(), faces,
+                                 with_normals=False)
+            clusters = refit_clusters(clusters0, soup)
+        image, _ = render_pipeline(params["vertices"], faces,
+                                   _camera_with(camera, params), sun, config,
+                                   clusters=clusters)
+        return image_loss(image, target)
+
+    def step(state: TrainState, target) -> tuple[TrainState, torch.Tensor]:
+        leaves = [p for g in optimizer.param_groups for p in g["params"]]
+        params = list(state.params.values())
+        if len(leaves) != len(params) or any(
+                a is not b for a, b in zip(leaves, params)):
+            raise ValueError("the optimizer must be built over the leaf "
+                             "tensors of state.params, in their order")
+        for name, p in state.params.items():
+            optimizer.state[p] = state.opt_state[name]
+        optimizer.zero_grad(set_to_none=True)
+        loss = loss_fn(state.params, target)
+        loss.backward()
+        optimizer.step()
+        return (TrainState(state.params,
+                           {name: optimizer.state[p]
+                            for name, p in state.params.items()}),
+                loss.detach())
+
+    return step
+
+
+def _latest(checkpoint_dir: str) -> Optional[int]:
+    steps = [int(m.group(1)) for m in map(_CKPT.match,
+                                          os.listdir(checkpoint_dir)) if m]
+    return max(steps, default=None)
+
+
+def _save(checkpoint_dir: str, step: int, state: TrainState) -> None:
+    """Write the checkpoint of ``step`` (parameters, Adam's state, step)
+    atomically and keep the newest ``_KEEP``."""
+    payload = {
+        "step": step,
+        "params": {k: v.detach().cpu() for k, v in state.params.items()},
+        "opt_state": {k: {kk: vv.detach().cpu() for kk, vv in s.items()}
+                      for k, s in state.opt_state.items()},
+    }
+    path = os.path.join(checkpoint_dir, f"{step}.pt")
+    torch.save(payload, path + ".tmp")
+    os.replace(path + ".tmp", path)
+    steps = sorted(int(m.group(1)) for m in map(
+        _CKPT.match, os.listdir(checkpoint_dir)) if m)
+    for old in steps[:-_KEEP]:
+        os.remove(os.path.join(checkpoint_dir, f"{old}.pt"))
+
+
+def _restore(checkpoint_dir: str, step: int, device) -> TrainState:
+    ck = torch.load(os.path.join(checkpoint_dir, f"{step}.pt"),
+                    map_location="cpu", weights_only=True)
+    params = {k: v.to(device).requires_grad_()
+              for k, v in ck["params"].items()}
+    # Adam keeps "step" on the CPU unless it is capturable or fused.
+    opt_state = {k: {kk: vv if kk == "step" else vv.to(device)
+                     for kk, vv in s.items()}
+                 for k, s in ck["opt_state"].items()}
+    return TrainState(params, opt_state)
+
+
+def fit_vertices(
+    vertices,
+    faces,
+    camera: Camera,
+    sun,
+    target,
+    config: Optional[RenderConfig] = None,
+    steps: int = 100,
+    learning_rate: float = 1e-3,
+    optimize_camera: bool = False,
+    mesh=None,
+    checkpoint_dir: Optional[str] = None,
+    checkpoint_every: int = 10,
+    refit: bool = True,
+    device=None,
+):
+    """Gradient-descend vertex positions (and, with ``optimize_camera``,
+    the camera's eye and direction) with Adam to match ``target``.
+    Returns (final params dict, loss history list).
+
+    Runs on ``device``: by default the device of ``vertices`` if it is a
+    tensor, else the card, and it raises without one (``device="cpu"``
+    fits on the CPU), as ``render()`` does. The caller's arrays are not
+    changed.
+
+    With ``checkpoint_dir``, parameters, Adam's state and the step are
+    saved (``torch.save``) every ``checkpoint_every`` steps and at the
+    last step, keeping the newest two, and the fit resumes from the
+    newest one; ``steps`` counts the restored steps too.
+
+    ``refit=True`` on the megakernel backend builds the treelet cut once
+    from the initial vertices and refits it every step (``clusters0`` of
+    :func:`make_train_step`).
+    """
+    _refuse_mesh(mesh)
+    device = resolve_device(vertices, device, "fit_vertices")
+    config = config or RenderConfig(width=target.shape[1],
+                                    height=target.shape[0])
+    faces = torch.as_tensor(faces, device=device)
+    sun = torch.as_tensor(sun, dtype=torch.float32, device=device)
+    target = torch.as_tensor(target, dtype=torch.float32, device=device)
+    camera = Camera.make(camera.eye, camera.dir, camera.up, camera.fov,
+                         device=device)
+    v0 = torch.as_tensor(vertices, device=device).detach()
+    params = {"vertices": v0.clone()}
+    if optimize_camera:
+        params["eye"] = camera.eye.clone()
+        params["dir"] = camera.dir.clone()
+    state = TrainState({k: v.requires_grad_() for k, v in params.items()},
+                       {k: {} for k in params})
+    start = 0
+    if checkpoint_dir is not None:
+        os.makedirs(checkpoint_dir, exist_ok=True)
+        latest = _latest(checkpoint_dir)
+        if latest is not None:
+            state = _restore(checkpoint_dir, latest, device)
+            start = latest
+
+    # From the initial vertices also on resume, so a resumed fit walks
+    # the same cut as an uninterrupted one.
+    clusters0 = None
+    if refit and config.backend == "megakernel":
+        clusters0 = build_clusters_treelet(
+            triangle_soup(v0, faces, with_normals=False))
+    optimizer = torch.optim.Adam(state.params.values(), lr=learning_rate)
+    step = make_train_step(faces, camera, sun, config, optimizer,
+                           clusters0=clusters0)
+    history = []
+    for i in range(start, steps):
+        state, loss = step(state, target)
+        history.append(float(loss))
+        if checkpoint_dir is not None and (
+                (i + 1) % checkpoint_every == 0 or i + 1 == steps):
+            _save(checkpoint_dir, i + 1, state)
+    return {k: v.detach() for k, v in state.params.items()}, history

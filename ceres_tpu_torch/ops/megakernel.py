@@ -1,6 +1,6 @@
 """Closest-hit and shadow search over triangle clusters (counterpart of
 ``ceres_tpu/ops/megakernel.py``: ``_detach_f32``, ``_closest_search``,
-``_winner_tuv``, ``_winner_table_cols``, ``winner_table``,
+``_winner_tuv``, ``winner_table`` (with ``_winner_table_cols``),
 ``closest_hit_common_origin``, ``any_hit``, ``any_hit_to_point``).
 
 Two phases per wavefront: the culling prepass (``ops.prepass``) sorts
@@ -175,26 +175,31 @@ def _winner_tuv(rec, eye, dir_cols):
     return t, u, v
 
 
-def _winner_table_cols(soup: TriangleSoup, cs, payload_cols):
-    """List of (N_c * C,) winner-table columns in cluster-slot order:
-    [p0 x3, e1 x3, e2 x3, payload...], zero at padding slots.
+def winner_table(soup: TriangleSoup, clusters, payload=None):
+    """The (N_c * C, 9 + P) winner table in cluster-slot order: [p0 x3,
+    e1 x3, e2 x3, payload...], zero at padding slots; build it once and
+    pass it back as ``table_cols`` in a static-geometry frame loop.
 
     Built from ``soup``, not the detached cluster tensors, so gradients
-    reach the vertices through the gather. Triangle ids are not a column:
-    they are gathered from ``cs.perm`` as integers.
+    reach the vertices through the gather (a prebuilt table passed to a
+    train step cuts them). Triangle ids are not a column: they are
+    gathered from ``clusters.perm`` as integers.
     """
-    src = cs.perm.clamp(min=0).long()
-    valid = cs.perm >= 0
-    cols = [torch.where(valid, arr[src, a], 0.0)
-            for arr in (soup.p0, soup.e1, soup.e2) for a in range(3)]
-    cols += [torch.where(valid, c[src], 0.0) for c in payload_cols or ()]
-    return cols
+    valid = (clusters.perm >= 0)[:, None]
+    rows = torch.cat([soup.p0, soup.e1, soup.e2,
+                      *(c[:, None] for c in payload or ())], dim=1)
+    return torch.where(valid, _gather_rows(rows, clusters.perm.clamp(min=0)),
+                       0.0)
 
 
-def winner_table(soup: TriangleSoup, clusters, payload=None):
-    """The stacked (N_c * C, 9 + P) winner table for static-geometry
-    frame loops: build once, pass back as ``table_cols``."""
-    return torch.stack(_winner_table_cols(soup, clusters, payload), dim=-1)
+def _gather_rows(table, idx):
+    """``table[idx]`` for a 2-D table, differentiable, as
+    ``index_select``: its backward adds each row's gradient with atomics
+    (``index_add_``), where the backward of advanced indexing
+    (``index_put_`` with accumulate) sums an index's repeats serially on
+    the card. Every miss and padding ray reads slot 0 and every padding
+    slot triangle 0: a million repeats in a 1080p frame."""
+    return table.index_select(0, idx.long())
 
 
 def closest_hit_common_origin(soup: TriangleSoup, eye, dirs, clusters=None,
@@ -223,7 +228,7 @@ def closest_hit_common_origin(soup: TriangleSoup, eye, dirs, clusters=None,
     table = (table_cols if table_cols is not None
              else winner_table(soup, cs, payload))
     idx = pidx.clamp(min=0).long()
-    rec = table[idx].t().contiguous().unbind(0)
+    rec = _gather_rows(table, idx).t().contiguous().unbind(0)
     t, u, v = _winner_tuv(rec, eye, dir_cols)
     hit = Hit(t=torch.where(mask, t, torch.inf),
               u=torch.where(mask, u, 0.0),

@@ -146,6 +146,9 @@ def _check(mode, counts, keys, rays, w, occ0, hull, bbox, first, S):
             raise ValueError(f"{name} is on {x.device}, rays on {rays.device}")
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+        if x.requires_grad:
+            raise ValueError(f"{name} requires grad: a walk takes detached "
+                             "inputs (megakernel._detach_f32)")
     if n_tiles == 0:
         raise ValueError("no ray tiles")
     if w.data_ptr() % 16:

@@ -354,6 +354,20 @@ def render_pipeline(vertices: torch.Tensor, faces: torch.Tensor,
     return image, stats
 
 
+def resolve_device(vertices, device, caller: str) -> torch.device:
+    """The device an entry point runs on: ``device`` if given, else the
+    device of ``vertices`` if it is a tensor, else the card; without one
+    it raises (``device="cpu"`` runs on the CPU)."""
+    if device is not None:
+        return torch.device(device)
+    if isinstance(vertices, torch.Tensor):
+        return vertices.device
+    if torch.cuda.is_available():
+        return torch.device("cuda")
+    raise RuntimeError(f"{caller}: no CUDA card for numpy inputs; pass "
+                       "device='cpu' to run on the CPU")
+
+
 def render(vertices, faces, camera: Camera, sun_position,
            config: Optional[RenderConfig] = None, spheres=None, clusters=None,
            device=None, **kwargs):
@@ -369,14 +383,7 @@ def render(vertices, faces, camera: Camera, sun_position,
     render_pipeline.
     """
     config = dataclasses.replace(config or RenderConfig(), **kwargs)
-    if device is None:
-        if isinstance(vertices, torch.Tensor):
-            device = vertices.device
-        elif torch.cuda.is_available():
-            device = torch.device("cuda")
-        else:
-            raise RuntimeError("render: no CUDA card for numpy inputs; pass "
-                               "device='cpu' to render on the CPU")
+    device = resolve_device(vertices, device, "render")
     vertices = torch.as_tensor(vertices, device=device)
     faces = torch.as_tensor(faces, device=device)
     sun_position = torch.as_tensor(sun_position, dtype=torch.float32,

@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from ceres_tpu_torch.accel.clusters import ClusterSet
+from ceres_tpu_torch.diff.inverse import TrainState
 from ceres_tpu_torch.models.camera import Camera
 from ceres_tpu_torch.models.mesh import TriangleSoup
 from ceres_tpu_torch.models.transform import Transform
@@ -52,3 +53,20 @@ def camera(src, device=None) -> Camera:
 def transform(src, device=None) -> Transform:
     """A ``Transform`` (matrix ``a``, translation ``v``), dtype kept."""
     return Transform(a=tensor(src.a, device), v=tensor(src.v, device))
+
+
+def train_state(params, adam_state, device=None) -> TrainState:
+    """A ``TrainState`` from the JAX package's: ``params`` a dict of
+    arrays, ``adam_state`` optax's ``ScaleByAdamState`` (``count``, and
+    ``mu``, ``nu`` dicts keyed like ``params``). The parameters become
+    leaf tensors that require gradients; Adam's state per parameter is
+    ``torch.optim.Adam``'s: step = count (a float32 CPU scalar, as Adam
+    keeps it), exp_avg = mu, exp_avg_sq = nu."""
+    step = torch.tensor(float(np.asarray(adam_state.count)),
+                        dtype=torch.float32)
+    return TrainState(
+        {k: tensor(v, device).requires_grad_() for k, v in params.items()},
+        {k: {"step": step.clone(),
+             "exp_avg": tensor(adam_state.mu[k], device),
+             "exp_avg_sq": tensor(adam_state.nu[k], device)}
+         for k in params})

@@ -59,7 +59,24 @@ its own line:
      at 64 x 64, reference-exact, on both backends, against the PPMs the
      C++ reference rendered (``tests/fixtures/*_ref.ppm``): >= 99.5% of
      pixels within 2.5/255 and the rays/hits it printed, exactly; and the
-     windowed entry point on two parallel triangles.
+     windowed entry point on two parallel triangles;
+ 12. training, config 4b: the bunny frame's forward and backward step
+     (gradients w.r.t. the vertices and the eye of ``image_loss`` against
+     the unperturbed frame, the sun moved 1e-3 a step, the treelet cut
+     built inside the step): ms/step and forward-only ms (medians of
+     CUDA-event times), the ratio step_ms / forward_ms - 1, the same three
+     with the cut refitted instead of rebuilt, peak memory, K1 and K2
+     launches a step (each >= 1); gradients finite, and at 128 x 128 equal
+     to the CPU's on the same inputs;
+ 13. training, config 4: ``fit_vertices`` on the bunny preset at 512 x
+     512 with the refitted treelet cut, from seeded vertex noise; ms/step
+     and the loss history, which must fall; ``refit_clusters`` against
+     ``build_clusters_treelet`` (synchronised ms) on bunny, dragon and the
+     4x bunny;
+ 14. training on the 4x bunny: its cut refitted after seeded vertex noise
+     renders the image of a fresh build of the moved mesh at 256 x 256;
+     train steps at 1080p with the refit (``make_train_step``): ms/step,
+     peak memory, K6 and K7a launches a step (each >= 1).
 
 Every kernel-vs-plain check holds each tile's executed visits, not only
 their sum, and prints the kernel's bound: the larger of its fp32
@@ -77,7 +94,7 @@ and the time per visit of that tile they imply, kernel ms, bound and
 share.
 
 Each path runs with the launch counts set to 0 just before it and read
-just after. Any failed check exits non-zero. The line before last is the
+just after (a train step counts as one run). Any failed check exits non-zero. The line before last is the
 kernels' JSON record (every variant a path launches); the last line is
 the device record. Needs no network and no JAX.
 """
@@ -122,6 +139,17 @@ LARGE = {3: ("walk_closest_stream", "walk_any_dest_stream"),
 # The C++ reference's fixtures: (PPM, rays, hits) it printed.
 CPP = {"bunny": ("bunny_64_smooth_ref.ppm", 4645, 804),
        "dragon": ("dragon_64_static_ref.ppm", 4415, 492)}
+# Training: steps timed (phase 12), fit steps (13), 4x bunny steps (14),
+# the size at which the card's gradients are held to the CPU's, and the
+# seeded vertex noise of the fits (a share of the mesh's extent).
+STEPS = 10
+FIT_SIZE = 512
+FIT_STEPS = 24
+LARGE_STEPS = 3
+GRAD_SIZE = 128
+REFIT_SIZE = 256
+FIT_NOISE = 0.02
+LARGE_NOISE = 0.002
 # Modes of the walk and their wrappers in ops.walk.
 WALKS = {"closest": "walk_closest", "closest_window": "walk_closest",
          "any_dest": "walk_any_dest", "any": "walk_any"}
@@ -471,6 +499,260 @@ def against_fixture(img, st, path, label):
           f"{label}: rays/hits differ from the JAX render by more than 0.2%")
 
 
+def launches_of(fn):
+    """(fn(), the walk launches it made, by variant)."""
+    from ceres_tpu_torch.ops import walk
+
+    walk.reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: n for k, n in walk.launches.items() if n}
+
+
+def grad_step(vt, ft, cam, sun, config, target, clusters0=None):
+    """Config 4b's step: (step(i), forward(i), leaves). ``step`` takes
+    the gradients of ``image_loss`` against ``target`` w.r.t. the leaves
+    (vertices, eye) with the sun moved by i * 1e-3, as
+    ``benchmarks/run_all.py`` does; ``forward`` is the same loss under
+    ``torch.no_grad()``. Without ``clusters0`` the treelet cut is built
+    inside the step; with it, refitted to the vertices."""
+    import ceres_tpu_torch as ct
+    from ceres_tpu_torch.accel.clusters import refit_clusters
+    from ceres_tpu_torch.diff import image_loss
+
+    leaves = {"vertices": vt.detach().clone().requires_grad_(),
+              "eye": cam.eye.detach().clone().requires_grad_()}
+
+    def loss(i):
+        clusters = None
+        if clusters0 is not None:
+            clusters = refit_clusters(clusters0, ct.triangle_soup(
+                leaves["vertices"].detach(), ft, with_normals=False))
+        c = ct.Camera(eye=leaves["eye"], dir=cam.dir, up=cam.up, fov=cam.fov)
+        image, _ = ct.render_pipeline(leaves["vertices"], ft, c,
+                                      sun + i * 1e-3, config,
+                                      clusters=clusters)
+        return image_loss(image, target)
+
+    def step(i):
+        for x in leaves.values():
+            x.grad = None
+        out = loss(i)
+        out.backward()
+        return out.detach()
+
+    def forward(i):
+        with torch.no_grad():
+            return loss(i)
+
+    return step, forward, leaves
+
+
+def grads_on(dev, v, f, weights, size):
+    """Image and gradients (vertices, eye) of sum(weights * image) for the
+    bunny frame at size x size on ``dev``; ``weights`` None: the image
+    alone."""
+    import ceres_tpu_torch as ct
+
+    cam = camera(v, EYE, dev)
+    vt = torch.tensor(v, device=dev, requires_grad=True)
+    eye = cam.eye.clone().requires_grad_()
+    config = ct.RenderConfig(width=size, height=size, backend="megakernel")
+    image, _ = ct.render_pipeline(
+        vt, torch.as_tensor(f, device=dev),
+        ct.Camera(eye=eye, dir=cam.dir, up=cam.up, fov=cam.fov),
+        torch.as_tensor(SUN, device=dev), config)
+    if weights is None:
+        return image.detach().cpu(), None
+    (image * torch.as_tensor(weights, device=dev)).sum().backward()
+    return image.detach().cpu(), {"vertices": vt.grad.cpu(),
+                                  "eye": eye.grad.cpu()}
+
+
+def phase12(dev, card):
+    """Config 4b on the card; returns the launches of one step."""
+    import ceres_tpu_torch as ct
+    from ceres_tpu_torch.accel.clusters import build_clusters_treelet
+
+    v, f = ct.load_obj(os.path.join(ROOT, "data", "bunny.obj"))
+    cam = camera(v, EYE, dev)
+    vt, ft = torch.as_tensor(v, device=dev), torch.as_tensor(f, device=dev)
+    sun = torch.as_tensor(SUN, device=dev)
+    config = ct.RenderConfig(width=W, height=H, backend="megakernel")
+    target, _ = ct.render_pipeline(vt, ft, cam, sun, config)
+    clusters0 = build_clusters_treelet(ct.triangle_soup(vt, ft,
+                                                        with_normals=False))
+    launches = None
+    for label, cs0 in (("treelet cut built in the step", None),
+                       ("treelet cut refitted in the step", clusters0)):
+        step, forward, leaves = grad_step(vt, ft, cam, sun, config, target,
+                                          cs0)
+        # Step 1: the sun has moved, so the image and its gradients
+        # differ from the target's.
+        loss, counted = launches_of(lambda: step(1))
+        check(set(counted) == {"walk_closest", "walk_any_dest"},
+              f"phase 12 ({label}): a step launched {counted}, not K1 "
+              f"and K2")
+        check(all(bool(torch.isfinite(x.grad).all()) for x in leaves.values())
+              and bool(torch.isfinite(loss)),
+              f"phase 12 ({label}): non-finite loss or gradients")
+        check(float(leaves["vertices"].grad.abs().max()) > 0,
+              f"phase 12 ({label}): zero vertex gradient")
+        launches = launches or counted
+        torch.cuda.reset_peak_memory_stats()
+        step_t, step_w = frame_times(step, STEPS)
+        peak = torch.cuda.max_memory_allocated()
+        fwd_t, _ = frame_times(forward, STEPS)
+        step_ms, fwd_ms = statistics.median(step_t), statistics.median(fwd_t)
+        print(f"phase 12 config 4b step, bunny {W}x{H} smooth+shadows, "
+              f"d/d(vertices, eye), {label}: ms/step median {step_ms:.3f} "
+              f"(min {min(step_t):.3f} max {max(step_t):.3f}, host wall "
+              f"median {statistics.median(step_w):.3f}); forward-only ms "
+              f"median {fwd_ms:.3f} (min {min(fwd_t):.3f} max "
+              f"{max(fwd_t):.3f}); bwd/fwd = step_ms / forward_ms - 1 = "
+              f"{step_ms / fwd_ms - 1:.3f}; peak memory "
+              f"{peak / 2**20:.1f} MiB; launches a step {counted}; loss "
+              f"{float(loss):.6e} [{card}]", flush=True)
+
+    # The card's gradients against the CPU's on the same inputs; pixels
+    # whose colour differs (a silhouette or shadow ray flipped by the
+    # card's rsqrt) leave the loss.
+    images = {d: grads_on(d, v, f, None, GRAD_SIZE)[0] for d in ("cpu", dev)}
+    agree = ((images["cpu"] - images[dev]).abs().amax(-1) <= 1e-4).numpy()
+    off = int((~agree).sum())
+    check(off <= 0.005 * GRAD_SIZE ** 2,
+          f"phase 12: {off} pixels differ between the card and the CPU")
+    weights = (np.random.default_rng(12).uniform(
+        size=(GRAD_SIZE, GRAD_SIZE, 1)) * agree[..., None]).astype(np.float32)
+    grads = {d: grads_on(d, v, f, weights, GRAD_SIZE)[1] for d in ("cpu", dev)}
+    for k in ("vertices", "eye"):
+        want, got = grads["cpu"][k].double(), grads[dev][k].double()
+        scale = float(want.abs().max())
+        err = float((got - want).abs().max())
+        ok = scale > 0 and bool(((got - want).abs()
+                                 <= 1e-5 * scale + 1e-4 * want.abs()).all())
+        print(f"phase 12 gradients card vs CPU, bunny {GRAD_SIZE}x"
+              f"{GRAD_SIZE}, d/d{k}: max |g| {scale:.6e}, max abs diff "
+              f"{err:.3e} (rtol 1e-4, atol 1e-5 max|g|); pixels left out "
+              f"{off}", flush=True)
+        check(ok, f"phase 12: the card's d/d{k} differs from the CPU's")
+    return launches
+
+
+def phase13(dev, card, meshes):
+    """Config 4: the inverse-rendering fit; refit against rebuild."""
+    import ceres_tpu_torch as ct
+    from ceres_tpu_torch.accel.clusters import (build_clusters_treelet,
+                                                refit_clusters)
+    from ceres_tpu_torch.diff import fit_vertices
+    from ceres_tpu_torch.render import scenes
+
+    sc = scenes.bunny_scene()
+    config = ct.RenderConfig(width=FIT_SIZE, height=FIT_SIZE,
+                             backend="megakernel")
+    target, st = ct.render(sc.vertices, sc.faces, sc.camera, sc.sun,
+                           config=config, device=dev)
+    check(int(st["primary_hits"]) > 0.05 * FIT_SIZE ** 2,
+          "phase 13: the bunny is not seen")
+    v0 = sc.vertices
+    scale = float(np.abs(v0 - v0.mean(0)).max())
+    noise = np.random.default_rng(3).standard_normal(v0.shape)
+    noisy = (v0 + FIT_NOISE * scale * noise).astype(np.float32)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    (_, history), launches = launches_of(lambda: fit_vertices(
+        noisy, sc.faces, sc.camera, sc.sun, target, config=config,
+        steps=FIT_STEPS, learning_rate=2e-4, refit=True, device=dev))
+    ms = (time.perf_counter() - t0) * 1e3 / FIT_STEPS
+    print(f"phase 13 config 4 fit, bunny preset {FIT_SIZE}x{FIT_SIZE}, refit, "
+          f"lr 2e-4, "
+          f"{FIT_STEPS} steps: {ms:.3f} ms/step (host clock over the fit, "
+          f"the cut's one build included); launches {launches}; losses "
+          f"{[float(f'{x:.6e}') for x in history]} [{card}]", flush=True)
+    check(np.isfinite(history).all() and history[-1] < history[0],
+          "phase 13: the fit's loss did not fall")
+    check(set(launches) == {"walk_closest", "walk_any_dest"},
+          f"phase 13: the fit launched {launches}")
+
+    rng = np.random.default_rng(13)
+    for name, (v, f) in meshes.items():
+        vt = torch.as_tensor(v, device=dev)
+        ft = torch.as_tensor(f, device=dev)
+        cs0 = build_clusters_treelet(ct.triangle_soup(vt, ft,
+                                                      with_normals=False))
+        moved = ct.triangle_soup(
+            vt + torch.as_tensor(1e-3 * rng.standard_normal(v.shape),
+                                 dtype=torch.float32, device=dev), ft,
+            with_normals=False)
+        refit_ms = cuda_ms(lambda: refit_clusters(cs0, moved), 5)
+        build_ms = cuda_ms(lambda: build_clusters_treelet(moved), 5)
+        print(f"phase 13 {name} ({f.shape[0]} triangles, {cs0.num_clusters} "
+              f"blocks): refit_clusters {refit_ms:.3f} ms, "
+              f"build_clusters_treelet {build_ms:.3f} ms (CUDA events, mean "
+              f"of 5) [{card}]", flush=True)
+    return launches
+
+
+def phase14(dev, card, v, f, cs0):
+    """The 4x bunny: refit against a fresh build, then train steps."""
+    import ceres_tpu_torch as ct
+    from ceres_tpu_torch.accel.clusters import (build_clusters_treelet,
+                                                refit_clusters)
+    from ceres_tpu_torch.diff import TrainState, make_train_step
+
+    cam = camera(v, EYE, dev)
+    vt, ft = torch.as_tensor(v, device=dev), torch.as_tensor(f, device=dev)
+    sun = torch.as_tensor(SUN, device=dev)
+    scale = float(np.abs(v - v.mean(0)).max())
+    noise = np.random.default_rng(14).standard_normal(v.shape)
+    moved = vt + torch.as_tensor(LARGE_NOISE * scale * noise,
+                                 dtype=torch.float32, device=dev)
+    soup = ct.triangle_soup(moved, ft, with_normals=False)
+    small = ct.RenderConfig(width=REFIT_SIZE, height=REFIT_SIZE,
+                            backend="megakernel")
+    images = [ct.render_pipeline(moved, ft, cam, sun, small, clusters=cs)[0]
+              for cs in (refit_clusters(cs0, soup),
+                         build_clusters_treelet(soup))]
+    frac = float(((images[0] - images[1]).abs().amax(-1) > 1e-4)
+                 .float().mean())
+    print(f"phase 14 bunny x4 ({f.shape[0]} triangles) moved by seeded "
+          f"noise: refitted cut against a fresh treelet build, {REFIT_SIZE}x"
+          f"{REFIT_SIZE}: "
+          f"pixels off by >1e-4 {frac:.4%} (limit 0.5%)", flush=True)
+    check(frac < 0.005 and float(images[1].max()) > 0,
+          "phase 14: the refitted cut renders another image")
+
+    config = ct.RenderConfig(width=W, height=H, backend="megakernel")
+    target, _ = ct.render_pipeline(vt, ft, cam, sun, config, clusters=cs0)
+    params = {"vertices": moved.clone().requires_grad_()}
+    step = make_train_step(ft, cam, sun, config,
+                           torch.optim.Adam(params.values(), lr=1e-5),
+                           clusters0=cs0)
+    state = TrainState(params, {"vertices": {}})
+    torch.cuda.reset_peak_memory_stats()
+    (state, loss), launches = launches_of(lambda: step(state, target))
+    check(set(launches) == set(LARGE[4]),
+          f"phase 14: a step launched {launches}, not K6 and K7a")
+    times, losses = [], [float(loss)]
+    for _ in range(LARGE_STEPS):
+        (state, loss), ms = timed_once(lambda: step(state, target))
+        times.append(ms)
+        losses.append(float(loss))
+    peak = torch.cuda.max_memory_allocated()
+    check(bool(torch.isfinite(params["vertices"].grad).all())
+          and np.isfinite(losses).all(),
+          "phase 14: non-finite loss or gradients")
+    check(not torch.equal(params["vertices"].detach(), moved),
+          "phase 14: the steps did not move the vertices")
+    print(f"phase 14 train step, bunny x4 {W}x{H}, refitted cut, Adam over "
+          f"the vertices: ms/step median {statistics.median(times):.3f} "
+          f"(CUDA events, {LARGE_STEPS} steps after one counted step: "
+          f"{[round(t, 3) for t in times]}); peak memory "
+          f"{peak / 2**20:.1f} MiB; launches a step {launches}; losses "
+          f"{losses} [{card}]", flush=True)
+    return launches
+
+
 def main():
     # Phase 1: device.
     if not torch.cuda.is_available():
@@ -728,6 +1010,15 @@ def main():
     torch.cuda.synchronize()
     path_launches = merge(path_launches,
                           {k: n for k, n in walk.launches.items() if n})
+
+    # Phases 12-14: the training path.
+    path_launches = merge(path_launches, phase12(dev, card))
+    dragon = ct.load_obj(os.path.join(ROOT, "data", "dragon.obj"))
+    path_launches = merge(path_launches, phase13(
+        dev, card, {"bunny": (v0, f0), "dragon": dragon,
+                    "bunny x4": meshes[4]}))
+    path_launches = merge(path_launches,
+                          phase14(dev, card, *meshes[4], large[4][3]))
     missing = [k for k in REPLACES if not path_launches.get(k)]
     check(not missing, f"no path launched {missing}")
 

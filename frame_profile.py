@@ -1,20 +1,27 @@
-"""Where one frame's device time goes, on one NVIDIA card.
+"""Where one frame's, or one train step's, device time goes, on one
+NVIDIA card.
 
     python3 frame_profile.py [--scene bunny4] [--compat] [--frames 3]
+    python3 frame_profile.py --step [--frames 3]
 
 Renders ``chip_smoke.py``'s frame of the scene (``bunny``: bunny.obj on
 the SweepSAH cut; ``bunny3``/``bunny4``: the 3x/4x subdivided bunny on
 the device treelet cut; 1920 x 1080, the sun and camera of ``bench.py``;
 ``--compat``: reference-exact) through ``render_pipeline`` with a
-prebuilt cut and winner table, as a frame loop would. Prints the card's name and power limit, ms/frame (median of CUDA
-events over the frames), then from a ``torch.profiler`` trace of the same
-number of frames: device time per frame (the sum of the kernels', copies'
-and fills' durations), device operations per frame, the busy share (the
-union of their intervals over the traced span), and the largest kernels
-by device time per frame, the walk kernels among them. For the default
-frame also the CUDA-event time of building each walk's inputs (weights,
-root-exit caps and the culling prepass: slab tests of every tile against
-every block or super, and the key sort), the layer under the kernels.
+prebuilt cut and winner table, as a frame loop would. ``--step`` runs
+``chip_smoke.py`` phase 12's train steps instead: the bunny frame's
+forward and backward pass (config 4b: gradients w.r.t. the vertices and
+the eye), with the treelet cut built inside the step, then refitted.
+Prints the card's name
+and power limit, ms/frame (median of CUDA events over the frames), then
+from a ``torch.profiler`` trace of the same number of frames: device
+time per frame (the sum of the kernels', copies' and fills' durations),
+device operations per frame, the busy share (the union of their
+intervals over the traced span), and the largest kernels by device time
+per frame, the walk kernels among them. For the default frame also the
+CUDA-event time of building each walk's inputs (weights, root-exit caps
+and the culling prepass: slab tests of every tile against every block or
+super, and the key sort), the layer under the kernels.
 """
 
 from __future__ import annotations
@@ -65,11 +72,44 @@ def walk_input_times(vt, ft, cam, cs, sun):
                                                       ~hit.mask), 5))
 
 
+def profile(frame, n, label, card, top=8):
+    """ms/frame of n calls of frame(i), then a trace of n more: device
+    time, operations, busy share and the largest kernels, per frame."""
+    import chip_smoke as smoke
+
+    times, _ = smoke.frame_times(frame, n)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for i in range(n):
+            frame(i)
+        torch.cuda.synchronize()
+    ops = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    spans = [(e.time_range.start, e.time_range.end) for e in ops]
+    device_ms = sum(b - a for a, b in spans) / 1e3 / n
+    span_ms = (max(b for _, b in spans) - min(a for a, _ in spans)) / 1e3
+    by_name = collections.Counter()
+    for e in ops:
+        by_name[e.name] += (e.time_range.end - e.time_range.start) / 1e3 / n
+    walk_ms = sum(t for k, t in by_name.items() if "walk_" in k)
+    print(card, flush=True)
+    print(f"{label}: ms/frame median {statistics.median(times):.3f} (min "
+          f"{min(times):.3f} max {max(times):.3f}); device {device_ms:.3f} "
+          f"ms/frame in {len(ops) / n:.0f} operations, busy "
+          f"{_union(spans) / 1e3 / span_ms:.1%} of {span_ms / n:.3f} ms per "
+          f"traced frame; walk kernels {walk_ms:.3f} ms "
+          f"({walk_ms / device_ms:.1%}) [{card}]", flush=True)
+    for name, t in by_name.most_common(top):
+        print(f"  {t:9.3f} ms/frame  {name[:110]}", flush=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scene", default="bunny4",
                     choices=["bunny", "bunny3", "bunny4"])
     ap.add_argument("--compat", action="store_true")
+    ap.add_argument("--step", action="store_true")
     ap.add_argument("--frames", type=int, default=3)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -85,6 +125,24 @@ def main() -> None:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip().splitlines()[0]
+    sun = torch.as_tensor(smoke.SUN, device=dev)
+    if args.step:
+        v, f = ct.load_obj(os.path.join(ROOT, "data", "bunny.obj"))
+        cam = smoke.camera(v, smoke.EYE, dev)
+        vt, ft = (torch.as_tensor(v, device=dev),
+                  torch.as_tensor(f, device=dev))
+        config = ct.RenderConfig(width=smoke.W, height=smoke.H,
+                                 backend="megakernel")
+        target, _ = ct.render_pipeline(vt, ft, cam, sun, config)
+        clusters0 = build_clusters_treelet(
+            ct.triangle_soup(vt, ft, with_normals=False))
+        for cut, cs0 in (("built", None), ("refitted", clusters0)):
+            step, _, _ = smoke.grad_step(vt, ft, cam, sun, config, target,
+                                         cs0)
+            profile(step, args.frames, f"bunny {smoke.W}x{smoke.H} train "
+                    f"step (config 4b: forward + backward, treelet cut "
+                    f"{cut} in the step)", card, top=16)
+        return
     if args.scene == "bunny":
         vt, ft, cam, cs = smoke.scene("bunny", dev)
     else:
@@ -99,40 +157,14 @@ def main() -> None:
                              backend="megakernel",
                              reference_compat=args.compat)
     table = prepare_winner_table(ct.triangle_soup(vt, ft), cs, config)
-    sun = torch.as_tensor(smoke.SUN, device=dev)
 
     def frame(i):
         return ct.render_pipeline(vt, ft, cam, sun + i * 1e-3, config,
                                   clusters=cs, table_cols=table)
 
-    times, _ = smoke.frame_times(frame, args.frames)
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for i in range(args.frames):
-            frame(i)
-        torch.cuda.synchronize()
-    ops = [e for e in prof.events()
-           if e.device_type == torch.autograd.DeviceType.CUDA]
-    n = args.frames
-    spans = [(e.time_range.start, e.time_range.end) for e in ops]
-    device_ms = sum(b - a for a, b in spans) / 1e3 / n
-    span_ms = (max(b for _, b in spans) - min(a for a, _ in spans)) / 1e3
-    by_name = collections.Counter()
-    for e in ops:
-        by_name[e.name] += (e.time_range.end - e.time_range.start) / 1e3 / n
-    walk_ms = sum(t for k, t in by_name.items() if "walk_" in k)
     label = (f"{args.scene}{' reference-exact' if args.compat else ''} "
              f"{smoke.W}x{smoke.H}")
-    print(card, flush=True)
-    print(f"{label}: ms/frame median {statistics.median(times):.3f} (min "
-          f"{min(times):.3f} max {max(times):.3f}); device {device_ms:.3f} "
-          f"ms/frame in {len(ops) / n:.0f} operations, busy "
-          f"{_union(spans) / 1e3 / span_ms:.1%} of {span_ms / n:.3f} ms per "
-          f"traced frame; walk kernels {walk_ms:.3f} ms "
-          f"({walk_ms / device_ms:.1%}) [{card}]", flush=True)
-    for name, t in by_name.most_common(8):
-        print(f"  {t:9.3f} ms/frame  {name[:110]}", flush=True)
+    profile(frame, args.frames, label, card)
     if not args.compat:
         closest_ms, shadow_ms = walk_input_times(vt, ft, cam, cs, sun)
         print(f"{label}: walk inputs (weights, caps, prepass keys and sort) "

@@ -33,6 +33,12 @@ to the leading threads at every visit. It is held on tiles whose walk
 ends by dropping the copied block, right after the first visit or a
 later one, and on tiles where each warp keeps one live ray after the
 first visit.
+
+The training path on the card: the bunny's gradients w.r.t. the
+vertices and the eye equal the CPU's (rtol 1e-4, atol 1e-5 max|g|: the
+card sums the backward's repeated indices in another order), a 5-step
+``fit_vertices`` lowers the loss, and a checkpointed fit resumes to the
+uninterrupted one.
 """
 
 import dataclasses
@@ -466,6 +472,114 @@ def test_compat_render_on_card_matches_cpp(backend):
         torch.set_float32_matmul_precision(prev)
     assert img.device.type == "cuda" and bool(torch.isfinite(img).all())
     assert (int(st["rays"]), int(st["hits"])) == (4645, 804)
+
+
+def _bunny_grads(dev, weights, size):
+    """Image and gradients (vertices, eye) of sum(weights * image) for the
+    bunny preset at size x size on the megakernel backend."""
+    from ceres_tpu_torch.render import scenes
+
+    sc = scenes.bunny_scene()
+    cam = ct.Camera.make(sc.camera.eye, sc.camera.dir, sc.camera.up,
+                         sc.camera.fov, device=dev)
+    v = torch.tensor(sc.vertices, device=dev, requires_grad=True)
+    eye = cam.eye.clone().requires_grad_()
+    image, _ = ct.render_pipeline(
+        v, torch.as_tensor(sc.faces, device=dev),
+        ct.Camera(eye=eye, dir=cam.dir, up=cam.up, fov=cam.fov),
+        torch.as_tensor(sc.sun, device=dev),
+        ct.RenderConfig(width=size, height=size, backend="megakernel"))
+    if weights is None:
+        return image.detach().cpu(), None
+    (image * torch.as_tensor(weights, device=dev)).sum().backward()
+    return image.detach().cpu(), (v.grad.cpu(), eye.grad.cpu())
+
+
+@pytest.mark.cuda
+def test_bunny_gradient_on_card_matches_cpu():
+    # The card's sums of the gathers' backward run on atomics in another
+    # order, and its rsqrt rounds otherwise: a pixel whose colour differs
+    # leaves the loss (at most 0.5% may), and the gradients then agree
+    # within rtol 1e-4 and atol 1e-5 max|g|.
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the walk kernels have no CPU mode")
+    size = 64
+    images = [_bunny_grads(dev, None, size)[0] for dev in ("cpu", "cuda")]
+    agree = ((images[0] - images[1]).abs().amax(-1) <= 1e-4).numpy()
+    assert (~agree).sum() <= 0.005 * size * size
+    weights = (np.random.default_rng(4).uniform(size=(size, size, 1))
+               * agree[..., None]).astype(np.float32)
+    want = _bunny_grads("cpu", weights, size)[1]
+    got = _bunny_grads("cuda", weights, size)[1]
+    for g, w in zip(got, want):
+        assert float(w.abs().max()) > 0
+        torch.testing.assert_close(g, w, rtol=1e-4,
+                                   atol=1e-5 * float(w.abs().max()))
+
+
+@pytest.mark.cuda
+def test_fit_on_card_lowers_the_loss():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the walk kernels have no CPU mode")
+    from ceres_tpu_torch.diff import fit_vertices
+    from ceres_tpu_torch.render import scenes
+
+    sc = scenes.bunny_scene()
+    config = ct.RenderConfig(width=64, height=64, backend="megakernel")
+    target, _ = ct.render(sc.vertices, sc.faces, sc.camera, sc.sun,
+                          config=config, device="cuda")
+    v0 = sc.vertices
+    scale = float(np.abs(v0 - v0.mean(0)).max())
+    noisy = (v0 + 0.02 * scale * np.random.default_rng(3).standard_normal(
+        v0.shape)).astype(np.float32)
+    params, history = fit_vertices(noisy, sc.faces, sc.camera, sc.sun,
+                                   target, config=config, steps=5,
+                                   learning_rate=2e-4)
+    assert params["vertices"].device.type == "cuda"
+    assert np.isfinite(history).all() and history[-1] < history[0]
+
+
+@pytest.mark.cuda
+def test_checkpoint_and_resume_on_card(tmp_path):
+    # Two triangles facing the camera (tests/test_checkpoint.py), walked
+    # by the kernels: every coordinate's gradient is far from zero, so
+    # Adam's normalised steps do not magnify the card's atomics, which
+    # sum in no fixed order.
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the walk kernels have no CPU mode")
+    from ceres_tpu_torch.diff import fit_vertices
+
+    vertices = np.asarray([
+        [-0.5, -0.5, 1.0], [0.5, -0.5, 1.0], [0.0, 0.5, 1.0],
+        [-0.6, 0.2, 1.5], [0.4, 0.6, 1.5], [0.0, -0.6, 1.5],
+    ], np.float32)
+    faces = np.asarray([[0, 1, 2], [3, 4, 5]], np.int32)
+    camera = ct.Camera.make(eye=(0, 0, -1), dir=(0, 0, 1), up=(0, 1, 0),
+                            fov=60)
+    sun = np.asarray([2.0, 3.0, -2.0], np.float32)
+    config = ct.RenderConfig(width=24, height=24, mode="flat",
+                             backend="megakernel")
+    target, _ = ct.render(vertices, faces, camera, sun, config=config,
+                          device="cuda")
+    kw = dict(config=config, learning_rate=1e-2, device="cuda")
+    ckpt = str(tmp_path / "ckpt")
+    _, hist1 = fit_vertices(vertices + 0.05, faces, camera, sun, target,
+                            steps=4, checkpoint_dir=ckpt, checkpoint_every=2,
+                            **kw)
+    params, hist2 = fit_vertices(vertices + 0.05, faces, camera, sun, target,
+                                 steps=7, checkpoint_dir=ckpt,
+                                 checkpoint_every=2, **kw)
+    assert (len(hist1), len(hist2)) == (4, 3)
+    assert sorted(os.listdir(ckpt)) == ["6.pt", "7.pt"]
+    assert params["vertices"].device.type == "cuda"
+    ref, hist_ref = fit_vertices(vertices + 0.05, faces, camera, sun, target,
+                                 steps=7, **kw)
+    np.testing.assert_allclose(hist1 + hist2, hist_ref, rtol=1e-5)
+    torch.testing.assert_close(params["vertices"], ref["vertices"],
+                               rtol=1e-6, atol=1e-7)
+    _, none_left = fit_vertices(vertices + 0.05, faces, camera, sun, target,
+                                steps=7, checkpoint_dir=ckpt, **kw)
+    assert none_left == []
 
 
 def test_kernel_source_constants_match_python():

@@ -232,12 +232,15 @@ def test_port_matches_fixture(scene):
 
 
 def test_port_imports_without_jax():
-    code = ("import sys; sys.modules['jax'] = None\n"
+    code = ("import sys\n"
+            "for m in ('jax', 'optax', 'orbax'): sys.modules[m] = None\n"
             "import ceres_tpu_torch, ceres_tpu_torch.render.renderer, "
             "ceres_tpu_torch.render.scenes, ceres_tpu_torch.ops._build, "
             "ceres_tpu_torch.ops.intersect, ceres_tpu_torch.ops.walk, "
-            "ceres_tpu_torch.models.transform, ceres_tpu_torch.utils.convert\n"
-            "assert not any(m == 'jax' or m.startswith(('jax.', 'ceres_tpu.'))"
+            "ceres_tpu_torch.models.transform, ceres_tpu_torch.utils.convert, "
+            "ceres_tpu_torch.diff\n"
+            "assert not any(m.split('.')[0] in ('jax', 'optax', 'orbax') "
+            "or m.startswith('ceres_tpu.')"
             " for m in sys.modules if sys.modules[m] is not None)\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
