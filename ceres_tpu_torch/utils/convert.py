@@ -13,7 +13,6 @@ import numpy as np
 import torch
 
 from ceres_tpu_torch.accel.clusters import ClusterSet
-from ceres_tpu_torch.diff.inverse import TrainState
 from ceres_tpu_torch.models.camera import Camera
 from ceres_tpu_torch.models.mesh import TriangleSoup
 from ceres_tpu_torch.models.transform import Transform
@@ -55,13 +54,17 @@ def transform(src, device=None) -> Transform:
     return Transform(a=tensor(src.a, device), v=tensor(src.v, device))
 
 
-def train_state(params, adam_state, device=None) -> TrainState:
+def train_state(params, adam_state, device=None):
     """A ``TrainState`` from the JAX package's: ``params`` a dict of
     arrays, ``adam_state`` optax's ``ScaleByAdamState`` (``count``, and
     ``mu``, ``nu`` dicts keyed like ``params``). The parameters become
     leaf tensors that require gradients; Adam's state per parameter is
     ``torch.optim.Adam``'s: step = count (a float32 CPU scalar, as Adam
     keeps it), exp_avg = mu, exp_avg_sq = nu."""
+    # Imported here, so that importing this module does not load the
+    # renderer and the training loop above it.
+    from ceres_tpu_torch.diff.inverse import TrainState
+
     step = torch.tensor(float(np.asarray(adam_state.count)),
                         dtype=torch.float32)
     return TrainState(

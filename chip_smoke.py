@@ -60,23 +60,32 @@ its own line:
      C++ reference rendered (``tests/fixtures/*_ref.ppm``): >= 99.5% of
      pixels within 2.5/255 and the rays/hits it printed, exactly; and the
      windowed entry point on two parallel triangles;
- 12. training, config 4b: the bunny frame's forward and backward step
+ 12. training, config 4b: K1 and K2 against their plain versions on the
+     step's 1080p inputs (the bunny's treelet cut as the step builds it,
+     and refitted); then the bunny frame's forward and backward step
      (gradients w.r.t. the vertices and the eye of ``image_loss`` against
      the unperturbed frame, the sun moved 1e-3 a step, the treelet cut
      built inside the step): ms/step and forward-only ms (medians of
-     CUDA-event times), the ratio step_ms / forward_ms - 1, the same three
-     with the cut refitted instead of rebuilt, peak memory, K1 and K2
-     launches a step (each >= 1); gradients finite, and at 128 x 128 equal
-     to the CPU's on the same inputs;
+     CUDA-event times of steps and forwards alternated), the ratio
+     step_ms / forward_ms - 1 where the two sets of times do not overlap
+     between their quartiles (else "unresolved"), the same with the cut
+     refitted instead of rebuilt, peak memory, K1 and K2 launches a step
+     (each >= 1); gradients finite, and at 128 x 128 equal to the CPU's
+     on the same inputs;
  13. training, config 4: ``fit_vertices`` on the bunny preset at 512 x
-     512 with the refitted treelet cut, from seeded vertex noise; ms/step
-     and the loss history, which must fall; ``refit_clusters`` against
+     512 with the refitted treelet cut, from seeded vertex noise: the
+     loss history, which must fall, and the fit's host time; its step
+     alone (``make_train_step`` as the fit builds it): ms/step median of
+     CUDA events after two warm-up steps, and the cut's one build; K1 and
+     K2 against their plain versions on the fitted vertices' refitted
+     cut at 512 x 512; ``refit_clusters`` against
      ``build_clusters_treelet`` (synchronised ms) on bunny, dragon and the
      4x bunny;
  14. training on the 4x bunny: its cut refitted after seeded vertex noise
      renders the image of a fresh build of the moved mesh at 256 x 256;
-     train steps at 1080p with the refit (``make_train_step``): ms/step,
-     peak memory, K6 and K7a launches a step (each >= 1).
+     K6 and K7a against their plain versions on the refitted cut at
+     1080p; train steps at 1080p with the refit (``make_train_step``):
+     ms/step, peak memory, K6 and K7a launches a step (each >= 1).
 
 Every kernel-vs-plain check holds each tile's executed visits, not only
 their sum, and prints the kernel's bound: the larger of its fp32
@@ -142,7 +151,7 @@ CPP = {"bunny": ("bunny_64_smooth_ref.ppm", 4645, 804),
 # Training: steps timed (phase 12), fit steps (13), 4x bunny steps (14),
 # the size at which the card's gradients are held to the CPU's, and the
 # seeded vertex noise of the fits (a share of the mesh's extent).
-STEPS = 10
+STEPS = 20
 FIT_SIZE = 512
 FIT_STEPS = 24
 LARGE_STEPS = 3
@@ -222,7 +231,7 @@ def scene(name, dev):
     return vt, ft, cam, cs
 
 
-def walk_inputs(vt, ft, cam, cs, width, height):
+def walk_inputs(vt, ft, cam, cs, width, height, sun=SUN):
     """The two walks' (args, opts) as the path builds them."""
     import ceres_tpu_torch as ct
     from ceres_tpu_torch.models.camera import camera_ray_columns
@@ -237,7 +246,7 @@ def walk_inputs(vt, ft, cam, cs, width, height):
     hit, pay = mk.closest_hit_common_origin(soup, cam.eye, dirs, clusters=cs,
                                             normal_cols=True)
     points = renderer._hit_points(cam.eye, dirs, hit, pay)
-    sun = torch.as_tensor(SUN, device=vt.device)
+    sun = torch.as_tensor(sun, dtype=torch.float32, device=vt.device)
     shadow = mk._any_dest_inputs(cs, sun, points, ~hit.mask)
     return closest, shadow
 
@@ -569,10 +578,57 @@ def grads_on(dev, v, f, weights, size):
                                   "eye": eye.grad.cpu()}
 
 
+def alternated_times(fns, n):
+    """CUDA-event times (ms) of n calls of each fns[k](i), alternated
+    (fns[0](0), fns[1](0), fns[0](1), ...) after one warm-up call of
+    each, so that a drift of the shared host shows in all of them alike.
+    Each call is timed alone, synchronised before and after."""
+    for fn in fns:
+        fn(0)
+    times = [[] for _ in fns]
+    for i in range(n):
+        for fn, t in zip(fns, times):
+            t.append(timed_once(lambda: fn(i))[1])
+    return times
+
+
+def ratio_line(step_t, fwd_t):
+    """bwd/fwd = step_ms / forward_ms - 1 of the medians, where the
+    interquartile ranges of the step's and the forward's times do not
+    overlap; else the word that it is unresolved, with both ranges."""
+    (s1, _, s3), (f1, _, f3) = (statistics.quantiles(t, n=4)
+                                for t in (step_t, fwd_t))
+    spread = (f"step quartiles [{s1:.3f}, {s3:.3f}], forward [{f1:.3f}, "
+              f"{f3:.3f}]")
+    if s1 > f3 or f1 > s3:
+        ratio = statistics.median(step_t) / statistics.median(fwd_t) - 1
+        return f"bwd/fwd = step_ms / forward_ms - 1 = {ratio:.3f} ({spread})"
+    return f"bwd/fwd unresolved: the quartiles overlap ({spread})"
+
+
+def hold_walks(phase, vt, ft, cam, cs, width, height, label, card, sun=SUN,
+               reps=20):
+    """The path's two walks on ``cs`` against their plain versions, as
+    phase 3 holds them; returns their wrappers' names."""
+    from ceres_tpu_torch.ops import walk
+
+    names = []
+    for mode, (args, opts) in zip(("closest", "any_dest"),
+                                  walk_inputs(vt, ft, cam, cs, width, height,
+                                              sun)):
+        kname = walk._variant(mode, opts["S"], opts["stream"])
+        r, _ = compare(mode, args, opts, reps=reps)
+        report(phase, kname, f"{label} {width}x{height} ({args[1].shape[0]} "
+               f"tiles, {cs.num_clusters} blocks, S = {opts['S']})", r, card)
+        names.append(kname)
+    return names
+
+
 def phase12(dev, card):
     """Config 4b on the card; returns the launches of one step."""
     import ceres_tpu_torch as ct
-    from ceres_tpu_torch.accel.clusters import build_clusters_treelet
+    from ceres_tpu_torch.accel.clusters import (build_clusters_treelet,
+                                                refit_clusters)
 
     v, f = ct.load_obj(os.path.join(ROOT, "data", "bunny.obj"))
     cam = camera(v, EYE, dev)
@@ -580,8 +636,16 @@ def phase12(dev, card):
     sun = torch.as_tensor(SUN, device=dev)
     config = ct.RenderConfig(width=W, height=H, backend="megakernel")
     target, _ = ct.render_pipeline(vt, ft, cam, sun, config)
-    clusters0 = build_clusters_treelet(ct.triangle_soup(vt, ft,
-                                                        with_normals=False))
+    soup = ct.triangle_soup(vt, ft, with_normals=False)
+    clusters0 = build_clusters_treelet(soup)
+    # The step's walks on the cuts it walks: the treelet cut it builds
+    # from these vertices, and that cut refitted.
+    for label, cs in (("treelet cut", clusters0),
+                      ("refitted treelet cut", refit_clusters(clusters0,
+                                                              soup))):
+        check(hold_walks(12, vt, ft, cam, cs, W, H, f"bunny, {label},", card)
+              == ["walk_closest", "walk_any_dest"],
+              f"phase 12: the {label} is not walked by K1 and K2")
     launches = None
     for label, cs0 in (("treelet cut built in the step", None),
                        ("treelet cut refitted in the step", clusters0)):
@@ -600,17 +664,15 @@ def phase12(dev, card):
               f"phase 12 ({label}): zero vertex gradient")
         launches = launches or counted
         torch.cuda.reset_peak_memory_stats()
-        step_t, step_w = frame_times(step, STEPS)
+        step_t, fwd_t = alternated_times((step, forward), STEPS)
         peak = torch.cuda.max_memory_allocated()
-        fwd_t, _ = frame_times(forward, STEPS)
-        step_ms, fwd_ms = statistics.median(step_t), statistics.median(fwd_t)
         print(f"phase 12 config 4b step, bunny {W}x{H} smooth+shadows, "
-              f"d/d(vertices, eye), {label}: ms/step median {step_ms:.3f} "
-              f"(min {min(step_t):.3f} max {max(step_t):.3f}, host wall "
-              f"median {statistics.median(step_w):.3f}); forward-only ms "
-              f"median {fwd_ms:.3f} (min {min(fwd_t):.3f} max "
-              f"{max(fwd_t):.3f}); bwd/fwd = step_ms / forward_ms - 1 = "
-              f"{step_ms / fwd_ms - 1:.3f}; peak memory "
+              f"d/d(vertices, eye), {label}: ms/step median "
+              f"{statistics.median(step_t):.3f} (min {min(step_t):.3f} max "
+              f"{max(step_t):.3f}); forward-only ms median "
+              f"{statistics.median(fwd_t):.3f} (min {min(fwd_t):.3f} max "
+              f"{max(fwd_t):.3f}); CUDA events, {STEPS} of each alternated; "
+              f"{ratio_line(step_t, fwd_t)}; peak memory "
               f"{peak / 2**20:.1f} MiB; launches a step {counted}; loss "
               f"{float(loss):.6e} [{card}]", flush=True)
 
@@ -639,12 +701,11 @@ def phase12(dev, card):
     return launches
 
 
-def phase13(dev, card, meshes):
-    """Config 4: the inverse-rendering fit; refit against rebuild."""
+def fit_problem(dev):
+    """Config 4's fit as phase 13 runs it: (scene, config, target on
+    ``dev``, the noisy start vertices): the bunny preset at FIT_SIZE, its
+    vertices moved by seeded noise of FIT_NOISE of the mesh's extent."""
     import ceres_tpu_torch as ct
-    from ceres_tpu_torch.accel.clusters import (build_clusters_treelet,
-                                                refit_clusters)
-    from ceres_tpu_torch.diff import fit_vertices
     from ceres_tpu_torch.render import scenes
 
     sc = scenes.bunny_scene()
@@ -653,26 +714,87 @@ def phase13(dev, card, meshes):
     target, st = ct.render(sc.vertices, sc.faces, sc.camera, sc.sun,
                            config=config, device=dev)
     check(int(st["primary_hits"]) > 0.05 * FIT_SIZE ** 2,
-          "phase 13: the bunny is not seen")
+          "the bunny preset is not seen")
     v0 = sc.vertices
     scale = float(np.abs(v0 - v0.mean(0)).max())
     noise = np.random.default_rng(3).standard_normal(v0.shape)
-    noisy = (v0 + FIT_NOISE * scale * noise).astype(np.float32)
+    return sc, config, target, (v0 + FIT_NOISE * scale * noise).astype(
+        np.float32)
+
+
+def fit_step(dev, sc, config, target, noisy):
+    """The step of ``fit_vertices(refit=True)`` on its own: (step(i),
+    the treelet cut of the start vertices, the synchronised ms of its one
+    build). ``step`` takes one Adam step (lr 2e-4) of the vertices and
+    reads the loss, as the fit does."""
+    import ceres_tpu_torch as ct
+    from ceres_tpu_torch.accel.clusters import build_clusters_treelet
+    from ceres_tpu_torch.diff import TrainState, make_train_step
+
+    ft = torch.as_tensor(sc.faces, device=dev)
+    cam = ct.Camera.make(sc.camera.eye, sc.camera.dir, sc.camera.up,
+                         sc.camera.fov, device=dev)
+    v0 = torch.as_tensor(noisy, device=dev)
+    cs0, build_ms = timed_once(lambda: build_clusters_treelet(
+        ct.triangle_soup(v0, ft, with_normals=False)))
+    params = {"vertices": v0.clone().requires_grad_()}
+    train = make_train_step(ft, cam, torch.as_tensor(sc.sun, device=dev),
+                            config, torch.optim.Adam(params.values(),
+                                                     lr=2e-4),
+                            clusters0=cs0)
+    state = [TrainState(params, {"vertices": {}})]
+
+    def step(i):
+        state[0], loss = train(state[0], target)
+        return float(loss)
+
+    return step, cs0, build_ms
+
+
+def phase13(dev, card, meshes):
+    """Config 4: the inverse-rendering fit; refit against rebuild."""
+    import ceres_tpu_torch as ct
+    from ceres_tpu_torch.accel.clusters import (build_clusters_treelet,
+                                                refit_clusters)
+    from ceres_tpu_torch.diff import fit_vertices
+
+    sc, config, target, noisy = fit_problem(dev)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    (_, history), launches = launches_of(lambda: fit_vertices(
+    (params, history), launches = launches_of(lambda: fit_vertices(
         noisy, sc.faces, sc.camera, sc.sun, target, config=config,
         steps=FIT_STEPS, learning_rate=2e-4, refit=True, device=dev))
-    ms = (time.perf_counter() - t0) * 1e3 / FIT_STEPS
+    wall_s = time.perf_counter() - t0
     print(f"phase 13 config 4 fit, bunny preset {FIT_SIZE}x{FIT_SIZE}, refit, "
-          f"lr 2e-4, "
-          f"{FIT_STEPS} steps: {ms:.3f} ms/step (host clock over the fit, "
-          f"the cut's one build included); launches {launches}; losses "
+          f"lr 2e-4, {FIT_STEPS} steps through fit_vertices: {wall_s:.3f} s "
+          f"on the host clock (the process's first fit, the cut's build "
+          f"included); launches {launches}; losses "
           f"{[float(f'{x:.6e}') for x in history]} [{card}]", flush=True)
     check(np.isfinite(history).all() and history[-1] < history[0],
           "phase 13: the fit's loss did not fall")
     check(set(launches) == {"walk_closest", "walk_any_dest"},
           f"phase 13: the fit launched {launches}")
+
+    step, cs0, build_ms = fit_step(dev, sc, config, target, noisy)
+    times, _ = frame_times(step, FIT_STEPS)
+    print(f"phase 13 config 4 fit step, bunny preset {FIT_SIZE}x{FIT_SIZE}, "
+          f"refitted cut: ms/step median {statistics.median(times):.3f} (min "
+          f"{min(times):.3f} max {max(times):.3f}; CUDA events over "
+          f"{FIT_STEPS} steps after two warm-up steps, the loss read each "
+          f"step); the cut's one build {build_ms:.3f} ms [{card}]",
+          flush=True)
+    # The fit's walks on the cut its last step walked: the start cut
+    # refitted to the fitted vertices.
+    cam = ct.Camera.make(sc.camera.eye, sc.camera.dir, sc.camera.up,
+                         sc.camera.fov, device=dev)
+    ft = torch.as_tensor(sc.faces, device=dev)
+    fitted = params["vertices"]
+    cs = refit_clusters(cs0, ct.triangle_soup(fitted, ft,
+                                              with_normals=False))
+    check(hold_walks(13, fitted, ft, cam, cs, FIT_SIZE, FIT_SIZE,
+                     "bunny preset fitted, refitted treelet cut,", card,
+                     sun=sc.sun) == ["walk_closest", "walk_any_dest"],
+          "phase 13: the fit's cut is not walked by K1 and K2")
 
     rng = np.random.default_rng(13)
     for name, (v, f) in meshes.items():
@@ -721,6 +843,11 @@ def phase14(dev, card, v, f, cs0):
           f"pixels off by >1e-4 {frac:.4%} (limit 0.5%)", flush=True)
     check(frac < 0.005 and float(images[1].max()) > 0,
           "phase 14: the refitted cut renders another image")
+    # The train steps' walks on the cut they start from.
+    check(tuple(hold_walks(14, moved, ft, cam, refit_clusters(cs0, soup), W,
+                           H, "bunny x4 moved, refitted treelet cut,", card,
+                           reps=3)) == LARGE[4],
+          "phase 14: the refitted cut is not walked by K6 and K7a")
 
     config = ct.RenderConfig(width=W, height=H, backend="megakernel")
     target, _ = ct.render_pipeline(vt, ft, cam, sun, config, clusters=cs0)

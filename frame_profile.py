@@ -9,9 +9,14 @@ the SweepSAH cut; ``bunny3``/``bunny4``: the 3x/4x subdivided bunny on
 the device treelet cut; 1920 x 1080, the sun and camera of ``bench.py``;
 ``--compat``: reference-exact) through ``render_pipeline`` with a
 prebuilt cut and winner table, as a frame loop would. ``--step`` runs
-``chip_smoke.py`` phase 12's train steps instead: the bunny frame's
+``chip_smoke.py``'s train steps instead: phase 12's bunny frame's
 forward and backward pass (config 4b: gradients w.r.t. the vertices and
-the eye), with the treelet cut built inside the step, then refitted.
+the eye), with the treelet cut built inside the step, then refitted;
+after one untraced step of each and before their traces, phase 13's
+``fit_vertices`` call, the process's first fit, under ``cProfile`` (its host seconds, those of a second call, and the
+functions that took the first call's time); then the step of that fit
+(bunny preset at 512 x 512, refitted cut, an Adam step and the loss
+read).
 Prints the card's name
 and power limit, ms/frame (median of CUDA events over the frames), then
 from a ``torch.profiler`` trace of the same number of frames: device
@@ -104,6 +109,41 @@ def profile(frame, n, label, card, top=8):
         print(f"  {t:9.3f} ms/frame  {name[:110]}", flush=True)
 
 
+def first_fit(dev, card, top=15):
+    """Host seconds of ``chip_smoke.py`` phase 13's ``fit_vertices`` call,
+    the first in the process and again, and the functions that took the
+    first call's time (cumulative, from ``cProfile``)."""
+    import cProfile
+    import io
+    import pstats
+    import time
+
+    import chip_smoke as smoke
+    from ceres_tpu_torch.diff import fit_vertices
+
+    sc, config, target, noisy = smoke.fit_problem(dev)
+    prof, walls = cProfile.Profile(), []
+    for i in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if i == 0:
+            prof.enable()
+        fit_vertices(noisy, sc.faces, sc.camera, sc.sun, target,
+                     config=config, steps=smoke.FIT_STEPS, learning_rate=2e-4,
+                     refit=True, device=dev)
+        torch.cuda.synchronize()
+        prof.disable()
+        walls.append(time.perf_counter() - t0)
+    print(f"fit_vertices, bunny preset {smoke.FIT_SIZE}x{smoke.FIT_SIZE}, "
+          f"{smoke.FIT_STEPS} steps: first call {walls[0]:.3f} s (under "
+          f"cProfile), second {walls[1]:.3f} s [{card}]", flush=True)
+    out = io.StringIO()
+    pstats.Stats(prof, stream=out).sort_stats("cumulative").print_stats(top)
+    for line in out.getvalue().splitlines():
+        if line.strip():
+            print(f"  {line[:160]}", flush=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scene", default="bunny4",
@@ -136,12 +176,24 @@ def main() -> None:
         target, _ = ct.render_pipeline(vt, ft, cam, sun, config)
         clusters0 = build_clusters_treelet(
             ct.triangle_soup(vt, ft, with_normals=False))
-        for cut, cs0 in (("built", None), ("refitted", clusters0)):
-            step, _, _ = smoke.grad_step(vt, ft, cam, sun, config, target,
-                                         cs0)
+        steps = {cut: smoke.grad_step(vt, ft, cam, sun, config, target,
+                                      cs0)[0]
+                 for cut, cs0 in (("built", None), ("refitted", clusters0))}
+        # As in chip_smoke.py: config 4b's steps, then the first fit. The
+        # fit goes before any trace, as torch.profiler imports modules
+        # that the process's first optimizer would otherwise import.
+        for step in steps.values():
+            step(1)
+        first_fit(dev, card)
+        for cut, step in steps.items():
             profile(step, args.frames, f"bunny {smoke.W}x{smoke.H} train "
                     f"step (config 4b: forward + backward, treelet cut "
                     f"{cut} in the step)", card, top=16)
+        sc, config, target, noisy = smoke.fit_problem(dev)
+        step, _, _ = smoke.fit_step(dev, sc, config, target, noisy)
+        profile(step, args.frames, f"bunny preset {smoke.FIT_SIZE}x"
+                f"{smoke.FIT_SIZE} fit step (config 4: forward + backward, "
+                f"refitted cut, Adam)", card, top=16)
         return
     if args.scene == "bunny":
         vt, ft, cam, cs = smoke.scene("bunny", dev)

@@ -22,7 +22,7 @@ running its own ``chip_smoke.py`` (``git archive`` it into a directory
 that .gitignore lists), or in turns with this one: ``--turns DIR`` builds
 both checkouts' kernels in parallel and runs ``chip_smoke.py`` in DIR,
 here, here and in DIR (parent, change, change, parent), printing the same
-lines of each run, and does nothing else.
+lines of each run and its training phases' times, and does nothing else.
 
 Then, with the kernels as committed, where the flat kernels' time goes
 on 1080p inputs (``--ks "" --flat-ks ""`` runs this alone): each of K5
@@ -44,7 +44,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 SOURCE = os.path.join("ceres_tpu_torch", "ops", "csrc", "walk.cu")
 SKIP = shutil.ignore_patterns("_build", "__pycache__")
 LINES = re.compile(r"(two-level|flat streamed|flat resident): |"
-                   r"^phase (4|7|10) .*path")
+                   r"^phase (4|7|10) .*path|^phase 1[234] .*(ms|MiB)")
 
 
 def copy_with(name, k, dst):
