@@ -11,8 +11,11 @@ subdivided bunny up to 1.27M triangles on the device treelet cut):
   accel       ceres_tpu_torch.accel (device morton/LBVH treelet cut, host
               SweepSAH build and quality cut)
   kernels     ceres_tpu_torch.ops (culling prepass, CUDA walk kernels:
-              flat or two-level, weights staged or streamed)
+              flat or two-level, weights staged or streamed; the plain
+              float64 walk; spheres)
   renderer    ceres_tpu_torch.render
+  frames      ceres_tpu_torch.parallel (frame batches on one device)
+  apps        ceres_tpu_torch.cli (render, anim)
 
 ``__all__`` is the JAX package's list; ``render_pipeline``, the frame
 loop's entry point, is importable from here too.

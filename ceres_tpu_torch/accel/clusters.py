@@ -138,7 +138,8 @@ def _scatter_box(index, values, n_rows, fill, reduce):
     """(n_rows, 3) min ("amin") or max ("amax") of ``values`` rows by
     ``index``, starting from ``fill``: ``.at[index].min/max`` with XLA's
     float order."""
-    base = minmax.ordered(torch.full((n_rows, 3), fill, device=values.device))
+    base = minmax.ordered(torch.full((n_rows, 3), fill, dtype=values.dtype,
+                                     device=values.device))
     base.scatter_reduce_(0, index.long()[:, None].expand(-1, 3),
                          minmax.ordered(values), reduce=reduce,
                          include_self=True)

@@ -25,7 +25,7 @@ import torch
 
 from ceres_tpu_torch.accel import golden_builders as gb
 from ceres_tpu_torch.accel.clusters import (CLUSTER_SIZE, ClusterSet,
-                                            _super_slots)
+                                            _pack_records, _super_slots)
 from ceres_tpu_torch.models.mesh import TriangleSoup
 
 # The JAX package's other quality builders, not ported yet.
@@ -116,6 +116,11 @@ def _pack_clusterset(soup: TriangleSoup, groups, los, his,
         perm[k * C:k * C + g.shape[0]] = g
     device = soup.p0.device
     perm_t = torch.as_tensor(perm, device=device)
+    if soup.p0.dtype != torch.float32:
+        # The host tree's boxes are float32 and need not bound float64
+        # triangles: take each cluster's exact bound in the soup's dtype.
+        # (The JAX package keeps the float32 boxes here, cuts.py:115.)
+        return ClusterSet(*_pack_records(perm_t, soup, n_c, C), perm=perm_t)
     gather = perm_t.clamp(min=0).long()
     valid = (perm_t >= 0)[:, None]
 

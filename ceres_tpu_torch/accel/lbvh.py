@@ -189,7 +189,8 @@ def _refit_boxes(left, right, leaf_lo, leaf_hi):
     ``chip_smoke.py`` phase 13 in one call in turns, NVIDIA H100 80GB HBM3
     at 700 W)."""
     n1 = left.shape[0]
-    inf = torch.tensor(float("inf"), device=leaf_lo.device)
+    inf = torch.tensor(float("inf"), dtype=leaf_lo.dtype,
+                       device=leaf_lo.device)
     grad = leaf_lo.requires_grad or leaf_hi.requires_grad
     key = (lambda x: x) if grad else minmax.ordered
     unkey = (lambda x: x) if grad else minmax.from_ordered

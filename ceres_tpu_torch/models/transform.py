@@ -8,6 +8,11 @@ only, ``translate`` adds to ``v`` only. Products run in full float32
 (``ops.intersect.full_fp32_matmul``), as the JAX package asks for
 ``Precision.HIGHEST``. Differentiable with respect to ``a``, ``v`` and the
 points.
+
+A keyframe track is a stacked Transform: ``a`` (F, 3, 3) and ``v`` (F, 3),
+one transform a frame (``parallel.sharded.turntable_transforms``);
+``frame(k)`` slices frame k out, as the JAX package slices its stacked
+pytree.
 """
 
 from __future__ import annotations
@@ -40,8 +45,8 @@ def _markley_dcm(axis: torch.Tensor, angle: torch.Tensor) -> torch.Tensor:
 class Transform:
     """Affine transform ``p -> a @ p + v``."""
 
-    a: torch.Tensor  # (3, 3)
-    v: torch.Tensor  # (3,)
+    a: torch.Tensor  # (3, 3), or (F, 3, 3) for a track of F frames
+    v: torch.Tensor  # (3,), or (F, 3)
 
     @staticmethod
     def identity(dtype=torch.float32, device=None) -> "Transform":
@@ -63,8 +68,21 @@ class Transform:
     def translate(self, t) -> "Transform":
         return Transform(a=self.a, v=self.v + self._t(t))
 
+    @property
+    def num_frames(self):
+        """F for a stacked track, None for one transform."""
+        return self.a.shape[0] if self.a.dim() == 3 else None
+
+    def frame(self, k) -> "Transform":
+        """Frame ``k`` (an int or a slice) of a stacked track."""
+        return Transform(a=self.a[k], v=self.v[k])
+
     def __call__(self, p: torch.Tensor) -> torch.Tensor:
-        """Apply to points of shape (..., 3)."""
+        """Apply to points of shape (..., 3); a stacked track of F frames
+        returns (F, ..., 3), frame by frame."""
+        if self.num_frames is not None:
+            return torch.stack([self.frame(k)(p)
+                                for k in range(self.num_frames)])
         with full_fp32_matmul():
             return p @ self.a.T + self.v
 

@@ -26,8 +26,12 @@ rays) walk generic-origin weights and tile hulls that carry the spread
 of the tile's origins. ``closest_hit_common_origin(tmin=, tmax=)``
 accepts hits only inside each ray's window and caps the walk at tmax.
 
-Not ported yet: shadow-receiver regrouping (ROADMAP M13), ``exact_f64``
-(M14).
+A float64 soup builds its cut in float64 and searches in float32, with
+every observed value recomputed in float64 at the winners; with
+``exact_f64=True`` the search itself runs in float64 (``ops.walk_f64``,
+plain torch, no kernel).
+
+Not ported yet: shadow-receiver regrouping (ROADMAP M13).
 """
 
 from __future__ import annotations
@@ -40,7 +44,7 @@ from ceres_tpu_torch.accel.clusters import (build_clusters_treelet,
                                             cluster_weights_common_origin,
                                             cluster_weights_generic)
 from ceres_tpu_torch.models.mesh import TriangleSoup
-from ceres_tpu_torch.ops import walk
+from ceres_tpu_torch.ops import walk, walk_f64
 from ceres_tpu_torch.ops.intersect import Hit
 from ceres_tpu_torch.ops.prepass import (
     _BIG, COMMON_ROWS, GENERIC_ROWS, TILE, _ULP_PAD, _hier_setup, _pad_rays,
@@ -54,27 +58,42 @@ def _cols(x):
     return tuple(x.unbind(-1))
 
 
-def _detach_f32(x):
-    """Detach and cast floating tensors (also inside tuples and
-    dataclasses) to float32, the search precision."""
+def _detached(x, dtype=None):
+    """Detach tensors (also inside tuples and dataclasses), casting the
+    floating ones to ``dtype`` when given."""
     if isinstance(x, torch.Tensor):
         x = x.detach()
-        return x.float() if x.is_floating_point() else x
+        return x.to(dtype) if dtype and x.is_floating_point() else x
     if isinstance(x, (tuple, list)):
-        return type(x)(_detach_f32(v) for v in x)
+        return type(x)(_detached(v, dtype) for v in x)
     if dataclasses.is_dataclass(x):
         return dataclasses.replace(x, **{
-            f.name: _detach_f32(getattr(x, f.name))
+            f.name: _detached(getattr(x, f.name), dtype)
             for f in dataclasses.fields(x)})
     return x
 
 
+def _detach_f32(x):
+    """Detach and cast floating tensors (also inside tuples and
+    dataclasses) to float32, the search precision."""
+    return _detached(x, torch.float32)
+
+
 def _treelet(soup: TriangleSoup, clusters):
     """``clusters``, or the LBVH treelet cut of ``soup`` built on its
-    device when None (the JAX package's default structure)."""
+    device and in its dtype when None (the JAX package's default
+    structure)."""
     if clusters is not None:
         return clusters
-    return build_clusters_treelet(_detach_f32(soup))
+    return build_clusters_treelet(_detached(soup))
+
+
+def _check_f64(soup: TriangleSoup, cs) -> None:
+    """``exact_f64`` searches a float64 soup's float64 ClusterSet."""
+    for name, x in (("soup", soup.p0), ("ClusterSet", cs.lo)):
+        if x.dtype != torch.float64:
+            raise ValueError(f"exact_f64 requires a float64 {name}, got "
+                             f"{x.dtype}")
 
 
 def _tiles(cols):
@@ -216,14 +235,17 @@ def closest_hit_common_origin(soup: TriangleSoup, eye, dirs, clusters=None,
     returns (hit, payload columns), zero at misses. ``normal_cols=True``
     prepends the winner's face normal, recomputed from the gathered
     edges. ``with_counts=True`` adds the measured counters (executed
-    cluster visits and MT pairs).
+    cluster visits and MT pairs). ``exact_f64=True`` searches a float64
+    soup in float64 (``ops.walk_f64``) instead of float32.
     """
-    if exact_f64:
-        raise NotImplementedError("exact_f64 is not ported yet (ROADMAP "
-                                  "item M14)")
     dir_cols = _cols(dirs)
     cs = _treelet(soup, clusters)
-    pidx, counts = _closest_search(cs, eye, dir_cols, tmin, tmax)
+    if exact_f64:
+        _check_f64(soup, cs)
+        pidx, counts = walk_f64.closest_search_f64(cs, eye, dir_cols, tmin,
+                                                   tmax)
+    else:
+        pidx, counts = _closest_search(cs, eye, dir_cols, tmin, tmax)
     mask = pidx >= 0
     table = (table_cols if table_cols is not None
              else winner_table(soup, cs, payload))
@@ -260,19 +282,23 @@ def any_hit(soup: TriangleSoup, origin_shift, origins, dirs, skip=None,
     taken relative to, for conditioning (the renderer passes the scene
     centre); the result does not depend on it beyond rounding. ``skip``
     marks rays whose answer is irrelevant (no primary hit); they generate
-    no traversal work. Boolean, detached.
+    no traversal work. Boolean, detached. ``exact_f64=True`` searches in
+    float64 (``ops.walk_f64``).
     """
-    if exact_f64:
-        raise NotImplementedError("exact_f64 is not ported yet (ROADMAP "
-                                  "item M14)")
     R = _cols(dirs)[0].shape[0]
     cs = _treelet(soup, clusters)
     if skip is None:
         skip = torch.zeros(R, dtype=torch.bool, device=cs.lo.device)
-    args, opts = _any_inputs(cs, origin_shift, origins, dirs, skip)
-    occ, visits = walk.walk_any(*args, **opts)
-    steps = visits.sum()
-    result = (occ[:R] == 1) & ~skip
+    if exact_f64:
+        _check_f64(soup, cs)
+        result, counts = walk_f64.any_hit_f64(
+            cs, origin_shift, _cols(origins), _cols(dirs), skip)
+        steps = counts["traversal_steps"]
+    else:
+        args, opts = _any_inputs(cs, origin_shift, origins, dirs, skip)
+        occ, visits = walk.walk_any(*args, **opts)
+        steps = visits.sum()
+        result = (occ[:R] == 1) & ~skip
     if with_counts:
         return result, {"traversal_steps": steps, "mt_block_visits": steps,
                         "mt_pairs": steps * TILE * cs.cluster_size}
@@ -317,13 +343,11 @@ def any_hit_to_point(soup: TriangleSoup, dest, points, skip=None,
     point (t = 1), so it is a common-origin wavefront. An occluder lies
     strictly between light and receiver. ``skip`` marks rays whose answer
     is irrelevant (no primary hit); they generate no traversal work.
-    Boolean, detached. ``exact_f64`` waits for ROADMAP item M14, and the
-    JAX package's receiver regrouping (``regroup=True``; off by default
-    there, as here) for M13.
+    Boolean, detached. ``exact_f64=True`` searches in float64
+    (``ops.walk_f64``). The JAX package's receiver regrouping
+    (``regroup=True``; off by default there, as here) waits for ROADMAP
+    item M13.
     """
-    if exact_f64:
-        raise NotImplementedError("exact_f64 is not ported yet (ROADMAP "
-                                  "item M14)")
     if regroup not in (None, False):
         raise NotImplementedError("shadow-receiver regrouping is not ported "
                                   "yet (ROADMAP item M13)")
@@ -331,10 +355,16 @@ def any_hit_to_point(soup: TriangleSoup, dest, points, skip=None,
     cs = _treelet(soup, clusters)
     if skip is None:
         skip = torch.zeros(R, dtype=torch.bool, device=cs.lo.device)
-    args, opts = _any_dest_inputs(cs, dest, points, skip)
-    occ, visits = walk.walk_any_dest(*args, **opts)
-    steps = visits.sum()
-    result = (occ[:R] == 1) & ~skip
+    if exact_f64:
+        _check_f64(soup, cs)
+        result, counts = walk_f64.any_hit_to_point_f64(cs, dest,
+                                                       _cols(points), skip)
+        steps = counts["traversal_steps"]
+    else:
+        args, opts = _any_dest_inputs(cs, dest, points, skip)
+        occ, visits = walk.walk_any_dest(*args, **opts)
+        steps = visits.sum()
+        result = (occ[:R] == 1) & ~skip
     if with_counts:
         return result, {"traversal_steps": steps, "mt_block_visits": steps,
                         "mt_pairs": steps * TILE * cs.cluster_size}

@@ -1,0 +1,241 @@
+"""All-float64 cluster walk in plain torch (counterpart of
+``ceres_tpu/ops/walk_f64.py``: ``_prepass``, ``_walk``,
+``closest_search_f64``, ``any_hit_f64``, ``any_hit_to_point_f64``).
+
+The accelerated float64 path searches in float32 (``megakernel._detach_f32``)
+and recomputes every observed value in float64 at the winners, so its
+winner itself can be wrong where sheets lie closer than float32
+resolution or coordinates span more than 2^24. This module searches in
+float64 throughout, in the two phases of the walk kernels: the interval
+prepass (``ops.prepass``, run in float64) sorts each tile's candidate
+clusters by entry bound, then a lockstep frontier advances every active
+tile through its own list, one candidate a step (a gather and a batched
+float64 Möller-Trumbore), until the tile's next entry bound exceeds its
+prune, the maximum over its rays of min(best t, root exit). No prune pad:
+nothing here understates t.
+
+Tiles go in chunks, which bound the (chunk, 512, 128) float64
+intermediates. A tile's visits and result do not depend on its chunk:
+its activity is its own, and monotone (entries ascend, prunes only
+fall). The JAX package takes 64 tiles a chunk; on the card a chunk of
+512 tiles runs the frontier loop, which reads each step's activity on
+the host, 8x fewer times. A step evaluates only the chunk's active tiles.
+
+Plain torch and no kernel: the JAX module is plain JAX, not Pallas. The
+entry points record no autograd graph: they return integers.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ceres_tpu_torch.ops.prepass import (_BIG, _ULP_PAD, _VALID_CUT, TILE,
+                                         _hull, _interval_entry, _pad_rays,
+                                         _ray_tcap, _scene_root)
+from ceres_tpu_torch.ops.walk import _DEST_EPS
+
+_CHUNK = 64          # tiles a chunk on the CPU, as in the JAX package
+_CHUNK_CUDA = 512    # tiles a chunk on the card
+
+
+def _chunk(device: torch.device) -> int:
+    return _CHUNK_CUDA if device.type == "cuda" else _CHUNK
+
+
+def _cross(u, v):
+    """cross(u, v) over the last axis."""
+    return torch.stack([u[..., 1] * v[..., 2] - u[..., 2] * v[..., 1],
+                        u[..., 2] * v[..., 0] - u[..., 0] * v[..., 2],
+                        u[..., 0] * v[..., 1] - u[..., 1] * v[..., 0]],
+                       dim=-1)
+
+
+def _dots(x, w):
+    """(n, TILE, 3) rays x (n, C, 3) triangles -> (n, TILE, C) dots."""
+    return (x[..., 0, None] * w[:, None, :, 0]
+            + x[..., 1, None] * w[:, None, :, 1]
+            + x[..., 2, None] * w[:, None, :, 2])
+
+
+def _prepass(cs, shift, dir_cols, origin_cols=None, alive_cols=None):
+    """Sorted float64 candidate lists: (order, ent_sorted, counts, dirs
+    (n_t, TILE, 3), origins likewise or None, alive (n_t, TILE)).
+    ``origin_cols`` are relative to ``shift``; ``alive_cols`` (bool (R,))
+    marks the rays that walk."""
+    dirs_tiled = tuple(_pad_rays(c).reshape(-1, TILE) for c in dir_cols)
+    alive = (dirs_tiled[0] * dirs_tiled[0] + dirs_tiled[1] * dirs_tiled[1]
+             + dirs_tiled[2] * dirs_tiled[2]) > 0.0
+    if alive_cols is not None:
+        alive = alive & _pad_rays(alive_cols).reshape(-1, TILE)
+    lo, hi = cs.lo - shift, cs.hi - shift
+    dlo, dhi = _hull(dirs_tiled, alive)
+    orig_tiled = None
+    if origin_cols is None:
+        ent = _interval_entry(lo, hi, dlo, dhi)
+    else:
+        orig_tiled = tuple(_pad_rays(c).reshape(-1, TILE)
+                           for c in origin_cols)
+        ent = _interval_entry(lo, hi, dlo, dhi, *_hull(orig_tiled, alive))
+    ent = torch.where(alive.any(dim=1)[:, None], ent, _BIG)
+    # Stable, as jnp.argsort: the walk breaks equal-t ties by visit order.
+    order = torch.argsort(ent, dim=1, stable=True)
+    ent_sorted = torch.take_along_dim(ent, order, dim=1)
+    counts = (ent_sorted < _VALID_CUT).sum(dim=1)
+    d3 = torch.stack(dirs_tiled, dim=-1)
+    o3 = None if orig_tiled is None else torch.stack(orig_tiled, dim=-1)
+    return order, ent_sorted, counts, d3, o3, alive
+
+
+def _walk(cs, shift, order, ent, counts, d3, o3, alive, tcap, tmin=None,
+          tmax=None, occ0=None, *, mode, chunk=None):
+    """Chunked frontier walk -> (out (n_t, TILE) int32, executed visits).
+
+    ``out`` holds packed winner slot ids (``mode="closest"``, -1 for a
+    miss) or occlusion flags (``"any"``, ``"any_dest"``). ``tmin``/
+    ``tmax`` (n_t, TILE) accept closest hits only inside each ray's
+    window; ``occ0`` (n_t, TILE) int marks rays that start occluded.
+    """
+    n_t, n_c = ent.shape
+    C = cs.cluster_size
+    chunk = chunk or _chunk(ent.device)
+    any_mode = mode in ("any", "any_dest")
+    # Per-cluster weights once: the JAX package gathers the records a
+    # step and computes the same elementwise values from them.
+    p0 = cs.p0 - shift
+    cu, cv, nn = _cross(p0, cs.e2), _cross(p0, cs.e1), cs.n
+    tn = (nn[..., 0] * p0[..., 0] + nn[..., 1] * p0[..., 1]
+          + nn[..., 2] * p0[..., 2])
+    one = torch.ones((), dtype=p0.dtype, device=p0.device)
+
+    def mt_step(cid, tiles):
+        """(ok, t) of the tiles' rays against clusters ``cid``, each
+        (n, TILE, C); t is inf where rejected."""
+        d = d3[tiles]
+        nu, nv, nd = _dots(d, cu[cid]), _dots(d, cv[cid]), _dots(d, nn[cid])
+        nt = tn[cid][:, None, :]
+        if o3 is not None:
+            o = o3[tiles]
+            dxo = _cross(d, o)
+            nu = nu - _dots(dxo, cs.e2[cid])
+            nv = nv - _dots(dxo, cs.e1[cid])
+            nt = nt - _dots(o, nn[cid])
+        s = torch.where(nd >= 0, one, -one)
+        uvw = torch.minimum(torch.minimum(nu * s, nv * s), (nd - nu - nv) * s)
+        if mode == "any_dest":
+            win = ((nt - (1.0 - _DEST_EPS) * nd) * s <= 0) & (nt * s >= 0)
+            ok = (uvw >= 0) & (nd != 0) & win
+        else:
+            ok = (torch.minimum(uvw, nt * s) >= 0) & (nd != 0)
+        t = torch.where(ok, nt / torch.where(nd != 0, nd, one), torch.inf)
+        if tmin is not None:
+            t = torch.where((t >= tmin[tiles][..., None])
+                            & (t <= tmax[tiles][..., None]), t, torch.inf)
+        return ok, t
+
+    out = torch.empty((n_t, TILE), dtype=torch.int32, device=ent.device)
+    steps = torch.zeros((), dtype=torch.int64, device=ent.device)
+    for c0 in range(0, n_t, chunk):
+        tiles = torch.arange(c0, min(c0 + chunk, n_t), device=ent.device)
+        tcap_c = torch.where(alive[tiles], tcap[tiles], -one)
+        if any_mode:
+            state = occ0[tiles] > 0
+        else:
+            state = torch.full((tiles.shape[0], TILE), torch.inf,
+                               dtype=p0.dtype, device=p0.device)
+            slot = torch.full((tiles.shape[0], TILE), -1, dtype=torch.int64,
+                              device=p0.device)
+        for k in range(n_c):
+            if any_mode:
+                prune = torch.where(state, -one, tcap_c).amax(dim=1)
+            else:
+                prune = torch.minimum(state, tcap_c).amax(dim=1)
+            act = (k < counts[tiles]) & (ent[tiles, k] <= prune)
+            rows = act.nonzero().squeeze(1)
+            if rows.numel() == 0:
+                break
+            tl = tiles[rows]
+            cid = order[tl, k]
+            ok, t = mt_step(cid, tl)
+            live = alive[tl]
+            if any_mode:
+                state[rows] |= ok.any(dim=2) & live
+            else:
+                t_c, lane = t.min(dim=2)
+                better = live & (t_c < state[rows])
+                state[rows] = torch.where(better, t_c, state[rows])
+                slot[rows] = torch.where(better, cid[:, None] * C + lane,
+                                         slot[rows])
+            steps += rows.numel()
+        out[tiles] = (state if any_mode else slot).to(torch.int32)
+    return out, steps
+
+
+def _counters(steps):
+    return {"traversal_steps": steps, "mt_block_visits": steps}
+
+
+@torch.no_grad()
+def closest_search_f64(cs, eye, dir_cols, tmin=None, tmax=None, chunk=None):
+    """All-float64 winner search, in place of ``megakernel._closest_search``:
+    (packed slot ids (R,) int32, counters). ``cs``, ``eye`` and the rays
+    are float64; the ClusterSet is the one the accelerated path walks.
+    ``tmin``/``tmax`` (scalar or per-ray) as there."""
+    R = dir_cols[0].shape[0]
+    order, ent, counts, d3, _, alive = _prepass(cs, eye, dir_cols)
+    root_lo, root_hi = _scene_root(cs)
+    dp = tuple(_pad_rays(c) for c in dir_cols)
+    tcap = _ray_tcap(root_lo - eye, root_hi - eye, dp).reshape(-1, TILE)
+    tmin_t = tmax_t = None
+    if tmin is not None or tmax is not None:
+        def per_ray(x, fill):
+            x = fill if x is None else x
+            x = torch.as_tensor(x, dtype=eye.dtype, device=eye.device)
+            return _pad_rays(x.expand(R).contiguous()).reshape(-1, TILE)
+
+        tmin_t, tmax_t = per_ray(tmin, 0.0), per_ray(tmax, _BIG)
+        tcap = torch.where(tcap < 0, tcap,
+                           torch.minimum(tcap, tmax_t * (1.0 + _ULP_PAD)))
+    slot, steps = _walk(cs, eye, order, ent, counts, d3, None, alive, tcap,
+                        tmin_t, tmax_t, mode="closest", chunk=chunk)
+    return slot.reshape(-1)[:R], _counters(steps)
+
+
+@torch.no_grad()
+def any_hit_f64(cs, origin_shift, origin_cols, dir_cols, skip=None,
+                chunk=None):
+    """All-float64 occlusion of rays with their own origins
+    (``megakernel.any_hit`` semantics): (bool (R,), counters)."""
+    R = dir_cols[0].shape[0]
+    if skip is None:
+        skip = torch.zeros(R, dtype=torch.bool, device=cs.lo.device)
+    o = tuple(origin_cols[a] - origin_shift[a] for a in range(3))
+    order, ent, counts, d3, o3, alive = _prepass(cs, origin_shift, dir_cols,
+                                                 o, ~skip)
+    root_lo, root_hi = _scene_root(cs)
+    tcap = _ray_tcap(root_lo - origin_shift, root_hi - origin_shift,
+                     tuple(_pad_rays(c) for c in dir_cols),
+                     tuple(_pad_rays(c) for c in o))
+    occ0 = _pad_rays(skip.to(torch.int32)).reshape(-1, TILE)
+    occ, steps = _walk(cs, origin_shift, order, ent, counts, d3, o3, alive,
+                       tcap.reshape(-1, TILE), occ0=occ0, mode="any",
+                       chunk=chunk)
+    return (occ.reshape(-1)[:R] > 0) & ~skip, _counters(steps)
+
+
+@torch.no_grad()
+def any_hit_to_point_f64(cs, dest, point_cols, skip=None, chunk=None):
+    """All-float64 occlusion of the segments from ``dest`` to each point
+    (``megakernel.any_hit_to_point`` semantics): (bool (R,), counters)."""
+    R = point_cols[0].shape[0]
+    if skip is None:
+        skip = torch.zeros(R, dtype=torch.bool, device=cs.lo.device)
+    d = tuple(point_cols[a] - dest[a] for a in range(3))
+    order, ent, counts, d3, _, alive = _prepass(cs, dest, d, None, ~skip)
+    root_lo, root_hi = _scene_root(cs)
+    tcap = _ray_tcap(root_lo - dest, root_hi - dest,
+                     tuple(_pad_rays(c) for c in d)).clamp(max=1.0 + _ULP_PAD)
+    occ0 = _pad_rays(skip.to(torch.int32)).reshape(-1, TILE)
+    occ, steps = _walk(cs, dest, order, ent, counts, d3, None, alive,
+                       tcap.reshape(-1, TILE), occ0=occ0, mode="any_dest",
+                       chunk=chunk)
+    return (occ.reshape(-1)[:R] > 0) & ~skip, _counters(steps)

@@ -23,11 +23,18 @@ ray), Gouraud weights (u, v, 1-u-v), and shadow rays from the hit point
 toward the sun with no upper bound, so geometry beyond the sun occludes
 (generic-origin rays, ``megakernel.any_hit``).
 
+Spheres (``spheres=(centers, radii)``) merge into the scene by closest
+t: the hit point is offset along the sphere's outward normal, smooth
+shading sees that normal on all three corners, and spheres occlude the
+shadow segments (the whole ray under ``reference_compat``).
+
+Precision follows the input dtype: float64 vertices render in float64,
+the search in float32 with every observed value recomputed in float64
+at the winners, or with ``f64_exact`` the search in float64 too.
+
 Stats: "rays" counts traversals (one per pixel plus one shadow ray per
 primary hit), "hits" counts primary hits plus occluded shadow rays, the
 reference renderer's counting.
-
-Not ported yet: spheres (ROADMAP M12) and float64 (M14).
 """
 
 from __future__ import annotations
@@ -43,6 +50,7 @@ from ceres_tpu_torch.models.camera import (Camera, camera_ray_columns,
 from ceres_tpu_torch.models.mesh import TriangleSoup, triangle_soup
 from ceres_tpu_torch.ops import intersect as mt
 from ceres_tpu_torch.ops import megakernel
+from ceres_tpu_torch.ops import sphere as sphere_ops
 from ceres_tpu_torch.utils import tiling
 
 SELF_INTERSECT_OFFSET = -1e-5
@@ -65,7 +73,9 @@ class RenderConfig:
     # The C++ reference's exact hit point, Gouraud weights and unbounded
     # shadow rays (module docstring).
     reference_compat: bool = False
-    f64_exact: bool = False         # ROADMAP M14
+    # The megakernel backend's search in float64 too (float64 inputs;
+    # ``ops.walk_f64``), for scenes finer than float32 resolution.
+    f64_exact: bool = False
 
 
 def _check_config(config: RenderConfig) -> None:
@@ -73,9 +83,6 @@ def _check_config(config: RenderConfig) -> None:
         raise ValueError(f"unknown backend: {config.backend}")
     if config.mode not in MODES:
         raise ValueError(f"unknown shading mode: {config.mode}")
-    if config.f64_exact:
-        raise NotImplementedError(
-            "f64_exact is not ported yet (ROADMAP item M14)")
 
 
 def _normalize(v):
@@ -170,13 +177,14 @@ def _compat_points(hit, pay, n_pay):
 
 def render_wavefront_cols(soup: TriangleSoup, camera: Camera, sun_position,
                           dir_cols, config: RenderConfig, clusters=None,
-                          table_cols=None):
+                          spheres=None, table_cols=None):
     """Column-form wavefront render on the cluster walk -> (3-tuple of
     (R,) colours, stats).
 
     ``dir_cols`` is a 3-tuple of (R,) normalised primary directions from
     ``camera.eye``; ``clusters`` the prebuilt ClusterSet of ``soup`` (None:
-    the treelet cut is built once for both wavefronts).
+    the treelet cut is built once for both wavefronts); ``spheres`` an
+    optional pair (centers (S, 3), radii (S,)) merged by closest t.
     """
     _check_config(config)
     clusters = megakernel._treelet(soup, clusters)
@@ -184,13 +192,34 @@ def render_wavefront_cols(soup: TriangleSoup, camera: Camera, sun_position,
     payload, n_pay = _payload_cols(soup, config)
     res = megakernel.closest_hit_common_origin(
         soup, camera.eye, dir_cols, clusters=clusters, payload=payload,
-        with_counts=want_counts, normal_cols=True, table_cols=table_cols)
+        with_counts=want_counts, normal_cols=True,
+        exact_f64=config.f64_exact, table_cols=table_cols)
     (hit, pay), counts1 = (res[:2], res[2]) if want_counts else (res, None)
     mask = hit.mask
     if config.reference_compat:
         point = _compat_points(hit, pay, n_pay)
     else:
         point = _hit_points(camera.eye, dir_cols, hit, pay[0:3])
+    n, u_eff, v_eff = pay[0:3], hit.u, hit.v
+    corner_cols = pay[3:12] if config.mode == "smooth" else None
+    if spheres is not None:
+        centers, radii = spheres
+        s_t, s_mask, _, s_nrm = sphere_ops.closest_hit_common_origin_cols(
+            camera.eye, dir_cols, centers, radii)
+        sph_win = s_mask & (s_t < hit.t)    # hit.t is inf at misses
+        mask = mask | s_mask
+        st_safe = torch.where(sph_win, s_t, 0.0)
+        # Offset along the outward normal: the triangles' -1e-5 * n runs
+        # along their left-handed normal, into the surface.
+        point = tuple(torch.where(
+            sph_win, camera.eye[a] + st_safe * dir_cols[a]
+            - SELF_INTERSECT_OFFSET * s_nrm[a], point[a]) for a in range(3))
+        n = tuple(torch.where(sph_win, s_nrm[a], n[a]) for a in range(3))
+        u_eff = torch.where(sph_win, 0.0, u_eff)
+        v_eff = torch.where(sph_win, 0.0, v_eff)
+        if corner_cols is not None:
+            corner_cols = [torch.where(sph_win, s_nrm[j % 3], corner_cols[j])
+                           for j in range(9)]
     sl = tuple(sun_position[a] - point[a] for a in range(3))
     sl_inv = torch.rsqrt(sl[0] * sl[0] + sl[1] * sl[1] + sl[2] * sl[2])
     sun_line = tuple(c * sl_inv for c in sl)
@@ -202,21 +231,28 @@ def render_wavefront_cols(soup: TriangleSoup, camera: Camera, sun_position,
             # toward the sun, so occluders beyond the sun darken too.
             res2 = megakernel.any_hit(
                 soup, _scene_center(soup), point, sun_line, skip=~mask,
-                clusters=clusters, with_counts=want_counts)
+                clusters=clusters, with_counts=want_counts,
+                exact_f64=config.f64_exact)
         else:
             res2 = megakernel.any_hit_to_point(
                 soup, sun_position, point, skip=~mask, clusters=clusters,
-                with_counts=want_counts)
+                with_counts=want_counts, exact_f64=config.f64_exact)
         occluded, counts2 = res2 if want_counts else (res2, None)
+        if spheres is not None:
+            # The segment test ends short of the sun.
+            tmax_s = (torch.inf if config.reference_compat
+                      else (1.0 / sl_inv) * (1.0 - 1e-4))
+            occluded = occluded | (sphere_ops.any_hit_cols(
+                point, sun_line, centers, radii, tmax=tmax_s) & mask)
     else:
         occluded = torch.zeros_like(mask)
 
     if config.mode == "smooth":
         shade = shading_mod.smooth_shading_cols(
-            sun_line, pay[3:12], dir_cols, hit.u, hit.v,
+            sun_line, corner_cols, dir_cols, u_eff, v_eff,
             reference_compat=config.reference_compat)
     else:
-        shade = shading_mod.flat_shading_cols(pay[0:3], guard=mask)
+        shade = shading_mod.flat_shading_cols(n, guard=mask)
         if config.mode == "normal":   # no lighting, no shadows
             occluded = torch.zeros_like(occluded)
     lit = mask & ~occluded
@@ -257,7 +293,7 @@ def _wavefront_stats(mask, occluded, R, soup, config, counts1, counts2):
 
 def render_wavefront(soup: TriangleSoup, camera: Camera, sun_position,
                      dirs: torch.Tensor, config: RenderConfig, clusters=None,
-                     table_cols=None):
+                     spheres=None, table_cols=None):
     """Render a flat wavefront of (R, 3) primary directions -> ((R, 3)
     colours, stats). The megakernel backend runs
     :func:`render_wavefront_cols`; brute force keeps the dense (R, 3)
@@ -266,36 +302,70 @@ def render_wavefront(soup: TriangleSoup, camera: Camera, sun_position,
     if config.backend == "megakernel":
         cols, stats = render_wavefront_cols(
             soup, camera, sun_position, tuple(dirs.unbind(-1)), config,
-            clusters=clusters, table_cols=table_cols)
+            clusters=clusters, spheres=spheres, table_cols=table_cols)
         return torch.stack(cols, dim=-1), stats
 
     hit = _closest_primary(soup, camera, dirs, config.backend)
     mask = hit.mask
-    prim = torch.where(mask, hit.prim_id, 0).long()
+    prim = torch.where(mask, hit.prim_id, 0)
     u, v = hit.u, hit.v
+    # One row gather of every per-triangle value the rays need
+    # (``megakernel._gather_rows``: its backward adds with atomics).
+    table = [soup.n]
     if config.mode == "smooth":
         if soup.corner_normals is None:
             raise ValueError("smooth shading requires corner_normals")
-        rec = torch.cat([soup.n, soup.corner_normals.reshape(-1, 9)],
-                        dim=-1)[prim]
-        n, corners = rec[:, :3], rec[:, 3:].reshape(-1, 3, 3)
-    else:
-        n, corners = soup.n[prim], None
+        table.append(soup.corner_normals.reshape(-1, 9))
     if config.reference_compat:
-        p0 = soup.p0[prim]
-        p1 = p0 - soup.e1[prim]
-        p2 = soup.e2[prim] + p0
+        table += [soup.p0, soup.e1, soup.e2]
+    rec = megakernel._gather_rows(torch.cat(table, dim=-1), prim)
+    n, rest = rec[:, :3], rec[:, 3:]
+    corners = None
+    if config.mode == "smooth":
+        corners, rest = rest[:, :9].reshape(-1, 3, 3), rest[:, 9:]
+    if config.reference_compat:
+        p0 = rest[:, 0:3]
+        p1 = p0 - rest[:, 3:6]
+        p2 = rest[:, 6:9] + p0
         point = (u[:, None] * p0 + v[:, None] * p1
                  + (1.0 - u - v)[:, None] * p2)
     else:
         t_safe = torch.where(mask, hit.t, 0.0)
         point = camera.eye + t_safe[:, None] * dirs
     point = point + SELF_INTERSECT_OFFSET * _normalize(n)
+
+    if spheres is not None:
+        # The dense form of render_wavefront_cols' sphere merge.
+        centers, radii = spheres
+        sph = sphere_ops.closest_hit(camera.eye.expand(dirs.shape), dirs,
+                                     centers, radii)
+        sph_win = sph.mask & (sph.t < torch.where(mask, hit.t, torch.inf))
+        mask = mask | sph.mask
+        st_safe = torch.where(sph_win, sph.t, 0.0)
+        s_point = camera.eye + st_safe[:, None] * dirs
+        s_nrm = sphere_ops.normal_at(s_point, centers, sph.sphere_id)
+        point = torch.where(sph_win[:, None],
+                            s_point - SELF_INTERSECT_OFFSET * s_nrm, point)
+        n = torch.where(sph_win[:, None], s_nrm, n)
+        u = torch.where(sph_win, 0.0, u)
+        v = torch.where(sph_win, 0.0, v)
+        if corners is not None:
+            corners = torch.where(sph_win[:, None, None], s_nrm[:, None, :],
+                                  corners)
     sun_line = _normalize(sun_position[None, :] - point)
 
     if config.shadows:
         occluded = _any_shadow(soup, point, sun_line, config.backend,
                                skip=~mask)
+        if spheres is not None:
+            if config.reference_compat:
+                tmax_s = torch.inf
+            else:
+                dist = torch.linalg.vector_norm(sun_position[None, :] - point,
+                                                dim=-1)
+                tmax_s = (dist * (1.0 - 1e-4))[:, None]
+            occluded = occluded | (sphere_ops.any_hit(
+                point, sun_line, centers, radii, tmax=tmax_s) & mask)
     else:
         occluded = torch.zeros_like(mask)
     if config.mode == "smooth":
@@ -321,31 +391,25 @@ def render_pipeline(vertices: torch.Tensor, faces: torch.Tensor,
 
     ``clusters`` is the prebuilt ClusterSet of this mesh (built once
     before a frame loop, like the reference's BVH); ``table_cols`` the
-    prebuilt winner table (prepare_winner_table). Runs on the device of
-    ``vertices``.
+    prebuilt winner table (prepare_winner_table); ``spheres`` an optional
+    pair (centers (S, 3), radii (S,)). Runs on the device and in the
+    dtype of ``vertices``.
     """
     if faces.shape[0] == 0:
         raise ValueError("scene has no triangles")
     _check_config(config)
-    if spheres is not None:
-        raise NotImplementedError("spheres are not ported yet (ROADMAP "
-                                  "item M12)")
-    if vertices.dtype != torch.float32:
-        raise NotImplementedError(
-            f"{vertices.dtype} vertices: only float32 is ported; float64 "
-            "is ROADMAP item M14")
     soup = triangle_soup(vertices, faces,
                          with_normals=config.mode == "smooth")
     if config.backend == "bruteforce":
         dirs = camera_rays(camera, config.width, config.height).reshape(-1, 3)
         color, stats = render_wavefront(soup, camera, sun_position, dirs,
-                                        config)
+                                        config, spheres=spheres)
         return color.reshape(config.height, config.width, 3), stats
     planes = camera_ray_columns(camera, config.width, config.height)
     dir_cols = tuple(tiling.swizzle_plane(p) for p in planes)
     color, stats = render_wavefront_cols(
         soup, camera, sun_position, dir_cols, config, clusters=clusters,
-        table_cols=table_cols)
+        spheres=spheres, table_cols=table_cols)
     image = torch.stack([tiling.unswizzle_plane(c, config.height, config.width)
                          for c in color], dim=-1)
     # Padding rays are inert; drop them from the ray count.
@@ -376,19 +440,32 @@ def render(vertices, faces, camera: Camera, sun_position,
     Inputs may be numpy arrays or tensors; everything runs on ``device``
     (default: the device of ``vertices`` if it is a tensor, else the
     card; without one it raises: pass ``device="cpu"`` to render on the
-    CPU). Without ``clusters`` the LBVH treelet cut is built on the
-    device first, as the JAX package's ``render`` does. For frame loops,
-    build the structure once (accel.clusters.build_clusters_treelet, or
-    the host quality cut accel.cuts.build_clusters_quality) and call
+    CPU). Precision follows the vertices' dtype: the camera, the sun and
+    ``spheres`` (centers reshaped to (S, 3), radii to (S,)) are taken in
+    it. Without ``clusters`` the LBVH treelet cut is built on the device
+    first, as the JAX package's ``render`` does. For frame loops, build
+    the structure once (accel.clusters.build_clusters_treelet, or the
+    host quality cut accel.cuts.build_clusters_quality) and call
     render_pipeline.
     """
     config = dataclasses.replace(config or RenderConfig(), **kwargs)
     device = resolve_device(vertices, device, "render")
     vertices = torch.as_tensor(vertices, device=device)
     faces = torch.as_tensor(faces, device=device)
-    sun_position = torch.as_tensor(sun_position, dtype=torch.float32,
-                                   device=device)
+    dtype = vertices.dtype
+    sun_position = torch.as_tensor(sun_position, dtype=dtype, device=device)
     camera = Camera.make(camera.eye, camera.dir, camera.up, camera.fov,
-                         device=device)
+                         dtype=dtype, device=device)
     return render_pipeline(vertices, faces, camera, sun_position, config,
-                           clusters=clusters, spheres=spheres)
+                           clusters=clusters,
+                           spheres=_as_spheres(spheres, dtype, device))
+
+
+def _as_spheres(spheres, dtype, device):
+    """An optional (centers, radii) pair as tensors: (S, 3) and (S,)."""
+    if spheres is None:
+        return None
+    centers, radii = spheres
+    centers = torch.as_tensor(centers, dtype=dtype, device=device)
+    radii = torch.as_tensor(radii, dtype=dtype, device=device)
+    return centers.reshape(-1, 3), radii.reshape(-1)

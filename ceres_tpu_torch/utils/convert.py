@@ -50,8 +50,16 @@ def camera(src, device=None) -> Camera:
 
 
 def transform(src, device=None) -> Transform:
-    """A ``Transform`` (matrix ``a``, translation ``v``), dtype kept."""
+    """A ``Transform`` (matrix ``a``, translation ``v``), dtype kept; a
+    stacked track keeps its leading frame axis."""
     return Transform(a=tensor(src.a, device), v=tensor(src.v, device))
+
+
+def spheres(src, device=None):
+    """A (centers, radii) pair -> ((S, 3), (S,)) tensors, dtype kept."""
+    centers, radii = src
+    return (tensor(centers, device).reshape(-1, 3),
+            tensor(radii, device).reshape(-1))
 
 
 def train_state(params, adam_state, device=None):

@@ -85,7 +85,31 @@ its own line:
      renders the image of a fresh build of the moved mesh at 256 x 256;
      K6 and K7a against their plain versions on the refitted cut at
      1080p; train steps at 1080p with the refit (``make_train_step``):
-     ms/step, peak memory, K6 and K7a launches a step (each >= 1).
+     ms/step, peak memory, K6 and K7a launches a step (each >= 1);
+ 15. the render CLI (``ceres_tpu_torch.cli.render.main``) at its
+     defaults: bunny 1920 x 1080, the LBVH treelet cut built on the card,
+     smooth shading and shadows: K1 and K2 launched once each, the image
+     within one level of ``render()``'s of the same inputs and its
+     Rays/Hits equal, K1 and K2 against
+     their plain versions on that frame's inputs, and the frame's ms with
+     the cut built in it (median of CUDA-event times); then ``--sphere``
+     with a sphere between the bunny and the sun (seen, and shadowing
+     it): K1 and K2 once each, and the card's image equal to the CPU's
+     at 128 x 128;
+ 16. float64 at 1080p through the CLI: ``-d`` launches K1 and K2 once
+     each and its image on the card equals the CPU's at 128 x 128;
+     ``--d-exact`` launches no walk kernel and its image is within 0.5%
+     of pixels of ``-d``'s; ``render()``'s float64 image, and the ms of a
+     frame of each (median of a few, the cut built in each), the exact
+     walk also at 64 tiles a chunk (same visits and counts);
+ 17. the anim CLI's frame loop (``cli.anim.render_frames``) at its
+     default 621 x 1344: 8 turntable frames in batches of 4 with
+     ``--save-frames``: the cut built once a batch, K1 and K2 launched
+     once a frame, the PNGs written, frames/s and rays/s; frame 3's walks
+     against their plain versions on its own inputs, and the frame equal
+     to ``render_pipeline`` with its camera and sun;
+     ``render_deforming_frames`` on 2 bunny frames with the cut refitted
+     equal to the cut rebuilt.
 
 Every kernel-vs-plain check holds each tile's executed visits, not only
 their sum, and prints the kernel's bound: the larger of its fp32
@@ -108,13 +132,16 @@ kernels' JSON record (every variant a path launches); the last line is
 the device record. Needs no network and no JAX.
 """
 
+import contextlib
 import dataclasses
+import io
 import json
 import os
 import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -124,6 +151,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 EYE = (0.0, 0.1, -0.3)       # bench.py's camera and sun
 SUN = (-50.0, 100.0, 0.0)
 FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_port_bunny_128.npz")
+BUNNY = os.path.join(ROOT, "data", "bunny.obj")
 LARGE_FIXTURE = os.path.join(ROOT, "tests", "fixtures",
                              "torch_port_bunny_subdiv4_64.npz")
 KERNEL_SOURCE = "ceres_tpu_torch/ops/csrc/walk.cu"
@@ -159,6 +187,12 @@ GRAD_SIZE = 128
 REFIT_SIZE = 256
 FIT_NOISE = 0.02
 LARGE_NOISE = 0.002
+# The CLIs (phases 15-17): float64 frames timed, the CPU comparison size,
+# and the anim app's default size, frames and batch.
+F64_FRAMES = 3
+CLI_CHECK = 128
+ANIM_W, ANIM_H = 621, 1344
+ANIM_FRAMES, ANIM_BATCH = 8, 4
 # Modes of the walk and their wrappers in ops.walk.
 WALKS = {"closest": "walk_closest", "closest_window": "walk_closest",
          "any_dest": "walk_any_dest", "any": "walk_any"}
@@ -231,8 +265,9 @@ def scene(name, dev):
     return vt, ft, cam, cs
 
 
-def walk_inputs(vt, ft, cam, cs, width, height, sun=SUN):
-    """The two walks' (args, opts) as the path builds them."""
+def walk_inputs(vt, ft, cam, cs, width, height, sun=SUN, dirs=None):
+    """The two walks' (args, opts) as the path builds them; ``dirs`` the
+    swizzled primary directions (default: the column pipeline's)."""
     import ceres_tpu_torch as ct
     from ceres_tpu_torch.models.camera import camera_ray_columns
     from ceres_tpu_torch.ops import megakernel as mk
@@ -240,8 +275,9 @@ def walk_inputs(vt, ft, cam, cs, width, height, sun=SUN):
     from ceres_tpu_torch.utils import tiling
 
     soup = ct.triangle_soup(vt, ft, with_normals=True)
-    dirs = tuple(tiling.swizzle_plane(p)
-                 for p in camera_ray_columns(cam, width, height))
+    if dirs is None:
+        dirs = tuple(tiling.swizzle_plane(p)
+                     for p in camera_ray_columns(cam, width, height))
     closest = mk._closest_inputs(cs, cam.eye, dirs)
     hit, pay = mk.closest_hit_common_origin(soup, cam.eye, dirs, clusters=cs,
                                             normal_cols=True)
@@ -481,13 +517,15 @@ def merge(counts, more):
 
 
 def read_ppm(path):
-    """A binary PPM as (H, W, 3) floats in [0, 1]."""
+    """A binary PPM as (H, W, 3) floats in [0, 1] (the header's fields on
+    one line or several)."""
     with open(path, "rb") as fh:
-        check(fh.readline().strip() == b"P6", f"{path}: not a P6 PPM")
-        w, h = map(int, fh.readline().split())
-        fh.readline()
-        data = np.frombuffer(fh.read(), np.uint8)
-    return data.reshape(h, w, 3).astype(np.float64) / 255.0
+        data = fh.read()
+    magic, w, h = data.split(maxsplit=3)[:3]
+    check(magic == b"P6", f"{path}: not a P6 PPM")
+    w, h = int(w), int(h)
+    pixels = np.frombuffer(data[len(data) - w * h * 3:], np.uint8)
+    return pixels.reshape(h, w, 3).astype(np.float64) / 255.0
 
 
 def against_fixture(img, st, path, label):
@@ -607,7 +645,7 @@ def ratio_line(step_t, fwd_t):
 
 
 def hold_walks(phase, vt, ft, cam, cs, width, height, label, card, sun=SUN,
-               reps=20):
+               reps=20, dirs=None):
     """The path's two walks on ``cs`` against their plain versions, as
     phase 3 holds them; returns their wrappers' names."""
     from ceres_tpu_torch.ops import walk
@@ -615,7 +653,7 @@ def hold_walks(phase, vt, ft, cam, cs, width, height, label, card, sun=SUN,
     names = []
     for mode, (args, opts) in zip(("closest", "any_dest"),
                                   walk_inputs(vt, ft, cam, cs, width, height,
-                                              sun)):
+                                              sun, dirs)):
         kname = walk._variant(mode, opts["S"], opts["stream"])
         r, _ = compare(mode, args, opts, reps=reps)
         report(phase, kname, f"{label} {width}x{height} ({args[1].shape[0]} "
@@ -878,6 +916,286 @@ def phase14(dev, card, v, f, cs0):
           f"{peak / 2**20:.1f} MiB; launches a step {launches}; losses "
           f"{losses} [{card}]", flush=True)
     return launches
+
+
+def run_cli(fn, *args):
+    """(fn(*args), what it printed): a CLI function, its output kept."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args)
+    return out, buf.getvalue()
+
+
+def cli_counts(text):
+    """The Rays/Hits lines a render CLI printed."""
+    return {k: int(n) for k, n in re.findall(r"^(Rays|Hits): (\d+)$", text,
+                                             re.M)}
+
+
+def ppm_off(a, b):
+    """Share of pixels of two PPM files more than one level of 255 apart."""
+    return float((np.abs(read_ppm(a) - read_ppm(b)).max(-1)
+                  > 1.5 / 255).mean())
+
+
+def render_cli(tmp, name, flags, dev):
+    """``cli.render.main`` writing tmp/name.ppm on ``dev``: (path, its
+    Rays/Hits, the walk launches it made)."""
+    from ceres_tpu_torch.cli import render as cli
+
+    path = os.path.join(tmp, f"{name}.ppm")
+    (rc, text), launches = launches_of(
+        lambda: run_cli(cli.main, [BUNNY, "-o", path, *flags], dev))
+    check(rc == 0 and os.path.exists(path), f"ceres-torch-render {flags} "
+          f"failed: {text}")
+    return path, cli_counts(text), launches
+
+
+def against_cpu(tmp, name, flags, dev, label):
+    """The render CLI at CLI_CHECK x CLI_CHECK on the card and on the CPU:
+    fewer than 0.5% of pixels more than one level apart."""
+    size = ["--width", str(CLI_CHECK), "--height", str(CLI_CHECK)]
+    card, counts, _ = render_cli(tmp, f"{name}_card", [*flags, *size], dev)
+    cpu, cpu_counts, _ = render_cli(tmp, f"{name}_cpu", [*flags, *size],
+                                    "cpu")
+    off = ppm_off(card, cpu)
+    print(f"{label} card vs CPU {CLI_CHECK}x{CLI_CHECK}: pixels more than "
+          f"one level apart {off:.4%} (limit 0.5%); Rays/Hits card "
+          f"{counts} CPU {cpu_counts}", flush=True)
+    check(off < 0.005, f"{label}: the card's image differs from the CPU's")
+
+
+K1_K2_ONCE = {"walk_closest": 1, "walk_any_dest": 1}
+
+
+def phase15(dev, card, tmp):
+    """The render CLI at its defaults, then with a sphere."""
+    import ceres_tpu_torch as ct
+    from ceres_tpu_torch.accel.clusters import build_clusters_treelet
+    from ceres_tpu_torch.utils.image import write_ppm
+
+    path, counts, launches = render_cli(tmp, "cli", [], dev)
+    check(launches == K1_K2_ONCE,
+          f"phase 15: the CLI frame launched {launches}, not K1 and K2 once")
+    v, f = ct.load_obj(BUNNY)
+    cam = camera(v, EYE, dev)
+    config = ct.RenderConfig(width=W, height=H, backend="megakernel")
+    img, st = ct.render(v, f, cam, SUN, config=config, device=dev)
+    ref = os.path.join(tmp, "render.ppm")
+    write_ppm(ref, img.cpu().numpy())
+    # Vertex normals are summed with atomics (index_add_) on the card, so
+    # two renders differ in the last bits of their shading: a level at
+    # most after quantisation, never a hit or a shadow.
+    levels = np.abs(read_ppm(path) - read_ppm(ref)).max(-1) * 255.0
+    print(f"phase 15 render CLI, bunny {W}x{H} at its defaults (lbvh "
+          f"treelet cut, smooth, shadows): launches {launches}; "
+          f"Rays/Hits {counts}; against render()'s image: "
+          f"{int((levels > 0.5).sum())} pixels one level apart, "
+          f"{int((levels > 1.5).sum())} more (limit 0)", flush=True)
+    check(int((levels > 1.5).sum()) == 0
+          and counts == {"Rays": int(st["rays"]), "Hits": int(st["hits"])},
+          "phase 15: the CLI's frame differs from render()'s")
+    vt, ft = torch.as_tensor(v, device=dev), torch.as_tensor(f, device=dev)
+    cs = build_clusters_treelet(ct.triangle_soup(vt, ft, with_normals=False))
+    check(hold_walks(15, vt, ft, cam, cs, W, H, "bunny CLI frame, treelet "
+                     "cut,", card) == ["walk_closest", "walk_any_dest"],
+          "phase 15: the CLI frame is not walked by K1 and K2")
+    sun = np.asarray(SUN, np.float32)
+    times, walls = frame_times(lambda i: ct.render(
+        v, f, cam, sun + i * 1e-3, config=config, device=dev), FRAMES)
+    ms = statistics.median(times)
+    print(f"phase 15 CLI frame through render(), bunny {W}x{H}, the treelet "
+          f"cut built in each frame: ms/frame median {ms:.3f} (min "
+          f"{min(times):.3f} max {max(times):.3f}, host wall median "
+          f"{statistics.median(walls):.3f}); rays/s "
+          f"{int(st['rays']) / (ms / 1e3):.4e} [{card}]", flush=True)
+
+    # A sphere between the bunny and the sun: seen, and shadowing it.
+    center = v.mean(0)
+    up = (sun - center) / np.linalg.norm(sun - center)
+    sphere = [float(x) for x in center + 0.06 * up] + [0.02]
+    flags = ["--sphere", *(repr(float(x)) for x in sphere)]
+    _, counts, slaunch = render_cli(tmp, "sphere", flags, dev)
+    check(slaunch == K1_K2_ONCE,
+          f"phase 15: the sphere frame launched {slaunch}")
+    small = ct.RenderConfig(width=CLI_CHECK, height=CLI_CHECK,
+                            backend="megakernel")
+    st0 = ct.render(v, f, cam, SUN, config=small, device=dev)[1]
+    st1 = ct.render(v, f, cam, SUN, config=small, device=dev,
+                    spheres=(sphere[:3], sphere[3:]))[1]
+    print(f"phase 15 render CLI --sphere {sphere}: launches {slaunch}; "
+          f"Rays/Hits {counts}; at {CLI_CHECK}x{CLI_CHECK} primary hits "
+          f"{int(st0['primary_hits'])} -> {int(st1['primary_hits'])}, shadow "
+          f"hits {int(st0['shadow_hits'])} -> {int(st1['shadow_hits'])}",
+          flush=True)
+    check(int(st1["primary_hits"]) > int(st0["primary_hits"])
+          and int(st1["shadow_hits"]) > int(st0["shadow_hits"]),
+          "phase 15: the sphere is not seen or casts no shadow")
+    against_cpu(tmp, "sphere", flags, dev, "phase 15 render CLI --sphere")
+    return merge(launches, slaunch)
+
+
+def phase16(dev, card, tmp):
+    """Float64 through the CLI: -d and --d-exact at 1080p."""
+    import ceres_tpu_torch as ct
+    from ceres_tpu_torch.ops import walk_f64
+
+    d_path, d_counts, d_launch = render_cli(tmp, "d", ["-d"], dev)
+    check(d_launch == K1_K2_ONCE,
+          f"phase 16: -d launched {d_launch}, not K1 and K2 once")
+    x_path, x_counts, x_launch = render_cli(tmp, "d_exact", ["--d-exact"],
+                                            dev)
+    check(not x_launch, f"phase 16: --d-exact launched {x_launch}")
+    off = ppm_off(d_path, x_path)
+    print(f"phase 16 render CLI -d {W}x{H}: launches {d_launch}, Rays/Hits "
+          f"{d_counts}; --d-exact: launches {x_launch}, Rays/Hits "
+          f"{x_counts}; pixels more than one level apart {off:.4%} (limit "
+          f"0.5%)", flush=True)
+    check(off < 0.005, "phase 16: --d-exact's image differs from -d's")
+    against_cpu(tmp, "d", ["-d"], dev, "phase 16 render CLI -d")
+
+    v, f = ct.load_obj(BUNNY)
+    v64 = v.astype(np.float64)
+    eye = np.asarray(EYE)
+    cam = ct.Camera.make(eye=eye, dir=v64.mean(0) - eye, up=(0, 1, 0),
+                         fov=60.0, dtype=torch.float64, device=dev)
+    sun = np.asarray(SUN)
+    line, counts = [], {}
+    chunk = walk_f64._CHUNK_CUDA
+    # --d-exact also at the JAX package's 64 tiles a chunk: the same
+    # visits and counts, and the time the card's 512 tiles save.
+    for label, exact, chunk_k in (("-d", False, chunk),
+                                  ("--d-exact", True, chunk),
+                                  ("--d-exact, 64 tiles a chunk", True, 64)):
+        config = ct.RenderConfig(width=W, height=H, backend="megakernel",
+                                 f64_exact=exact, traversal_stats=True)
+
+        def frame(i):
+            return ct.render(v64, f, cam, sun + i * 1e-3, config=config,
+                             device=dev)
+
+        walk_f64._CHUNK_CUDA = chunk_k
+        try:
+            (img, st), _ = timed_once(lambda: frame(0))
+            times = [timed_once(lambda: frame(i + 1))[1]
+                     for i in range(F64_FRAMES)]
+        finally:
+            walk_f64._CHUNK_CUDA = chunk
+        check(img.dtype == torch.float64 and bool(torch.isfinite(img).all()),
+              f"phase 16 {label}: not a finite float64 image")
+        counts[label] = {k: int(st[k]) for k in ("rays", "hits",
+                                                 "traversal_steps")}
+        line.append(f"{label}: ms/frame median {statistics.median(times):.3f} "
+                    f"({[round(t, 3) for t in times]}), executed visits "
+                    f"{int(st['traversal_steps'])}")
+    print(f"phase 16 float64 bunny {W}x{H} through render(), the treelet cut "
+          f"built in each frame, CUDA events, {F64_FRAMES} frames after one: "
+          f"{'; '.join(line)} [{card}]", flush=True)
+    check(counts["--d-exact"] == counts["--d-exact, 64 tiles a chunk"],
+          f"phase 16: the chunk size changed the exact walk: {counts}")
+    return d_launch
+
+
+def phase17(dev, card, tmp):
+    """The anim CLI's frame loop at its default size; deforming frames."""
+    import ceres_tpu_torch as ct
+    from ceres_tpu_torch.accel import clusters as cl
+    from ceres_tpu_torch.cli import anim
+    from ceres_tpu_torch.models.camera import camera_rays_rows
+    from ceres_tpu_torch.ops.intersect import full_fp32_matmul
+    from ceres_tpu_torch.parallel.sharded import (render_deforming_frames,
+                                                  turntable_transforms)
+    from ceres_tpu_torch.utils import tiling
+    from ceres_tpu_torch.utils.image import to_uint8
+
+    frames_dir = os.path.join(tmp, "frames")
+    args = anim.build_parser().parse_args(
+        [BUNNY, "-o", os.path.join(tmp, "anim.mp4"), "--frames",
+         str(ANIM_FRAMES), "--batch", str(ANIM_BATCH), "--save-frames",
+         frames_dir])
+    builds = []
+    real_build = cl.build_clusters_treelet
+
+    def counted_build(*a, **k):
+        builds.append(1)
+        return real_build(*a, **k)
+
+    cl.build_clusters_treelet = counted_build
+    try:
+        torch.cuda.synchronize()
+        ((u8, rays, secs), _), launches = launches_of(
+            lambda: run_cli(anim.render_frames, args, dev))
+    finally:
+        cl.build_clusters_treelet = real_build
+    batches = -(-ANIM_FRAMES // ANIM_BATCH)
+    written = sum(os.path.exists(anim.frame_path(args, k))
+                  for k in range(ANIM_FRAMES))
+    per_frame = {"walk_closest": ANIM_FRAMES, "walk_any_dest": ANIM_FRAMES}
+    print(f"phase 17 anim CLI frame loop, bunny {ANIM_W}x{ANIM_H}, "
+          f"{ANIM_FRAMES} turntable frames in batches of {ANIM_BATCH}, "
+          f"--save-frames: {secs:.3f} s on the host clock (PNG writes "
+          f"included), {ANIM_FRAMES / secs:.3f} frames/s, {rays} rays, "
+          f"{rays / secs:.4e} rays/s; cut builds {len(builds)} ({batches} "
+          f"batches); launches {launches}; PNGs written {written} [{card}]",
+          flush=True)
+    check(len(builds) == batches, f"phase 17: {len(builds)} cut builds for "
+          f"{batches} batches")
+    check(launches == per_frame, f"phase 17: launches {launches}, not K1 "
+          f"and K2 once a frame")
+    check(written == ANIM_FRAMES and all(x is not None for x in u8),
+          "phase 17: frames missing")
+
+    # Frame 3 on its own inputs: its walks, and render_pipeline's image.
+    k = 3
+    v, f = ct.load_obj(BUNNY)
+    center = v.mean(axis=0)
+    eye = center + np.asarray(
+        [0, 0, -2.5 * float(np.linalg.norm(v - center, axis=1).max())],
+        np.float32)
+    cam = ct.Camera.make(eye=eye, dir=center - eye, up=(0, 1, 0), fov=60.0,
+                         device=dev)
+    tf = turntable_transforms(ANIM_FRAMES, device=dev).frame(k)
+    with full_fp32_matmul():
+        cam_k = ct.Camera(eye=tf(cam.eye), dir=tf.a @ cam.dir, up=cam.up,
+                          fov=cam.fov)
+    sun_k = tf(torch.as_tensor(SUN, device=dev))
+    vt, ft = torch.as_tensor(v, device=dev), torch.as_tensor(f, device=dev)
+    cs = cl.build_clusters_treelet(ct.triangle_soup(vt, ft,
+                                                    with_normals=False))
+    dirs = tuple(tiling.swizzle(camera_rays_rows(
+        cam_k, ANIM_W, ANIM_H, 0, ANIM_H)).unbind(-1))
+    check(hold_walks(17, vt, ft, cam_k, cs, ANIM_W, ANIM_H,
+                     f"bunny anim frame {k}, treelet cut,", card, sun=sun_k,
+                     dirs=dirs) == ["walk_closest", "walk_any_dest"],
+          "phase 17: the anim frame is not walked by K1 and K2")
+    config = ct.RenderConfig(width=ANIM_W, height=ANIM_H,
+                             backend="megakernel")
+    img, _ = ct.render_pipeline(vt, ft, cam_k, sun_k, config)
+    ref = to_uint8(img.cpu().numpy())[::-1].astype(int)
+    off = float((np.abs(u8[k].astype(int) - ref).max(-1) > 1).mean())
+    print(f"phase 17 anim frame {k} against render_pipeline with its camera "
+          f"and sun: pixels more than one level apart {off:.4%} (limit "
+          f"0.5%)", flush=True)
+    check(off < 0.005, "phase 17: the anim frame differs from "
+          "render_pipeline's")
+
+    scale = float(np.abs(v - center).max())
+    noise = np.random.default_rng(17).standard_normal(v.shape)
+    vf = np.stack([v, v + LARGE_NOISE * scale * noise]).astype(np.float32)
+    opts = dict(width=ANIM_W, height=ANIM_H, backend="megakernel",
+                device=dev)
+    (refit, st), dlaunch = launches_of(lambda: render_deforming_frames(
+        vf, f, cam, SUN, **opts))
+    rebuilt, _ = render_deforming_frames(vf, f, cam, SUN, refit=False, **opts)
+    fracs = [float(((refit[i] - rebuilt[i]).abs().amax(-1) > 1e-4)
+                   .float().mean()) for i in range(2)]
+    print(f"phase 17 render_deforming_frames, 2 bunny frames (seeded noise "
+          f"{LARGE_NOISE} of the extent), refitted cut against rebuilt: "
+          f"pixels off by >1e-4 {[f'{x:.4%}' for x in fracs]} (limit 0.5%); "
+          f"launches {dlaunch}; rays {int(st['rays'])}", flush=True)
+    check(max(fracs) < 0.005 and float(refit.max()) > 0,
+          "phase 17: the refitted frames differ from the rebuilt ones")
+    return merge(launches, dlaunch)
 
 
 def main():
@@ -1146,6 +1464,11 @@ def main():
                     "bunny x4": meshes[4]}))
     path_launches = merge(path_launches,
                           phase14(dev, card, *meshes[4], large[4][3]))
+
+    # Phases 15-17: the command-line apps.
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        for phase in (phase15, phase16, phase17):
+            path_launches = merge(path_launches, phase(dev, card, tmp))
     missing = [k for k in REPLACES if not path_launches.get(k)]
     check(not missing, f"no path launched {missing}")
 

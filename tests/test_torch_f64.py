@@ -1,0 +1,316 @@
+"""Float64 in the port against the JAX package under ``jax.enable_x64()``,
+on the CPU.
+
+  * the LBVH treelet cut of the float64 bunny soup: perm, super table and
+    records exactly, boxes bit-equal (float64);
+  * the all-float64 walk (``ops.walk_f64``) on the JAX package's cut:
+    winner slots, occlusion flags and executed visits exactly, for the
+    closest search and both occlusion forms, at two chunk sizes; and on
+    the two sheets closer than a float32 ulp of ``tests/test_f64_walk.py``
+    (the exact search finds the near sheet, the float32 search the far
+    one, as in the JAX package);
+  * ``render()`` of float64 vertices on both backends, with and without
+    ``f64_exact``: images within 1e-9 and every count exactly;
+  * ``exact_f64`` against a float64 brute-force oracle on a seeded soup:
+    the same hits, ids equal except at exact float64 ties, t within
+    rtol 1e-12;
+  * the dtype refusals, and the float64 boxes of the quality cut.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ceres_tpu.accel import clusters as jcl
+from ceres_tpu.models.camera import Camera as JaxCamera
+from ceres_tpu.models.camera import camera_ray_columns as jax_ray_columns
+from ceres_tpu.models.mesh import triangle_soup as jax_soup
+from ceres_tpu.ops import megakernel as jmk
+from ceres_tpu.ops import walk_f64 as jwalk
+from ceres_tpu.render.renderer import render as jax_render
+from ceres_tpu.utils import tiling as jtiling
+
+import ceres_tpu_torch as ct
+from ceres_tpu_torch.accel.clusters import (ClusterSet,
+                                            build_clusters_treelet)
+from ceres_tpu_torch.accel.cuts import build_clusters_quality
+from ceres_tpu_torch.ops import megakernel as pmk
+from ceres_tpu_torch.ops import walk_f64 as pwalk
+from ceres_tpu_torch.utils import convert
+
+torch.set_num_threads(1)
+SUN = np.asarray([-50.0, 100.0, 0.0])
+EYE = np.asarray([0.0, 0.1, -0.3])
+
+
+@pytest.fixture(scope="module")
+def f64_scene(bunny):
+    """The float64 bunny: JAX soup and jitted treelet cut, camera, and the
+    64 x 64 swizzled primary rays, all float64."""
+    verts, faces = bunny
+    v64 = verts.astype(np.float64)
+    with jax.enable_x64():
+        soup = jax_soup(jnp.asarray(v64), jnp.asarray(faces),
+                        with_normals=False)
+        cs = jax.jit(jcl.build_clusters_treelet)(soup)
+        cam = JaxCamera.make(eye=EYE, dir=v64.mean(0) - EYE, up=(0, 1, 0),
+                             fov=60.0, dtype=jnp.float64)
+        dirs = tuple(jtiling.swizzle_plane(p)
+                     for p in jax_ray_columns(cam, 64, 64))
+        jax.block_until_ready((cs, dirs))
+    return v64, faces, soup, cs, cam, dirs
+
+
+def _t(x):
+    return convert.tensor(x)
+
+
+def test_f64_treelet_cut_equals_jax(f64_scene):
+    v64, faces, jsoup, jcs, _, _ = f64_scene
+    cs = build_clusters_treelet(ct.triangle_soup(
+        torch.as_tensor(v64), torch.as_tensor(faces), with_normals=False))
+    assert cs.lo.dtype == torch.float64 and cs.p0.dtype == torch.float64
+    np.testing.assert_array_equal(cs.perm.numpy(), np.asarray(jcs.perm))
+    np.testing.assert_array_equal(cs.super_first.numpy(),
+                                  np.asarray(jcs.super_first))
+    for name in ("lo", "hi", "p0", "e1", "e2", "n"):
+        np.testing.assert_array_equal(getattr(cs, name).numpy(),
+                                      np.asarray(getattr(jcs, name)), name)
+
+
+@pytest.fixture(scope="module")
+def jax_walks(f64_scene):
+    """The JAX package's float64 walks on the bunny's 64 x 64 rays:
+    closest slots, then shadow segments from points along the rays to the
+    sun and generic rays from them toward it, skipping the misses."""
+    _, _, jsoup, jcs, cam, dirs = f64_scene
+    with jax.enable_x64():
+        slot, cnt = jwalk.closest_search_f64(jcs, cam.eye, dirs)
+        skip = jnp.asarray(np.asarray(slot) < 0)
+        pts = tuple(cam.eye[a] + 0.25 * dirs[a] for a in range(3))
+        sun = jnp.asarray(SUN)
+        dest, dcnt = jwalk.any_hit_to_point_f64(jcs, sun, pts, skip=skip)
+        sl = tuple(sun[a] - pts[a] for a in range(3))
+        inv = 1.0 / jnp.sqrt(sl[0] ** 2 + sl[1] ** 2 + sl[2] ** 2)
+        sl = tuple(c * inv for c in sl)
+        center = jnp.mean(jsoup.p0, axis=0)
+        gen, gcnt = jwalk.any_hit_f64(jcs, center, pts, sl, skip=skip)
+    return {"closest": (slot, cnt), "any_dest": (dest, dcnt),
+            "any": (gen, gcnt), "skip": skip, "pts": pts, "sl": sl,
+            "center": center}
+
+
+@pytest.mark.parametrize("chunk", [None, 7])
+def test_f64_walk_equals_jax(f64_scene, jax_walks, chunk):
+    # A tile's visits do not depend on its chunk: 7 tiles a chunk gives
+    # the same slots, flags and visits as the JAX package's 64.
+    _, _, _, jcs, cam, dirs = f64_scene
+    cs = convert.cluster_set(jcs)
+    d = tuple(map(_t, dirs))
+    slot, cnt = pwalk.closest_search_f64(cs, _t(cam.eye), d, chunk=chunk)
+    jslot, jcnt = jax_walks["closest"]
+    assert int((np.asarray(jslot) >= 0).sum()) > 100
+    np.testing.assert_array_equal(slot.numpy(), np.asarray(jslot))
+    assert int(cnt["traversal_steps"]) == int(jcnt["traversal_steps"])
+
+    skip, pts = _t(jax_walks["skip"]), tuple(map(_t, jax_walks["pts"]))
+    occ, cnt = pwalk.any_hit_to_point_f64(cs, _t(SUN), pts, skip=skip,
+                                          chunk=chunk)
+    jocc, jcnt = jax_walks["any_dest"]
+    assert 0 < int(np.asarray(jocc).sum())
+    np.testing.assert_array_equal(occ.numpy(), np.asarray(jocc))
+    assert int(cnt["traversal_steps"]) == int(jcnt["traversal_steps"])
+
+    occ, cnt = pwalk.any_hit_f64(cs, _t(jax_walks["center"]), pts,
+                                 tuple(map(_t, jax_walks["sl"])), skip=skip,
+                                 chunk=chunk)
+    jocc, jcnt = jax_walks["any"]
+    assert 0 < int(np.asarray(jocc).sum())
+    np.testing.assert_array_equal(occ.numpy(), np.asarray(jocc))
+    assert int(cnt["traversal_steps"]) == int(jcnt["traversal_steps"])
+
+
+def test_f64_windowed_search_equals_jax(f64_scene):
+    _, _, _, jcs, cam, dirs = f64_scene
+    tmin, tmax = 0.1, 0.35
+    with jax.enable_x64():
+        jslot, jcnt = jwalk.closest_search_f64(jcs, cam.eye, dirs, tmin=tmin,
+                                               tmax=tmax)
+    slot, cnt = pwalk.closest_search_f64(convert.cluster_set(jcs),
+                                         _t(cam.eye), tuple(map(_t, dirs)),
+                                         tmin=tmin, tmax=tmax)
+    np.testing.assert_array_equal(slot.numpy(), np.asarray(jslot))
+    assert int(cnt["traversal_steps"]) == int(jcnt["traversal_steps"])
+
+
+def _sheets():
+    """Two sheets 0.0004 apart at z ~ 10000, below a float32 ulp there;
+    the far one packed in slot 0. (vertices, faces, ClusterSet fields)."""
+    z_far, z_near = 10000.0004, 10000.0
+    assert np.float32(z_far) == np.float32(z_near)
+    verts = np.asarray([[-9000.0, -9000.0, z_far], [9000.0, -9000.0, z_far],
+                        [0.0, 9000.0, z_far], [-9000.0, -9000.0, z_near],
+                        [9000.0, -9000.0, z_near], [0.0, 9000.0, z_near]])
+    return verts, np.asarray([[0, 1, 2], [3, 4, 5]], np.int32)
+
+
+def test_sub_f32_ulp_sheets_equal_jax():
+    verts, faces = _sheets()
+    C = 128
+
+    def packed(soup, xp, cat, full):
+        def pk(a):
+            return cat([a, xp.zeros((C - 2, 3), dtype=a.dtype)])[None]
+        pts = verts.reshape(-1, 3)
+        return dict(p0=pk(soup.p0), e1=pk(soup.e1), e2=pk(soup.e2),
+                    n=pk(soup.n), lo=full(pts.min(0))[None],
+                    hi=full(pts.max(0))[None])
+
+    dirs = np.asarray([[0.0, 0.0, 1.0]])
+    with jax.enable_x64():
+        jsoup = jax_soup(jnp.asarray(verts), jnp.asarray(faces),
+                         with_normals=False)
+        jcs = jcl.ClusterSet(**packed(jsoup, jnp, jnp.concatenate,
+                                      jnp.asarray),
+                             perm=jnp.asarray([0, 1] + [-1] * (C - 2),
+                                              jnp.int32))
+        jhit = jmk.closest_hit_common_origin(jsoup, jnp.zeros(3),
+                                             jnp.asarray(dirs), clusters=jcs,
+                                             exact_f64=True)
+    soup = ct.triangle_soup(torch.as_tensor(verts), torch.as_tensor(faces),
+                            with_normals=False)
+    cs = ClusterSet(**packed(soup, torch, torch.cat, torch.as_tensor),
+                    perm=torch.as_tensor([0, 1] + [-1] * (C - 2),
+                                         dtype=torch.int32))
+    eye, d = torch.zeros(3, dtype=torch.float64), torch.as_tensor(dirs)
+    acc = pmk.closest_hit_common_origin(soup, eye, d, clusters=cs)
+    exact = pmk.closest_hit_common_origin(soup, eye, d, clusters=cs,
+                                          exact_f64=True)
+    assert int(acc.prim_id[0]) == 0                  # the far sheet
+    assert int(exact.prim_id[0]) == 1 == int(np.asarray(jhit.prim_id)[0])
+    assert float(exact.t[0]) == 10000.0 == float(np.asarray(jhit.t)[0])
+    np.testing.assert_allclose(float(acc.t[0]) - float(exact.t[0]), 0.0004,
+                               rtol=1e-6)
+
+
+@pytest.mark.parametrize("backend, exact", [("bruteforce", False),
+                                            ("megakernel", False),
+                                            ("megakernel", True)])
+def test_f64_render_equals_jax(f64_scene, backend, exact):
+    v64, faces, _, _, cam, _ = f64_scene
+    opts = dict(width=48, height=48, backend=backend, f64_exact=exact,
+                traversal_stats=True)
+    with jax.enable_x64():
+        jimg, jst = jax_render(v64, faces, cam, SUN, **opts)
+        jimg, jst = np.asarray(jimg), {k: int(v) for k, v in jst.items()}
+    img, st = ct.render(v64, faces, convert.camera(cam), SUN, device="cpu",
+                        **opts)
+    st = {k: int(v) for k, v in st.items()}
+    assert img.dtype == torch.float64
+    np.testing.assert_allclose(img.numpy(), jimg, rtol=0, atol=1e-9)
+    assert jst["primary_hits"] > 100
+    if backend == "megakernel" and not exact:
+        # The float32 search of float64 inputs: the JAX package compiles
+        # the whole render under jit, and its shadow walk visits other
+        # blocks (212 against 197 here) for the same flags. The port's
+        # visits are those of its float32 render of the same scene.
+        walked = ("traversal_steps", "mt_block_visits", "intersections")
+        _, st32 = ct.render(v64.astype(np.float32), faces, convert.camera(cam),
+                            SUN.astype(np.float32), device="cpu", **opts)
+        assert {k: st[k] for k in walked} == {k: int(st32[k])
+                                              for k in walked}
+        st = {k: v for k, v in st.items() if k not in walked}
+        jst = {k: v for k, v in jst.items() if k not in walked}
+    assert st == jst
+
+
+def _np_closest_f64(p0, e1, e2, n, eye, d):
+    """NumPy float64 brute-force closest hit: (prim ids, -1 for a miss;
+    every pair's t)."""
+    c = p0 - eye
+    det = d @ n.T
+    r = np.cross(d[:, None, :], c[None, :, :])
+    u = np.einsum("rfa,fa->rf", r, e2)
+    v = np.einsum("rfa,fa->rf", r, e1)
+    tn = np.einsum("fa,fa->f", n, c)[None, :]
+    s = np.where(det >= 0, 1.0, -1.0)
+    uvw = np.minimum(np.minimum(u * s, v * s), (det - u - v) * s)
+    ok = (np.minimum(uvw, tn * s) >= 0) & (det != 0)
+    t = np.where(ok, tn / np.where(det != 0, det, 1.0), np.inf)
+    best = t.min(axis=1)
+    return np.where(np.isfinite(best), t.argmin(axis=1), -1), t
+
+
+def test_exact_f64_matches_the_f64_oracle():
+    rng = np.random.default_rng(5)
+    verts = rng.standard_normal((80, 3))
+    faces = rng.integers(0, 80, (200, 3)).astype(np.int32)
+    d = rng.standard_normal((600, 3))
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    eye = np.asarray([0.0, 0.0, -4.0])
+    soup = ct.triangle_soup(torch.as_tensor(verts), torch.as_tensor(faces),
+                            with_normals=False)
+    hit = pmk.closest_hit_common_origin(soup, torch.as_tensor(eye),
+                                        torch.as_tensor(d), exact_f64=True)
+    ref, t_all = _np_closest_f64(*(x.numpy() for x in (
+        soup.p0, soup.e1, soup.e2, soup.n)), eye, d)
+    prim = torch.where(hit.mask, hit.prim_id, -1).numpy()
+    assert ((prim >= 0) == (ref >= 0)).all() and (ref >= 0).sum() > 20
+    for i in np.nonzero(prim != ref)[0]:      # exact float64 ties only
+        assert t_all[i, prim[i]] == t_all[i, ref[i]]
+    m = (prim == ref) & (prim >= 0)
+    t_ref = t_all[np.arange(600), np.clip(prim, 0, None)]
+    np.testing.assert_allclose(hit.t.numpy()[m], t_ref[m], rtol=1e-12)
+
+
+@pytest.mark.parametrize("fn", ["closest", "any", "any_dest"])
+def test_exact_f64_dtype_refusals(bunny, fn):
+    # A float32 soup, and a float32 ClusterSet under a float64 soup (which
+    # the JAX package does not check), are refused by name.
+    verts, faces = bunny
+    soups = {dt: ct.triangle_soup(torch.as_tensor(verts, dtype=dt),
+                                  torch.as_tensor(faces), with_normals=False)
+             for dt in (torch.float32, torch.float64)}
+    cs32 = build_clusters_treelet(soups[torch.float32])
+    pts = soups[torch.float64].p0[:8] + 0.1
+    dirs = torch.nn.functional.normalize(pts - 1.0, dim=-1)
+
+    def call(soup, clusters):
+        o = torch.zeros(3, dtype=soup.p0.dtype)
+        p, d = pts.to(soup.p0.dtype), dirs.to(soup.p0.dtype)
+        if fn == "closest":
+            return pmk.closest_hit_common_origin(soup, o, d, clusters=clusters,
+                                                 exact_f64=True)
+        if fn == "any":
+            return pmk.any_hit(soup, o, p, d, clusters=clusters,
+                               exact_f64=True)
+        return pmk.any_hit_to_point(soup, o + 5.0, p, clusters=clusters,
+                                    exact_f64=True)
+
+    with pytest.raises(ValueError, match="float64 soup"):
+        call(soups[torch.float32], None)
+    with pytest.raises(ValueError, match="float64 ClusterSet"):
+        call(soups[torch.float64], cs32)
+    call(soups[torch.float64], None)
+
+
+def test_quality_cut_boxes_follow_the_soup_dtype(bunny):
+    # float32 soups keep the host tree's float32 boxes; a float64 soup
+    # gets each cluster's exact float64 bound over the same cut.
+    verts, faces = bunny
+    cuts = {dt: build_clusters_quality(ct.triangle_soup(
+        torch.as_tensor(verts, dtype=dt), torch.as_tensor(faces),
+        with_normals=False)) for dt in (torch.float32, torch.float64)}
+    c32, c64 = cuts[torch.float32], cuts[torch.float64]
+    assert c32.lo.dtype == torch.float32 and c64.lo.dtype == torch.float64
+    assert torch.equal(c32.perm, c64.perm)
+    assert torch.equal(c32.super_first, c64.super_first)
+    corners = torch.stack([c64.p0, c64.p0 - c64.e1, c64.p0 + c64.e2], 2)
+    valid = (c64.perm >= 0).reshape(c64.lo.shape[0], -1, 1, 1)
+    assert bool((torch.where(valid, corners, torch.inf) >= c64.lo[:, None,
+                                                             None]).all())
+    assert bool((torch.where(valid, corners, -torch.inf) <= c64.hi[:, None,
+                                                              None]).all())
+    torch.testing.assert_close(c64.lo.float(), c32.lo, rtol=0, atol=1e-6)

@@ -313,16 +313,27 @@ def test_wrapper_checks_generic_rows(rays):
 
 @pytest.mark.parametrize("fn", ["closest", "any"])
 def test_exact_f64_names_its_roadmap_item(fn):
-    soup = port_soup(torch.eye(3), torch.arange(3, dtype=torch.int32)[None],
-                     with_normals=False)
-    d = torch.as_tensor([[0.0, 0.0, 1.0]])
-    with pytest.raises(NotImplementedError, match="M14"):
+    # exact_f64 (ROADMAP item M14) is ported: a float32 soup is refused by
+    # its dtype, a float64 one is searched in float64 (a ray through the
+    # triangle x + y + z = 1 at t = 1/3).
+    def run(dtype):
+        soup = port_soup(torch.eye(3, dtype=dtype),
+                         torch.arange(3, dtype=torch.int32)[None],
+                         with_normals=False)
+        d = torch.ones((1, 3), dtype=dtype) / 3.0 ** 0.5
+        o = torch.zeros(3, dtype=dtype)
         if fn == "closest":
-            pmk.closest_hit_common_origin(soup, torch.zeros(3), d,
-                                          exact_f64=True)
-        else:
-            pmk.any_hit(soup, torch.zeros(3), torch.zeros((1, 3)), d,
-                        exact_f64=True)
+            return pmk.closest_hit_common_origin(soup, o, d, exact_f64=True)
+        return pmk.any_hit(soup, o, o[None], d, exact_f64=True)
+
+    with pytest.raises(ValueError, match="float64 soup"):
+        run(torch.float32)
+    out = run(torch.float64)
+    if fn == "closest":
+        assert bool(out.mask[0]) and int(out.prim_id[0]) == 0
+        assert abs(float(out.t[0]) - 3.0 ** -0.5) < 1e-15
+    else:
+        assert bool(out[0])
 
 
 # ---------------------------------------------------------------------------

@@ -143,10 +143,21 @@ def test_render_runs_on_the_card_unless_asked(bunny, monkeypatch, device):
     ({"f64_exact": True}, "M14"),
 ])
 def test_unported_options_name_their_roadmap_item(bunny, kwargs, item):
+    # Item M14 is ported: f64_exact renders float64 vertices (here the
+    # same image as the float32 search, no sheet being finer than float32
+    # resolution) and refuses float32 ones by their dtype.
     verts, faces = bunny
-    with pytest.raises(NotImplementedError, match=item):
-        ct.render(verts, faces, _bench_camera(verts), SUN, width=32,
-                  height=32, device="cpu", **kwargs)
+    kw = dict(width=32, height=32, backend="megakernel", device="cpu")
+    with pytest.raises(ValueError, match="float64"):
+        ct.render(verts, faces, _bench_camera(verts), SUN, **kw, **kwargs)
+    v64 = verts.astype(np.float64)
+    exact, est = ct.render(v64, faces, _bench_camera(verts), SUN, **kw,
+                           **kwargs)
+    fast, fst = ct.render(v64, faces, _bench_camera(verts), SUN, **kw)
+    assert exact.dtype == torch.float64, item
+    assert {k: int(x) for k, x in est.items()} == {k: int(x)
+                                                  for k, x in fst.items()}
+    torch.testing.assert_close(exact, fast, rtol=0, atol=1e-12)
 
 
 @pytest.mark.parametrize("kwargs, item", [
@@ -155,17 +166,28 @@ def test_unported_options_name_their_roadmap_item(bunny, kwargs, item):
     ({"regroup": True}, "M13"),
 ])
 def test_unported_shadow_options_name_their_roadmap_item(bunny, kwargs, item):
-    # any_hit_to_point takes the JAX package's exact_f64= and regroup=: an
-    # option not ported yet names its item; regroup=None or False (off,
-    # the JAX default) runs the walk.
+    # any_hit_to_point takes the JAX package's exact_f64= and regroup=:
+    # regroup, not ported yet, names item M13; regroup=None or False (off,
+    # the JAX default) runs the walk. exact_f64 (item M14) is ported: it
+    # refuses a float32 soup by its dtype and gives a float64 soup's
+    # flags, here those of its float32 search.
     verts, faces = bunny
     soup = ct.triangle_soup(torch.as_tensor(verts), torch.as_tensor(faces),
                             with_normals=False)
     sun = torch.as_tensor(SUN)
     points = soup.p0[:64] + 0.25 * soup.e2[:64]
-    with pytest.raises(NotImplementedError, match=item):
-        pmk.any_hit_to_point(soup, sun, points, **kwargs)
     base = pmk.any_hit_to_point(soup, sun, points)
+    if item == "M14":
+        with pytest.raises(ValueError, match="float64 soup"):
+            pmk.any_hit_to_point(soup, sun, points, **kwargs)
+        soup64 = ct.triangle_soup(torch.as_tensor(verts, dtype=torch.float64),
+                                  torch.as_tensor(faces), with_normals=False)
+        args = (soup64, sun.double(), points.double())
+        assert torch.equal(pmk.any_hit_to_point(*args, **kwargs),
+                           pmk.any_hit_to_point(*args))
+    else:
+        with pytest.raises(NotImplementedError, match=item):
+            pmk.any_hit_to_point(soup, sun, points, **kwargs)
     assert base.shape == (64,)
     assert torch.equal(pmk.any_hit_to_point(soup, sun, points, regroup=False,
                                             exact_f64=False), base)
@@ -191,14 +213,22 @@ def test_unknown_builder_raises_as_jax(bunny, builder):
 
 
 def test_unported_inputs_name_their_roadmap_item(bunny):
+    # Items M14 and M12 are ported: float64 vertices render in float64
+    # (the camera and the sun taken in their dtype), and a sphere given as
+    # numpy rows is reshaped and drawn in front of the bunny.
     verts, faces = bunny
     cam = _bench_camera(verts)
-    with pytest.raises(NotImplementedError, match="M14"):
-        ct.render(verts.astype(np.float64), faces, cam, SUN, width=32,
-                  height=32, device="cpu")
-    with pytest.raises(NotImplementedError, match="M12"):
-        ct.render(verts, faces, cam, SUN, width=32, height=32,
-                  spheres=(np.zeros((1, 3)), np.ones(1)), device="cpu")
+    kw = dict(width=32, height=32, backend="megakernel", device="cpu")
+    img64, st64 = ct.render(verts.astype(np.float64), faces, cam, SUN, **kw)
+    img32, st32 = ct.render(verts, faces, cam, SUN, **kw)
+    assert img64.dtype == torch.float64 and img32.dtype == torch.float32
+    assert int(st64["rays"]) == int(st32["rays"])
+    center = verts.mean(axis=0) + 0.3 * (np.asarray(cam.eye)
+                                         - verts.mean(axis=0))
+    img, st = ct.render(verts, faces, cam, SUN, spheres=(
+        center.astype(np.float64), np.asarray([[0.01]])), **kw)
+    assert int(st["primary_hits"]) >= int(st32["primary_hits"])
+    assert int((torch.abs(img - img32).amax(-1) > 1e-3).sum()) > 0
 
 
 def _fixture_render(verts, faces):
@@ -238,7 +268,10 @@ def test_port_imports_without_jax():
             "ceres_tpu_torch.render.scenes, ceres_tpu_torch.ops._build, "
             "ceres_tpu_torch.ops.intersect, ceres_tpu_torch.ops.walk, "
             "ceres_tpu_torch.models.transform, ceres_tpu_torch.utils.convert, "
-            "ceres_tpu_torch.diff\n"
+            "ceres_tpu_torch.diff, ceres_tpu_torch.cli.render, "
+            "ceres_tpu_torch.cli.anim, ceres_tpu_torch.parallel, "
+            "ceres_tpu_torch.parallel.sharded, ceres_tpu_torch.ops.walk_f64, "
+            "ceres_tpu_torch.ops.sphere, ceres_tpu_torch.utils.image\n"
             "assert not any(m.split('.')[0] in ('jax', 'optax', 'orbax') "
             "or m.startswith('ceres_tpu.')"
             " for m in sys.modules if sys.modules[m] is not None)\n")
