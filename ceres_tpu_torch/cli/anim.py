@@ -55,9 +55,10 @@ def build_parser() -> argparse.ArgumentParser:
                             "reinsert"],
                    default="lbvh",
                    help="acceleration-structure builder: lbvh (the treelet "
-                        "cut built on the device, default) or sweep (the "
-                        "host SweepSAH build, fewer visits a frame); "
-                        "binned, sbvh, ploc and reinsert are not ported yet")
+                        "cut built on the device, default), or a quality "
+                        "build cut into the same structure once before "
+                        "the frames: sweep, binned (native C++), sbvh, "
+                        "ploc (on the device) or reinsert")
     p.add_argument("--batch", type=int, default=None,
                    help="frames rendered a batch, each batch building the "
                         "cut once [4]")

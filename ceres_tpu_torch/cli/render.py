@@ -50,10 +50,10 @@ def build_parser() -> argparse.ArgumentParser:
                    default="lbvh",
                    help="acceleration-structure builder (megakernel "
                         "backend). lbvh = the treelet cut built on the "
-                        "device (default). sweep = the host SweepSAH "
-                        "build cut into the same structure, slower to "
-                        "build and fewer visits a frame; binned, sbvh, "
-                        "ploc and reinsert are not ported yet")
+                        "device (default). sweep, binned (native C++), "
+                        "sbvh, ploc (on the device) and reinsert = a "
+                        "quality build cut into the same structure, "
+                        "slower to build and fewer visits a frame")
     p.add_argument("--no-shadows", action="store_true",
                    help="skip shadow rays")
     p.add_argument("--sphere", action="append", nargs=4, type=float,

@@ -12,7 +12,10 @@ where JAX is not installed. Same behaviour:
     positive indices are 1-based.
 
 Returns numpy arrays; the soup and normals are built in torch
-(``ceres_tpu_torch.models.mesh``).
+(``ceres_tpu_torch.models.mesh``). For a path, ``load_obj`` uses the
+native C++ parser (``ceres_tpu_torch.io.native``) where g++ exists, as
+the JAX package does; streams take the Python parser. Both give the same
+arrays.
 """
 
 from __future__ import annotations
@@ -54,6 +57,10 @@ def parse_obj(text: str) -> tuple[np.ndarray, np.ndarray]:
 def load_obj(path_or_file: Union[str, io.TextIOBase]) -> tuple[np.ndarray, np.ndarray]:
     """Load an OBJ file (path or text stream) -> (vertices, faces) numpy arrays."""
     if isinstance(path_or_file, str):
+        from ceres_tpu_torch.io import native
+
+        if native.available():
+            return native.parse_obj_file(path_or_file)
         with open(path_or_file, "r") as fh:
             return parse_obj(fh.read())
     return parse_obj(path_or_file.read())

@@ -43,6 +43,30 @@ def cluster_set(src, device=None) -> ClusterSet:
         super_S=int(getattr(src, "super_S", 0)))
 
 
+def flat_bvh(src):
+    """A host ``FlatBvh`` (``accel.golden_builders``): its arrays copied,
+    dtypes kept."""
+    from ceres_tpu_torch.accel.golden_builders import FlatBvh
+
+    return FlatBvh(bounds=np.array(src.bounds),
+                   prim_count=np.array(src.prim_count),
+                   first_child=np.array(src.first_child),
+                   prim_indices=np.array(src.prim_indices),
+                   node_count=int(src.node_count))
+
+
+def ploc_tree(src, device=None):
+    """A ``PlocTree`` (``accel.ploc``): its arrays as tensors on
+    ``device``, dtypes kept; ``root`` an int, ``rounds`` 0 (unknown)."""
+    from ceres_tpu_torch.accel.ploc import PlocTree
+
+    return PlocTree(
+        **{name: tensor(getattr(src, name), device)
+           for name in ("order", "left", "right", "node_lo", "node_hi",
+                        "leaf_lo", "leaf_hi")},
+        root=int(np.asarray(src.root)))
+
+
 def camera(src, device=None) -> Camera:
     """A ``Camera`` (eye, dir, up, fov), dtype kept."""
     return Camera(eye=tensor(src.eye, device), dir=tensor(src.dir, device),

@@ -109,7 +109,25 @@ its own line:
      against their plain versions on its own inputs, and the frame equal
      to ``render_pipeline`` with its camera and sun;
      ``render_deforming_frames`` on 2 bunny frames with the cut refitted
-     equal to the cut rebuilt.
+     equal to the cut rebuilt;
+ 18. the quality builders: the two g++ libraries (``accel/csrc``,
+     ``io/csrc``, built beside nvcc in phase 2) available and used;
+     every cut of the bunny (sweep, binned, sbvh, ploc, reinsert), the
+     dragon (sweep, binned, ploc) and the 3x and 4x bunny (binned) held
+     to the JAX package's fingerprints
+     (``tests/fixtures/torch_port_builders.json``: cluster count,
+     ``super_S``, supers, sha256 of ``perm``, ``lo``, ``hi``,
+     ``super_first``; PLOC, built on the card, also its tree), with each
+     build's host seconds and PLOC's rounds; native binned equal to NumPy
+     binned on the bunny node for node; each bunny and dragon cut's
+     1080p frame (the dragon with ``benchmarks/builder_ab.py``'s camera)
+     after the LBVH cut's: K1 and K2 once each and held to their plain
+     versions, visits beside ``builder_ab.json``'s, primary hits equal to
+     the sweep cut's frame and >= 99.9% of its pixels within 1e-4; the 3x
+     bunny's binned cut on K5 and the 4x bunny's (S = 16) on K6 and K7a,
+     held to their plain versions, each frame beside the LBVH cut's; the
+     render CLI at 1080p with ``--builder binned`` and ``ploc``: K1 and K2
+     once each, Rays/Hits those of ``render()`` on the same cut.
 
 Every kernel-vs-plain check holds each tile's executed visits, not only
 their sum, and prints the kernel's bound: the larger of its fp32
@@ -143,6 +161,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -187,6 +206,14 @@ GRAD_SIZE = 128
 REFIT_SIZE = 256
 FIT_NOISE = 0.02
 LARGE_NOISE = 0.002
+# Phase 18: the quality builders of each scene (the 3x and 4x bunny take
+# binned), the JAX package's fingerprints of their cuts, and the dragon's
+# camera of benchmarks/builder_ab.py.
+QUALITY = {"bunny": ("sweep", "binned", "sbvh", "ploc", "reinsert"),
+           "dragon": ("sweep", "binned", "ploc")}
+BUILDER_FIXTURE = os.path.join(ROOT, "tests", "fixtures",
+                               "torch_port_builders.json")
+DRAGON_EYE = (0.0, 2.0, -8.0)
 # The CLIs (phases 15-17): float64 frames timed, the CPU comparison size,
 # and the anim app's default size, frames and batch.
 F64_FRAMES = 3
@@ -472,7 +499,7 @@ def frame_times(frame, n):
 def render_path(vt, ft, cam, cs, sun, label, frames, card, compat=False):
     """One path's run: launches and stats of one frame with the counts
     reset just before it, then the timed frames. Returns (launches,
-    stats, median ms)."""
+    stats, median ms, that frame's image)."""
     import ceres_tpu_torch as ct
     from ceres_tpu_torch.ops import walk
     from ceres_tpu_torch.render.renderer import prepare_winner_table
@@ -508,7 +535,7 @@ def render_path(vt, ft, cam, cs, sun, label, frames, card, compat=False):
           f"{ms:.3f} (min {min(times):.3f} max {max(times):.3f}, host wall "
           f"median {statistics.median(walls):.3f}); rays/s "
           f"{stats['rays'] / (ms / 1e3):.4e} [{card}]", flush=True)
-    return launches, stats, ms
+    return launches, stats, ms, image
 
 
 def merge(counts, more):
@@ -1198,6 +1225,193 @@ def phase17(dev, card, tmp):
     return merge(launches, dlaunch)
 
 
+def cut_of(builder, soup):
+    """(ClusterSet, PLOC tree or None, host build seconds, cut seconds) of
+    ``builder`` on ``soup``, through the port's own builders. PLOC builds
+    on the soup's device (synchronised)."""
+    from ceres_tpu_torch.accel import cuts, ploc
+
+    t0 = time.perf_counter()
+    if builder == "ploc":
+        tree = ploc.build_ploc(soup)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        cs = cuts.clusters_from_ploc(soup, tree)
+    else:
+        tree = None
+        bvh = cuts.build_flatbvh(soup, builder)
+        t1 = time.perf_counter()
+        cs = cuts.clusters_from_flatbvh(soup, bvh)
+    torch.cuda.synchronize()
+    return cs, tree, t1 - t0, time.perf_counter() - t1
+
+
+def held_to_fixture(key, cs, tree, build_s, cut_s, want):
+    """Phase 18 (b): one cut's fingerprint against the JAX-made one."""
+    from ceres_tpu_torch.accel import cuts
+
+    got = cuts.cut_record(cs, tree)
+    extra = (f"; PLOC on the card: {tree.rounds} rounds, root {tree.root}"
+             if tree is not None else "")
+    print(f"phase 18 cut {key}: {got['num_clusters']} clusters, super_S "
+          f"{got['super_S']}, {got['n_super_first']} supers; host build "
+          f"{build_s:.3f} s, cut {cut_s:.3f} s{extra}; fingerprint == JAX "
+          f"fixture: {got == want}", flush=True)
+    check(got == want, f"phase 18: the {key} cut differs from the JAX "
+          f"package's: {got} against {want}")
+
+
+def phase18(dev, card, builds, meshes, large):
+    """The quality builders: native toolchain, cuts held to the JAX
+    package's, the walks on each cut, the large scenes' binned cuts and
+    the render CLI with --builder."""
+    import ceres_tpu_torch as ct
+    from ceres_tpu_torch.accel import golden_builders as gb
+    from ceres_tpu_torch.accel import native as bvh_native
+    from ceres_tpu_torch.accel.clusters import build_clusters_treelet
+    from ceres_tpu_torch.io import native as obj_native
+    from ceres_tpu_torch.io.obj import parse_obj
+    from ceres_tpu_torch.ops import walk
+
+    # (a) The native toolchain: both libraries built (phase 2) and used.
+    check(bvh_native.available() and obj_native.available(),
+          "phase 18: a native library is not available (no g++?)")
+    with open(BUNNY) as fh:
+        v_py, f_py = parse_obj(fh.read())
+    v0, f0 = ct.load_obj(BUNNY)
+    check(np.array_equal(v0, v_py) and np.array_equal(f0, f_py),
+          "phase 18: the native OBJ parser differs from the Python one")
+    print(f"phase 18 native toolchain: bvh_build.cpp built in "
+          f"{builds['bvh_build.cpp'][1]:.2f} s, objparse.cpp in "
+          f"{builds['objparse.cpp'][1]:.2f} s (g++, alongside nvcc); "
+          f"load_obj took the native parser, equal to the Python parser",
+          flush=True)
+    with open(BUILDER_FIXTURE) as fh:
+        want = json.load(fh)
+
+    # (b) and (c): bunny and dragon, every builder, against the fixture,
+    # then each cut's 1080p frame.
+    launches_all = {}
+    with open(os.path.join(ROOT, "benchmarks", "builder_ab.json")) as fh:
+        ab = {(r["scene"], r["builder"]): r["mt_block_visits"]
+              for r in json.load(fh)}
+    sun = torch.as_tensor(SUN, device=dev)
+    for name, builders in QUALITY.items():
+        v, f = (v0, f0) if name == "bunny" else ct.load_obj(
+            os.path.join(ROOT, "data", f"{name}.obj"))
+        cam = camera(v, EYE if name == "bunny" else DRAGON_EYE, dev)
+        vt, ft = torch.as_tensor(v, device=dev), torch.as_tensor(f, device=dev)
+        soup = ct.triangle_soup(vt, ft, with_normals=False)
+        if name == "bunny":
+            pts = v[f]
+            lo, hi, centers = pts.min(1), pts.max(1), pts.mean(1)
+            t0 = time.perf_counter()
+            nat = bvh_native.build_binned_sah_native(lo, hi, centers)
+            t1 = time.perf_counter()
+            ref = gb.build_binned_sah(lo, hi, centers)
+            t2 = time.perf_counter()
+            same = nat.node_count == ref.node_count and all(
+                np.array_equal(getattr(nat, k), getattr(ref, k))
+                for k in ("bounds", "prim_count", "first_child",
+                          "prim_indices"))
+            print(f"phase 18 native binned == NumPy binned on the bunny, "
+                  f"node for node: {same} ({nat.node_count} nodes; native "
+                  f"{t1 - t0:.4f} s, NumPy {t2 - t1:.3f} s)", flush=True)
+            check(same, "phase 18: native binned differs from NumPy binned")
+        frames = {}
+        cs_l = build_clusters_treelet(soup)
+
+        def lbvh_frame(turn):
+            launches, *_ = render_path(
+                vt, ft, cam, cs_l, sun, f"phase 18 {name} lbvh cut, {turn} "
+                f"({cs_l.num_clusters} blocks; builder_ab.json "
+                f"mt_block_visits {ab[(name, 'lbvh')]}):", FRAMES, card)
+            check(launches == K1_K2_ONCE, f"phase 18: the {name} lbvh "
+                  f"frame launched {launches}, not K1 and K2 once")
+            return launches
+
+        launches_all = merge(launches_all, lbvh_frame("first"))
+        hold_walks(18, vt, ft, cam, cs_l, W, H, f"{name}/lbvh cut", card,
+                   reps=5)
+        for builder in builders:
+            key = f"{name}/{builder}"
+            cs, tree, build_s, cut_s = cut_of(builder, soup)
+            held_to_fixture(key, cs, tree, build_s, cut_s, want[key])
+            launches, st, ms, img = render_path(
+                vt, ft, cam, cs, sun, f"phase 18 {key} cut "
+                f"({cs.num_clusters} blocks; builder_ab.json "
+                f"mt_block_visits {ab[(name, builder)]}):", FRAMES, card)
+            check(launches == K1_K2_ONCE, f"phase 18: the {key} frame "
+                  f"launched {launches}, not K1 and K2 once")
+            launches_all = merge(launches_all, launches)
+            frames[builder] = (st, img)
+            hold_walks(18, vt, ft, cam, cs, W, H, f"{key} cut", card,
+                       reps=5)
+            st0, img0 = frames["sweep"]
+            off = float(((img - img0).abs().amax(-1) > 1e-4).double().mean())
+            print(f"phase 18 {key} frame against the sweep cut's: primary "
+                  f"hits {st['primary_hits']} / {st0['primary_hits']}, "
+                  f"pixels off by >1e-4 {off:.4%} (limit 0.1%)", flush=True)
+            check(st["primary_hits"] == st0["primary_hits"] and off <= 1e-3,
+                  f"phase 18: the {key} frame differs from the sweep cut's")
+        # The LBVH cut's frame again: the spread of a host-bound frame
+        # within this process, beside which the cuts' frames are read.
+        launches_all = merge(launches_all, lbvh_frame("last"))
+
+    # (d) The large scenes on the binned cut: build and cut on the host,
+    # the streamed (3x) and two-level (4x) walks held to their plain
+    # versions, and the frame beside the LBVH cut's.
+    for levels, names in LARGE.items():
+        v, f = meshes[levels]
+        vt, ft, cam, cs_l, _ = large[levels]
+        soup = ct.triangle_soup(vt, ft, with_normals=False)
+        key = f"bunny{levels}/binned"
+        cs, _, build_s, cut_s = cut_of("binned", soup)
+        held_to_fixture(key, cs, None, build_s, cut_s, want[key])
+        label = (f"bunny x{levels} {W}x{H} binned cut ({f.shape[0]} "
+                 f"triangles, {cs.num_clusters} blocks")
+        for mode, (args, opts) in zip(("closest", "any_dest"),
+                                      walk_inputs(vt, ft, cam, cs, W, H)):
+            kname = walk._variant(mode, opts["S"], opts["stream"])
+            check(kname in names and (opts["S"] == cs.super_S
+                                      if levels == 4 else opts["S"] == 1),
+                  f"{label}: walk {kname}, S {opts['S']}")
+            r, _ = compare(mode, args, opts, reps=5)
+            report(18, kname, f"{label}, S = {opts['S']}, "
+                   f"{args[1].shape[1]} candidates per tile)", r, card)
+        for cut, c in (("lbvh", cs_l), ("binned", cs)):
+            launches, *_ = render_path(
+                vt, ft, cam, c, sun, f"phase 18 large-scene frame, bunny "
+                f"x{levels} {cut} cut ({c.num_clusters} blocks, S "
+                f"{c.super_S}):", LARGE_FRAMES, card)
+            check(set(launches) == set(names), f"phase 18: bunny x{levels} "
+                  f"{cut} launched {launches}, not {names}")
+            launches_all = merge(launches_all, launches)
+
+    # (e) The render CLI with --builder binned and ploc.
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        cam = camera(v0, EYE, dev)
+        soup = ct.triangle_soup(torch.as_tensor(v0, device=dev),
+                                torch.as_tensor(f0, device=dev),
+                                with_normals=False)
+        config = ct.RenderConfig(width=W, height=H, backend="megakernel")
+        for builder in ("binned", "ploc"):
+            _, counts, launches = render_cli(
+                tmp, f"cli_{builder}", ["--builder", builder, "--width",
+                                        str(W), "--height", str(H)], dev)
+            cs, *_ = cut_of(builder, soup)
+            _, st = ct.render(v0, f0, cam, SUN, config=config, clusters=cs,
+                              device=dev)
+            want_counts = {"Rays": int(st["rays"]), "Hits": int(st["hits"])}
+            print(f"phase 18 render CLI --builder {builder} {W}x{H}: "
+                  f"launches {launches}; Rays/Hits {counts} (render() on "
+                  f"the same cut: {want_counts})", flush=True)
+            check(launches == K1_K2_ONCE and counts == want_counts,
+                  f"phase 18: the CLI with --builder {builder} differs")
+            launches_all = merge(launches_all, launches)
+    return launches_all
+
+
 def main():
     # Phase 1: device.
     if not torch.cuda.is_available():
@@ -1224,13 +1438,28 @@ def main():
           f"{torch.version.cuda}; count {torch.cuda.device_count()}", flush=True)
     print(card, flush=True)
 
-    # Phase 2: build.
-    t0 = time.perf_counter()
-    _build.load()
-    build_s = time.perf_counter() - t0
+    # Phase 2: build: nvcc and the two g++ libraries, started together.
+    from ceres_tpu_torch.accel import native as bvh_native
+    from ceres_tpu_torch.io import native as obj_native
+
+    def seconds(fn):
+        t0 = time.perf_counter()
+        ok = fn()
+        return ok, time.perf_counter() - t0
+
+    with ThreadPoolExecutor(3) as pool:
+        jobs = {name: pool.submit(seconds, fn) for name, fn in (
+            ("walk.cu", _build.load), ("bvh_build.cpp", bvh_native.available),
+            ("objparse.cpp", obj_native.available))}
+        builds = {name: job.result() for name, job in jobs.items()}
+    build_s = builds["walk.cu"][1]
     ptxas = " | ".join(line.strip() for line in build_log().splitlines()
                        if "registers" in line)
-    print(f"phase 2 build: {build_s:.1f} s ({ptxas})", flush=True)
+    print(f"phase 2 build: {build_s:.1f} s ({ptxas}); g++ alongside: "
+          f"bvh_build.cpp {builds['bvh_build.cpp'][1]:.1f} s (built "
+          f"{builds['bvh_build.cpp'][0]}), objparse.cpp "
+          f"{builds['objparse.cpp'][1]:.1f} s (built "
+          f"{builds['objparse.cpp'][0]})", flush=True)
     regs = solo_registers()
     check(set(regs) == set(walk.RAY_ROWS),
           f"no register report for every walk_solo: {regs}")
@@ -1259,7 +1488,7 @@ def main():
     # Phase 4: the bunny path.
     vt, ft, cam, cs = scene("bunny", dev)
     sun = torch.as_tensor(SUN, device=dev)
-    launches, _, _ = render_path(vt, ft, cam, cs, sun, "phase 4 bunny path:",
+    launches, *_ = render_path(vt, ft, cam, cs, sun, "phase 4 bunny path:",
                                  FRAMES, card)
     check(set(launches) == {"walk_closest", "walk_any_dest"},
           f"bunny path did not launch exactly K1 and K2: {launches}")
@@ -1310,7 +1539,7 @@ def main():
                  f"({ft.shape[0]} triangles, device treelet build "
                  f"{build_ms:.1f} ms, {cs.num_clusters} blocks, S "
                  f"{cs.super_S}):")
-        launches, _, _ = render_path(vt, ft, cam, cs, sun, label,
+        launches, *_ = render_path(vt, ft, cam, cs, sun, label,
                                      LARGE_FRAMES, card)
         check(set(launches) == set(LARGE[levels]),
               f"bunny x{levels} path did not launch exactly "
@@ -1398,14 +1627,14 @@ def main():
 
     # Phase 10: the reference-exact path at full width.
     vt, ft, cam, cs = scene("bunny", dev)
-    launches, _, _ = render_path(vt, ft, cam, cs, sun,
+    launches, *_ = render_path(vt, ft, cam, cs, sun,
                                  "phase 10 reference-exact bunny path:",
                                  FRAMES, card, compat=True)
     check(set(launches) == {"walk_closest", "walk_any"},
           f"compat bunny path did not launch exactly K1 and K3: {launches}")
     path_launches = merge(path_launches, launches)
     vt, ft, cam, cs, build_ms = large[4]
-    launches, _, _ = render_path(
+    launches, *_ = render_path(
         vt, ft, cam, cs, sun, f"phase 10 reference-exact bunny x4 path "
         f"({ft.shape[0]} triangles, {cs.num_clusters} blocks, S "
         f"{cs.super_S}):", LARGE_FRAMES, card, compat=True)
@@ -1469,6 +1698,10 @@ def main():
     with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
         for phase in (phase15, phase16, phase17):
             path_launches = merge(path_launches, phase(dev, card, tmp))
+    # Phase 18: the quality builders and their cuts.
+    path_launches = merge(path_launches,
+                          phase18(dev, card, builds, meshes, large))
+
     missing = [k for k in REPLACES if not path_launches.get(k)]
     check(not missing, f"no path launched {missing}")
 

@@ -29,6 +29,7 @@ from ceres_tpu.cli import render as jax_render
 from ceres_tpu.utils import image as jax_image
 
 from ceres_tpu_torch.cli import anim, render
+from ceres_tpu_torch.io.obj import load_obj
 from ceres_tpu_torch.utils import image
 
 torch.set_num_threads(1)
@@ -158,17 +159,32 @@ def test_anim_cli_resumes_and_writes_mp4(tmp_path, capsys):
         u8[1], _read(str(frames / "frame_0001.png"))[..., :3])
 
 
-def test_cli_flags_not_ported_name_their_items(tmp_path):
+def test_cli_flags_not_ported_name_their_items(tmp_path, capsys):
+    # --primitive-sharded still names M16b; the quality builders (item M9)
+    # run: --builder sbvh on a small mesh (the bunny's first 300 faces)
+    # and --builder ploc in the anim app.
     out = str(tmp_path / "x.png")
     with pytest.raises(NotImplementedError, match="M16b"):
         render.main([BUNNY, "-o", out, *SMALL, "--primitive-sharded"],
                     device="cpu")
-    with pytest.raises(NotImplementedError, match="M9"):
-        render.main([BUNNY, "-o", out, *SMALL, "--builder", "sbvh"],
-                    device="cpu")
-    with pytest.raises(NotImplementedError, match="M9"):
-        anim.main([BUNNY, "-o", str(tmp_path / "x.gif"), *ANIM, "--builder",
-                   "ploc"], device="cpu")
+    verts, faces = load_obj(BUNNY)
+    small = tmp_path / "small.obj"
+    small.write_text("".join(f"v {x!r} {y!r} {z!r}\n" for x, y, z in
+                             verts.tolist())
+                     + "".join(f"f {a + 1} {b + 1} {c + 1}\n" for a, b, c in
+                               faces[:300].tolist()))
+    capsys.readouterr()
+    assert render.main([str(small), "-o", out, *SMALL, "--builder", "sbvh"],
+                       device="cpu") == 0
+    text = capsys.readouterr().out
+    assert "Built sbvh clusters" in text and os.path.exists(out)
+    assert int(re.search(r"^Rays: (\d+)$", text, re.M).group(1)) > 0
+    gif = str(tmp_path / "x.gif")
+    args = anim.build_parser().parse_args(
+        [BUNNY, "-o", gif, *ANIM, "--builder", "ploc"])
+    u8, rays, _ = anim.render_frames(args, device="cpu")
+    assert "Built ploc clusters" in capsys.readouterr().out
+    assert rays > 0 and all(f is not None and f.max() > 0 for f in u8)
 
 
 def test_cli_runs_on_the_card_unless_asked(tmp_path, monkeypatch):

@@ -195,9 +195,9 @@ def test_unported_shadow_options_name_their_roadmap_item(bunny, kwargs, item):
 
 @pytest.mark.parametrize("builder", ["nonsense", "lbvh"])
 def test_unknown_builder_raises_as_jax(bunny, builder):
-    # build_clusters_quality knows sweep (ported) and binned, sbvh, ploc and
-    # reinsert (ROADMAP item M9); any other name is a ValueError in both
-    # packages ("lbvh" is the treelet cut's name, not a quality builder).
+    # build_clusters_quality knows sweep, binned, sbvh, ploc and reinsert;
+    # any other name is a ValueError in both packages ("lbvh" is the
+    # treelet cut's name, not a quality builder).
     from ceres_tpu_torch.accel.cuts import build_clusters_quality
 
     verts, faces = bunny
@@ -208,8 +208,6 @@ def test_unknown_builder_raises_as_jax(bunny, builder):
                             with_normals=False)
     with pytest.raises(ValueError, match=f"unknown builder: {builder}"):
         build_clusters_quality(soup, builder=builder)
-    with pytest.raises(NotImplementedError, match="M9"):
-        build_clusters_quality(soup, builder="sbvh")
 
 
 def test_unported_inputs_name_their_roadmap_item(bunny):
@@ -271,7 +269,14 @@ def test_port_imports_without_jax():
             "ceres_tpu_torch.diff, ceres_tpu_torch.cli.render, "
             "ceres_tpu_torch.cli.anim, ceres_tpu_torch.parallel, "
             "ceres_tpu_torch.parallel.sharded, ceres_tpu_torch.ops.walk_f64, "
-            "ceres_tpu_torch.ops.sphere, ceres_tpu_torch.utils.image\n"
+            "ceres_tpu_torch.ops.sphere, ceres_tpu_torch.utils.image, "
+            "ceres_tpu_torch.accel.ploc, ceres_tpu_torch.accel.sbvh, "
+            "ceres_tpu_torch.accel.reinsertion, "
+            "ceres_tpu_torch.accel.presplit, ceres_tpu_torch.accel.native, "
+            "ceres_tpu_torch.io.native, ceres_tpu_torch.utils.cxx\n"
+            "from ceres_tpu_torch.accel import native\n"
+            "from ceres_tpu_torch.io import native as io_native\n"
+            "native.available(), io_native.available()\n"
             "assert not any(m.split('.')[0] in ('jax', 'optax', 'orbax') "
             "or m.startswith('ceres_tpu.')"
             " for m in sys.modules if sys.modules[m] is not None)\n")
