@@ -14,6 +14,12 @@ Usage, on the card:
 
 It runs on the card and raises where there is none; from Python,
 ``main([...], device="cpu")`` renders on the CPU.
+
+Several ranks split each frame's rows (one card a rank; gloo ranks share
+a card where there are fewer cards than ranks):
+    torchrun --nproc-per-node 2 -m ceres_tpu_torch.cli.anim \
+        data/bunny.obj -o render.mp4 --frames 60
+Rank 0 alone prints and writes frames and the video.
 """
 
 from __future__ import annotations
@@ -108,20 +114,23 @@ def render_frames(args, device=None):
     from ceres_tpu_torch.io.obj import load_obj
     from ceres_tpu_torch.models.camera import Camera
     from ceres_tpu_torch.models.mesh import triangle_soup
+    from ceres_tpu_torch.parallel import distributed
     from ceres_tpu_torch.parallel.sharded import (
         device_mesh, render_frames_sharded, turntable_transforms)
-    from ceres_tpu_torch.render.renderer import resolve_device
     from ceres_tpu_torch.utils.image import to_uint8, write_png
 
-    mesh = device_mesh(devices=[resolve_device(None, device,
-                                               "ceres-torch-anim")])
+    # Every rank of a group on the "rays" axis, as the JAX app meshes
+    # every device.
+    mesh = device_mesh(devices=[distributed.cli_device(device,
+                                                       "ceres-torch-anim")])
+    say = distributed.leader_print()
     vertices, faces = load_obj(args.input)
     if faces.shape[0] == 0:
         raise ValueError("scene has no triangles")
     scalar = np.float64 if args.double else np.float32
     dtype = torch.float64 if args.double else torch.float32
     vertices = vertices.astype(scalar)
-    print(f"Loaded {vertices.shape[0]} vertices / {faces.shape[0]} faces")
+    say(f"Loaded {vertices.shape[0]} vertices / {faces.shape[0]} faces")
 
     center = vertices.mean(axis=0)
     if args.eye is not None:
@@ -135,7 +144,8 @@ def render_frames(args, device=None):
     sun = np.asarray(args.sun, scalar)
     tracks = turntable_transforms(args.frames, axis=args.axis, dtype=dtype)
 
-    if args.save_frames:
+    writer = distributed.is_leader()
+    if args.save_frames and writer:
         os.makedirs(args.save_frames, exist_ok=True)
 
     clusters = None
@@ -146,19 +156,23 @@ def render_frames(args, device=None):
                           torch.as_tensor(faces, device=mesh.device),
                           with_normals=False),
             builder=args.builder)
-        print(f"Built {args.builder} clusters "
-              f"({time.perf_counter() - tb:.3f}s)")
+        say(f"Built {args.builder} clusters "
+            f"({time.perf_counter() - tb:.3f}s)")
 
     batch = args.batch or min(args.frames, 4)
+    # Resume: the batches already on disk, decided before any frame is
+    # written, so that every rank skips the same ones.
+    batches = [(start, min(start + batch, args.frames))
+               for start in range(0, args.frames, batch)]
+    on_disk = [bool(args.save_frames) and all(
+        os.path.exists(frame_path(args, k)) for k in range(start, stop))
+        for start, stop in batches]
     total_rays = 0
     frames_u8 = [None] * args.frames
     t1 = time.perf_counter()
-    for start in range(0, args.frames, batch):
-        stop = min(start + batch, args.frames)
-        if args.save_frames and all(
-                os.path.exists(frame_path(args, k))
-                for k in range(start, stop)):
-            continue  # resume: this batch is already on disk
+    for (start, stop), skip in zip(batches, on_disk):
+        if skip:
+            continue
         frames, stats = render_frames_sharded(
             vertices, faces, camera, sun, tracks.frame(slice(start, stop)),
             mesh=mesh, clusters=clusters, width=args.width,
@@ -167,34 +181,52 @@ def render_frames(args, device=None):
         total_rays += int(stats["rays"])
         for k in range(frames.shape[0]):
             frames_u8[start + k] = to_uint8(frames[k])[::-1]  # flip like PPM
-            if args.save_frames:
+            if args.save_frames and writer:
                 write_png(frame_path(args, start + k), frames[k])
-        print(f"frames {start}..{stop - 1} done "
-              f"({time.perf_counter() - t1:.2f}s elapsed)")
+        say(f"frames {start}..{stop - 1} done "
+            f"({time.perf_counter() - t1:.2f}s elapsed)")
     return frames_u8, total_rays, time.perf_counter() - t1
 
 
 def run(args, device=None) -> int:
+    """Render and write ``args`` (parsed by ``build_parser``) on
+    ``device`` (default: the card). Under ``torchrun`` it joins the
+    ranks' group first and leaves it at the end."""
+    from ceres_tpu_torch.parallel import distributed
+
+    with distributed.joined_from_env(device) as joined:
+        return _run(args, device, joined)
+
+
+def _run(args, device, joined) -> int:
     import numpy as np
 
+    from ceres_tpu_torch.parallel import distributed
+
+    say = distributed.leader_print()
+    if joined:
+        say(f"Ranks: {distributed.process_info()[1]} ({joined})")
     try:
         frames_u8, total_rays, dt = render_frames(args, device)
     except ValueError as e:   # "scene has no triangles"
-        print(f"Error: {e}", file=sys.stderr)
+        say(f"Error: {e}", file=sys.stderr)
         return 1
     skipped = [k for k, f in enumerate(frames_u8) if f is None]
     if skipped:
-        print(f"Resumed: {len(skipped)} frame(s) already in "
-              f"{args.save_frames}")
-        import imageio.v3 as iio
+        say(f"Resumed: {len(skipped)} frame(s) already in "
+            f"{args.save_frames}")
+    say(f"Total Rays: {total_rays}")
+    say(f"Total render: {dt:.2f}s on {distributed.process_info()[1]} "
+        f"device(s) ({total_rays / dt / 1e6:.1f} Mrays/s)")
+    if distributed.is_leader():
+        if skipped:
+            import imageio.v3 as iio
 
-        for k in skipped:
-            frames_u8[k] = np.asarray(iio.imread(frame_path(args, k)))[..., :3]
-    print(f"Total Rays: {total_rays}")
-    print(f"Total render: {dt:.2f}s on 1 device(s) "
-          f"({total_rays / dt / 1e6:.1f} Mrays/s)")
-    _write_video(args.output, frames_u8, args.fps)
-    print(f"Wrote {args.output} ({args.frames} frames)")
+            for k in skipped:
+                frames_u8[k] = np.asarray(
+                    iio.imread(frame_path(args, k)))[..., :3]
+        _write_video(args.output, frames_u8, args.fps)
+    say(f"Wrote {args.output} ({args.frames} frames)")
     return 0
 
 

@@ -7,6 +7,16 @@ Usage, on the card:
 
 It runs on the card and raises where there is none; from Python,
 ``main([...], device="cpu")`` renders on the CPU.
+
+Several ranks, one a card (gloo ranks share a card where there are
+fewer cards than ranks):
+    torchrun --nproc-per-node 2 -m ceres_tpu_torch.cli.render \
+        data/bunny.obj -o out.png --sharded      # rows over the ranks
+    torchrun --nproc-per-node 2 -m ceres_tpu_torch.cli.render \
+        data/bunny.obj -o out.png --primitive-sharded   # triangles
+Each rank joins the group that ``torchrun`` describes (``WORLD_SIZE``);
+rank 0 alone prints and writes the image. Without ``torchrun`` the CLI
+runs as one rank.
 """
 
 from __future__ import annotations
@@ -61,9 +71,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="add a sphere primitive at (X, Y, Z) with radius "
                         "R; repeatable")
     p.add_argument("--sharded", action="store_true",
-                   help="shard rays across the device mesh (one device)")
+                   help="shard image rows across the ranks (torchrun; one "
+                        "rank without it)")
     p.add_argument("--primitive-sharded", action="store_true",
-                   help="shard geometry across devices (not ported yet)")
+                   help="shard the triangles across the ranks (torchrun; "
+                        "one rank without it)")
     p.add_argument("-d", "--double", action="store_true",
                    help="render in float64. On the megakernel backend the "
                         "search runs in float32 and every value is "
@@ -78,7 +90,18 @@ def build_parser() -> argparse.ArgumentParser:
 
 def run(args, device=None) -> int:
     """Render ``args`` (parsed by ``build_parser``) on ``device`` (default:
-    the card)."""
+    the card). Under ``torchrun`` it joins the ranks' group first and
+    leaves it at the end."""
+    from ceres_tpu_torch.parallel import distributed
+
+    if args.d_exact:
+        args.double = True
+    with distributed.joined_from_env(device) as joined:
+        return _run(args, distributed.cli_device(device, "ceres-torch-render"),
+                    joined)
+
+
+def _run(args, device, joined) -> int:
     import numpy as np
     import torch
 
@@ -86,20 +109,20 @@ def run(args, device=None) -> int:
     from ceres_tpu_torch.models.camera import Camera
     from ceres_tpu_torch.models.mesh import triangle_soup
     from ceres_tpu_torch.models.transform import rotate_vertices_about_axis
-    from ceres_tpu_torch.render.renderer import render, resolve_device
+    from ceres_tpu_torch.parallel import distributed
+    from ceres_tpu_torch.render.renderer import render
     from ceres_tpu_torch.utils.image import write_image
 
-    if args.d_exact:
-        args.double = True
-    device = resolve_device(None, device, "ceres-torch-render")
-
+    say = distributed.leader_print()
+    if joined:
+        say(f"Ranks: {distributed.process_info()[1]} ({joined})")
     t0 = time.perf_counter()
     vertices, faces = load_obj(args.input)
     if faces.shape[0] == 0:
-        print("Error: scene has no triangles", file=sys.stderr)
+        say("Error: scene has no triangles", file=sys.stderr)
         return 1
-    print(f"Loaded {vertices.shape[0]} vertices / {faces.shape[0]} faces "
-          f"({time.perf_counter() - t0:.3f}s)")
+    say(f"Loaded {vertices.shape[0]} vertices / {faces.shape[0]} faces "
+        f"({time.perf_counter() - t0:.3f}s)")
 
     if args.rotate is not None:
         axis = {"x": 0, "y": 1, "z": 2}[args.rotate[0].lower()]
@@ -125,16 +148,18 @@ def run(args, device=None) -> int:
                    spheres=spheres, device=device)
 
     t1 = time.perf_counter()
-    if args.primitive_sharded:
-        from ceres_tpu_torch.parallel.sharded import render_primitive_sharded
+    if args.primitive_sharded or args.sharded:
+        from ceres_tpu_torch.parallel.sharded import (
+            device_mesh, render_primitive_sharded, render_sharded)
 
-        image, stats = render_primitive_sharded(vertices, faces, camera, sun,
-                                                **options)
-    elif args.sharded:
-        from ceres_tpu_torch.parallel.sharded import render_sharded
-
-        image, stats = render_sharded(vertices, faces, camera, sun,
-                                      f64_exact=args.d_exact, **options)
+        mesh = device_mesh(devices=[options.pop("device")])
+        if args.primitive_sharded:
+            image, stats = render_primitive_sharded(
+                vertices, faces, camera, sun, mesh=mesh, **options)
+        else:
+            image, stats = render_sharded(vertices, faces, camera, sun,
+                                          mesh=mesh, f64_exact=args.d_exact,
+                                          **options)
     else:
         clusters = None
         if args.builder != "lbvh" and args.backend == "megakernel":
@@ -146,8 +171,8 @@ def run(args, device=None) -> int:
                               torch.as_tensor(faces, device=device),
                               with_normals=False),
                 builder=args.builder)
-            print(f"Built {args.builder} clusters "
-                  f"({time.perf_counter() - tb:.3f}s)")
+            say(f"Built {args.builder} clusters "
+                f"({time.perf_counter() - tb:.3f}s)")
         image, stats = render(vertices, faces, camera, sun, clusters=clusters,
                               f64_exact=args.d_exact, **options)
     image = image.cpu().numpy()
@@ -155,13 +180,14 @@ def run(args, device=None) -> int:
 
     # The stats the reference prints a frame.
     rays, hits = int(stats["rays"]), int(stats["hits"])
-    print(f"Rays: {rays}")
-    print(f"Hits: {hits}")
-    print(f"Render (incl. compile): {dt:.3f}s  ({rays / dt / 1e6:.1f} "
-          f"Mrays/s)")
+    say(f"Rays: {rays}")
+    say(f"Hits: {hits}")
+    say(f"Render (incl. compile): {dt:.3f}s  ({rays / dt / 1e6:.1f} "
+        f"Mrays/s)")
 
-    write_image(args.output, image)
-    print(f"Wrote {args.output}")
+    if distributed.is_leader():
+        write_image(args.output, image)
+    say(f"Wrote {args.output}")
     return 0
 
 

@@ -12,8 +12,16 @@ autograd function. ``torch.optim.Adam`` takes the place of
 ``optax.adam``: the same update lr * m_hat / (sqrt(v_hat) + eps) with
 b1, b2, eps = 0.9, 0.999, 1e-8, rounded in another order.
 
-Not ported yet: the train step over a device mesh (``mesh=``, ROADMAP
-item M16).
+Over a mesh of ranks (``mesh=``, ``parallel.sharded``) every rank renders
+its rows through ``render_sharded``, takes the loss over the whole image,
+and receives the gradients already summed over the ranks; Adam then
+steps alike on every rank. Each rank refits the cut as one device does
+(the JAX package builds it in the step there: the same image up to
+exact-distance ties). Rank 0 alone writes checkpoints, which every rank
+restores. Without a mesh the step renders through ``render_pipeline``,
+the JAX package's unsharded path: its column-form rays round in another
+order than ``render_sharded``'s row form, so a pixel's last bits differ
+between the two, and each fit keeps the path of its JAX counterpart.
 """
 
 from __future__ import annotations
@@ -28,6 +36,7 @@ from ceres_tpu_torch.accel.clusters import (build_clusters_treelet,
                                             refit_clusters)
 from ceres_tpu_torch.models.camera import Camera
 from ceres_tpu_torch.models.mesh import triangle_soup
+from ceres_tpu_torch.parallel.sharded import render_sharded
 from ceres_tpu_torch.render.renderer import (RenderConfig, render_pipeline,
                                              resolve_device)
 
@@ -61,12 +70,6 @@ def _camera_with(camera: Camera, params: dict) -> Camera:
                   up=camera.up, fov=params.get("fov", camera.fov))
 
 
-def _refuse_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError("the train step over a device mesh is not "
-                                  "ported yet (ROADMAP item M16)")
-
-
 def make_train_step(faces, camera: Camera, sun, config: RenderConfig,
                     optimizer: torch.optim.Optimizer, mesh=None,
                     clusters0=None):
@@ -85,18 +88,26 @@ def make_train_step(faces, camera: Camera, sun, config: RenderConfig,
     building the treelet cut anew: a gather and a segmented min/max in
     place of the LBVH build. Without it the megakernel backend builds
     the cut inside every step.
+
+    With ``mesh`` (``parallel.sharded.Mesh``) the image is rendered by
+    ``render_sharded`` over the mesh's ranks, the loss is taken on every
+    rank over the whole image, and the gradients arrive summed over the
+    ranks.
     """
-    _refuse_mesh(mesh)
 
     def loss_fn(params, target):
+        cam = _camera_with(camera, params)
         clusters = None
         if clusters0 is not None:
             soup = triangle_soup(params["vertices"].detach(), faces,
                                  with_normals=False)
             clusters = refit_clusters(clusters0, soup)
-        image, _ = render_pipeline(params["vertices"], faces,
-                                   _camera_with(camera, params), sun, config,
-                                   clusters=clusters)
+        if mesh is not None:
+            image, _ = render_sharded(params["vertices"], faces, cam, sun,
+                                      config, mesh=mesh, clusters=clusters)
+        else:
+            image, _ = render_pipeline(params["vertices"], faces, cam, sun,
+                                       config, clusters=clusters)
         return image_loss(image, target)
 
     def step(state: TrainState, target) -> tuple[TrainState, torch.Tensor]:
@@ -178,20 +189,22 @@ def fit_vertices(
 
     Runs on ``device``: by default the device of ``vertices`` if it is a
     tensor, else the card, and it raises without one (``device="cpu"``
-    fits on the CPU), as ``render()`` does. The caller's arrays are not
-    changed.
+    fits on the CPU), as ``render()`` does; over a ``mesh`` of ranks, on
+    the mesh's device, each rank rendering its rows. The caller's arrays
+    are not changed.
 
     With ``checkpoint_dir``, parameters, Adam's state and the step are
     saved (``torch.save``) every ``checkpoint_every`` steps and at the
     last step, keeping the newest two, and the fit resumes from the
-    newest one; ``steps`` counts the restored steps too.
+    newest one; ``steps`` counts the restored steps too. Over a mesh rank
+    0 writes them and every rank restores rank 0's newest.
 
     ``refit=True`` on the megakernel backend builds the treelet cut once
     from the initial vertices and refits it every step (``clusters0`` of
-    :func:`make_train_step`).
+    :func:`make_train_step`), on every rank of a mesh alike.
     """
-    _refuse_mesh(mesh)
-    device = resolve_device(vertices, device, "fit_vertices")
+    device = (mesh.device if mesh is not None
+              else resolve_device(vertices, device, "fit_vertices"))
     config = config or RenderConfig(width=target.shape[1],
                                     height=target.shape[0])
     faces = torch.as_tensor(faces, device=device)
@@ -206,10 +219,12 @@ def fit_vertices(
         params["dir"] = camera.dir.clone()
     state = TrainState({k: v.requires_grad_() for k, v in params.items()},
                        {k: {} for k in params})
+    writer = mesh is None or mesh.rank == 0
     start = 0
     if checkpoint_dir is not None:
-        os.makedirs(checkpoint_dir, exist_ok=True)
-        latest = _latest(checkpoint_dir)
+        if writer:
+            os.makedirs(checkpoint_dir, exist_ok=True)
+        latest = _agreed(_latest(checkpoint_dir) if writer else None, mesh)
         if latest is not None:
             state = _restore(checkpoint_dir, latest, device)
             start = latest
@@ -221,7 +236,7 @@ def fit_vertices(
         clusters0 = build_clusters_treelet(
             triangle_soup(v0, faces, with_normals=False))
     optimizer = torch.optim.Adam(state.params.values(), lr=learning_rate)
-    step = make_train_step(faces, camera, sun, config, optimizer,
+    step = make_train_step(faces, camera, sun, config, optimizer, mesh=mesh,
                            clusters0=clusters0)
     history = []
     for i in range(start, steps):
@@ -229,5 +244,22 @@ def fit_vertices(
         history.append(float(loss))
         if checkpoint_dir is not None and (
                 (i + 1) % checkpoint_every == 0 or i + 1 == steps):
-            _save(checkpoint_dir, i + 1, state)
+            if writer:
+                _save(checkpoint_dir, i + 1, state)
+            # Every rank leaves the fit once rank 0's checkpoint is down.
+            _agreed(None, mesh)
     return {k: v.detach() for k, v in state.params.items()}, history
+
+
+def _agreed(step: Optional[int], mesh) -> Optional[int]:
+    """Rank 0's ``step`` (None: no checkpoint) on every rank of ``mesh``,
+    by a broadcast that also makes the ranks wait for rank 0; ``step``
+    itself without a mesh or its process group."""
+    if mesh is None or mesh.group is None:
+        return step
+    import torch.distributed as dist
+
+    x = torch.tensor([-1 if step is None else step], dtype=torch.int64,
+                     device=mesh.device)
+    dist.broadcast(x, src=0, group=mesh.group)
+    return None if int(x) < 0 else int(x)

@@ -127,7 +127,25 @@ its own line:
      bunny's binned cut on K5 and the 4x bunny's (S = 16) on K6 and K7a,
      held to their plain versions, each frame beside the LBVH cut's; the
      render CLI at 1080p with ``--builder binned`` and ``ploc``: K1 and K2
-     once each, Rays/Hits those of ``render()`` on the same cut.
+     once each, Rays/Hits those of ``render()`` on the same cut;
+ 19. several ranks on the one card (``parallel.distributed.run_ranks``:
+     two gloo ranks, spawned, each with its own CUDA context and the
+     kernels built in phase 2): ``render_sharded`` of the bunny frame
+     at 1920 x 1080 (megakernel, smooth, shadows), each rank's K1 and K2
+     launch counts rising and each walk held to its plain version on
+     that rank's rows, the image within one level of the one-rank
+     card render after quantisation and rays/hits equal;
+     ``render_primitive_sharded`` of the 4x bunny at 1080p, the variants
+     each rank launched, each walk held to its plain version on that
+     rank's own inputs, the image against the one-rank frame under the
+     primitive-sharding rule (at most 1% of pixels off by more than
+     2e-3, primary hits within 1%); a config-4b train step (bunny 1080p,
+     d/d vertices and eye) over the two ranks, each rank's walks of its
+     first step held to their plain versions: loss and gradients equal
+     to the one-rank step's under phase 12's rule, parameters bit-equal
+     on both ranks; then one NCCL group of one rank through
+     ``render_sharded``. ms a frame and a step of one rank and of two,
+     which share the card (no scaling figure).
 
 Every kernel-vs-plain check holds each tile's executed visits, not only
 their sum, and prints the kernel's bound: the larger of its fp32
@@ -220,6 +238,10 @@ F64_FRAMES = 3
 CLI_CHECK = 128
 ANIM_W, ANIM_H = 621, 1344
 ANIM_FRAMES, ANIM_BATCH = 8, 4
+# Phase 19: frames and steps timed over the ranks, and its seed.
+RANK_FRAMES = 5
+RANK_STEPS = 3
+RANK_SEED = 19
 # Modes of the walk and their wrappers in ops.walk.
 WALKS = {"closest": "walk_closest", "closest_window": "walk_closest",
          "any_dest": "walk_any_dest", "any": "walk_any"}
@@ -1412,6 +1434,330 @@ def phase18(dev, card, builds, meshes, large):
     return launches_all
 
 
+@contextlib.contextmanager
+def recorded_walks():
+    """The walks a path launches, with their inputs: (wrapper name, args,
+    opts) in launch order."""
+    from ceres_tpu_torch.ops import walk
+
+    seen = []
+    real = {name: getattr(walk, name) for name in set(WALKS.values())}
+
+    def recorder(name, fn):
+        def record(*args, **opts):
+            seen.append((name, args, opts))
+            return fn(*args, **opts)
+        return record
+
+    for name, fn in real.items():
+        setattr(walk, name, recorder(name, fn))
+    try:
+        yield seen
+    finally:
+        for name, fn in real.items():
+            setattr(walk, name, fn)
+
+
+def hold_recorded(phase, seen, label, card, reps=3):
+    """Each recorded walk against its plain version on its own inputs;
+    returns the variants' names."""
+    from ceres_tpu_torch.ops import walk
+
+    names = []
+    for name, args, opts in seen:
+        mode = {"walk_closest": "closest", "walk_any_dest": "any_dest",
+                "walk_any": "any"}[name]
+        if opts.get("window"):
+            mode = "closest_window"
+        kname = walk._variant(mode, opts["S"], opts["stream"])
+        r, _ = compare(mode, args, opts, reps=reps)
+        report(phase, kname, f"{label} ({args[1].shape[0]} tiles, "
+               f"{args[3].shape[0]} blocks, S = {opts['S']})", r, card)
+        names.append(kname)
+    return names
+
+
+def step_problem(dev, v, f, mesh):
+    """Config 4b's step over ``mesh``: (step(), the leaves): Adam (lr
+    1e-5) over the vertices and the eye, ``image_loss`` against the frame
+    at the sun, rendered through ``render_sharded`` with the sun moved
+    1e-3, the cut built in the step."""
+    import ceres_tpu_torch as ct
+    from ceres_tpu_torch.diff import TrainState, make_train_step
+    from ceres_tpu_torch.parallel.sharded import render_sharded
+
+    cam = camera(v, EYE, dev)
+    config = ct.RenderConfig(width=W, height=H, backend="megakernel")
+    ft = torch.as_tensor(f, device=dev)
+    target, _ = render_sharded(v, f, cam, SUN, config, mesh=mesh)
+    params = {"vertices": torch.tensor(v, device=dev, requires_grad=True),
+              "eye": cam.eye.clone().requires_grad_()}
+    step = make_train_step(ft, cam, torch.as_tensor(SUN, device=dev) + 1e-3,
+                           config, torch.optim.Adam(params.values(),
+                                                    lr=1e-5), mesh=mesh)
+    state = [TrainState(params, {k: {} for k in params})]
+
+    def one(i=0):
+        state[0], loss = step(state[0], target)
+        return loss
+
+    return one, params
+
+
+def masked_grads(dev, v, f, mesh, agree):
+    """Phase 12's gradient check over ``mesh``: d/d(vertices, eye) of
+    sum(w * image) at the moved sun, ``w`` seeded weights that leave out
+    the pixels outside ``agree``."""
+    import ceres_tpu_torch as ct
+    from ceres_tpu_torch.parallel.selfcheck import _grads
+
+    weights = (np.random.default_rng(RANK_SEED).uniform(size=(H, W, 1))
+               * agree[..., None]).astype(np.float32)
+    g = _grads(torch.as_tensor(v, device=dev), torch.as_tensor(f, device=dev),
+               camera(v, EYE, dev), torch.as_tensor(SUN, device=dev) + 1e-3,
+               ct.RenderConfig(width=W, height=H, backend="megakernel"),
+               mesh, weights)
+    return {k: g[k].cpu() for k in ("vertices", "eye")}
+
+
+def _ranks_phase19(card, v4, f4, one_moved):
+    """One of phase 19's gloo ranks on the card: render_sharded, the
+    primitive-sharded 4x bunny, the train step; what each launched, its
+    results (images on rank 0) and its times."""
+    import ceres_tpu_torch as ct
+    from ceres_tpu_torch.parallel import distributed
+    from ceres_tpu_torch.parallel.sharded import (render_primitive_sharded,
+                                                  render_sharded)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = distributed.global_mesh()
+    dev, rank = mesh.device, mesh.rank
+    out = {}
+    v, f = ct.load_obj(BUNNY)
+    config = ct.RenderConfig(width=W, height=H, backend="megakernel")
+    cam = camera(v, EYE, dev)
+    sun = np.asarray(SUN, np.float32)
+
+    with recorded_walks() as seen:
+        (img, st), launches = launches_of(lambda: render_sharded(
+            v, f, cam, SUN, config, mesh=mesh))
+    held = hold_recorded(19, seen, f"rank {rank} of 2, bunny render_sharded "
+                         f"rows {W}x{H // 2}", card)
+    times, walls = frame_times(lambda i: render_sharded(
+        v, f, cam, sun + i * 1e-3, config, mesh=mesh), RANK_FRAMES)
+    out["sharded"] = {"launches": launches, "held": held, "times": times,
+                      "walls": walls,
+                      "stats": {k: int(x) for k, x in st.items()},
+                      "image": img.cpu().numpy() if rank == 0 else None}
+
+    cam4 = camera(v4, EYE, dev)
+    with recorded_walks() as seen:
+        (img, st), launches = launches_of(lambda: render_primitive_sharded(
+            v4, f4, cam4, SUN, config, mesh=mesh))
+    held = hold_recorded(19, seen, f"rank {rank} of 2, bunny x4 primitive "
+                         f"shard {W}x{H}", card)
+    times, walls = frame_times(lambda i: render_primitive_sharded(
+        v4, f4, cam4, sun + i * 1e-3, config, mesh=mesh), 2)
+    out["primitive"] = {"launches": launches, "held": held, "times": times,
+                        "walls": walls,
+                        "stats": {k: int(x) for k, x in st.items()},
+                        "image": img.cpu().numpy() if rank == 0 else None}
+
+    step, params = step_problem(dev, v, f, mesh)
+    with recorded_walks() as seen:
+        loss, launches = launches_of(step)
+    held = hold_recorded(19, seen, f"rank {rank} of 2, config 4b train step "
+                         f"rows {W}x{H // 2}", card)
+    out["train"] = {"launches": launches, "held": held, "loss": float(loss),
+                    **{f"grad_{k}": p.grad.cpu() for k, p in params.items()},
+                    **{k: p.detach().cpu() for k, p in params.items()}}
+    times, walls = frame_times(lambda i: step(), RANK_STEPS)
+    out["train"].update(times=times, walls=walls)
+    with torch.no_grad():
+        moved, _ = render_sharded(v, f, cam, sun + 1e-3, config, mesh=mesh)
+    agree = (np.abs(moved.cpu().numpy() - one_moved).max(-1)
+             <= 1e-4)
+    out["train"]["agree"] = agree
+    out["train"]["masked"] = masked_grads(dev, v, f, mesh, agree)
+    return out
+
+
+def _nccl_rank():
+    """A group of one rank on the NCCL backend: render_sharded's frame,
+    its launches and the backend."""
+    import ceres_tpu_torch as ct
+    import torch.distributed as dist
+    from ceres_tpu_torch.parallel import distributed
+    from ceres_tpu_torch.parallel.sharded import render_sharded
+
+    mesh = distributed.global_mesh()
+    v, f = ct.load_obj(BUNNY)
+    config = ct.RenderConfig(width=W, height=H, backend="megakernel")
+    (img, st), launches = launches_of(lambda: render_sharded(
+        v, f, camera(v, EYE, mesh.device), SUN, config, mesh=mesh))
+    return {"backend": dist.get_backend(), "launches": launches,
+            "group": mesh.group is not None,
+            "stats": {k: int(x) for k, x in st.items()},
+            "image": img.cpu().numpy()}
+
+
+def levels_apart(a, b):
+    """Pixels of two images whose 8-bit values differ by one level, and
+    by more (utils.image.to_uint8's quantisation)."""
+    from ceres_tpu_torch.utils.image import to_uint8
+
+    d = np.abs(to_uint8(a).astype(int) - to_uint8(b).astype(int)).max(-1)
+    return int((d == 1).sum()), int((d > 1).sum())
+
+
+def phase19(dev, card, meshes):
+    """Two gloo ranks on the one card, then one NCCL rank."""
+    import ceres_tpu_torch as ct
+    from ceres_tpu_torch.parallel import distributed
+    from ceres_tpu_torch.parallel.sharded import (Mesh,
+                                                  render_primitive_sharded,
+                                                  render_sharded)
+
+    v, f = ct.load_obj(BUNNY)
+    v4, f4 = meshes[4]
+    config = ct.RenderConfig(width=W, height=H, backend="megakernel")
+    sun = np.asarray(SUN, np.float32)
+    one = Mesh(dev)
+    # One rank on the card: the references and their times.
+    cam = camera(v, EYE, dev)
+    img1, st1 = render_sharded(v, f, cam, SUN, config, mesh=one)
+    t1, w1 = frame_times(lambda i: render_sharded(
+        v, f, cam, sun + i * 1e-3, config, mesh=one), RANK_FRAMES)
+    cam4 = camera(v4, EYE, dev)
+    (pimg1, pst1), plaunch1 = launches_of(lambda: render_primitive_sharded(
+        v4, f4, cam4, SUN, config, mesh=one))
+    pt1, pw1 = frame_times(lambda i: render_primitive_sharded(
+        v4, f4, cam4, sun + i * 1e-3, config, mesh=one), 2)
+    step, params = step_problem(dev, v, f, one)
+    loss1 = float(step())
+    grads1 = {k: p.grad.cpu() for k, p in params.items()}
+    st_t1, st_w1 = frame_times(lambda i: step(), RANK_STEPS)
+    with torch.no_grad():
+        moved1, _ = render_sharded(v, f, cam, sun + 1e-3, config, mesh=one)
+    moved1 = moved1.cpu().numpy()
+    img1, pimg1 = img1.cpu().numpy(), pimg1.cpu().numpy()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    ranks = distributed.run_ranks(_ranks_phase19, 2, card, v4, f4, moved1,
+                                  device="cuda", timeout=600)
+    spawn_s = time.perf_counter() - t0
+    launches = {}
+    for rank, r in enumerate(ranks):
+        for part in ("sharded", "primitive", "train"):
+            launches = merge(launches, r[part]["launches"])
+            # Every walk the part launched was held to its plain version
+            # on this rank's inputs.
+            check(r[part]["launches"]
+                  and set(r[part]["held"]) == set(r[part]["launches"]),
+                  f"phase 19: rank {rank}'s {part} launched "
+                  f"{r[part]['launches']}, held {r[part]['held']}")
+        for part in ("sharded", "train"):
+            check(r[part]["launches"].get("walk_closest", 0) > 0
+                  and r[part]["launches"].get("walk_any_dest", 0) > 0,
+                  f"phase 19: rank {rank}'s {part} launched "
+                  f"{r[part]['launches']}, not K1 and K2")
+    r0 = ranks[0]
+
+    # render_sharded: one level at most after quantisation, counts equal.
+    one_level, more = levels_apart(r0["sharded"]["image"], img1)
+    st2 = r0["sharded"]["stats"]
+    same = all(r["sharded"]["stats"] == st2 for r in ranks)
+    want = {k: int(x) for k, x in st1.items()}
+    ms1, ms2 = statistics.median(t1), statistics.median(r0["sharded"]["times"])
+    print(f"phase 19 render_sharded, bunny {W}x{H} smooth+shadows, 2 gloo "
+          f"ranks on the one card: launches by rank "
+          f"{[r['sharded']['launches'] for r in ranks]}; against one rank: "
+          f"{one_level} pixels one level apart, {more} more (limit 0); "
+          f"rays/hits {st2['rays']}/{st2['hits']} (one rank "
+          f"{want['rays']}/{want['hits']}); ms a frame, the treelet cut "
+          f"built in each: one rank {ms1:.3f} (host wall "
+          f"{statistics.median(w1):.3f}), two ranks {ms2:.3f} (host wall "
+          f"{statistics.median(r0['sharded']['walls']):.3f}; ranks share the "
+          f"card: no scaling figure) [{card}]", flush=True)
+    check(more == 0 and same and st2["rays"] == want["rays"]
+          and st2["hits"] == want["hits"],
+          "phase 19: render_sharded over two ranks differs from one rank")
+
+    # The primitive-sharded 4x bunny.
+    pimg2, pst2 = r0["primitive"]["image"], r0["primitive"]["stats"]
+    off = float((np.abs(pimg2 - pimg1).max(-1) > 2e-3).mean())
+    pwant = {k: int(x) for k, x in pst1.items()}
+    print(f"phase 19 render_primitive_sharded, bunny x4 ({f4.shape[0]} "
+          f"triangles) {W}x{H}: variants by rank "
+          f"{[r['primitive']['launches'] for r in ranks]} (one rank: "
+          f"{plaunch1}); against one rank: pixels off by >2e-3 {off:.4%} "
+          f"(limit 1%), primary hits {pst2['primary_hits']} (one rank "
+          f"{pwant['primary_hits']}, limit 1% of pixels), rays/hits "
+          f"{pst2['rays']}/{pst2['hits']}; ms a frame (its shard's cut "
+          f"built in it): one rank {statistics.median(pt1):.3f} (host wall "
+          f"{statistics.median(pw1):.3f}), two ranks "
+          f"{statistics.median(r0['primitive']['times']):.3f} (host wall "
+          f"{statistics.median(r0['primitive']['walls']):.3f}) [{card}]",
+          flush=True)
+    check(off <= 0.01 and abs(pst2["primary_hits"] - pwant["primary_hits"])
+          <= 0.01 * W * H and all(r["primitive"]["stats"] == pst2
+                                  for r in ranks),
+          "phase 19: the primitive-sharded frame differs from one rank's")
+
+    # The train step: loss and gradients against one rank's, parameters
+    # bit-equal on both ranks.
+    tr = [r["train"] for r in ranks]
+    equal = all(torch.equal(tr[0][k], t[k]) for t in tr[1:]
+                for k in ("vertices", "eye"))
+    agree = tr[0]["agree"]
+    masked1 = masked_grads(dev, v, f, one, agree)
+    ok = abs(tr[0]["loss"] - loss1) <= 1e-4 * abs(loss1)
+    lines = []
+    for k in ("vertices", "eye"):
+        got, ref = tr[0]["masked"][k].double(), masked1[k].double()
+        scale = float(ref.abs().max())
+        ok = ok and scale > 0 and bool(((got - ref).abs() <= 1e-5 * scale
+                                        + 1e-4 * ref.abs()).all())
+        step_err = float((tr[0][f"grad_{k}"].double()
+                          - grads1[k].double()).abs().max())
+        lines.append(f"d/d{k} max |g| {scale:.6e} max abs diff "
+                     f"{float((got - ref).abs().max()):.3e}; the step's own "
+                     f"d/d{k} max |g| {float(grads1[k].abs().max()):.6e}, "
+                     f"max abs diff {step_err:.3e}")
+    print(f"phase 19 config 4b train step over 2 ranks, bunny {W}x{H}, "
+          f"d/d(vertices, eye), the cut built in the step: loss "
+          f"{tr[0]['loss']:.9e} (one rank {loss1:.9e}); launches by rank "
+          f"{[t['launches'] for t in tr]}; pixels left out "
+          f"{int((~agree).sum())}; {'; '.join(lines)} (rule: rtol 1e-4, "
+          f"atol 1e-5 max|g| on sum(w * image); the step's own loss, "
+          f"(image - target)^2 with the sun moved 1e-3, weighs the last "
+          f"bits of the shading, so its gradients are shown, not held); "
+          f"parameters "
+          f"bit-equal on both ranks: {equal}; ms a step: one rank "
+          f"{statistics.median(st_t1):.3f} (host wall "
+          f"{statistics.median(st_w1):.3f}), two ranks "
+          f"{statistics.median(tr[0]['times']):.3f} (host wall "
+          f"{statistics.median(tr[0]['walls']):.3f}); spawn to results "
+          f"{spawn_s:.1f} s [{card}]", flush=True)
+    check(ok and equal and (~agree).mean() <= 0.005,
+          "phase 19: the train step over two ranks differs from one rank's")
+
+    # One NCCL rank: the backend's path through render_sharded.
+    (nc,) = distributed.run_ranks(_nccl_rank, 1, device="cuda", timeout=300)
+    n_one, n_more = levels_apart(nc["image"], img1)
+    print(f"phase 19 one NCCL rank, render_sharded bunny {W}x{H}: backend "
+          f"{nc['backend']}, process group {nc['group']}, launches "
+          f"{nc['launches']}; against one rank without a group: {n_one} "
+          f"pixels one level apart, {n_more} more, rays/hits "
+          f"{nc['stats']['rays']}/{nc['stats']['hits']}", flush=True)
+    check(nc["backend"] == "nccl" and nc["group"] and n_more == 0
+          and nc["stats"] == want and nc["launches"].get("walk_closest"),
+          "phase 19: the NCCL rank's frame differs")
+    return merge(launches, nc["launches"])
+
+
 def main():
     # Phase 1: device.
     if not torch.cuda.is_available():
@@ -1701,6 +2047,8 @@ def main():
     # Phase 18: the quality builders and their cuts.
     path_launches = merge(path_launches,
                           phase18(dev, card, builds, meshes, large))
+    # Phase 19: several ranks on the one card.
+    path_launches = merge(path_launches, phase19(dev, card, meshes))
 
     missing = [k for k in REPLACES if not path_launches.get(k)]
     check(not missing, f"no path launched {missing}")

@@ -15,7 +15,8 @@ package and against the port's own single-frame render, on the CPU.
     cut's frames, and the JAX package's;
   * the soup, cut and winner table are built once a batch; the cut is
     built once and refitted for deforming frames;
-  * a mesh of two devices and primitive sharding name ROADMAP item M16b.
+  * a process drives one device: several are refused, naming the way
+    to more (a rank per device); primitive sharding renders on one rank.
 """
 
 import jax
@@ -219,11 +220,22 @@ def test_cut_built_once_a_batch(bunny, monkeypatch):
 
 
 def test_multi_device_names_its_roadmap_item(bunny):
+    # Several devices in one process are refused, with the way to more:
+    # one rank per device (tests/test_torch_distributed.py runs them).
+    # Primitive sharding renders on one rank, as the JAX package's does
+    # on one device, within the primitive-sharding rule of
+    # tests/test_primitive_sharded.py.
     verts, faces = bunny
-    with pytest.raises(NotImplementedError, match="M16b"):
+    with pytest.raises(ValueError, match="one rank per device"):
         psh.device_mesh(devices=["cpu", "cpu"])
-    with pytest.raises(NotImplementedError, match="M16b"):
-        psh.render_primitive_sharded(verts, faces, None, SUN)
+    cam = convert.camera(_camera(verts))
+    img, st = psh.render_primitive_sharded(verts, faces, cam, SUN,
+                                           device="cpu", **CONFIG)
+    ref, rst = ct.render(verts, faces, cam, SUN, device="cpu", **CONFIG)
+    assert (torch.abs(img - ref).amax(-1) > 2e-3).float().mean() <= 0.01
+    assert abs(int(st["primary_hits"]) - int(rst["primary_hits"])) \
+        <= 0.01 * W * H
+    assert int(st["rays"]) == int(rst["rays"]) and float(img.max()) > 0
     mesh = psh.device_mesh(devices=["cpu"])
     assert mesh.shape == {"frames": 1, "rays": 1}
     assert mesh.device == torch.device("cpu")

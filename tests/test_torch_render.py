@@ -269,6 +269,9 @@ def test_port_imports_without_jax():
             "ceres_tpu_torch.diff, ceres_tpu_torch.cli.render, "
             "ceres_tpu_torch.cli.anim, ceres_tpu_torch.parallel, "
             "ceres_tpu_torch.parallel.sharded, ceres_tpu_torch.ops.walk_f64, "
+            "ceres_tpu_torch.parallel.distributed, "
+            "ceres_tpu_torch.parallel.dryrun, "
+            "ceres_tpu_torch.parallel.selfcheck, "
             "ceres_tpu_torch.ops.sphere, ceres_tpu_torch.utils.image, "
             "ceres_tpu_torch.accel.ploc, ceres_tpu_torch.accel.sbvh, "
             "ceres_tpu_torch.accel.reinsertion, "

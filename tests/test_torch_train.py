@@ -15,7 +15,10 @@
   * checkpoints: a resumed fit equals the uninterrupted one, and a fit
     whose steps are all restored runs none, mirroring
     ``tests/test_checkpoint.py``;
-  * refusals: ``mesh=`` names ROADMAP item M16; numpy inputs with no
+  * ``mesh=``: on a mesh of one rank the step and the fit render through
+    ``render_sharded`` (brute force: the fit equals the one without a
+    mesh bit for bit), and a ``clusters0`` is refitted there (several
+    ranks: ``tests/test_torch_distributed.py``); numpy inputs with no
     card raise unless ``device="cpu"``.
 
 The JAX side runs as its own tests run it: jitted, the megakernel in
@@ -372,17 +375,50 @@ def test_checkpoint_and_resume_with_camera_and_refit(tmp_path, bunny):
 
 
 def test_mesh_is_refused_naming_m16(tiny_scene):
+    # The train step over a mesh (ROADMAP item M16, once refused): on one
+    # rank its loss is render_sharded's, with a prebuilt cut refitted too,
+    # and the fit equals the fit without a mesh.
+    import dataclasses
+
+    from ceres_tpu_torch.models.mesh import triangle_soup
+    from ceres_tpu_torch.parallel import sharded as psh
+
     vertices, faces, camera, sun, target, config = tiny_scene
-    with pytest.raises(NotImplementedError, match="M16"):
-        pinv.make_train_step(torch.as_tensor(faces), camera,
-                             torch.as_tensor(sun), config,
-                             torch.optim.Adam([torch.zeros(1,
-                                                           requires_grad=True)]),
-                             mesh=object())
-    with pytest.raises(NotImplementedError, match="M16"):
-        pinv.fit_vertices(vertices, faces, camera, sun, target,
-                          config=config, steps=1, mesh=object(),
-                          device="cpu")
+    mesh = psh.device_mesh(devices=["cpu"])
+    start = torch.tensor(vertices + 0.05, requires_grad=True)
+    step = pinv.make_train_step(torch.as_tensor(faces), camera,
+                                torch.as_tensor(sun), config,
+                                torch.optim.Adam([start], lr=1e-2),
+                                mesh=mesh)
+    _, loss = step(pinv.TrainState({"vertices": start}, {"vertices": {}}),
+                   torch.as_tensor(target))
+    image, _ = psh.render_sharded(torch.as_tensor(vertices + 0.05), faces,
+                                  camera, sun, config, mesh=mesh)
+    assert float(loss) == float(pinv.image_loss(image,
+                                                torch.as_tensor(target)))
+    # Megakernel: the cut of the start vertices, refitted in the step.
+    mk = dataclasses.replace(config, backend="megakernel")
+    v0 = torch.tensor(vertices + 0.05)
+    cs0 = pcl.build_clusters_treelet(triangle_soup(
+        v0, torch.as_tensor(faces), with_normals=False))
+    start = v0.clone().requires_grad_()
+    step = pinv.make_train_step(torch.as_tensor(faces), camera,
+                                torch.as_tensor(sun), mk,
+                                torch.optim.Adam([start], lr=1e-2),
+                                mesh=mesh, clusters0=cs0)
+    _, loss = step(pinv.TrainState({"vertices": start}, {"vertices": {}}),
+                   torch.as_tensor(target))
+    image, _ = psh.render_sharded(v0, faces, camera, sun, mk, mesh=mesh,
+                                  clusters=cs0)
+    assert float(loss) == float(pinv.image_loss(image,
+                                                torch.as_tensor(target)))
+    params, hist = pinv.fit_vertices(vertices + 0.05, faces, camera, sun,
+                                     target, config=config, steps=3,
+                                     learning_rate=1e-2, mesh=mesh)
+    ref, hist_ref = _fit(tiny_scene, steps=3)
+    assert hist == hist_ref and len(hist) == 3
+    torch.testing.assert_close(params["vertices"], ref["vertices"], rtol=0,
+                               atol=0)
 
 
 def test_fit_without_card_needs_device_cpu(tiny_scene, monkeypatch):
