@@ -32,7 +32,7 @@ _I = ctypes.c_int
 # Closest modes: counts, keys, rays, w, out, visits, n_tiles, n_c, cmask,
 # stream_w, device, stream. Occlusion modes add occ0 after w. The
 # two-level forms add hull, bbox, first after those pointers and S after
-# cmask.
+# cmask. The ``_t128`` forms walk tiles of 128 rays (regrouped shadows).
 _FLAT = (_P,) * 6 + (_I,) * 5 + (_P,)
 _FLAT_OCC = (_P,) * 7 + (_I,) * 5 + (_P,)
 _HIER = (_P,) * 9 + (_I,) * 6 + (_P,)
@@ -41,10 +41,12 @@ _SIGNATURES = {
     "ceres_walk_closest": _FLAT,
     "ceres_walk_closest_window": _FLAT,
     "ceres_walk_any_dest": _FLAT_OCC,
+    "ceres_walk_any_dest_t128": _FLAT_OCC,
     "ceres_walk_any": _FLAT_OCC,
     "ceres_walk_closest_hier": _HIER,
     "ceres_walk_closest_window_hier": _HIER,
     "ceres_walk_any_dest_hier": _HIER_OCC,
+    "ceres_walk_any_dest_hier_t128": _HIER_OCC,
     "ceres_walk_any_hier": _HIER_OCC,
 }
 
@@ -96,7 +98,7 @@ def load() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
-    lib.ceres_walk_resident_clusters.argtypes = [_I] * 4
+    lib.ceres_walk_resident_clusters.argtypes = [_I] * 5
     lib.ceres_walk_resident_clusters.restype = _I
     lib.ceres_error_string.argtypes = [ctypes.c_int]
     lib.ceres_error_string.restype = ctypes.c_char_p

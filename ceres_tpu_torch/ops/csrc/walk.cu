@@ -19,20 +19,27 @@
 //                   accept; features [d, d x o, o, 1]): the
 //                   reference-exact shadow rays, from any_hit.
 // Each as
-//   walk_solo<M>                   flat, resident: one CTA a tile;
-//   walk_tile<M, true, K, false>   flat, streamed weights (stream=True:
-//                                  _copy / start_fetch / wait_fetch,
-//                                  fetch_wait and the drain at early exit);
-//   walk_tile<M, *, K, true>       two-level (S > 1: block_entries, the
-//                                  in-super priority walk);
+//   walk_solo<M, R>                   flat, resident: one CTA a tile;
+//   walk_tile<M, true, K, false, R>   flat, streamed weights (stream=True:
+//                                     _copy / start_fetch / wait_fetch,
+//                                     fetch_wait and the drain at early
+//                                     exit);
+//   walk_tile<M, *, K, true, R>       two-level (S > 1: block_entries, the
+//                                     in-super priority walk);
 // walk_tile walks one tile on a thread-block cluster of K CTAs (below).
+// R is the tile's rays: kR = 512 for every mode, and kR128 = 128 for
+// kAnyDest in all three forms, the shadow wavefront regrouped by receiver
+// (_REGROUP_TILE, from any_hit_to_point(regroup=True); the C entry points
+// ending in _t128). A block has R threads; at 128 the cluster walks use
+// K = kK128.
 // The plain PyTorch versions that define the exact results are in
 // ceres_tpu_torch/ops/walk.py (_walk_closest_plain, _walk_any_dest_plain,
 // _walk_any_plain).
 //
-// What one tile's walk computes. A tile is kR = 512 rays: one block with one
-// ray per thread (the resident flat walk, walk_solo, below), or a cluster
-// of blocks (the streamed flat walk and the two-level walk, below). The
+// What one tile's walk computes. A tile is R rays (512, or 128 regrouped):
+// one block with one ray per thread (the resident flat walk, walk_solo,
+// below), or a cluster of blocks (the streamed flat walk and the two-level
+// walk, below). The
 // tile's candidates arrive as one sorted int32 key row (entry-bound f32
 // bits with the low cid bits cleared | candidate id). The walk takes the row front to back while
 //     k < count  &&  (key_k & ~cmask) <= prune,
@@ -62,7 +69,8 @@
 //
 // The streamed flat walk and the two-level walk (walk_tile) run one tile on
 // a thread-block cluster of K CTAs (Hopper clusters, each CTA on its own
-// SM; K = kKFlat and kK). CTA c holds 512 / K of the tile's rays, each on K
+// SM; K = kKFlat and kK, kK128 at 128 rays). CTA c holds R / K of the
+// tile's rays, each on K
 // neighbouring threads of a warp, and every block visit's 128 triangles:
 // thread g of a ray takes lanes j = i K + g, and the ray's threads combine their key minima (or occlusion flags) with
 // xor shuffles. A key keeps its lane in its low bits, so the combined min
@@ -84,14 +92,17 @@
 // after it, so the exchange overlaps the next visit's arithmetic. One loop
 // (TileWalk::run) serves both walks, fed by the key row (Row) or by a
 // super's live members (Members). The first prune needs no exchange: every
-// CTA takes it over all the tile's 512 rays. A tile that it lets visit
+// CTA takes it over all the tile's R rays. A tile that it lets visit
 // nothing (most tiles of a frame see no candidate) returns before any
 // cluster barrier, and the opening cluster barrier's wait comes after the
 // first visit. kK and kKFlat are constants, from the card's times of K6
 // and K7a on the 4x bunny and of K5 on the 3x bunny (PERF.md, with the
 // designs that measured slower there: CTAs that split each block's lanes
 // and exchange every ray's key per visit, faster on the closest walk and
-// slower on the shadow walk; a ray's threads in separate warps).
+// slower on the shadow walk; a ray's threads in separate warps). kK128
+// likewise, from the regrouped K5 and K7a on the 3x and 4x bunny: both are
+// set by their heaviest tile (thousands of visits), which K = 8 spreads
+// over the most SMs (K = 2 and 4 measured slower).
 //
 // Streamed weights. The TPU kernel fetched each visit's block by DMA from
 // HBM into VMEM and prefetched visit k + 1 during visit k. Here a block
@@ -155,9 +166,10 @@ namespace {
 constexpr int kC = 128;            // triangles per cluster (CLUSTER_SIZE)
 constexpr int kIdxMask = kC - 1;   // lane bits of a winner key
 constexpr int kR = 512;            // rays per tile (TILE) = threads per block
-constexpr int kWarps = kR / 32;
+constexpr int kR128 = 128;         // regrouped shadow tiles (_REGROUP_TILE)
 constexpr int kK = 8;              // two-level walk: CTAs a tile, threads a ray
 constexpr int kKFlat = 8;          // streamed flat walk: the same
+constexpr int kK128 = 8;           // both cluster walks at kR128 rays a tile
 constexpr int kPlanes = 10;        // common-origin planes: cu.xyz, cv.xyz, n.xyz, tn
 constexpr int kPlanesGeneric = 16; // generic planes: those 10, e2.xyz, e1.xyz
 constexpr int kSuperMax = 32;      // _SUPER_MAX: member slots in one uint32
@@ -224,15 +236,16 @@ __device__ __forceinline__ float xmax(float a, float b) {
   return a > b ? a : b;
 }
 
-// Max of v over the block, returned to every thread: a warp redux, the 16
-// warps' maxima through sred and a second redux. One barrier: the caller
-// puts a barrier of its own between two calls on one sred, or alternates
-// two sred buffers.
+// Max of v over a block of R threads, returned to every thread: a warp
+// redux, the R / 32 warps' maxima through sred and a second redux. One
+// barrier: the caller puts a barrier of its own between two calls on one
+// sred, or alternates two sred buffers.
+template <int R>
 __device__ __forceinline__ int block_max(int v, int* sred) {
   v = __reduce_max_sync(0xffffffffu, v);
   if ((threadIdx.x & 31) == 0) sred[threadIdx.x >> 5] = v;
   __syncthreads();
-  return __reduce_max_sync(0xffffffffu, sred[threadIdx.x & (kWarps - 1)]);
+  return __reduce_max_sync(0xffffffffu, sred[threadIdx.x & (R / 32 - 1)]);
 }
 
 // This ray's part of the tile prune: min(best t key, root exit) (closest),
@@ -415,17 +428,17 @@ __device__ __forceinline__ int next_member(int ent, unsigned rem, int* m) {
 }
 
 // Copy block blk (planes x kC, plane-major) into dst as triangle records
-// (Records). Streamed: 4-byte cp.async copies and one committed group per
-// thread; else plain copies.
-template <int M, bool kAsync>
+// (Records), on a block of R threads. Streamed: 4-byte cp.async copies and
+// one committed group per thread; else plain copies.
+template <int M, bool kAsync, int R>
 __device__ __forceinline__ void stage_block(float* dst, const float* w,
                                             int blk) {
   constexpr int kN = planes_of(M) * kC;
   const float* src = w + (size_t)blk * kN;
 #pragma unroll
-  for (int base = 0; base < kN; base += kR) {
+  for (int base = 0; base < kN; base += R) {
     const int i = base + threadIdx.x;
-    if (kN % kR != 0 && i >= kN) break;
+    if (kN % R != 0 && i >= kN) break;
     const int q = i / kC, j = i % kC;
     float* d = dst + j * rec_floats(M) + ((rec_slots() >> (4 * q)) & 15);
     if (kAsync) {
@@ -584,8 +597,8 @@ struct Members {
   }
 };
 
-// What the CTAs of a tile's cluster keep in shared memory.
-template <int M, int K>
+// What the CTAs of a tile's cluster keep in shared memory (R threads a CTA).
+template <int M, int K, int R>
 struct TileShared {
   // Three block buffers: the block being visited, the next one (computed
   // while the prune exchange completes) and the one after it (prefetched
@@ -596,17 +609,17 @@ struct TileShared {
   alignas(8) unsigned long long bar[2];
   int part[2][K];
   // block_max's buffers: a visit has one barrier, so calls alternate.
-  int red[2][kWarps];
+  int red[2][R / 32];
   float hull[kHullCols];  // two-level walk: the tile's hull row
 };
 
-// One CTA's state of a tile walk on a cluster of K CTAs.
-template <int M, bool kStream, int K>
+// One CTA's state of a tile walk of R rays on a cluster of K CTAs.
+template <int M, bool kStream, int K, int R>
 struct TileWalk {
   static_assert(K == 2 || K == 4 || K == 8, "a portable cluster size");
   static constexpr unsigned kExchangeBytes = (K - 1) * sizeof(int);
 
-  TileShared<M, K>& sh;
+  TileShared<M, K, R>& sh;
   const float* w;
   const Ray<M>& r;
   int rank, g;         // this CTA in its cluster; this thread among its ray's
@@ -629,8 +642,8 @@ struct TileWalk {
     int nxt = src.pop(&m2);
     __syncthreads();  // the last run's speculative reads of sw are done
     int b = 0;  // sw[b] holds cur, sw[(b + 1) % 3] nxt
-    stage_block<M, kStream>(sh.sw[b], w, cur);
-    if (m2 <= prune) stage_block<M, kStream>(sh.sw[(b + 1) % 3], w, nxt);
+    stage_block<M, kStream, R>(sh.sw[b], w, cur);
+    if (m2 <= prune) stage_block<M, kStream, R>(sh.sw[(b + 1) % 3], w, nxt);
     if (kStream) wait_async<0>();
     __syncthreads();
     int x = visit_result<M, K>(sh.sw[b], occ, r, g);
@@ -649,7 +662,7 @@ struct TileWalk {
         take_key(x, cur, best, pid);
       }
       if (kStream && ahead) wait_async<0>();  // block_max's barrier publishes it
-      const int part = block_max(prune_part<M>(best, occ, r.tcap), sh.red[red]);
+      const int part = block_max<R>(prune_part<M>(best, occ, r.tcap), sh.red[red]);
       red ^= 1;
       const int p = nvis & 1;
       if (threadIdx.x == 0) {
@@ -668,7 +681,7 @@ struct TileWalk {
       const int after = src.pop(&m3);
       const bool go2 = m2 <= prune;
       ahead = go2 && m3 <= prune;
-      if (ahead) stage_block<M, kStream>(sh.sw[(b + 2) % 3], w, after);
+      if (ahead) stage_block<M, kStream, R>(sh.sw[(b + 2) % 3], w, after);
       int x2 = 0;
       if (go2) x2 = visit_result<M, K>(sh.sw[(b + 1) % 3], occ, r, g);
 
@@ -693,28 +706,29 @@ struct TileWalk {
 
 // CTAs of walk_tile that an SM should hold at once, which sets the
 // kernel's register budget: the shadow walks, bound by the fixed cost of a
-// CTA's visit and not by its arithmetic, run faster two to an SM (64
-// registers a thread); the closest walks with the registers of one.
-__host__ __device__ constexpr int min_ctas(int m) {
-  return occlusion(m) ? 2 : 1;
+// CTA's visit and not by its arithmetic, run faster two 512-thread CTAs to
+// an SM (64 registers a thread); the closest walks with the registers of
+// one. A CTA of R < 512 threads keeps the same registers a thread.
+__host__ __device__ constexpr int min_ctas(int m, int r) {
+  return (occlusion(m) ? 2 : 1) * (kR / r);
 }
 
-// One tile on a cluster of K CTAs: the streamed flat walk (kHier false;
-// hull, bbox and first unused) and the two-level walk.
-template <int M, bool kStream, int K, bool kHier>
-__global__ void __launch_bounds__(kR, min_ctas(M))
+// One tile of R rays on a cluster of K CTAs: the streamed flat walk (kHier
+// false; hull, bbox and first unused) and the two-level walk.
+template <int M, bool kStream, int K, bool kHier, int R>
+__global__ void __launch_bounds__(R, min_ctas(M, R))
 walk_tile(const int* __restrict__ counts, const int* __restrict__ keys,
           const float* __restrict__ rays, const float* __restrict__ w,
           const int* __restrict__ occ0, const float* __restrict__ hull,
           const float* __restrict__ bbox, const int* __restrict__ first,
           int* __restrict__ out, int* __restrict__ visits, int n_rays,
           int n_k, int cmask, int S) {
-  __shared__ TileShared<M, K> sh;
+  __shared__ TileShared<M, K, R> sh;
 
   const int rank = static_cast<int>(cg::this_cluster().block_rank());
   const int tile = blockIdx.x / K;
   const int lane = threadIdx.x & 31;
-  const int ray = tile * kR + rank * (kR / K) + threadIdx.x / K;
+  const int ray = tile * R + rank * (R / K) + threadIdx.x / K;
   const int count = counts[tile];
   const int* krow = keys + (size_t)tile * n_k;
   const int occ = occlusion(M) ? occ0[ray] : 0;
@@ -730,11 +744,11 @@ walk_tile(const int* __restrict__ counts, const int* __restrict__ keys,
     if (kHier && threadIdx.x < kHullCols) {
       sh.hull[threadIdx.x] = hull[(size_t)tile * kHullCols + threadIdx.x];
     }
-    const int t = tile * kR + threadIdx.x;
+    const int t = tile * R + threadIdx.x;
     const int part = prune_part<M>(
         kBigCleanI, occlusion(M) ? occ0[t] : 0,
         __float_as_int(rays[tcap_row(M) * n_rays + t]));
-    prune = block_max(part, sh.red[0]) + kPrunePad;  // syncs sh.hull
+    prune = block_max<R>(part, sh.red[0]) + kPrunePad;  // syncs sh.hull
     walks = (krow[0] & ~cmask) <= prune;
   }
   if (!walks) {
@@ -750,7 +764,7 @@ walk_tile(const int* __restrict__ counts, const int* __restrict__ keys,
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     for (int p = 0; p < 2; ++p) {
-      expect_bytes(cta_addr(&sh.bar[p]), TileWalk<M, kStream, K>::kExchangeBytes);
+      expect_bytes(cta_addr(&sh.bar[p]), TileWalk<M, kStream, K, R>::kExchangeBytes);
     }
   }
   // The opening cluster barrier: no CTA sends before every CTA has armed
@@ -758,8 +772,8 @@ walk_tile(const int* __restrict__ counts, const int* __restrict__ keys,
   cluster_arrive();
 
   const Ray<M> r(rays, n_rays, ray);
-  TileWalk<M, kStream, K> t{sh, w, r, rank, static_cast<int>(threadIdx.x % K),
-                            occ, prune};
+  TileWalk<M, kStream, K, R> t{sh, w, r, rank,
+                               static_cast<int>(threadIdx.x % K), occ, prune};
   if (kHier) {
     const unsigned all = S == kSuperMax ? 0xffffffffu : ((1u << S) - 1u);
     Head h;
@@ -793,20 +807,20 @@ walk_tile(const int* __restrict__ counts, const int* __restrict__ keys,
 // dropped uncounted.
 //
 // The shadow walks hand the tile's live rays to the leading threads: at
-// every prune max the 16 warps also publish the ballot of their still
+// every prune max the R / 32 warps also publish the ballot of their still
 // unoccluded rays and the ray each thread walked, and thread u takes the
 // u-th live ray of that list (live_entry), in list order. So a warp walks
 // only live rays, and warps past the live count skip the visit; the
-// occlusion flags go into a 512-bit mask, read once at the end.
-template <int M>
+// occlusion flags go into an R-bit mask, read once at the end.
+template <int M, int R>
 struct SoloShared {
   alignas(16) float sw[2][kC * rec_floats(M)];  // the block and the next
   // Alternating with the visits (one barrier each): the warps' maxima of
   // the prune, and (shadow walks) their live ballots and each thread's ray.
-  int red[2][kWarps];
-  unsigned live[2][kWarps];
-  int ids[2][occlusion(M) ? kR : 1];
-  unsigned occm[kWarps];  // shadow walks: rays occluded during the walk
+  int red[2][R / 32];
+  unsigned live[2][R / 32];
+  int ids[2][occlusion(M) ? R : 1];
+  unsigned occm[R / 32];  // shadow walks: rays occluded during the walk
 };
 
 // The position of the k-th set bit (from 0) of m, which has more than k.
@@ -824,12 +838,13 @@ __device__ __forceinline__ int nth_bit(unsigned m, int k) {
   return pos;
 }
 
-// The u-th set bit of the 16 warps' ballots msk taken in order (warp v's
+// The u-th set bit of the kW warps' ballots msk taken in order (warp v's
 // bit l stands for thread 32 v + l): that thread, or -1 past the last.
+template <int kW>
 __device__ __forceinline__ int live_entry(const unsigned* msk, int u) {
   int before = 0;
 #pragma unroll
-  for (int v = 0; v < kWarps; ++v) {
+  for (int v = 0; v < kW; ++v) {
     const int c = __popc(msk[v]);
     if (u >= before && u < before + c) return 32 * v + nth_bit(msk[v], u - before);
     before += c;
@@ -837,21 +852,23 @@ __device__ __forceinline__ int live_entry(const unsigned* msk, int u) {
   return -1;
 }
 
-// One CTA an SM as the launch bound: the compiler gives a thread 72-90
-// registers, and the kernels ran up to 16% faster than at two CTAs an SM
-// (64 registers) on the card (PERF.md, PR 6).
-template <int M>
-__global__ void __launch_bounds__(kR, 1)
+// One 512-thread CTA an SM as the launch bound (R / 512 of an SM a CTA of R
+// threads): the compiler gives a thread 72-90 registers, and the kernels
+// ran up to 16% faster than at two CTAs an SM (64 registers) on the card
+// (PERF.md, PR 6).
+template <int M, int R>
+__global__ void __launch_bounds__(R, kR / R)
 walk_solo(const int* __restrict__ counts, const int* __restrict__ keys,
           const float* __restrict__ rays, const float* __restrict__ w,
           const int* __restrict__ occ0, int* __restrict__ out,
           int* __restrict__ visits, int n_rays, int n_k, int cmask) {
-  __shared__ SoloShared<M> sh;
+  constexpr int kW = R / 32;  // warps
+  __shared__ SoloShared<M, R> sh;
 
   const int tile = blockIdx.x;
   const int t = threadIdx.x;
   const int lane = t & 31;
-  const int base = tile * kR;
+  const int base = tile * R;
   const int count = counts[tile];
   const int occ = occlusion(M) ? occ0[base + t] : 0;
   if (count == 0) {  // most tiles of a frame see no candidate
@@ -867,7 +884,7 @@ walk_solo(const int* __restrict__ counts, const int* __restrict__ keys,
   int best = kBigCleanI;  // closest: best t key (low lane bits clear)
   int pid = -1;           // closest: packed slot id of the winner
   int red = 0;            // the buffers of the next prune max
-  if (occlusion(M) && t < kWarps) sh.occm[t] = 0;
+  if (occlusion(M) && t < kW) sh.occm[t] = 0;
 
   // The prune max: the part of each thread's ray (live: a shadow ray not
   // yet occluded), and for the shadow walks the handover of live rays.
@@ -882,9 +899,9 @@ walk_solo(const int* __restrict__ counts, const int* __restrict__ keys,
       sh.ids[red][t] = rid;
     }
     __syncthreads();
-    const int prune = __reduce_max_sync(0xffffffffu, sh.red[red][lane & (kWarps - 1)]);
+    const int prune = __reduce_max_sync(0xffffffffu, sh.red[red][lane & (kW - 1)]);
     if (occlusion(M)) {
-      const int at = live_entry(sh.live[red], t);
+      const int at = live_entry<kW>(sh.live[red], t);
       rid = at < 0 ? -1 : sh.ids[red][at];
     }
     red ^= 1;
@@ -900,9 +917,9 @@ walk_solo(const int* __restrict__ counts, const int* __restrict__ keys,
     int nxt = src.pop(&m2);
     bool ahead = m2 <= prune;
     int b = 0;  // sh.sw[b] holds cur, sh.sw[b ^ 1] nxt
-    stage_block<M, true>(sh.sw[b], w, cur);
+    stage_block<M, true, R>(sh.sw[b], w, cur);
     if (ahead) {
-      stage_block<M, true>(sh.sw[b ^ 1], w, nxt);
+      stage_block<M, true, R>(sh.sw[b ^ 1], w, nxt);
       wait_async<1>();
     } else {
       wait_async<0>();
@@ -933,7 +950,7 @@ walk_solo(const int* __restrict__ counts, const int* __restrict__ keys,
       b ^= 1;
       nxt = src.pop(&m2);
       ahead = m2 <= prune;  // sh.sw[b ^ 1] was last read before the barrier
-      if (ahead) stage_block<M, true>(sh.sw[b ^ 1], w, nxt);
+      if (ahead) stage_block<M, true, R>(sh.sw[b ^ 1], w, nxt);
       hold();
     }
   }
@@ -945,9 +962,17 @@ walk_solo(const int* __restrict__ counts, const int* __restrict__ keys,
   if (t == 0) visits[tile] = nvis;
 }
 
-// The launch of walk_tile on n_tiles clusters of K CTAs (attr is the
-// caller's, and must outlive the configuration).
-inline cudaLaunchConfig_t tile_launch(int n_tiles, int K, cudaStream_t st,
+// The cluster size K of walk_tile at R rays a tile: the two-level walk
+// (kHier) or the streamed flat walk.
+template <int R>
+constexpr int cluster_k(bool hier) {
+  return R == kR ? (hier ? kK : kKFlat) : kK128;
+}
+
+// The launch of walk_tile on n_tiles clusters of K CTAs of R threads (attr
+// is the caller's, and must outlive the configuration).
+inline cudaLaunchConfig_t tile_launch(int n_tiles, int K, int R,
+                                      cudaStream_t st,
                                       cudaLaunchAttribute* attr) {
   attr->id = cudaLaunchAttributeClusterDimension;
   attr->val.clusterDim.x = K;
@@ -955,7 +980,7 @@ inline cudaLaunchConfig_t tile_launch(int n_tiles, int K, cudaStream_t st,
   attr->val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(n_tiles * K);
-  cfg.blockDim = dim3(kR);
+  cfg.blockDim = dim3(R);
   cfg.stream = st;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
@@ -964,56 +989,58 @@ inline cudaLaunchConfig_t tile_launch(int n_tiles, int K, cudaStream_t st,
 
 // Launch walk_tile. A launch the card cannot place is refused, and the
 // error is returned.
-template <int M, bool kStream, int K, bool kHier>
+template <int M, bool kStream, bool kHier, int R>
 int launch_tile(cudaStream_t st, const int* counts, const int* keys,
                 const float* rays, const float* w, const int* occ0,
                 const float* hull, const float* bbox, const int* first,
                 int* out, int* visits, int n_tiles, int n_k, int cmask,
                 int S) {
+  constexpr int K = cluster_k<R>(kHier);
   cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg = tile_launch(n_tiles, K, st, &attr);
+  const cudaLaunchConfig_t cfg = tile_launch(n_tiles, K, R, st, &attr);
   const cudaError_t err = cudaLaunchKernelEx(
-      &cfg, walk_tile<M, kStream, K, kHier>, counts, keys, rays, w, occ0,
-      hull, bbox, first, out, visits, n_tiles * kR, n_k, cmask, S);
+      &cfg, walk_tile<M, kStream, K, kHier, R>, counts, keys, rays, w, occ0,
+      hull, bbox, first, out, visits, n_tiles * R, n_k, cmask, S);
   return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
 }
 
 // How many clusters of walk_tile the card holds at once (its registers and
 // shared memory against the SMs of a cluster), or -cudaError_t.
-template <int M, bool kStream, int K, bool kHier>
+template <int M, bool kStream, bool kHier, int R>
 int resident_clusters() {
+  constexpr int K = cluster_k<R>(kHier);
   cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg = tile_launch(1, K, nullptr, &attr);
+  const cudaLaunchConfig_t cfg = tile_launch(1, K, R, nullptr, &attr);
   int n = 0;
   const cudaError_t err = cudaOccupancyMaxActiveClusters(
-      &n, walk_tile<M, kStream, K, kHier>, &cfg);
+      &n, walk_tile<M, kStream, K, kHier, R>, &cfg);
   return err != cudaSuccess ? -(int)err : n;
 }
 
 // How many CTAs of walk_solo the card holds at once, or -cudaError_t.
-template <int M>
+template <int M, int R>
 int resident_solo(int device) {
   int per_sm = 0, sms = 0;
   cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, walk_solo<M>, kR, 0);
+      &per_sm, walk_solo<M, R>, R, 0);
   if (err == cudaSuccess) {
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   }
   return err != cudaSuccess ? -(int)err : per_sm * sms;
 }
 
-template <int M>
+template <int M, int R>
 int resident_clusters(bool hier, bool stream_w, int device) {
   if (hier) {
-    return stream_w ? resident_clusters<M, true, kK, true>()
-                    : resident_clusters<M, false, kK, true>();
+    return stream_w ? resident_clusters<M, true, true, R>()
+                    : resident_clusters<M, false, true, R>();
   }
   // The resident flat walk runs on single CTAs.
-  return stream_w ? resident_clusters<M, true, kKFlat, false>()
-                  : resident_solo<M>(device);
+  return stream_w ? resident_clusters<M, true, false, R>()
+                  : resident_solo<M, R>(device);
 }
 
-template <int M>
+template <int M, int R>
 int launch_flat(bool stream_w, const int* counts, const int* keys,
                 const float* rays, const float* w, const int* occ0, int* out,
                 int* visits, int n_tiles, int n_c, int cmask, int device,
@@ -1022,16 +1049,16 @@ int launch_flat(bool stream_w, const int* counts, const int* keys,
   if (err != cudaSuccess) return (int)err;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (stream_w) {
-    return launch_tile<M, true, kKFlat, false>(
+    return launch_tile<M, true, false, R>(
         st, counts, keys, rays, w, occ0, nullptr, nullptr, nullptr, out,
         visits, n_tiles, n_c, cmask, 1);
   }
-  walk_solo<M><<<n_tiles, kR, 0, st>>>(counts, keys, rays, w, occ0, out,
-                                       visits, n_tiles * kR, n_c, cmask);
+  walk_solo<M, R><<<n_tiles, R, 0, st>>>(counts, keys, rays, w, occ0, out,
+                                         visits, n_tiles * R, n_c, cmask);
   return (int)cudaGetLastError();
 }
 
-template <int M>
+template <int M, int R>
 int launch_hier(bool stream_w, const int* counts, const int* keys,
                 const float* rays, const float* w, const int* occ0,
                 const float* hull, const float* bbox, const int* first,
@@ -1042,13 +1069,13 @@ int launch_hier(bool stream_w, const int* counts, const int* keys,
   if (err != cudaSuccess) return (int)err;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (stream_w) {
-    return launch_tile<M, true, kK, true>(st, counts, keys, rays, w, occ0,
-                                          hull, bbox, first, out, visits,
-                                          n_tiles, n_s, cmask, S);
-  }
-  return launch_tile<M, false, kK, true>(st, counts, keys, rays, w, occ0,
+    return launch_tile<M, true, true, R>(st, counts, keys, rays, w, occ0,
                                          hull, bbox, first, out, visits,
                                          n_tiles, n_s, cmask, S);
+  }
+  return launch_tile<M, false, true, R>(st, counts, keys, rays, w, occ0,
+                                        hull, bbox, first, out, visits,
+                                        n_tiles, n_s, cmask, S);
 }
 
 }  // namespace
@@ -1065,9 +1092,9 @@ extern "C" int ceres_walk_closest(const int* counts, const int* keys,
                                   int* visits, int n_tiles, int n_c,
                                   int cmask, int stream_w, int device,
                                   void* stream) {
-  return launch_flat<kClosest>(stream_w != 0, counts, keys, rays, w, nullptr,
-                               out, visits, n_tiles, n_c, cmask, device,
-                               stream);
+  return launch_flat<kClosest, kR>(stream_w != 0, counts, keys, rays, w,
+                                   nullptr, out, visits, n_tiles, n_c, cmask,
+                                   device, stream);
 }
 
 extern "C" int ceres_walk_closest_window(const int* counts, const int* keys,
@@ -1075,9 +1102,9 @@ extern "C" int ceres_walk_closest_window(const int* counts, const int* keys,
                                          int* out, int* visits, int n_tiles,
                                          int n_c, int cmask, int stream_w,
                                          int device, void* stream) {
-  return launch_flat<kClosestWindow>(stream_w != 0, counts, keys, rays, w,
-                                     nullptr, out, visits, n_tiles, n_c,
-                                     cmask, device, stream);
+  return launch_flat<kClosestWindow, kR>(stream_w != 0, counts, keys, rays, w,
+                                         nullptr, out, visits, n_tiles, n_c,
+                                         cmask, device, stream);
 }
 
 extern "C" int ceres_walk_any_dest(const int* counts, const int* keys,
@@ -1085,9 +1112,23 @@ extern "C" int ceres_walk_any_dest(const int* counts, const int* keys,
                                    const int* occ0, int* out, int* visits,
                                    int n_tiles, int n_c, int cmask,
                                    int stream_w, int device, void* stream) {
-  return launch_flat<kAnyDest>(stream_w != 0, counts, keys, rays, w, occ0,
-                               out, visits, n_tiles, n_c, cmask, device,
-                               stream);
+  return launch_flat<kAnyDest, kR>(stream_w != 0, counts, keys, rays, w, occ0,
+                                   out, visits, n_tiles, n_c, cmask, device,
+                                   stream);
+}
+
+// The shadow wavefront regrouped by receiver (megakernel.any_hit_to_point
+// with regroup): ceres_walk_any_dest on tiles of 128 rays, so rays, occ0
+// and out hold n_tiles * 128.
+extern "C" int ceres_walk_any_dest_t128(const int* counts, const int* keys,
+                                        const float* rays, const float* w,
+                                        const int* occ0, int* out,
+                                        int* visits, int n_tiles, int n_c,
+                                        int cmask, int stream_w, int device,
+                                        void* stream) {
+  return launch_flat<kAnyDest, kR128>(stream_w != 0, counts, keys, rays, w,
+                                      occ0, out, visits, n_tiles, n_c, cmask,
+                                      device, stream);
 }
 
 extern "C" int ceres_walk_any(const int* counts, const int* keys,
@@ -1095,8 +1136,9 @@ extern "C" int ceres_walk_any(const int* counts, const int* keys,
                               const int* occ0, int* out, int* visits,
                               int n_tiles, int n_c, int cmask, int stream_w,
                               int device, void* stream) {
-  return launch_flat<kAny>(stream_w != 0, counts, keys, rays, w, occ0, out,
-                           visits, n_tiles, n_c, cmask, device, stream);
+  return launch_flat<kAny, kR>(stream_w != 0, counts, keys, rays, w, occ0,
+                               out, visits, n_tiles, n_c, cmask, device,
+                               stream);
 }
 
 // Two-level walks. keys (n_tiles, n_s) are super candidates; w
@@ -1110,9 +1152,9 @@ extern "C" int ceres_walk_closest_hier(const int* counts, const int* keys,
                                        int* visits, int n_tiles, int n_s,
                                        int cmask, int S, int stream_w,
                                        int device, void* stream) {
-  return launch_hier<kClosest>(stream_w != 0, counts, keys, rays, w, nullptr,
-                               hull, bbox, first, out, visits, n_tiles, n_s,
-                               cmask, S, device, stream);
+  return launch_hier<kClosest, kR>(stream_w != 0, counts, keys, rays, w,
+                                   nullptr, hull, bbox, first, out, visits,
+                                   n_tiles, n_s, cmask, S, device, stream);
 }
 
 extern "C" int ceres_walk_closest_window_hier(
@@ -1120,9 +1162,10 @@ extern "C" int ceres_walk_closest_window_hier(
     const float* hull, const float* bbox, const int* first, int* out,
     int* visits, int n_tiles, int n_s, int cmask, int S, int stream_w,
     int device, void* stream) {
-  return launch_hier<kClosestWindow>(stream_w != 0, counts, keys, rays, w,
-                                     nullptr, hull, bbox, first, out, visits,
-                                     n_tiles, n_s, cmask, S, device, stream);
+  return launch_hier<kClosestWindow, kR>(stream_w != 0, counts, keys, rays, w,
+                                         nullptr, hull, bbox, first, out,
+                                         visits, n_tiles, n_s, cmask, S,
+                                         device, stream);
 }
 
 extern "C" int ceres_walk_any_dest_hier(const int* counts, const int* keys,
@@ -1133,9 +1176,20 @@ extern "C" int ceres_walk_any_dest_hier(const int* counts, const int* keys,
                                         int n_s, int cmask, int S,
                                         int stream_w, int device,
                                         void* stream) {
-  return launch_hier<kAnyDest>(stream_w != 0, counts, keys, rays, w, occ0,
-                               hull, bbox, first, out, visits, n_tiles, n_s,
-                               cmask, S, device, stream);
+  return launch_hier<kAnyDest, kR>(stream_w != 0, counts, keys, rays, w, occ0,
+                                   hull, bbox, first, out, visits, n_tiles,
+                                   n_s, cmask, S, device, stream);
+}
+
+// ceres_walk_any_dest_hier on tiles of 128 rays (regrouped receivers).
+extern "C" int ceres_walk_any_dest_hier_t128(
+    const int* counts, const int* keys, const float* rays, const float* w,
+    const int* occ0, const float* hull, const float* bbox, const int* first,
+    int* out, int* visits, int n_tiles, int n_s, int cmask, int S,
+    int stream_w, int device, void* stream) {
+  return launch_hier<kAnyDest, kR128>(stream_w != 0, counts, keys, rays, w,
+                                      occ0, hull, bbox, first, out, visits,
+                                      n_tiles, n_s, cmask, S, device, stream);
 }
 
 extern "C" int ceres_walk_any_hier(const int* counts, const int* keys,
@@ -1145,24 +1199,31 @@ extern "C" int ceres_walk_any_hier(const int* counts, const int* keys,
                                    int* out, int* visits, int n_tiles,
                                    int n_s, int cmask, int S, int stream_w,
                                    int device, void* stream) {
-  return launch_hier<kAny>(stream_w != 0, counts, keys, rays, w, occ0, hull,
-                           bbox, first, out, visits, n_tiles, n_s, cmask, S,
-                           device, stream);
+  return launch_hier<kAny, kR>(stream_w != 0, counts, keys, rays, w, occ0,
+                               hull, bbox, first, out, visits, n_tiles, n_s,
+                               cmask, S, device, stream);
 }
 
-// Tiles a walk (mode as walk.py orders RAY_ROWS) has on the card at once:
-// clusters of a cluster walk (two-level or streamed flat), or CTAs of the
-// resident flat walk; or -cudaError_t.
+// Tiles a walk (mode as walk.py orders RAY_ROWS, tiles of `tile` rays) has
+// on the card at once: clusters of a cluster walk (two-level or streamed
+// flat), or CTAs of the resident flat walk; or -cudaError_t. Tiles of 128
+// rays exist for the any_dest walk only.
 extern "C" int ceres_walk_resident_clusters(int mode, int hier, int stream_w,
-                                            int device) {
+                                            int tile, int device) {
   const cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return -(int)err;
+  if (tile == kR128 && mode == kAnyDest) {
+    return resident_clusters<kAnyDest, kR128>(hier, stream_w, device);
+  }
+  if (tile != kR) return -(int)cudaErrorInvalidValue;
   switch (mode) {
-    case kClosest: return resident_clusters<kClosest>(hier, stream_w, device);
+    case kClosest:
+      return resident_clusters<kClosest, kR>(hier, stream_w, device);
     case kClosestWindow:
-      return resident_clusters<kClosestWindow>(hier, stream_w, device);
-    case kAnyDest: return resident_clusters<kAnyDest>(hier, stream_w, device);
-    case kAny: return resident_clusters<kAny>(hier, stream_w, device);
+      return resident_clusters<kClosestWindow, kR>(hier, stream_w, device);
+    case kAnyDest:
+      return resident_clusters<kAnyDest, kR>(hier, stream_w, device);
+    case kAny: return resident_clusters<kAny, kR>(hier, stream_w, device);
   }
   return -(int)cudaErrorInvalidValue;
 }

@@ -31,7 +31,10 @@ every observed value recomputed in float64 at the winners; with
 ``exact_f64=True`` the search itself runs in float64 (``ops.walk_f64``,
 plain torch, no kernel).
 
-Not ported yet: shadow-receiver regrouping (ROADMAP M13).
+``any_hit_to_point(regroup=True)`` re-tiles the shadow wavefront by the
+receiving points' morton codes, into tiles of ``_REGROUP_TILE`` = 128
+rays walked by the any_dest kernels' 128-ray forms, as the JAX package
+does (off by default in both).
 """
 
 from __future__ import annotations
@@ -40,6 +43,7 @@ import dataclasses
 
 import torch
 
+from ceres_tpu_torch.accel import morton
 from ceres_tpu_torch.accel.clusters import (build_clusters_treelet,
                                             cluster_weights_common_origin,
                                             cluster_weights_generic)
@@ -49,6 +53,10 @@ from ceres_tpu_torch.ops.intersect import Hit
 from ceres_tpu_torch.ops.prepass import (
     _BIG, COMMON_ROWS, GENERIC_ROWS, TILE, _ULP_PAD, _hier_setup, _pad_rays,
     _ray_tcap, _scene_root, _tile_candidate_keys, _use_stream)
+
+# Rays per tile of the shadow wavefront regrouped by receiver (the JAX
+# package's name; its CERES_REGROUP_TILE override has no counterpart).
+_REGROUP_TILE = walk.REGROUP_TILE
 
 
 def _cols(x):
@@ -96,8 +104,8 @@ def _check_f64(soup: TriangleSoup, cs) -> None:
                              f"{x.dtype}")
 
 
-def _tiles(cols):
-    return tuple(c.reshape(-1, TILE) for c in cols)
+def _tiles(cols, tile=TILE):
+    return tuple(c.reshape(-1, tile) for c in cols)
 
 
 def _walk_inputs(cs, shift, w, ray_rows, dirs_tiled, alive,
@@ -344,48 +352,74 @@ def any_hit_to_point(soup: TriangleSoup, dest, points, skip=None,
     strictly between light and receiver. ``skip`` marks rays whose answer
     is irrelevant (no primary hit); they generate no traversal work.
     Boolean, detached. ``exact_f64=True`` searches in float64
-    (``ops.walk_f64``). The JAX package's receiver regrouping
-    (``regroup=True``; off by default there, as here) waits for ROADMAP
-    item M13.
+    (``ops.walk_f64``) and ignores ``regroup``.
+
+    ``regroup`` (any truthy value) re-tiles the wavefront by receiver, as
+    the JAX package's ``regroup=True``: rays in the stable order of their
+    points' morton codes over the scene root, skipped rays last, in tiles
+    of ``_REGROUP_TILE`` = 128, so a tile is a compact surface patch. The
+    flags are the same; tiles, visits and ``mt_pairs`` (visits x 128 x C)
+    are not. None and False leave it off. The JAX package's "auto" mode
+    and its ``CERES_SHADOW_REGROUP`` override have no counterpart here.
     """
-    if regroup not in (None, False):
-        raise NotImplementedError("shadow-receiver regrouping is not ported "
-                                  "yet (ROADMAP item M13)")
     R = _cols(points)[0].shape[0]
     cs = _treelet(soup, clusters)
     if skip is None:
         skip = torch.zeros(R, dtype=torch.bool, device=cs.lo.device)
+    tile = TILE
     if exact_f64:
         _check_f64(soup, cs)
         result, counts = walk_f64.any_hit_to_point_f64(cs, dest,
                                                        _cols(points), skip)
         steps = counts["traversal_steps"]
     else:
-        args, opts = _any_dest_inputs(cs, dest, points, skip)
+        perm = None
+        if regroup:
+            perm = _receiver_order(cs, points, skip)
+            points = tuple(c[perm] for c in _cols(points))
+            skip = skip[perm]
+            tile = _REGROUP_TILE
+        args, opts = _any_dest_inputs(cs, dest, points, skip, tile)
         occ, visits = walk.walk_any_dest(*args, **opts)
         steps = visits.sum()
         result = (occ[:R] == 1) & ~skip
+        if perm is not None:   # back to the caller's ray order
+            result = torch.empty_like(result).index_put_((perm,), result)
     if with_counts:
         return result, {"traversal_steps": steps, "mt_block_visits": steps,
-                        "mt_pairs": steps * TILE * cs.cluster_size}
+                        "mt_pairs": steps * tile * cs.cluster_size}
     return result
 
 
-def _any_dest_inputs(cs, dest, points, skip):
+def _receiver_order(cs, points, skip):
+    """The regrouped shadow wavefront's ray order ((R,) int64): a stable
+    argsort of the receiving points' morton codes over the scene root,
+    skipped rays given the largest code so they sort last, in their own
+    order. Stable, as ``jnp.argsort``: every skipped ray shares one code,
+    and another order of ties gives other tiles and other visits."""
+    cs, p_cols = _detach_f32((cs, _cols(points)))
+    root_lo, root_hi = _scene_root(cs)
+    code = morton.morton_codes(torch.stack(p_cols, dim=-1), root_lo, root_hi)
+    code = torch.where(skip, 0x7FFFFFFF, code)
+    return torch.argsort(code, stable=True)
+
+
+def _any_dest_inputs(cs, dest, points, skip, tile=TILE):
     """The shadow walk's (args, opts) for segments from ``dest`` to
-    ``points``, ``skip`` (bool (R,)) marking rays that start occluded:
-    args = (counts, keys, rays, w, occ0), opts as in ``_walk_inputs``.
-    Detached float32."""
+    ``points`` in tiles of ``tile`` rays, ``skip`` (bool (R,)) marking
+    rays that start occluded: args = (counts, keys, rays, w, occ0), opts
+    as in ``_walk_inputs``. Detached float32."""
     cs, dest, p_cols = _detach_f32((cs, dest, _cols(points)))
     root_lo, root_hi = _scene_root(cs)
-    dp = tuple(_pad_rays(p_cols[a] - dest[a]) for a in range(3))
-    occ0 = _pad_rays(skip.to(torch.int32))
-    alive = (occ0.reshape(-1, TILE) == 0) & (
-        (dp[0] * dp[0] + dp[1] * dp[1] + dp[2] * dp[2]).reshape(-1, TILE)
+    dp = tuple(_pad_rays(p_cols[a] - dest[a], tile) for a in range(3))
+    occ0 = _pad_rays(skip.to(torch.int32), tile)
+    alive = (occ0.reshape(-1, tile) == 0) & (
+        (dp[0] * dp[0] + dp[1] * dp[1] + dp[2] * dp[2]).reshape(-1, tile)
         > 0.0)
     # Nothing past the receiving point can occlude: cap the walk at t = 1
     # (+ slack). Padding rays (zero dirs) keep the cap -1.
     tcap = _ray_tcap(root_lo - dest, root_hi - dest, dp).clamp(max=1.0 + _ULP_PAD)
     w = cluster_weights_common_origin(cs, dest)
-    args, opts = _walk_inputs(cs, dest, w, [*dp, tcap], _tiles(dp), alive)
+    args, opts = _walk_inputs(cs, dest, w, [*dp, tcap], _tiles(dp, tile),
+                              alive)
     return args + (occ0,), opts

@@ -27,11 +27,14 @@ products, never a matmul, in the kernel's operation order, so the kernel
 matches them bit for bit on the card. Streaming changes where the
 weights sit, not what is computed: one plain version serves both forms.
 
-Inputs, for n_tiles tiles of TILE = 512 rays and n_c clusters of C = 128:
+Inputs, for n_tiles tiles of R rays and n_c clusters of C = 128. R is
+TILE = 512, or REGROUP_TILE = 128 for ``walk_any_dest`` (the shadow
+wavefront regrouped by receiver, ``megakernel.any_hit_to_point(regroup=)``),
+and is read off the inputs as ``rays.shape[1] // n_tiles``:
   counts (n_tiles,) int32   real candidates per tile;
   keys   (n_tiles, n_k) int32, ascending (``prepass._tile_candidate_keys``),
          n_k = n_c (flat) or n_s supers (two-level);
-  rays   (rows, n_tiles * 512) f32 ray rows (``RAY_ROWS``):
+  rays   (rows, n_tiles * R) f32 ray rows (``RAY_ROWS``):
            closest, any_dest  [d.x, d.y, d.z, root-exit cap];
            closest + window   [d.xyz, cap, tmin, tmax];
            any                [d.xyz, (d x o).xyz, o.xyz, cap];
@@ -39,12 +42,12 @@ Inputs, for n_tiles tiles of TILE = 512 rays and n_c clusters of C = 128:
          rays (``clusters.cluster_weights_common_origin``) and 16 for
          ``walk_any`` (``clusters.cluster_weights_generic``), zero-padded
          by S blocks for the two-level walk;
-  occ0   (n_tiles * 512,) int32 rays that start occluded (occlusion modes);
+  occ0   (n_tiles * R,) int32 rays that start occluded (occlusion modes);
 and for the two-level walk (``prepass._hier_setup``):
   hull   (n_tiles, 16) f32 per-tile hull scalars;
   bbox   (n_s, 8, S) f32 member boxes;
   first  (n_s,) int32 first fine block of each super.
-Each returns (out (n_tiles * 512,) int32, visits), with ``out`` the
+Each returns (out (n_tiles * R,) int32, visits), with ``out`` the
 packed winner slot id (cid * C + lane, -1 for a miss) or the occlusion
 flag, and ``visits`` (n_tiles,) int32 each tile's executed block visits,
 the traversal statistic.
@@ -80,19 +83,26 @@ _PLANES = {"closest": WEIGHT_PLANES, "closest_window": WEIGHT_PLANES,
            "any_dest": WEIGHT_PLANES, "any": GENERIC_PLANES}
 _TCAP_ROW = {"closest": 3, "closest_window": 3, "any_dest": 3, "any": 9}
 
+REGROUP_TILE = 128  # rays per tile of the regrouped shadow wavefront
+# Tile widths each mode's kernels take: the JAX package regroups only the
+# any_dest wavefront.
+TILES = {m: (TILE, REGROUP_TILE) if m == "any_dest" else (TILE,)
+         for m in RAY_ROWS}
+
 # Tiles evaluated at once by the plain versions: bounds their
-# (tiles, 512, 128) temporaries to 32 MB each.
+# (tiles, R, 128) temporaries to 32 MB each at R = 512, 8 MB at R = 128.
 _PLAIN_CHUNK = 128
 
 
-def _variant(mode: str, S: int, stream: bool) -> str:
+def _variant(mode: str, S: int, stream: bool, tile: int = TILE) -> str:
     return (f"walk_{mode}" + ("_hier" if S > 1 else "")
-            + ("_stream" if stream else ""))
+            + ("_stream" if stream else "")
+            + ("" if tile == TILE else f"_t{tile}"))
 
 
 # Kernel launches per variant since the last reset_launches(). Counted
 # where a wrapper launches its kernel and nowhere else.
-launches = {_variant(m, S, st): 0 for m in RAY_ROWS
+launches = {_variant(m, S, st, tile): 0 for m in RAY_ROWS for tile in TILES[m]
             for S in (1, 2) for st in (False, True)}
 
 
@@ -102,31 +112,49 @@ def reset_launches() -> None:
 
 
 def resident_clusters(mode: str, S: int, stream: bool,
-                      device: torch.device) -> int:
-    """How many tiles a walk has on ``device`` at once: thread-block
-    clusters of a cluster walk (two-level, or streamed flat), or CTAs of
-    the resident flat walk."""
+                      device: torch.device, tile: int = TILE) -> int:
+    """How many tiles of ``tile`` rays a walk has on ``device`` at once:
+    thread-block clusters of a cluster walk (two-level, or streamed flat),
+    or CTAs of the resident flat walk."""
     from ceres_tpu_torch.ops import _build
 
+    _check_tile(mode, tile)
     lib = _build.load()
     n = lib.ceres_walk_resident_clusters(list(RAY_ROWS).index(mode),
-                                         int(S > 1), int(stream), device.index)
+                                         int(S > 1), int(stream), tile,
+                                         device.index)
     if n < 0:
-        raise RuntimeError(f"{_variant(mode, S, stream)}: "
+        raise RuntimeError(f"{_variant(mode, S, stream, tile)}: "
                            f"{lib.ceres_error_string(-n).decode()} ({-n})")
     return n
 
 
+def _check_tile(mode, tile):
+    if tile not in TILES[mode]:
+        raise ValueError(f"walk_{mode}: tiles of {tile} rays; the kernels "
+                         f"take {' or '.join(map(str, TILES[mode]))}")
+
+
+def _tile_of(keys, rays):
+    """The tile width R of a walk's inputs: rays.shape[1] // n_tiles."""
+    n_tiles = keys.shape[0]
+    if n_tiles == 0:
+        raise ValueError("no ray tiles")
+    return rays.shape[1] // n_tiles
+
+
 def _check(mode, counts, keys, rays, w, occ0, hull, bbox, first, S):
     n_tiles, n_k = keys.shape
+    tile = _tile_of(keys, rays)
+    _check_tile(mode, tile)
     n_blocks = n_k if S == 1 else w.shape[0]
     want = {"counts": (counts, (n_tiles,), torch.int32),
             "keys": (keys, (n_tiles, n_k), torch.int32),
-            "rays": (rays, (RAY_ROWS[mode], n_tiles * TILE), torch.float32),
+            "rays": (rays, (RAY_ROWS[mode], n_tiles * tile), torch.float32),
             "w": (w, (n_blocks, _PLANES[mode], CLUSTER_SIZE),
                   torch.float32)}
     if occ0 is not None:
-        want["occ0"] = (occ0, (n_tiles * TILE,), torch.int32)
+        want["occ0"] = (occ0, (n_tiles * tile,), torch.int32)
     if S > 1:
         if not 2 <= S <= _SUPER_MAX:
             raise ValueError(f"S = {S}: a super holds 2..{_SUPER_MAX} blocks")
@@ -149,8 +177,6 @@ def _check(mode, counts, keys, rays, w, occ0, hull, bbox, first, S):
         if x.requires_grad:
             raise ValueError(f"{name} requires grad: a walk takes detached "
                              "inputs (megakernel._detach_f32)")
-    if n_tiles == 0:
-        raise ValueError("no ray tiles")
     if w.data_ptr() % 16:
         raise ValueError("w must be 16-byte aligned (cp.async copies)")
 
@@ -162,7 +188,8 @@ def _launch(mode, counts, keys, rays, w, occ0, hull, bbox, first, S, stream):
         raise ValueError(f"walk_{mode}: no kernel for device {rays.device}")
     lib = _build.load()
     n_tiles, n_k = keys.shape
-    out = torch.empty(n_tiles * TILE, dtype=torch.int32, device=rays.device)
+    tile = _tile_of(keys, rays)
+    out = torch.empty(n_tiles * tile, dtype=torch.int32, device=rays.device)
     visits = torch.empty(n_tiles, dtype=torch.int32, device=rays.device)
     ptrs = [counts.data_ptr(), keys.data_ptr(), rays.data_ptr(), w.data_ptr()]
     if occ0 is not None:
@@ -173,13 +200,15 @@ def _launch(mode, counts, keys, rays, w, occ0, hull, bbox, first, S, stream):
         ptrs += [hull.data_ptr(), bbox.data_ptr(), first.data_ptr()]
         ints.append(S)
         fn += "_hier"
+    if tile != TILE:
+        fn += f"_t{tile}"
     err = getattr(lib, fn)(
         *ptrs, out.data_ptr(), visits.data_ptr(), *ints, int(stream),
         rays.device.index, torch.cuda.current_stream(rays.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{fn} kernel launch failed: "
                            f"{lib.ceres_error_string(err).decode()} ({err})")
-    launches[_variant(mode, S, stream)] += 1
+    launches[_variant(mode, S, stream, tile)] += 1
     return out, visits
 
 
@@ -320,8 +349,8 @@ def _walk(counts, keys, rays, tcap_row, state, prune_of, visit, hier=None):
     """
     n_tiles, n_k = keys.shape
     cmask = (1 << _cid_bits(n_k)) - 1
-    r = rays.reshape(rays.shape[0], n_tiles, TILE)
-    tcap = rays[tcap_row].view(torch.int32).reshape(n_tiles, TILE)
+    r = rays.reshape(rays.shape[0], n_tiles, -1)
+    tcap = rays[tcap_row].view(torch.int32).reshape(n_tiles, -1)
     prune = prune_of(tcap, *state)
     done = torch.zeros(n_tiles, dtype=torch.bool, device=keys.device)
     visits = torch.zeros(n_tiles, dtype=torch.int32, device=keys.device)
@@ -375,9 +404,8 @@ def _walk_closest_plain(counts, keys, rays, w, hull=None, bbox=None,
     wrapper's arguments fit, and ignored: it moves no result."""
     del stream
     mode = "closest_window" if window else "closest"
-    n_rays = rays.shape[1]
-    best = torch.full((n_rays // TILE, TILE), _BIG_CLEAN_I, dtype=torch.int32,
-                      device=keys.device)
+    best = torch.full((keys.shape[0], _tile_of(keys, rays)), _BIG_CLEAN_I,
+                      dtype=torch.int32, device=keys.device)
     pid = torch.full_like(best, -1)
 
     def prune_of(tcap, best, pid):
@@ -423,7 +451,7 @@ def _occlusion_plain(mode, counts, keys, rays, w, occ0, hull, bbox, first,
     the walk had to test: in each visit, for each ray not yet occluded,
     the lanes up to its first occluder, or all C. The kernels skip the
     other pairs, so their bound counts these."""
-    occ = occ0.reshape(-1, TILE).clone()
+    occ = occ0.reshape(keys.shape[0], -1).clone()
     tested = torch.zeros(occ.shape, dtype=torch.int64, device=occ.device)
 
     def prune_of(tcap, occ, tested):

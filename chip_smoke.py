@@ -145,7 +145,29 @@ its own line:
      to the one-rank step's under phase 12's rule, parameters bit-equal
      on both ranks; then one NCCL group of one rank through
      ``render_sharded``. ms a frame and a step of one rank and of two,
-     which share the card (no scaling figure).
+     which share the card (no scaling figure);
+ 20. the shadow wavefront regrouped by receiver
+     (``megakernel.any_hit_to_point(regroup=True)``: morton order of the
+     receiving points, 128-ray tiles), at 1920 x 1080 on each frame's
+     receiving points and skip as ``render_pipeline`` forms them: the
+     bunny (SweepSAH cut, resident: K2-128), the 3x bunny (treelet cut,
+     streamed flat: K5-128) and the 4x bunny (two-level: K7a-128, streamed
+     and resident): the call launches its 128-ray variant once and the
+     512-ray walk not at all, and its flags equal ``regroup=False``'s ray
+     for ray; each 128-ray kernel and the 512-ray walk on the unregrouped
+     inputs held to their plain versions tile by tile, with visits,
+     lane-visits (visits x tile width), heaviest tile, ms, bound and
+     share; the whole regrouped and unregrouped calls' ms, alternated;
+ 21. the golden oracle on the card's host: ``render()`` of
+     ``scenes.bunny_scene()`` at 64 x 64 on the card, smooth and flat,
+     megakernel and bruteforce, against
+     ``ceres_tpu_torch.utils.golden.render_golden`` (NumPy float64, no
+     JAX): at most 1% of pixels off by more than 2e-3, primary hits within
+     1% of W x H (``tests/test_render_golden.py``'s rule).
+
+``python3 chip_smoke.py --phases 20`` runs phases 1, 2 and the phases
+listed (of 20 and 21) and prints no JSON record: the cluster-size sweep
+of the 128-ray walk (``hier_sweep.py --k128s``) runs it.
 
 Every kernel-vs-plain check holds each tile's executed visits, not only
 their sum, and prints the kernel's bound: the larger of its fp32
@@ -168,6 +190,7 @@ kernels' JSON record (every variant a path launches); the last line is
 the device record. Needs no network and no JAX.
 """
 
+import argparse
 import contextlib
 import dataclasses
 import io
@@ -203,7 +226,13 @@ REPLACES = {"walk_closest": "ceres_tpu/ops/megakernel.py:776",
             "walk_any_hier_stream": "ceres_tpu/ops/megakernel.py:657",
             "walk_closest_window": "ceres_tpu/ops/megakernel.py:645",
             "walk_closest_window_hier_stream":
-                "ceres_tpu/ops/megakernel.py:471"}
+                "ceres_tpu/ops/megakernel.py:471",
+            # The regrouped shadow wavefront's 128-ray tiles
+            # (ceres_tpu/ops/megakernel.py:1442), in each form.
+            "walk_any_dest_t128": "ceres_tpu/ops/megakernel.py:703",
+            "walk_any_dest_stream_t128": "ceres_tpu/ops/megakernel.py:477",
+            "walk_any_dest_hier_stream_t128":
+                "ceres_tpu/ops/megakernel.py:657"}
 W, H = 1920, 1080
 FRAMES = 10
 LARGE_FRAMES = 5
@@ -242,6 +271,11 @@ ANIM_FRAMES, ANIM_BATCH = 8, 4
 RANK_FRAMES = 5
 RANK_STEPS = 3
 RANK_SEED = 19
+# Phase 20: whole calls timed, regrouped and not, alternated (bunny; the
+# large scenes); phase 21: the golden oracle's size.
+REGROUP_CALLS = 10
+LARGE_REGROUP_CALLS = 5
+GOLDEN_SIZE = 64
 # Modes of the walk and their wrappers in ops.walk.
 WALKS = {"closest": "walk_closest", "closest_window": "walk_closest",
          "any_dest": "walk_any_dest", "any": "walk_any"}
@@ -314,9 +348,10 @@ def scene(name, dev):
     return vt, ft, cam, cs
 
 
-def walk_inputs(vt, ft, cam, cs, width, height, sun=SUN, dirs=None):
-    """The two walks' (args, opts) as the path builds them; ``dirs`` the
-    swizzled primary directions (default: the column pipeline's)."""
+def shadow_wavefront(vt, ft, cam, cs, width, height, sun=SUN, dirs=None):
+    """(primary directions, sun, receiving points, skip): the shadow
+    wavefront as ``render_pipeline`` forms it; ``dirs`` the swizzled
+    primary directions (default: the column pipeline's)."""
     import ceres_tpu_torch as ct
     from ceres_tpu_torch.models.camera import camera_ray_columns
     from ceres_tpu_torch.ops import megakernel as mk
@@ -327,13 +362,22 @@ def walk_inputs(vt, ft, cam, cs, width, height, sun=SUN, dirs=None):
     if dirs is None:
         dirs = tuple(tiling.swizzle_plane(p)
                      for p in camera_ray_columns(cam, width, height))
-    closest = mk._closest_inputs(cs, cam.eye, dirs)
     hit, pay = mk.closest_hit_common_origin(soup, cam.eye, dirs, clusters=cs,
                                             normal_cols=True)
     points = renderer._hit_points(cam.eye, dirs, hit, pay)
     sun = torch.as_tensor(sun, dtype=torch.float32, device=vt.device)
-    shadow = mk._any_dest_inputs(cs, sun, points, ~hit.mask)
-    return closest, shadow
+    return dirs, sun, points, ~hit.mask
+
+
+def walk_inputs(vt, ft, cam, cs, width, height, sun=SUN, dirs=None):
+    """The two walks' (args, opts) as the path builds them; ``dirs`` the
+    swizzled primary directions (default: the column pipeline's)."""
+    from ceres_tpu_torch.ops import megakernel as mk
+
+    dirs, sun, points, skip = shadow_wavefront(vt, ft, cam, cs, width,
+                                               height, sun, dirs)
+    return (mk._closest_inputs(cs, cam.eye, dirs),
+            mk._any_dest_inputs(cs, sun, points, skip))
 
 
 def compat_inputs(vt, ft, cam, cs, width, height, windows=False):
@@ -385,8 +429,8 @@ def build_log():
 
 
 def solo_registers():
-    """Registers a thread of each mode's resident flat walk
-    (walk_solo<M>) takes, from the build's report."""
+    """Registers a thread of each resident flat walk (walk_solo<M, R>)
+    takes, from the build's report, by variant name without ``walk_``."""
     from ceres_tpu_torch.ops import walk
 
     regs, fn = {}, ""
@@ -396,8 +440,10 @@ def solo_registers():
         if entry:
             fn = entry.group(1)
         elif used and "walk_solo" in fn:
-            mode = int(re.search(r"walk_soloILi(\d+)EE", fn).group(1))
-            regs[list(walk.RAY_ROWS)[mode]] = int(used.group(1))
+            mode, tile = map(int, re.search(r"walk_soloILi(\d+)ELi(\d+)EE",
+                                            fn).groups())
+            name = walk._variant(list(walk.RAY_ROWS)[mode], 1, False, tile)
+            regs[name[5:]] = int(used.group(1))
     return regs
 
 
@@ -468,7 +514,8 @@ def compare(mode, args, opts, reps, plain_ref=None):
             "max_tile": int(tiles_k.max()),
             "positives": positives(mode, out_p, args), "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "S": opts["S"], "stream": opts["stream"], "mode": mode}, plain_ref
+            "S": opts["S"], "stream": opts["stream"], "mode": mode,
+            "tile": args[2].shape[1] // args[0].numel()}, plain_ref
 
 
 def report(phase, kname, label, r, card):
@@ -479,13 +526,19 @@ def report(phase, kname, label, r, card):
           f"{r['plain_ms']:.2f} ms bound {r['bound_ms']:.4f} ms "
           f"({r['bound_by']}, share {r['bound_ms'] / r['ms']:.2%}) [{card}]",
           flush=True)
+    from ceres_tpu_torch.ops import walk
+
+    tile = r["tile"]
     if r["S"] > 1:
-        form = f"two-level: K {cluster_ctas('kK')}"
+        k = cluster_ctas("kK" if tile == walk.TILE else "kK128")
+        form = f"two-level: K {k}, {tile} rays a tile"
     elif r["stream"]:
-        form = f"flat streamed: K {cluster_ctas('kKFlat')}"
+        k = cluster_ctas("kKFlat" if tile == walk.TILE else "kK128")
+        form = f"flat streamed: K {k}, {tile} rays a tile"
     else:
-        form = (f"flat resident: one CTA a tile (walk_solo, "
-                f"{solo_registers()[r['mode']]} registers)")
+        regs = solo_registers()[walk._variant(r["mode"], 1, False, tile)[5:]]
+        form = (f"flat resident: one CTA a tile (walk_solo, {tile} rays, "
+                f"{regs} registers)")
     print(f"phase {phase} {kname} {form}; executed visits {r['steps']}; "
           f"heaviest tile {r['max_tile']} visits, "
           f"{r['ms'] * 1e3 / max(r['max_tile'], 1):.3f} us per visit of it; "
@@ -1758,7 +1811,181 @@ def phase19(dev, card, meshes):
     return merge(launches, nc["launches"])
 
 
-def main():
+def large_scenes(dev, meshes):
+    """Each large mesh on the card with its device treelet cut, built and
+    timed: {levels: (vt, ft, cam, cs, build ms)}."""
+    import ceres_tpu_torch as ct
+    from ceres_tpu_torch.accel.clusters import build_clusters_treelet
+
+    large = {}
+    for levels, (v, f) in meshes.items():
+        vt, ft = torch.as_tensor(v, device=dev), torch.as_tensor(f, device=dev)
+        soup = ct.triangle_soup(vt, ft, with_normals=False)
+        cs, build_ms = timed_once(lambda: build_clusters_treelet(soup))
+        large[levels] = (vt, ft, camera(v, EYE, dev), cs, build_ms)
+    return large
+
+
+def bunny_meshes():
+    """The 3x and 4x subdivided bunny: {levels: (vertices, faces)}."""
+    import ceres_tpu_torch as ct
+    from ceres_tpu_torch.models.mesh import subdivide
+
+    meshes = {3: subdivide(*ct.load_obj(BUNNY), 3)}
+    meshes[4] = subdivide(*meshes[3], 1)
+    return meshes
+
+
+def regrouped_inputs(cs, sun, points, skip):
+    """The regrouped shadow walk's (args, opts), as
+    ``any_hit_to_point(regroup=True)`` builds them: the rays in the
+    receivers' morton order, tiles of 128."""
+    from ceres_tpu_torch.ops import megakernel as mk
+
+    perm = mk._receiver_order(cs, points, skip)
+    return mk._any_dest_inputs(cs, sun, tuple(c[perm] for c in points),
+                               skip[perm], tile=mk._REGROUP_TILE)
+
+
+# Phase 20's scenes and the variant each one's regrouped call launches.
+REGROUPED = {"bunny": "walk_any_dest_t128", 3: "walk_any_dest_stream_t128",
+             4: "walk_any_dest_hier_stream_t128"}
+
+
+def phase20(dev, card, large):
+    """The shadow wavefront regrouped by receiver at 1080p on the bunny
+    and the 3x and 4x bunny. Returns the regrouped calls' launches and
+    the 128-ray kernels' results on the forms the calls take."""
+    import ceres_tpu_torch as ct
+    from ceres_tpu_torch.ops import megakernel as mk
+    from ceres_tpu_torch.ops import walk
+
+    scenes = {"bunny": scene("bunny", dev)}
+    scenes.update({levels: large[levels][:4] for levels in (3, 4)})
+    path_launches, results = {}, {}
+    for key, (vt, ft, cam, cs) in scenes.items():
+        name = "bunny" if key == "bunny" else f"bunny x{key}"
+        label = (f"{name} {W}x{H} ({ft.shape[0]} triangles, "
+                 f"{cs.num_clusters} blocks")
+        soup = ct.triangle_soup(vt, ft, with_normals=False)
+        _, sun, points, skip = shadow_wavefront(vt, ft, cam, cs, W, H)
+
+        def call(regroup):
+            return mk.any_hit_to_point(soup, sun, points, skip=skip,
+                                       clusters=cs, regroup=regroup,
+                                       with_counts=True)
+
+        (got, counts), launches = launches_of(lambda: call(True))
+        (base, base_counts), base_launches = launches_of(lambda: call(False))
+        check(launches == {REGROUPED[key]: 1},
+              f"phase 20 {name}: the regrouped call launched {launches}")
+        check(len(base_launches) == 1 and not any(
+            k.endswith("_t128") for k in base_launches),
+              f"phase 20 {name}: the unregrouped call launched "
+              f"{base_launches}")
+        path_launches = merge(path_launches, launches)
+        off = int((got != base).sum())
+        steps = int(counts["traversal_steps"])
+        base_steps = int(base_counts["traversal_steps"])
+        n = REGROUP_CALLS if key == "bunny" else LARGE_REGROUP_CALLS
+        t_g, t_u = alternated_times([lambda i: call(True),
+                                     lambda i: call(False)], n)
+        print(f"phase 20 regrouped shadow wavefront, {label}): launches "
+              f"regrouped {launches}, unregrouped {base_launches}; "
+              f"{points[0].numel()} rays, {int((~skip).sum())} live, "
+              f"{int(base.sum())} occluded, flags differing {off}; visits "
+              f"regrouped {steps} x 128 = {steps * 128} lane-visits, "
+              f"unregrouped {base_steps} x 512 = {base_steps * 512}; whole "
+              f"call ms (CUDA events, {n} each, alternated) regrouped median "
+              f"{statistics.median(t_g):.3f} (min {min(t_g):.3f} max "
+              f"{max(t_g):.3f}), unregrouped median "
+              f"{statistics.median(t_u):.3f} (min {min(t_u):.3f} max "
+              f"{max(t_u):.3f}) [{card}]", flush=True)
+        check(off == 0 and int(base.sum()) > 0,
+              f"phase 20 {name}: regrouped flags differ on {off} rays")
+        reps = 20 if key == "bunny" else 5
+        for tile, (args, opts) in (
+                (128, regrouped_inputs(cs, sun, points, skip)),
+                (512, mk._any_dest_inputs(cs, sun, points, skip))):
+            forms = ((opts["stream"], not opts["stream"])
+                     if opts["S"] > 1 and tile == 128 else (opts["stream"],))
+            plain_ref = None
+            for stream in forms:
+                kname = walk._variant("any_dest", opts["S"], stream, tile)
+                r, plain_ref = compare("any_dest", args,
+                                       dict(opts, stream=stream), reps,
+                                       plain_ref)
+                report(20, kname, f"{label}, "
+                       f"{'regrouped' if tile == 128 else 'screen'} tiles: "
+                       f"{args[0].numel()} of {tile} rays, {r['steps']} "
+                       f"visits = {r['steps'] * tile} lane-visits, S = "
+                       f"{opts['S']})", r, card)
+                if tile == 128 and stream == opts["stream"]:
+                    check(kname == REGROUPED[key],
+                          f"phase 20 {name}: regrouped inputs walk {kname}")
+                    results[kname] = r
+    return path_launches, results
+
+
+def phase21(dev, card):
+    """The golden oracle on the card's host (no JAX): the bunny preset
+    rendered on the card, held to ``render_golden``. Returns the renders'
+    launches."""
+    import ceres_tpu_torch as ct
+    from ceres_tpu_torch.render import scenes
+    from ceres_tpu_torch.utils import golden
+
+    sc = scenes.bunny_scene()
+    n = GOLDEN_SIZE
+    launches = {}
+    for mode in ("smooth", "flat"):
+        t0 = time.perf_counter()
+        gold, gst = golden.render_golden(
+            sc.vertices, sc.faces, *(np.asarray(x, np.float64) for x in (
+                sc.camera.eye, sc.camera.dir, sc.camera.up)),
+            float(sc.camera.fov), np.asarray(sc.sun, np.float64), n, n,
+            mode=mode)
+        host_s = time.perf_counter() - t0
+        for backend in ("megakernel", "bruteforce"):
+            (img, st), launched = launches_of(lambda: ct.render(
+                sc.vertices, sc.faces, sc.camera, sc.sun, width=n, height=n,
+                mode=mode, backend=backend, device=dev))
+            want = ({"walk_closest": 1, "walk_any_dest": 1}
+                    if backend == "megakernel" else {})
+            check(launched == want,
+                  f"phase 21 {mode} {backend}: launches {launched}")
+            launches = merge(launches, launched)
+            check(img.device.type == dev.type and tuple(img.shape) == (n, n, 3)
+                  and bool(torch.isfinite(img).all()),
+                  f"phase 21 {mode} {backend}: not a finite image on the card")
+            bad = float((np.abs(img.cpu().numpy() - gold).max(axis=-1)
+                         > 2e-3).mean())
+            hits = int(st["primary_hits"])
+            print(f"phase 21 golden oracle: bunny preset {n}x{n} {mode} "
+                  f"{backend} on the card against render_golden (NumPy "
+                  f"float64 on the host, {host_s:.1f} s): pixels off by "
+                  f">2e-3 {bad:.4%} (limit 1%); primary hits {hits}, oracle "
+                  f"{gst['hits']} (limit {0.01 * n * n:.0f} apart); "
+                  f"launches {launched} [{card}]", flush=True)
+            check(bad <= 0.01 and abs(hits - gst["hits"]) <= 0.01 * n * n
+                  and gold.max() > 0.1 and float(img.max()) > 0.1,
+                  f"phase 21 {mode} {backend}: the card's render differs "
+                  f"from the golden oracle")
+    jax_like = [m for m in sys.modules
+                if m.split(".")[0] in ("jax", "ceres_tpu")]
+    check(not jax_like, f"phase 21: JAX or the JAX package loaded: "
+          f"{jax_like[:5]}")
+    return launches
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--phases", help="run phases 1, 2 and these only "
+                    "(comma-separated, of 20 and 21), with no JSON record")
+    only = ap.parse_args(argv).phases
+    only = [int(x) for x in only.split(",")] if only else None
+    check(only is None or set(only) <= {20, 21},
+          f"--phases takes 20 and 21, not {only}")
     # Phase 1: device.
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: the port's smoke test "
@@ -1767,8 +1994,6 @@ def main():
         fail(f"no ceres_tpu_torch package beside {__file__}")
     sys.path.insert(0, ROOT)
     import ceres_tpu_torch as ct
-    from ceres_tpu_torch.accel.clusters import build_clusters_treelet
-    from ceres_tpu_torch.models.mesh import subdivide
     from ceres_tpu_torch.ops import _build, walk
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1807,16 +2032,24 @@ def main():
           f"{builds['objparse.cpp'][1]:.1f} s (built "
           f"{builds['objparse.cpp'][0]})", flush=True)
     regs = solo_registers()
-    check(set(regs) == set(walk.RAY_ROWS),
+    check(set(regs) == set(walk.RAY_ROWS) | {"any_dest_t128"},
           f"no register report for every walk_solo: {regs}")
-    fit = {walk._variant(mode, S, stream)[5:]:
-           walk.resident_clusters(mode, S, stream, dev)
-           for mode in walk.RAY_ROWS for S, stream in ((1, False), (1, True),
-                                                      (2, True))}
+    fit = {walk._variant(mode, S, stream, tile)[5:]:
+           walk.resident_clusters(mode, S, stream, dev, tile)
+           for mode in walk.RAY_ROWS for tile in walk.TILES[mode]
+           for S, stream in ((1, False), (1, True), (2, True))}
     print(f"phase 2 tiles the card holds at once (clusters of K CTAs, kK "
-          f"{cluster_ctas('kK')}, kKFlat {cluster_ctas('kKFlat')}; resident "
-          f"flat: CTAs, walk_solo registers {regs}): {fit}", flush=True)
+          f"{cluster_ctas('kK')}, kKFlat {cluster_ctas('kKFlat')}, at 128 "
+          f"rays a tile kK128 {cluster_ctas('kK128')}; resident flat: CTAs, "
+          f"walk_solo registers {regs}): {fit}", flush=True)
     check(min(fit.values()) > 0, "a walk does not fit the card")
+    if only:
+        if 20 in only:
+            phase20(dev, card, large_scenes(dev, bunny_meshes()))
+        if 21 in only:
+            phase21(dev, card)
+        print(f"phases 1, 2, {', '.join(map(str, only))} done", flush=True)
+        return
 
     # Phase 3: K1 and K2 against their plain versions.
     results = {}
@@ -1851,17 +2084,11 @@ def main():
                     f"phase 5 JAX reference: bunny {size}x{size}")
 
     # Phase 6: the large scenes' variants against their plain versions.
-    v0, f0 = ct.load_obj(os.path.join(ROOT, "data", "bunny.obj"))
-    meshes = {3: subdivide(v0, f0, 3)}
-    meshes[4] = subdivide(*meshes[3], 1)
-    large = {}
-    for levels, (v, f) in meshes.items():
-        cam = camera(v, EYE, dev)
-        vt, ft = torch.as_tensor(v, device=dev), torch.as_tensor(f, device=dev)
-        soup = ct.triangle_soup(vt, ft, with_normals=False)
-        cs, build_ms = timed_once(lambda: build_clusters_treelet(soup))
-        large[levels] = (vt, ft, cam, cs, build_ms)
-        label = (f"bunny x{levels} {W}x{H} ({f.shape[0]} triangles, "
+    v0, f0 = ct.load_obj(BUNNY)
+    meshes = bunny_meshes()
+    large = large_scenes(dev, meshes)
+    for levels, (vt, ft, cam, cs, _) in large.items():
+        label = (f"bunny x{levels} {W}x{H} ({ft.shape[0]} triangles, "
                  f"{cs.num_clusters} blocks")
         for mode, (args, opts) in zip(("closest", "any_dest"),
                                       walk_inputs(vt, ft, cam, cs, W, H)):
@@ -2049,6 +2276,12 @@ def main():
                           phase18(dev, card, builds, meshes, large))
     # Phase 19: several ranks on the one card.
     path_launches = merge(path_launches, phase19(dev, card, meshes))
+    # Phase 20: the shadow wavefront regrouped by receiver.
+    launches, regrouped = phase20(dev, card, large)
+    path_launches = merge(path_launches, launches)
+    results.update(regrouped)
+    # Phase 21: the golden oracle on the card's host.
+    path_launches = merge(path_launches, phase21(dev, card))
 
     missing = [k for k in REPLACES if not path_launches.get(k)]
     check(not missing, f"no path launched {missing}")

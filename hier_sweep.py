@@ -1,13 +1,14 @@
 """The cluster walk kernels at each cluster size K, on one NVIDIA card.
 
-    python3 hier_sweep.py [--ks 2,4,8] [--flat-ks 2,4,8]
+    python3 hier_sweep.py [--ks 2,4,8] [--flat-ks 2,4,8] [--k128s 2,4,8]
                           [--out ceres_tpu_torch/_build/sweep]
     python3 hier_sweep.py --turns _checkout/parent
 
-``ceres_tpu_torch/ops/csrc/walk.cu`` has two cluster sizes: the constant
-kK (the two-level kernels) and kKFlat (the streamed flat kernels). For
-each K of ``--ks`` (kKFlat as committed) and each of ``--flat-ks`` (kK
-as committed), copies what ``chip_smoke.py`` reads (itself, the package
+``ceres_tpu_torch/ops/csrc/walk.cu`` has three cluster sizes: the
+constant kK (the two-level kernels), kKFlat (the streamed flat kernels)
+and kK128 (both cluster walks at 128 rays a tile, the regrouped shadow
+wavefront). For each K of ``--ks`` (the others as committed), each of
+``--flat-ks`` and each of ``--k128s``, copies what ``chip_smoke.py`` reads (itself, the package
 without built kernels, ``data/`` and ``tests/fixtures/``) into
 OUT/<constant><k>, sets the constant there, builds every copy's kernels
 in parallel (one nvcc each) and then runs each copy's ``chip_smoke.py``
@@ -17,6 +18,8 @@ bunny at 1920 x 1080 among the other paths. Each log goes to
 OUT/smoke_<constant><k>.log. Prints, per copy, every kernel's line
 (form and K, visits, the heaviest tile, us per visit of it, ms, bound,
 share) and the frames' lines, beside the card's name and power limit.
+A kK128 copy runs ``chip_smoke.py --phases 20`` only: the regrouped
+calls and their kernels on the bunny and the 3x and 4x bunny at 1080p.
 Exits non-zero if a copy fails. Another commit is timed the same way by
 running its own ``chip_smoke.py`` (``git archive`` it into a directory
 that .gitignore lists), or in turns with this one: ``--turns DIR`` builds
@@ -44,6 +47,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 SOURCE = os.path.join("ceres_tpu_torch", "ops", "csrc", "walk.cu")
 SKIP = shutil.ignore_patterns("_build", "__pycache__")
 LINES = re.compile(r"(two-level|flat streamed|flat resident): |"
+                   r"^phase 20 regrouped |"
                    r"^phase (4|7|10) .*path|^phase 1[234] .*(ms|MiB)")
 
 
@@ -137,13 +141,13 @@ def build_all(dirs):
     return failed
 
 
-def smoke(tag, d, out):
-    """Run d's chip_smoke.py, its log in out; print its kernel and frame
-    lines. Returns the exit code."""
+def smoke(tag, d, out, extra=()):
+    """Run d's chip_smoke.py (with arguments ``extra``), its log in out;
+    print its kernel and frame lines. Returns the exit code."""
     t0 = time.perf_counter()
     log = os.path.join(out, f"smoke_{tag}.log")
     with open(log, "w") as fh:
-        rc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=d,
+        rc = subprocess.run([sys.executable, "chip_smoke.py", *extra], cwd=d,
                             stdout=fh, stderr=subprocess.STDOUT).returncode
     print(f"{tag}: chip_smoke.py rc={rc} "
           f"{time.perf_counter() - t0:.0f} s", flush=True)
@@ -158,6 +162,7 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--ks", default="2,4,8")
     ap.add_argument("--flat-ks", default="2,4,8")
+    ap.add_argument("--k128s", default="2,4,8")
     ap.add_argument("--turns", metavar="DIR",
                     help="time DIR's chip_smoke.py against this one's in "
                     "turns (DIR, here, here, DIR), and nothing else")
@@ -181,7 +186,8 @@ def main():
             sys.exit(f"failed: {failed}")
         return
     copies = [(name, int(k)) for name, ks in (("kK", args.ks),
-                                               ("kKFlat", args.flat_ks))
+                                               ("kKFlat", args.flat_ks),
+                                               ("kK128", args.k128s))
               for k in ks.split(",") if k]
     dirs = {f"{name}{k}": os.path.join(out, f"{name}{k}")
             for name, k in copies}
@@ -191,7 +197,8 @@ def main():
     for tag, d in dirs.items():
         if tag in failed:
             continue
-        if smoke(tag, d, out) != 0:
+        extra = ("--phases", "20") if tag.startswith("kK128") else ()
+        if smoke(tag, d, out, extra) != 0:
             failed.append(tag)
         shutil.rmtree(d, ignore_errors=True)
     if failed:

@@ -27,6 +27,12 @@ and, two-level, with S = 2, 7 and 32 member slots; flat, on key rows cut
 to 0 and 1 candidates and on tiles whose walk ends by dropping the
 visit made ahead (``dropped_speculation``).
 
+The shadow walk regrouped by receiver (``any_hit_to_point(regroup=True)``)
+runs on tiles of 128 rays: its three forms (resident flat, streamed flat,
+two-level resident and streamed) are held to the plain version tile by
+tile on the same inputs, on the 3x bunny too, and the regrouped entry
+point gives the unregrouped flags on the card.
+
 The resident flat walk runs each tile on one CTA, copies the next block
 while it visits one, and in the shadow modes hands the tile's live rays
 to the leading threads at every visit. It is held on tiles whose walk
@@ -126,9 +132,19 @@ def _inputs(name, dev, S=None, size=(256, 160)):
                 "closest_window": mk._closest_inputs(cs, eye, dirs, tmin,
                                                      tmax),
                 "any_dest": mk._any_dest_inputs(cs, sun, points, ~hit.mask),
+                "any_dest_t128": regrouped_inputs(cs, sun, points,
+                                                  ~hit.mask),
                 "any": mk._any_inputs(cs, soup.p0.mean(0), points, sun_line,
                                       ~hit.mask)}
     return out
+
+
+def regrouped_inputs(cs, sun, points, skip):
+    """The shadow walk's inputs regrouped by receiver, as
+    ``any_hit_to_point(regroup=True)`` builds them: 128-ray tiles."""
+    perm = mk._receiver_order(cs, points, skip)
+    return mk._any_dest_inputs(cs, sun, tuple(c[perm] for c in points),
+                               skip[perm], tile=mk._REGROUP_TILE)
 
 
 KERNELS = {"closest": (walk.walk_closest, walk._walk_closest_plain),
@@ -420,6 +436,83 @@ def test_solo_shadow_walk_one_live_ray_a_warp(card_inputs, mode):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("stream", [False, True])
+@pytest.mark.parametrize("walk_form", ["flat", "hier"])
+def test_regrouped_kernel_equals_plain_per_tile(card_inputs, walk_form,
+                                                stream):
+    args, opts = card_inputs[walk_form]["any_dest_t128"]
+    assert args[2].shape[1] == 128 * args[0].numel()
+    assert (opts["S"] > 1) == (walk_form == "hier")
+    name = walk._variant("any_dest", opts["S"], stream, 128)
+    assert name.endswith("_t128")
+    before = dict(walk.launches)
+    _same_per_tile("any_dest", args, dict(opts, stream=stream))
+    assert {k: n - before[k] for k, n in walk.launches.items()
+            if n != before[k]} == {name: 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stream", [False, True])
+@pytest.mark.parametrize("walk_form", ["flat", "hier"])
+def test_regrouped_kernel_heavy(heavy, walk_form, stream):
+    # The 3x bunny's treelet cut (4,968 blocks, weights streamed): the
+    # streamed flat form is the one its regrouped wavefront takes.
+    args, opts = heavy[walk_form]["any_dest_t128"]
+    assert opts["stream"] and (opts["S"] > 1) == (walk_form == "hier")
+    _same_per_tile("any_dest", args, dict(opts, stream=stream))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ties", [False, True])
+def test_regrouped_cluster_walk_supers(supers, ties):
+    S, inputs = supers
+    args, opts = inputs["any_dest_t128"]
+    assert opts["S"] == S
+    if ties:
+        args = with_ties(args)
+    for stream in (False, True):
+        _same_per_tile("any_dest", args, dict(opts, stream=stream))
+
+
+@pytest.mark.cuda
+def test_regrouped_entry_point_on_card():
+    # any_hit_to_point(regroup=True) on the card: the 128-ray variant
+    # alone is launched, and the flags are the unregrouped ones.
+    dev = _card()
+    verts, faces = ct.load_obj(os.path.join(ROOT, "data", "bunny.obj"))
+    soup = ct.triangle_soup(torch.as_tensor(verts, device=dev),
+                            torch.as_tensor(faces, device=dev),
+                            with_normals=False)
+    cs = build_clusters_quality(soup)
+    rng = np.random.default_rng(8)
+    pick = torch.as_tensor(rng.integers(0, faces.shape[0], 20000), device=dev)
+    uv = torch.as_tensor(rng.uniform(0.0, 0.5, (2, 20000)).astype(np.float32),
+                         device=dev)
+    points = (soup.p0[pick] - uv[0, :, None] * soup.e1[pick]
+              + uv[1, :, None] * soup.e2[pick])
+    skip = torch.as_tensor(rng.random(20000) < 0.3, device=dev)
+    sun = torch.as_tensor(SUN, device=dev)
+    walk.reset_launches()
+    base = mk.any_hit_to_point(soup, sun, points, skip=skip, clusters=cs)
+    torch.cuda.synchronize()
+    assert {k: n for k, n in walk.launches.items() if n} == {
+        "walk_any_dest": 1}
+    walk.reset_launches()
+    got = mk.any_hit_to_point(soup, sun, points, skip=skip, clusters=cs,
+                              regroup=True)
+    torch.cuda.synchronize()
+    assert {k: n for k, n in walk.launches.items() if n} == {
+        "walk_any_dest_t128": 1}
+    assert int(base.sum()) > 0 and torch.equal(got, base)
+    cs_cpu = dataclasses.replace(cs, **{
+        f.name: getattr(cs, f.name).cpu() for f in dataclasses.fields(cs)
+        if torch.is_tensor(getattr(cs, f.name))})
+    cpu = mk.any_hit_to_point(None, sun.cpu(), points.cpu(), skip=skip.cpu(),
+                              clusters=cs_cpu, regroup=True)
+    assert torch.equal(got.cpu(), cpu)
+
+
+@pytest.mark.cuda
 def test_kernel_rejects_mixed_devices(card_inputs):
     (counts, keys, rays, w), _ = card_inputs["flat"]["closest"]
     with pytest.raises(ValueError, match="counts"):
@@ -591,6 +684,7 @@ def test_kernel_source_constants_match_python():
 
     assert int(const("kC")) == walk.CLUSTER_SIZE
     assert int(const("kR")) == walk.TILE
+    assert int(const("kR128")) == walk.REGROUP_TILE == mk._REGROUP_TILE
     assert int(const("kPlanes")) == walk.WEIGHT_PLANES
     assert int(const("kPlanesGeneric")) == walk.GENERIC_PLANES
     assert int(const("kPrunePad")) == walk._PRUNE_PAD

@@ -166,11 +166,12 @@ def test_unported_options_name_their_roadmap_item(bunny, kwargs, item):
     ({"regroup": True}, "M13"),
 ])
 def test_unported_shadow_options_name_their_roadmap_item(bunny, kwargs, item):
-    # any_hit_to_point takes the JAX package's exact_f64= and regroup=:
-    # regroup, not ported yet, names item M13; regroup=None or False (off,
-    # the JAX default) runs the walk. exact_f64 (item M14) is ported: it
-    # refuses a float32 soup by its dtype and gives a float64 soup's
-    # flags, here those of its float32 search.
+    # any_hit_to_point takes the JAX package's exact_f64= and regroup=;
+    # both items are ported. exact_f64 (item M14) refuses a float32 soup
+    # by its dtype and gives a float64 soup's flags, here those of its
+    # float32 search. regroup (item M13; True, or a truthy 128 as the JAX
+    # tests pass it) walks 128-ray tiles regrouped by receiver and gives
+    # the flags of regroup=None or False (off, the JAX default).
     verts, faces = bunny
     soup = ct.triangle_soup(torch.as_tensor(verts), torch.as_tensor(faces),
                             with_normals=False)
@@ -186,8 +187,11 @@ def test_unported_shadow_options_name_their_roadmap_item(bunny, kwargs, item):
         assert torch.equal(pmk.any_hit_to_point(*args, **kwargs),
                            pmk.any_hit_to_point(*args))
     else:
-        with pytest.raises(NotImplementedError, match=item):
-            pmk.any_hit_to_point(soup, sun, points, **kwargs)
+        flags, counts = pmk.any_hit_to_point(soup, sun, points,
+                                             with_counts=True, **kwargs)
+        assert torch.equal(flags, base) and int(base.sum()) > 0
+        assert int(counts["mt_pairs"]) == (int(counts["traversal_steps"])
+                                           * 128 * 128)
     assert base.shape == (64,)
     assert torch.equal(pmk.any_hit_to_point(soup, sun, points, regroup=False,
                                             exact_f64=False), base)
@@ -276,7 +280,8 @@ def test_port_imports_without_jax():
             "ceres_tpu_torch.accel.ploc, ceres_tpu_torch.accel.sbvh, "
             "ceres_tpu_torch.accel.reinsertion, "
             "ceres_tpu_torch.accel.presplit, ceres_tpu_torch.accel.native, "
-            "ceres_tpu_torch.io.native, ceres_tpu_torch.utils.cxx\n"
+            "ceres_tpu_torch.io.native, ceres_tpu_torch.utils.cxx, "
+            "ceres_tpu_torch.utils.golden\n"
             "from ceres_tpu_torch.accel import native\n"
             "from ceres_tpu_torch.io import native as io_native\n"
             "native.available(), io_native.available()\n"
