@@ -32,21 +32,24 @@ _I = ctypes.c_int
 # Closest modes: counts, keys, rays, w, out, visits, n_tiles, n_c, cmask,
 # stream_w, device, stream. Occlusion modes add occ0 after w. The
 # two-level forms add hull, bbox, first after those pointers and S after
-# cmask. The ``_t128`` forms walk tiles of 128 rays (regrouped shadows).
+# cmask. The ``_t128`` forms walk tiles of 128 rays (regrouped shadows)
+# and add scratch after visits and seg after cmask (and S).
 _FLAT = (_P,) * 6 + (_I,) * 5 + (_P,)
 _FLAT_OCC = (_P,) * 7 + (_I,) * 5 + (_P,)
 _HIER = (_P,) * 9 + (_I,) * 6 + (_P,)
 _HIER_OCC = (_P,) * 10 + (_I,) * 6 + (_P,)
+_FLAT_T128 = (_P,) * 8 + (_I,) * 6 + (_P,)
+_HIER_T128 = (_P,) * 11 + (_I,) * 7 + (_P,)
 _SIGNATURES = {
     "ceres_walk_closest": _FLAT,
     "ceres_walk_closest_window": _FLAT,
     "ceres_walk_any_dest": _FLAT_OCC,
-    "ceres_walk_any_dest_t128": _FLAT_OCC,
+    "ceres_walk_any_dest_t128": _FLAT_T128,
     "ceres_walk_any": _FLAT_OCC,
     "ceres_walk_closest_hier": _HIER,
     "ceres_walk_closest_window_hier": _HIER,
     "ceres_walk_any_dest_hier": _HIER_OCC,
-    "ceres_walk_any_dest_hier_t128": _HIER_OCC,
+    "ceres_walk_any_dest_hier_t128": _HIER_T128,
     "ceres_walk_any_hier": _HIER_OCC,
 }
 

@@ -30,8 +30,9 @@
 // R is the tile's rays: kR = 512 for every mode, and kR128 = 128 for
 // kAnyDest in all three forms, the shadow wavefront regrouped by receiver
 // (_REGROUP_TILE, from any_hit_to_point(regroup=True); the C entry points
-// ending in _t128). A block has R threads; at 128 the cluster walks use
-// K = kK128.
+// ending in _t128). A block has R threads. At 128 rays the resident flat
+// form is walk_solo<kAnyDest, 128>, and the streamed flat and two-level
+// forms are the split walk (split_walk, split_more, split_replay; below).
 // The plain PyTorch versions that define the exact results are in
 // ceres_tpu_torch/ops/walk.py (_walk_closest_plain, _walk_any_dest_plain,
 // _walk_any_plain).
@@ -99,10 +100,55 @@
 // and K7a on the 4x bunny and of K5 on the 3x bunny (PERF.md, with the
 // designs that measured slower there: CTAs that split each block's lanes
 // and exchange every ray's key per visit, faster on the closest walk and
-// slower on the shadow walk; a ray's threads in separate warps). kK128
-// likewise, from the regrouped K5 and K7a on the 3x and 4x bunny: both are
-// set by their heaviest tile (thousands of visits), which K = 8 spreads
-// over the most SMs (K = 2 and 4 measured slower).
+// slower on the shadow walk; a ray's threads in separate warps).
+//
+// The split walk (the streamed flat and the two-level shadow walk at
+// kR128 rays). A regrouped tile holds a compact patch of receivers, but
+// where the morton order jumps it holds two distant ones, and with one
+// receiver that no block occludes its prune stays at t = 1 + pad: such a
+// tile walks its whole key row (on the 4x bunny 14,997 member visits, the
+// screen tiles' heaviest 1,587), and a walk that keeps the tile's visits
+// in one chain is as slow as that tile (PERF.md). But a ray's
+// flag needs only its own first occluder, and the sequential walk's
+// visits follow from every ray's first occluding position. So:
+//   split_walk    one CTA for each of the tile's kK128 ray groups (R / K
+//                 rays, K threads a ray, lanes split as in walk_tile),
+//                 with no cluster and no exchange: the group walks the
+//                 first segment of the key row (kSeg128 block visits;
+//                 two-level, kSeg128 / S supers) in order while an
+//                 entry is within the group's own prune, and stores the
+//                 position of each ray's first occluder (flat: the
+//                 candidate's index; two-level: kSuperMax x the super's
+//                 index + the member's rank in entry order);
+//   split_list    one warp a tile: a tile with rays still live and a
+//                 candidate left within their prune takes the later
+//                 segments, each on units of R / K of those rays, so
+//                 the groups whose rays the first segment occluded walk
+//                 no further;
+//   split_more    the listed units, all at once on the CTAs the card
+//                 holds: each starts with its rays that no earlier
+//                 segment has found occluded (the first segment's finds,
+//                 and those of later ones already stored), and takes the
+//                 min of its finds with atomicMin;
+//   split_replay  one CTA a tile: flags (start flags, or an occluder
+//                 found), and the executed visits of the sequential
+//                 walk: before position q its live rays are those whose
+//                 first occluder is at q or later, which gives its prune
+//                 there, and both that prune and the entries are
+//                 monotone, so the candidates taken are found by
+//                 bisection (a super over which the prune does not move
+//                 takes every member within it).
+// It is exact because a unit's live rays include every one of its rays
+// that the sequential walk still has live, so its prune is never below
+// their caps + pad and each such ray meets every block the sequential
+// walk shows it; and a block the sequential prune excludes has entry >
+// tcap + pad for every live ray, so it cannot occlude one (the invariant
+// the prune pad keeps, _PRUNE_PAD in ops/walk.py): a unit's first find
+// for a ray is never before the sequential one, and the segment holding
+// the sequential one finds it. Visits a unit makes past the sequential
+// walk's are not counted; the replay counts. kK128 and kSeg128 are
+// constants from the card's times of the regrouped K5 and K7a on the 3x
+// and 4x bunny (PERF.md; hier_sweep.py --k128s, --segs).
 //
 // Streamed weights. The TPU kernel fetched each visit's block by DMA from
 // HBM into VMEM and prefetched visit k + 1 during visit k. Here a block
@@ -114,7 +160,9 @@
 // early exit is drained. The resident two-level variants fill the same
 // buffers with plain copies; the resident flat walk (walk_solo) copies each
 // block with cp.async into one of two buffers while the block before it is
-// visited. All forms give the same outputs.
+// visited; a unit of the split walk copies the two blocks after the one it
+// visits into the other two of three buffers (cp.async when streamed). All
+// forms give the same outputs.
 //
 // What bounds it on an H100. Each visit is 512 x 128 ray-triangle pairs at
 // 26-30 fp32 operations each (44 for generic rays), on the CUDA cores: the
@@ -142,8 +190,11 @@
 // reads the same record), the next block is copied during the visit, a
 // visit has one block barrier (the prune max), and the shadow walks hand
 // the live rays to the leading warps at each prune max, so no warp walks
-// occluded rays. FMA contraction and several rays per thread are later
-// work.
+// occluded rays. The split walk (128-ray tiles) takes a heavy tile's
+// visits out of one chain: its segments run at once on separate CTAs, a
+// ray group stops with its own rays, and a visit has one block barrier
+// (the unit's prune max) and no exchange. FMA contraction and several
+// rays per thread are later work.
 //
 // Exactness. Built with --fmad=false and written in the plain version's
 // operation order, so kernel and plain version agree bit for bit on the
@@ -169,7 +220,8 @@ constexpr int kR = 512;            // rays per tile (TILE) = threads per block
 constexpr int kR128 = 128;         // regrouped shadow tiles (_REGROUP_TILE)
 constexpr int kK = 8;              // two-level walk: CTAs a tile, threads a ray
 constexpr int kKFlat = 8;          // streamed flat walk: the same
-constexpr int kK128 = 8;           // both cluster walks at kR128 rays a tile
+constexpr int kK128 = 8;           // split walk: ray groups a tile, threads a ray
+constexpr int kSeg128 = 256;       // split walk: block visits a segment
 constexpr int kPlanes = 10;        // common-origin planes: cu.xyz, cv.xyz, n.xyz, tn
 constexpr int kPlanesGeneric = 16; // generic planes: those 10, e2.xyz, e1.xyz
 constexpr int kSuperMax = 32;      // _SUPER_MAX: member slots in one uint32
@@ -797,32 +849,6 @@ walk_tile(const int* __restrict__ counts, const int* __restrict__ keys,
   if (rank == 0 && threadIdx.x == 0) visits[tile] = t.nvis;
 }
 
-// The resident flat walk: one CTA a tile (walk_solo). One CTA walks the
-// whole tile, so the new prune is known right after each visit's block
-// max: there is no exchange and no visit ahead of it. Each visit's block
-// is staged with cp.async into one of two buffers as triangle records
-// while the block before it is visited (Row reads the key row two
-// candidates ahead), and one block barrier a visit, the prune max, follows
-// the copy wait. A prefetched block whose entry the new prune excludes is
-// dropped uncounted.
-//
-// The shadow walks hand the tile's live rays to the leading threads: at
-// every prune max the R / 32 warps also publish the ballot of their still
-// unoccluded rays and the ray each thread walked, and thread u takes the
-// u-th live ray of that list (live_entry), in list order. So a warp walks
-// only live rays, and warps past the live count skip the visit; the
-// occlusion flags go into an R-bit mask, read once at the end.
-template <int M, int R>
-struct SoloShared {
-  alignas(16) float sw[2][kC * rec_floats(M)];  // the block and the next
-  // Alternating with the visits (one barrier each): the warps' maxima of
-  // the prune, and (shadow walks) their live ballots and each thread's ray.
-  int red[2][R / 32];
-  unsigned live[2][R / 32];
-  int ids[2][occlusion(M) ? R : 1];
-  unsigned occm[R / 32];  // shadow walks: rays occluded during the walk
-};
-
 // The position of the k-th set bit (from 0) of m, which has more than k.
 __device__ __forceinline__ int nth_bit(unsigned m, int k) {
   int pos = 0;
@@ -851,6 +877,419 @@ __device__ __forceinline__ int live_entry(const unsigned* msk, int u) {
   }
   return -1;
 }
+
+// The split walk: the streamed flat and the two-level shadow walk at kR128
+// rays a tile (split_walk, split_list, split_more and split_replay; the
+// design is in the header comment). A unit is up to R / K of a tile's
+// rays (K threads a ray, one CTA) over one segment of the tile's key
+// row: it visits the segment's blocks in order while their entry is
+// within the unit's own prune, and notes for each of its rays the
+// position of its first occluder (flat: the candidate's index in the
+// row; two-level: kSuperMax x the super's index + the member's rank in
+// entry order).
+
+// Candidates [pos, end) of a tile's key row, each key read two ahead;
+// pop() also gives the candidate's position.
+struct SegRow {
+  const int* krow;
+  int end, cmask, pos, k0, k1;
+
+  __device__ __forceinline__ SegRow(const int* krow, int begin, int end,
+                                    int cmask)
+      : krow(krow), end(end), cmask(cmask), pos(begin) {
+    k0 = pos < end ? krow[pos] : 0;
+    k1 = pos + 1 < end ? krow[pos + 1] : 0;
+  }
+
+  __device__ __forceinline__ int pop(int* m, int* q) {
+    const int key = k0;
+    *m = pos < end ? (key & ~cmask) : INT_MAX;
+    *q = pos;
+    k0 = k1;
+    k1 = pos + 2 < end ? krow[pos + 2] : 0;
+    ++pos;
+    return key & cmask;
+  }
+};
+
+// The members of one super (first block fs) in entry order, as Members;
+// the member of rank j has position pos + j.
+struct SegMembers {
+  int ent;
+  unsigned rem;
+  int fs, pos;
+
+  __device__ __forceinline__ int pop(int* m, int* q) {
+    const int s = next_member(ent, rem, m);
+    rem &= ~(1u << s);
+    *q = pos++;
+    return fs + s;
+  }
+};
+
+template <int M, int R>
+struct SplitShared {
+  // The block being visited and the next two in visiting order.
+  alignas(16) float sw[3][kC * rec_floats(M)];
+  int red[2][R / 32];     // block_max's buffers, alternating
+  float hull[kHullCols];  // two-level walk: the tile's hull row
+};
+
+// Stage block blk into dst if go; a streamed walk commits a copy group
+// either way, so that wait_async<1> always waits for the block before.
+template <int M, bool kStream, int R>
+__device__ __forceinline__ void stage_if(float* dst, const float* w, int blk,
+                                         bool go) {
+  if (go) {
+    stage_block<M, kStream, R>(dst, w, blk);
+  } else if (kStream) {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  }
+}
+
+// One unit's walk state: a ray on K threads (g its thread among them).
+// Its prune is the max over its own rays only.
+template <int M, bool kStream, int K, int R>
+struct GroupWalk {
+  SplitShared<M, R>& sh;
+  const float* w;
+  const Ray<M>& r;
+  int g, occ;
+  int prune = 0;
+  int found = INT_MAX;  // position of this ray's first occluder here
+  int red = 0;
+
+  // The unit's prune: the max of its rays' parts (block_max's barrier).
+  __device__ __forceinline__ void renew() {
+    prune = block_max<R>(prune_part<M>(kBigCleanI, occ, r.tcap),
+                         sh.red[red]) + kPrunePad;
+    red ^= 1;
+  }
+
+  // Visit src's blocks in order while the next entry is within the
+  // unit's prune, renewed after every visit. Two blocks are copied ahead
+  // of the one visited, each if its entry is within the prune of its
+  // copy (the prune only falls, so a block it excludes is never visited).
+  template <class Src>
+  __device__ __forceinline__ void run(Src& src) {
+    int m, q, m2, q2;
+    const int cur = src.pop(&m, &q);
+    if (m > prune) return;
+    const int nxt = src.pop(&m2, &q2);
+    __syncthreads();  // the last run's reads of sw are done
+    int b = 0;        // sw[b] holds the block visited, sw[b + 1] the next
+    stage_block<M, kStream, R>(sh.sw[0], w, cur);
+    stage_if<M, kStream, R>(sh.sw[1], w, nxt, m2 <= prune);
+    if (kStream) wait_async<1>();
+    __syncthreads();
+    while (true) {
+      if (visit_result<M, K>(sh.sw[b], occ, r, g)) {  // 0 once occluded
+        occ = 1;
+        found = q;
+      }
+      // sw[(b + 2) % 3] was last read before the last renew's barrier.
+      int m3, q3;
+      const int after = src.pop(&m3, &q3);
+      stage_if<M, kStream, R>(sh.sw[(b + 2) % 3], w, after, m3 <= prune);
+      if (kStream) wait_async<1>();  // the next block; renew publishes it
+      renew();
+      if (m2 > prune) break;
+      q = q2;
+      m2 = m3;
+      q2 = q3;
+      b = (b + 1) % 3;
+    }
+    if (kStream) wait_async<0>();  // drain copies left behind
+  }
+};
+
+// One unit over candidates [k0, k1) of tile `tile`'s key row (supers for
+// the two-level walk), this thread on ray `ray` of the tile (-1: none)
+// with the other K - 1 threads of that ray. A ray starts live unless it
+// starts occluded or, after the first segment, a unit has already found
+// an occluder of it before k0's position (pstar). The first segment
+// stores each ray's first occluding position (INT_MAX: none); a later
+// one takes the min with it.
+template <int M, bool kStream, int K, bool kHier, int R>
+__device__ __forceinline__ void walk_unit(
+    SplitShared<M, R>& sh, int tile, int ray, int k0, int k1, bool opening,
+    const int* keys, const float* rays, const float* w, const int* occ0,
+    const float* hull, const float* bbox, const int* first, int* pstar,
+    int n_rays, int n_k, int cmask, int S) {
+  const int lane = threadIdx.x & 31;
+  const int at = tile * R + max(ray, 0);
+  int occ = ray < 0 || occ0[at] != 0;
+  if (!opening && !occ
+      && __ldcg(&pstar[at]) < (kHier ? k0 * kSuperMax : k0)) {
+    occ = 1;
+  }
+  const Ray<M> r(rays, n_rays, at);
+  GroupWalk<M, kStream, K, R> t{sh, w, r, static_cast<int>(threadIdx.x % K),
+                                occ};
+  __syncthreads();  // the last unit's reads of sh are done
+  if (kHier && threadIdx.x < kHullCols) {
+    sh.hull[threadIdx.x] = hull[(size_t)tile * kHullCols + threadIdx.x];
+  }
+  t.renew();  // its barrier publishes sh.hull
+  const int* krow = keys + (size_t)tile * n_k;
+  if (kHier) {
+    const unsigned all = S == kSuperMax ? 0xffffffffu : ((1u << S) - 1u);
+    Head h;
+    if (k0 < k1) load_head(h, krow, k0, bbox, first, cmask, S);
+    for (int k = k0; k < k1 && (h.key & ~cmask) <= t.prune; ++k) {
+      SegMembers src{lane < S ? member_entry(sh.hull, h.box) : INT_MAX, all,
+                     h.fs, k * kSuperMax};
+      if (k + 1 < k1) {  // in flight while this super's members are walked
+        load_head(h, krow, k + 1, bbox, first, cmask, S);
+      }
+      t.run(src);
+    }
+  } else {
+    SegRow src(krow, k0, k1, cmask);
+    t.run(src);
+  }
+  if (t.g == 0 && ray >= 0) {
+    if (opening) {
+      pstar[at] = t.found;
+    } else if (t.found != INT_MAX) {
+      atomicMin(&pstar[at], t.found);
+    }
+  }
+}
+
+// Pass 1: the first segment (seg candidates) of every ray group, one CTA
+// each: group c of a tile is its rays c R / K to (c + 1) R / K - 1.
+template <int M, bool kStream, int K, bool kHier, int R>
+__global__ void __launch_bounds__(R, min_ctas(M, R))
+split_walk(const int* __restrict__ counts, const int* __restrict__ keys,
+           const float* __restrict__ rays, const float* __restrict__ w,
+           const int* __restrict__ occ0, const float* __restrict__ hull,
+           const float* __restrict__ bbox, const int* __restrict__ first,
+           int* __restrict__ pstar, int n_rays, int n_k, int cmask, int S,
+           int seg) {
+  __shared__ SplitShared<M, R> sh;
+  const int tile = blockIdx.x / K;
+  const int ray = blockIdx.x % K * (R / K) + threadIdx.x / K;
+  const int count = counts[tile];
+  if (count == 0) {  // most tiles of a frame see no candidate
+    if (threadIdx.x % K == 0) pstar[tile * R + ray] = INT_MAX;
+    return;
+  }
+  walk_unit<M, kStream, K, kHier, R>(sh, tile, ray, 0, min(count, seg),
+                                     true, keys, rays, w, occ0, hull, bbox,
+                                     first, pstar, n_rays, n_k, cmask, S);
+}
+
+// Between the passes, one warp a tile. A tile with candidates past its
+// first segment, rays that no unit has found occluded (nor started so)
+// and the next candidate within their prune takes the later segments,
+// each on units of R / K of those rays: the tile is listed in list with
+// its units, at off the index of its first unit-segment among all tiles'
+// (one 64-bit atomic on ctr counts tiles and unit-segments, so off rises
+// with the list).
+template <int K, int R>
+__global__ void __launch_bounds__(kR128)
+split_list(const int* __restrict__ counts, const int* __restrict__ keys,
+           const float* __restrict__ rays, const int* __restrict__ occ0,
+           const int* __restrict__ pstar, unsigned long long* __restrict__ ctr,
+           int* __restrict__ list, int* __restrict__ units,
+           int* __restrict__ off, int n_tiles, int n_rays, int n_k,
+           int cmask, int seg) {
+  const int tile = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (tile >= n_tiles) return;
+  const int count = counts[tile];
+  if (count <= seg) return;
+  int live = 0, part = kNegI;
+#pragma unroll
+  for (int i = lane; i < R; i += 32) {
+    const int ray = tile * R + i;
+    if (!occ0[ray] && pstar[ray] == INT_MAX) {
+      ++live;
+      part = max(part,
+                 __float_as_int(rays[tcap_row(kAnyDest) * n_rays + ray]));
+    }
+  }
+  live = __reduce_add_sync(0xffffffffu, live);
+  part = __reduce_max_sync(0xffffffffu, part) + kPrunePad;
+  if (lane == 0 && live > 0
+      && (keys[(size_t)tile * n_k + seg] & ~cmask) <= part) {
+    const int n = (live + R / K - 1) / (R / K);
+    const unsigned items = n * ((count - 1) / seg);  // later segments
+    const unsigned long long at = atomicAdd(ctr, (1ull << 32) | items);
+    list[at >> 32] = tile;
+    units[at >> 32] = n;
+    off[at >> 32] = static_cast<int>(at & 0xffffffffu);
+  }
+}
+
+// Pass 2: the later segments of the listed tiles, on a grid of the CTAs
+// the card holds at once; CTA c takes unit-segments c, c + gridDim.x, ...
+// Unit j of a segment walks the rays live after the first segment from
+// the (j R / K)-th on, in ray order; it drops those that an earlier
+// segment has since found occluded.
+template <int M, bool kStream, int K, bool kHier, int R>
+__global__ void __launch_bounds__(R, min_ctas(M, R))
+split_more(const int* __restrict__ counts, const int* __restrict__ keys,
+           const float* __restrict__ rays, const float* __restrict__ w,
+           const int* __restrict__ occ0, const float* __restrict__ hull,
+           const float* __restrict__ bbox, const int* __restrict__ first,
+           int* __restrict__ pstar, const unsigned long long* __restrict__ ctr,
+           const int* __restrict__ list, const int* __restrict__ units,
+           const int* __restrict__ off, int n_rays, int n_k, int cmask, int S,
+           int seg) {
+  __shared__ SplitShared<M, R> sh;
+  __shared__ unsigned ballots[R / 32];  // the rays live after segment 0
+  const unsigned long long c = *ctr;
+  const int n_list = static_cast<int>(c >> 32);
+  const int total = static_cast<int>(c & 0xffffffffu);
+  // Later segments find occluders at this position or past it only, so
+  // a ray live after the first segment stays at or past it.
+  const int q1 = kHier ? seg * kSuperMax : seg;
+  for (int i = blockIdx.x; i < total; i += gridDim.x) {
+    int lo = 0, hi = n_list - 1;  // the last listed tile with off <= i
+    while (lo < hi) {
+      const int mid = (lo + hi + 1) >> 1;
+      if (off[mid] <= i) {
+        lo = mid;
+      } else {
+        hi = mid - 1;
+      }
+    }
+    const int tile = list[lo], n = units[lo], j = i - off[lo];
+    const int k0 = (1 + j / n) * seg;
+    const int ray = tile * R + threadIdx.x;
+    const unsigned b = __ballot_sync(
+        0xffffffffu, !occ0[ray] && __ldcg(&pstar[ray]) >= q1);
+    // The last unit read ballots before walk_unit's first barrier.
+    if ((threadIdx.x & 31) == 0) ballots[threadIdx.x >> 5] = b;
+    __syncthreads();
+    walk_unit<M, kStream, K, kHier, R>(
+        sh, tile,
+        live_entry<R / 32>(ballots, j % n * (R / K) + threadIdx.x / K), k0,
+        min(counts[tile], k0 + seg), false, keys, rays, w, occ0, hull, bbox,
+        first, pstar, n_rays, n_k, cmask, S);
+  }
+}
+
+// Pass 3, one CTA of kReplay threads a tile: the flags (start flags, or a
+// first occluder found) and the executed visits of the tile's
+// sequential walk, replayed from its rays' first occluding positions:
+// before position q the rays live are those not started occluded whose
+// first occluder is at q or later, so the tile prune there is the max of
+// their caps + kPrunePad, and the walk takes candidates in order while
+// their entry is within it (two-level: each super's members in entry
+// order while within it). Both sides of that test are monotone in q, so
+// the candidates taken are found by bisection, and a super over which
+// the prune does not move takes every member within it.
+constexpr int kReplay = 256;
+
+template <bool kHier, int R>
+__global__ void __launch_bounds__(kReplay)
+split_replay(const int* __restrict__ counts, const int* __restrict__ keys,
+             const float* __restrict__ rays, const int* __restrict__ occ0,
+             const float* __restrict__ hull, const float* __restrict__ bbox,
+             const int* __restrict__ first, const int* __restrict__ pstar,
+             int* __restrict__ out, int* __restrict__ visits, int n_rays,
+             int n_k, int cmask, int S) {
+  constexpr int kW = kReplay / 32;
+  __shared__ int at[R], part[R];  // each ray: live before at, its cap
+  __shared__ float hl[kHullCols];
+  __shared__ int taken, sum[kW];
+  const int tile = blockIdx.x;
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  if (t < R) {
+    const int ray = tile * R + t;
+    const int p = pstar[ray], o = occ0[ray];
+    out[ray] = o | (p != INT_MAX);
+    at[t] = o ? -1 : p;
+    part[t] = __float_as_int(rays[tcap_row(kAnyDest) * n_rays + ray]);
+  }
+  if (kHier && t < kHullCols) hl[t] = hull[(size_t)tile * kHullCols + t];
+  __syncthreads();
+  // The tile prune before position q, on one warp.
+  auto prune_at = [&](int q) {
+    int v = kNegI;
+#pragma unroll
+    for (int i = lane; i < R; i += 32) v = max(v, at[i] >= q ? part[i] : kNegI);
+    return __reduce_max_sync(0xffffffffu, v) + kPrunePad;
+  };
+  const int* krow = keys + (size_t)tile * n_k;
+  const int step = kHier ? kSuperMax : 1;
+  if (warp == 0) {
+    int lo = 0, hi = counts[tile];
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if ((krow[mid] & ~cmask) <= prune_at(mid * step)) {
+        lo = mid + 1;
+      } else {
+        hi = mid;
+      }
+    }
+    if (lane == 0) taken = lo;
+  }
+  __syncthreads();
+  const int n = taken;
+  if (!kHier) {
+    if (t == 0) visits[tile] = n;
+    return;
+  }
+  const unsigned all = S == kSuperMax ? 0xffffffffu : ((1u << S) - 1u);
+  int v = 0;
+  Head h;
+  if (warp < n) load_head(h, krow, warp, bbox, first, cmask, S);
+  for (int k = warp; k < n; k += kW) {
+    const int ent = lane < S ? member_entry(hl, h.box) : INT_MAX;
+    if (k + kW < n) load_head(h, krow, k + kW, bbox, first, cmask, S);
+    const int p0 = prune_at(k * kSuperMax);
+    if (p0 == prune_at(k * kSuperMax + kSuperMax - 1)) {
+      v += __popc(__ballot_sync(0xffffffffu, ent <= p0));
+    } else {
+      unsigned rem = all;
+      for (int j = 0; j < S; ++j) {
+        int m;
+        const int s = next_member(ent, rem, &m);
+        if (m > prune_at(k * kSuperMax + j)) break;
+        rem &= ~(1u << s);
+        ++v;
+      }
+    }
+  }
+  if (lane == 0) sum[warp] = v;
+  __syncthreads();
+  if (t == 0) {
+    int total = 0;
+#pragma unroll
+    for (int i = 0; i < kW; ++i) total += sum[i];
+    visits[tile] = total;
+  }
+}
+
+// The resident flat walk: one CTA a tile (walk_solo). One CTA walks the
+// whole tile, so the new prune is known right after each visit's block
+// max: there is no exchange and no visit ahead of it. Each visit's block
+// is staged with cp.async into one of two buffers as triangle records
+// while the block before it is visited (Row reads the key row two
+// candidates ahead), and one block barrier a visit, the prune max, follows
+// the copy wait. A prefetched block whose entry the new prune excludes is
+// dropped uncounted.
+//
+// The shadow walks hand the tile's live rays to the leading threads: at
+// every prune max the R / 32 warps also publish the ballot of their still
+// unoccluded rays and the ray each thread walked, and thread u takes the
+// u-th live ray of that list (live_entry), in list order. So a warp walks
+// only live rays, and warps past the live count skip the visit; the
+// occlusion flags go into an R-bit mask, read once at the end.
+template <int M, int R>
+struct SoloShared {
+  alignas(16) float sw[2][kC * rec_floats(M)];  // the block and the next
+  // Alternating with the visits (one barrier each): the warps' maxima of
+  // the prune, and (shadow walks) their live ballots and each thread's ray.
+  int red[2][R / 32];
+  unsigned live[2][R / 32];
+  int ids[2][occlusion(M) ? R : 1];
+  unsigned occm[R / 32];  // shadow walks: rays occluded during the walk
+};
 
 // One 512-thread CTA an SM as the launch bound (R / 512 of an SM a CTA of R
 // threads): the compiler gives a thread 72-90 registers, and the kernels
@@ -962,12 +1401,9 @@ walk_solo(const int* __restrict__ counts, const int* __restrict__ keys,
   if (t == 0) visits[tile] = nvis;
 }
 
-// The cluster size K of walk_tile at R rays a tile: the two-level walk
-// (kHier) or the streamed flat walk.
-template <int R>
-constexpr int cluster_k(bool hier) {
-  return R == kR ? (hier ? kK : kKFlat) : kK128;
-}
+// The cluster size K of walk_tile: the two-level walk (kHier) or the
+// streamed flat walk.
+constexpr int cluster_k(bool hier) { return hier ? kK : kKFlat; }
 
 // The launch of walk_tile on n_tiles clusters of K CTAs of R threads (attr
 // is the caller's, and must outlive the configuration).
@@ -995,7 +1431,7 @@ int launch_tile(cudaStream_t st, const int* counts, const int* keys,
                 const float* hull, const float* bbox, const int* first,
                 int* out, int* visits, int n_tiles, int n_k, int cmask,
                 int S) {
-  constexpr int K = cluster_k<R>(kHier);
+  constexpr int K = cluster_k(kHier);
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg = tile_launch(n_tiles, K, R, st, &attr);
   const cudaError_t err = cudaLaunchKernelEx(
@@ -1008,7 +1444,7 @@ int launch_tile(cudaStream_t st, const int* counts, const int* keys,
 // shared memory against the SMs of a cluster), or -cudaError_t.
 template <int M, bool kStream, bool kHier, int R>
 int resident_clusters() {
-  constexpr int K = cluster_k<R>(kHier);
+  constexpr int K = cluster_k(kHier);
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg = tile_launch(1, K, R, nullptr, &attr);
   int n = 0;
@@ -1027,6 +1463,19 @@ int resident_solo(int device) {
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   }
   return err != cudaSuccess ? -(int)err : per_sm * sms;
+}
+
+// Tiles of the split walk the card holds at once: the CTAs of its first
+// pass, K a tile.
+template <int M, bool kStream, bool kHier>
+int resident_split(int device) {
+  int per_sm = 0, sms = 0;
+  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, split_walk<M, kStream, kK128, kHier, kR128>, kR128, 0);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  }
+  return err != cudaSuccess ? -(int)err : per_sm * sms / kK128;
 }
 
 template <int M, int R>
@@ -1078,6 +1527,71 @@ int launch_hier(bool stream_w, const int* counts, const int* keys,
                                         n_tiles, n_s, cmask, S);
 }
 
+// The split walk on n_tiles tiles of kR128 rays: the list's counter
+// cleared, then its passes. scratch holds the counter (8 bytes), each
+// ray's first occluding position, and the list of tiles with later
+// segments, their units and offsets (n_tiles each at most). seg: block
+// visits a segment (0: kSeg128); the two-level walk takes seg / S supers
+// a segment (at least one).
+template <int M, bool kStream, bool kHier>
+int launch_split(const int* counts, const int* keys, const float* rays,
+                 const float* w, const int* occ0, const float* hull,
+                 const float* bbox, const int* first, int* out, int* visits,
+                 int* scratch, int n_tiles, int n_k, int cmask, int S,
+                 int seg, int device, void* stream) {
+  constexpr int R = kR128, K = kK128;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  // Pass 2's grid: the CTAs the card holds at once (one card a process).
+  static int ctas = 0;
+  if (ctas == 0) {
+    int per_sm = 0, sms = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, split_more<M, kStream, K, kHier, R>, R, 0);
+    if (err == cudaSuccess) {
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                   device);
+    }
+    if (err != cudaSuccess) return (int)err;
+    ctas = per_sm * sms;
+  }
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int n_rays = n_tiles * R;
+  auto* ctr = reinterpret_cast<unsigned long long*>(scratch);
+  int* pstar = scratch + 2;
+  int* list = pstar + n_rays;
+  int* units = list + n_tiles;
+  int* off = units + n_tiles;
+  seg = seg > 0 ? seg : kSeg128;
+  if (kHier) seg = max(1, seg / S);
+  err = cudaMemsetAsync(ctr, 0, sizeof(*ctr), st);
+  if (err == cudaSuccess) {
+    split_walk<M, kStream, K, kHier, R><<<n_tiles * K, R, 0, st>>>(
+        counts, keys, rays, w, occ0, hull, bbox, first, pstar, n_rays, n_k,
+        cmask, S, seg);
+    err = cudaGetLastError();
+  }
+  if (err == cudaSuccess) {
+    split_list<K, R><<<(n_tiles + 3) / 4, 128, 0, st>>>(
+        counts, keys, rays, occ0, pstar, ctr, list, units, off, n_tiles,
+        n_rays, n_k, cmask, seg);
+    err = cudaGetLastError();
+  }
+  if (err == cudaSuccess) {
+    split_more<M, kStream, K, kHier, R><<<ctas, R, 0, st>>>(
+        counts, keys, rays, w, occ0, hull, bbox, first, pstar, ctr, list,
+        units, off, n_rays, n_k, cmask, S, seg);
+    err = cudaGetLastError();
+  }
+  if (err == cudaSuccess) {
+    split_replay<kHier, R><<<n_tiles, kReplay, 0, st>>>(
+        counts, keys, rays, occ0, hull, bbox, first, pstar, out, visits,
+        n_rays, n_k, cmask, S);
+    err = cudaGetLastError();
+  }
+  return (int)err;
+}
+
 }  // namespace
 
 // Flat walks. counts (n_tiles,) int32; keys (n_tiles, n_c) int32 sorted
@@ -1119,16 +1633,27 @@ extern "C" int ceres_walk_any_dest(const int* counts, const int* keys,
 
 // The shadow wavefront regrouped by receiver (megakernel.any_hit_to_point
 // with regroup): ceres_walk_any_dest on tiles of 128 rays, so rays, occ0
-// and out hold n_tiles * 128.
+// and out hold n_tiles * 128. The streamed form is the split walk, with
+// scratch (2 + 131 n_tiles int32) and seg (block visits a segment, 0:
+// kSeg128); the resident form (walk_solo) uses neither.
 extern "C" int ceres_walk_any_dest_t128(const int* counts, const int* keys,
                                         const float* rays, const float* w,
                                         const int* occ0, int* out,
-                                        int* visits, int n_tiles, int n_c,
-                                        int cmask, int stream_w, int device,
+                                        int* visits, int* scratch,
+                                        int n_tiles, int n_c, int cmask,
+                                        int seg, int stream_w, int device,
                                         void* stream) {
-  return launch_flat<kAnyDest, kR128>(stream_w != 0, counts, keys, rays, w,
-                                      occ0, out, visits, n_tiles, n_c, cmask,
-                                      device, stream);
+  if (stream_w) {
+    return launch_split<kAnyDest, true, false>(
+        counts, keys, rays, w, occ0, nullptr, nullptr, nullptr, out, visits,
+        scratch, n_tiles, n_c, cmask, 1, seg, device, stream);
+  }
+  const cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  walk_solo<kAnyDest, kR128><<<n_tiles, kR128, 0,
+                               static_cast<cudaStream_t>(stream)>>>(
+      counts, keys, rays, w, occ0, out, visits, n_tiles * kR128, n_c, cmask);
+  return (int)cudaGetLastError();
 }
 
 extern "C" int ceres_walk_any(const int* counts, const int* keys,
@@ -1181,15 +1706,22 @@ extern "C" int ceres_walk_any_dest_hier(const int* counts, const int* keys,
                                    n_s, cmask, S, device, stream);
 }
 
-// ceres_walk_any_dest_hier on tiles of 128 rays (regrouped receivers).
+// ceres_walk_any_dest_hier on tiles of 128 rays (regrouped receivers):
+// the split walk in both forms, with scratch and seg as
+// ceres_walk_any_dest_t128's.
 extern "C" int ceres_walk_any_dest_hier_t128(
     const int* counts, const int* keys, const float* rays, const float* w,
     const int* occ0, const float* hull, const float* bbox, const int* first,
-    int* out, int* visits, int n_tiles, int n_s, int cmask, int S,
-    int stream_w, int device, void* stream) {
-  return launch_hier<kAnyDest, kR128>(stream_w != 0, counts, keys, rays, w,
-                                      occ0, hull, bbox, first, out, visits,
-                                      n_tiles, n_s, cmask, S, device, stream);
+    int* out, int* visits, int* scratch, int n_tiles, int n_s, int cmask,
+    int S, int seg, int stream_w, int device, void* stream) {
+  if (S < 2 || S > kSuperMax) return (int)cudaErrorInvalidValue;
+  return stream_w
+      ? launch_split<kAnyDest, true, true>(
+            counts, keys, rays, w, occ0, hull, bbox, first, out, visits,
+            scratch, n_tiles, n_s, cmask, S, seg, device, stream)
+      : launch_split<kAnyDest, false, true>(
+            counts, keys, rays, w, occ0, hull, bbox, first, out, visits,
+            scratch, n_tiles, n_s, cmask, S, seg, device, stream);
 }
 
 extern "C" int ceres_walk_any_hier(const int* counts, const int* keys,
@@ -1213,7 +1745,12 @@ extern "C" int ceres_walk_resident_clusters(int mode, int hier, int stream_w,
   const cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return -(int)err;
   if (tile == kR128 && mode == kAnyDest) {
-    return resident_clusters<kAnyDest, kR128>(hier, stream_w, device);
+    if (hier) {
+      return stream_w ? resident_split<kAnyDest, true, true>(device)
+                      : resident_split<kAnyDest, false, true>(device);
+    }
+    return stream_w ? resident_split<kAnyDest, true, false>(device)
+                    : resident_solo<kAnyDest, kR128>(device);
   }
   if (tile != kR) return -(int)cudaErrorInvalidValue;
   switch (mode) {

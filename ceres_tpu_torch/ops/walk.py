@@ -16,7 +16,9 @@ each flat or two-level (``S > 1``), with weights staged per visit or
 streamed (``stream=True``). The kernels are CUDA C++ for sm_90a in
 ``csrc/walk.cu``: the streamed flat and the two-level forms walk each
 tile on a thread-block cluster, the resident flat form on one CTA
-(``walk_solo``).
+(``walk_solo``); on 128-ray tiles the streamed flat and two-level forms
+are the split walk (ray groups walk segments of a tile's key row apart,
+and a replay recounts the visits: ``_split_walk_plain`` models it).
 Each wrapper dispatches on the device of its tensors:
 
   * CPU tensors go to the plain version (the CPU tests run it);
@@ -88,6 +90,11 @@ REGROUP_TILE = 128  # rays per tile of the regrouped shadow wavefront
 # any_dest wavefront.
 TILES = {m: (TILE, REGROUP_TILE) if m == "any_dest" else (TILE,)
          for m in RAY_ROWS}
+
+# Block visits a segment of the split walk (the streamed flat and the
+# two-level kernels on REGROUP_TILE rays): 0 takes walk.cu's kSeg128; the
+# card tests set a few to split small inputs.
+_SPLIT_SEG = 0
 
 # Tiles evaluated at once by the plain versions: bounds their
 # (tiles, R, 128) temporaries to 32 MB each at R = 512, 8 MB at R = 128.
@@ -200,11 +207,20 @@ def _launch(mode, counts, keys, rays, w, occ0, hull, bbox, first, S, stream):
         ptrs += [hull.data_ptr(), bbox.data_ptr(), first.data_ptr()]
         ints.append(S)
         fn += "_hier"
+    ptrs += [out.data_ptr(), visits.data_ptr()]
     if tile != TILE:
         fn += f"_t{tile}"
+        # The split walk's scratch (the resident flat form has none): a
+        # counter, each ray's first occluding position, and the tiles with
+        # later segments, their units and offsets.
+        scratch = (torch.empty(2 + (tile + 3) * n_tiles, dtype=torch.int32,
+                               device=rays.device)
+                   if S > 1 or stream else None)
+        ptrs.append(0 if scratch is None else scratch.data_ptr())
+        ints.append(_SPLIT_SEG)
     err = getattr(lib, fn)(
-        *ptrs, out.data_ptr(), visits.data_ptr(), *ints, int(stream),
-        rays.device.index, torch.cuda.current_stream(rays.device).cuda_stream)
+        *ptrs, *ints, int(stream), rays.device.index,
+        torch.cuda.current_stream(rays.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{fn} kernel launch failed: "
                            f"{lib.ceres_error_string(err).decode()} ({err})")
@@ -468,3 +484,108 @@ def _occlusion_plain(mode, counts, keys, rays, w, occ0, hull, bbox, first,
     visits = _walk(counts, keys, rays, _TCAP_ROW[mode], (occ, tested),
                    prune_of, visit, _hier(hull, bbox, first, S))
     return occ.reshape(-1), visits, tested.sum()
+
+
+def _split_walk_plain(counts, keys, rays, w, occ0, hull=None, bbox=None,
+                      first=None, *, S=1, seg=256, groups=8):
+    """The split walk's schedule (``walk.cu``'s split_walk, split_list,
+    split_more and split_replay: the streamed flat and the two-level
+    any_dest kernels on 128-ray tiles), in plain PyTorch: (flags,
+    visits), which must equal ``_walk_any_dest_plain``'s.
+
+    A unit is a set of R / ``groups`` of a tile's rays over one segment of
+    its key row: ``seg`` candidates (two-level: ``seg // S`` supers, at
+    least one). It visits the segment's blocks in order while their
+    entry is within the unit's own prune (its live rays' caps +
+    _PRUNE_PAD), and notes each ray's first occluding position (flat: the
+    candidate's index; two-level: _SUPER_MAX x the super's index + the
+    member's rank in entry order). The first segment runs on the tile's
+    ray groups (rays in order). A tile with candidates past it, rays no
+    unit has found occluded and the next candidate within their prune
+    runs each later segment on those rays, R / ``groups`` a unit in ray
+    order, each unit starting with the rays that no earlier segment has
+    found occluded. Then each tile's sequential walk is replayed from the
+    positions: before position q its live rays are those whose first
+    occluder is at q or later."""
+    n_tiles, n_k = keys.shape
+    R = _tile_of(keys, rays)
+    cmask = (1 << _cid_bits(n_k)) - 1
+    step = _SUPER_MAX if S > 1 else 1
+    if S > 1:
+        seg = max(1, seg // S)
+    r = rays.reshape(rays.shape[0], n_tiles, R)
+    tcap = rays[_TCAP_ROW["any_dest"]].view(torch.int32).reshape(n_tiles, R)
+    occ = occ0.reshape(n_tiles, R)
+    pstar = torch.full((n_tiles, R), _IMAX, dtype=torch.int32)
+    size = R // groups
+
+    def ranked(tile, cid):
+        """The blocks of super cid in entry order, with their entries."""
+        ent = _member_entries(hull[tile:tile + 1], bbox[cid:cid + 1])[0]
+        order = sorted(range(S), key=lambda s: (int(ent[s]), s))
+        return [(int(first[cid]) + s, int(ent[s])) for s in order]
+
+    def unit(tile, ids, k0, k1, opening):
+        live = occ[tile, ids] == 0
+        if not opening:
+            live &= pstar[tile, ids] >= k0 * step
+        found = torch.full((len(ids),), _IMAX, dtype=torch.int32)
+        rg, cap = r[:, tile:tile + 1, ids], tcap[tile, ids]
+
+        def prune():
+            return int(torch.where(live, cap, _NEG_I).max()) + _PRUNE_PAD
+
+        p = prune()
+        for k in range(k0, k1):
+            key = int(keys[tile, k])
+            if key & ~cmask > p:
+                break
+            blocks = ([(key & cmask, key & ~cmask)] if S == 1
+                      else ranked(tile, key & cmask))
+            for j, (blk, entry) in enumerate(blocks):
+                if entry > p:
+                    break
+                hit = _pair_hits(rg, w[blk][None], "any_dest").any(dim=2)[0]
+                found[hit & live] = k * step + j
+                live &= ~hit
+                p = prune()
+        pstar[tile, ids] = (found if opening
+                            else torch.minimum(pstar[tile, ids], found))
+
+    for tile in range(n_tiles):
+        for grp in range(groups):
+            unit(tile, torch.arange(grp * size, (grp + 1) * size), 0,
+                 min(int(counts[tile]), seg), True)
+    for tile in range(n_tiles):
+        count = int(counts[tile])
+        live = ((occ[tile] == 0) & (pstar[tile] == _IMAX)).nonzero()[:, 0]
+        if (count <= seg or live.numel() == 0
+                or int(keys[tile, seg]) & ~cmask
+                > int(tcap[tile, live].max()) + _PRUNE_PAD):
+            continue
+        for k0 in range(seg, count, seg):
+            for ids in live.split(size):
+                unit(tile, ids, k0, min(count, k0 + seg), False)
+
+    visits = torch.zeros(n_tiles, dtype=torch.int32)
+    for tile in range(n_tiles):
+        at = torch.where(occ[tile] != 0, -1, pstar[tile])
+
+        def prune_at(q):
+            return (int(torch.where(at >= q, tcap[tile], _NEG_I).max())
+                    + _PRUNE_PAD)
+
+        n = 0
+        while (n < int(counts[tile])
+               and int(keys[tile, n]) & ~cmask <= prune_at(n * step)):
+            n += 1
+        if S == 1:
+            visits[tile] = n
+            continue
+        for k in range(n):
+            for j, (_, entry) in enumerate(
+                    ranked(tile, int(keys[tile, k]) & cmask)):
+                if entry > prune_at(k * step + j):
+                    break
+                visits[tile] += 1
+    return (occ | (pstar != _IMAX).to(torch.int32)).reshape(-1), visits

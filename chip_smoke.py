@@ -157,7 +157,12 @@ its own line:
      for ray; each 128-ray kernel and the 512-ray walk on the unregrouped
      inputs held to their plain versions tile by tile, with visits,
      lane-visits (visits x tile width), heaviest tile, ms, bound and
-     share; the whole regrouped and unregrouped calls' ms, alternated;
+     share; each 128-ray kernel on its heaviest tile alone (that tile's
+     own chain); on the 3x and 4x bunny the 5 heaviest regrouped tiles:
+     visits, live rays and those never occluded, first and last morton
+     code and their highest differing bit, and the receivers' bounding
+     box against the scene root's; the whole regrouped and unregrouped
+     calls' ms, alternated;
  21. the golden oracle on the card's host: ``render()`` of
      ``scenes.bunny_scene()`` at 64 x 64 on the card, smooth and flat,
      megakernel and bruteforce, against
@@ -448,9 +453,10 @@ def solo_registers():
 
 
 def cluster_ctas(name):
-    """K, the CTAs of the cluster that walks one tile: the constant kK
-    (the two-level kernels) or kKFlat (the streamed flat kernels) of
-    walk.cu."""
+    """A constant of walk.cu: K, the CTAs of the cluster that walks one
+    tile (kK, the two-level kernels; kKFlat, the streamed flat kernels),
+    or the split walk's ray groups a tile (kK128) and block visits a
+    segment (kSeg128)."""
     with open(os.path.join(ROOT, KERNEL_SOURCE)) as fh:
         return int(re.search(rf"constexpr int {name} = (\d+);",
                              fh.read()).group(1))
@@ -529,12 +535,14 @@ def report(phase, kname, label, r, card):
     from ceres_tpu_torch.ops import walk
 
     tile = r["tile"]
-    if r["S"] > 1:
-        k = cluster_ctas("kK" if tile == walk.TILE else "kK128")
-        form = f"two-level: K {k}, {tile} rays a tile"
+    if tile != walk.TILE and (r["S"] > 1 or r["stream"]):
+        form = (f"{'two-level' if r['S'] > 1 else 'flat streamed'} split "
+                f"walk: {cluster_ctas('kK128')} ray groups a tile of {tile} "
+                f"rays, segments of {cluster_ctas('kSeg128')} block visits")
+    elif r["S"] > 1:
+        form = f"two-level: K {cluster_ctas('kK')}, {tile} rays a tile"
     elif r["stream"]:
-        k = cluster_ctas("kKFlat" if tile == walk.TILE else "kK128")
-        form = f"flat streamed: K {k}, {tile} rays a tile"
+        form = f"flat streamed: K {cluster_ctas('kKFlat')}, {tile} rays a tile"
     else:
         regs = solo_registers()[walk._variant(r["mode"], 1, False, tile)[5:]]
         form = (f"flat resident: one CTA a tile (walk_solo, {tile} rays, "
@@ -1850,6 +1858,43 @@ def regrouped_inputs(cs, sun, points, skip):
 # Phase 20's scenes and the variant each one's regrouped call launches.
 REGROUPED = {"bunny": "walk_any_dest_t128", 3: "walk_any_dest_stream_t128",
              4: "walk_any_dest_hier_stream_t128"}
+HEAVY_TILES = 5   # the regrouped tiles phase 20 describes
+
+
+def heavy_tiles(cs, points, skip, out, tiles, n=HEAVY_TILES):
+    """What the n heaviest regrouped tiles hold, from the plain walk's
+    flags ``out`` and visits ``tiles``: one line each with its visits, its
+    live rays and how many of them no block occludes, the first and last
+    morton code of its live receivers with the highest bit in which they
+    differ, and its receivers' bounding-box diagonal against the scene
+    root's."""
+    from ceres_tpu_torch.accel import morton
+    from ceres_tpu_torch.ops import megakernel as mk
+    from ceres_tpu_torch.ops import prepass
+
+    perm = mk._receiver_order(cs, points, skip)
+    pts = torch.stack([c[perm] for c in mk._cols(points)], dim=-1)
+    lo, hi = prepass._scene_root(cs)
+    code = morton.morton_codes(pts, lo, hi)
+    live = ~skip[perm]
+    lines = []
+    for t in tiles.argsort(descending=True)[:n].tolist():
+        rays = slice(t * mk._REGROUP_TILE, (t + 1) * mk._REGROUP_TILE)
+        lv = live[rays]
+        if not bool(lv.any()):
+            continue
+        c = code[rays][lv]
+        first, last = int(c[0]), int(c[-1])
+        p = pts[rays][lv]
+        diag = float((p.amax(0) - p.amin(0)).norm())
+        lines.append(
+            f"tile {t}: {int(tiles[t])} visits, {int(lv.sum())} live rays, "
+            f"{int((out[:pts.shape[0]][rays][lv] == 0).sum())} never "
+            f"occluded; morton {first:#010x}..{last:#010x}, highest "
+            f"differing bit {(first ^ last).bit_length() - 1}; receivers' "
+            f"bbox diagonal {diag:.5f} = {diag / float((hi - lo).norm()):.4f}"
+            f" of the root's")
+    return lines
 
 
 def phase20(dev, card, large):
@@ -1924,6 +1969,25 @@ def phase20(dev, card, large):
                     check(kname == REGROUPED[key],
                           f"phase 20 {name}: regrouped inputs walk {kname}")
                     results[kname] = r
+                if tile == 128:
+                    # The heaviest tile's own chain: the kernel on that
+                    # tile alone (every other key row cut to nothing).
+                    tiles_p = plain_ref[1]
+                    t = int(tiles_p.argmax())
+                    only = torch.zeros_like(args[0])
+                    only[t] = args[0][t]
+                    alone = cuda_ms(lambda: walk.walk_any_dest(
+                        only, *args[1:], **dict(opts, stream=stream)), reps)
+                    v = int(tiles_p[t])
+                    print(f"phase 20 {kname} {name}: heaviest tile alone "
+                          f"{alone:.4f} ms = {v} visits x "
+                          f"{alone * 1e3 / v:.3f} us; whole kernel "
+                          f"{r['ms']:.4f} ms [{card}]", flush=True)
+            if tile == 128 and key != "bunny":
+                for line in heavy_tiles(cs, points, skip, plain_ref[0],
+                                        plain_ref[1]):
+                    print(f"phase 20 heavy regrouped tile, {name}: {line}",
+                          flush=True)
     return path_launches, results
 
 

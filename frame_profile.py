@@ -3,6 +3,7 @@ NVIDIA card.
 
     python3 frame_profile.py [--scene bunny4] [--compat] [--frames 3]
     python3 frame_profile.py --step [--frames 3]
+    python3 frame_profile.py --regrouped [--scene bunny4] [--frames 3]
 
 Renders ``chip_smoke.py``'s frame of the scene (``bunny``: bunny.obj on
 the SweepSAH cut; ``bunny3``/``bunny4``: the 3x/4x subdivided bunny on
@@ -16,7 +17,12 @@ after one untraced step of each and before their traces, phase 13's
 ``fit_vertices`` call, the process's first fit, under ``cProfile`` (its host seconds, those of a second call, and the
 functions that took the first call's time); then the step of that fit
 (bunny preset at 512 x 512, refitted cut, an Adam step and the loss
-read).
+read). ``--regrouped`` traces the scene's shadow wavefront regrouped by
+receiver instead (``chip_smoke.py`` phase 20's call,
+``any_hit_to_point(regroup=True)`` on the frame's receiving points), the
+whole call and then its walk alone on the call's inputs: on the 3x and
+4x bunny the split walk's kernels (its first segments, the list of tiles
+with later ones, those, the replay).
 Prints the card's name
 and power limit, ms/frame (median of CUDA events over the frames), then
 from a ``torch.profiler`` trace of the same number of frames: device
@@ -97,7 +103,8 @@ def profile(frame, n, label, card, top=8):
     by_name = collections.Counter()
     for e in ops:
         by_name[e.name] += (e.time_range.end - e.time_range.start) / 1e3 / n
-    walk_ms = sum(t for k, t in by_name.items() if "walk_" in k)
+    walk_ms = sum(t for k, t in by_name.items()
+                  if "walk_" in k or "split_" in k)
     print(card, flush=True)
     print(f"{label}: ms/frame median {statistics.median(times):.3f} (min "
           f"{min(times):.3f} max {max(times):.3f}); device {device_ms:.3f} "
@@ -144,12 +151,33 @@ def first_fit(dev, card, top=15):
             print(f"  {line[:160]}", flush=True)
 
 
+def regrouped(vt, ft, cam, cs, args, card):
+    """Trace the scene's regrouped shadow call and its walk alone."""
+    import chip_smoke as smoke
+    import ceres_tpu_torch as ct
+    from ceres_tpu_torch.ops import megakernel as mk
+    from ceres_tpu_torch.ops import walk
+
+    soup = ct.triangle_soup(vt, ft, with_normals=False)
+    _, sun, points, skip = smoke.shadow_wavefront(vt, ft, cam, cs, smoke.W,
+                                                  smoke.H)
+    label = f"{args.scene} {smoke.W}x{smoke.H} regrouped shadow call"
+    profile(lambda i: mk.any_hit_to_point(soup, sun, points, skip=skip,
+                                          clusters=cs, regroup=True),
+            args.frames, label, card)
+    wargs, opts = smoke.regrouped_inputs(cs, sun, points, skip)
+    name = walk._variant("any_dest", opts["S"], opts["stream"], 128)
+    profile(lambda i: walk.walk_any_dest(*wargs, **opts), args.frames,
+            f"{label}: its walk alone ({name})", card)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scene", default="bunny4",
                     choices=["bunny", "bunny3", "bunny4"])
     ap.add_argument("--compat", action="store_true")
     ap.add_argument("--step", action="store_true")
+    ap.add_argument("--regrouped", action="store_true")
     ap.add_argument("--frames", type=int, default=3)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -205,6 +233,9 @@ def main() -> None:
                   torch.as_tensor(f, device=dev))
         cs = build_clusters_treelet(ct.triangle_soup(vt, ft,
                                                      with_normals=False))
+    if args.regrouped:
+        regrouped(vt, ft, cam, cs, args, card)
+        return
     config = ct.RenderConfig(width=smoke.W, height=smoke.H,
                              backend="megakernel",
                              reference_compat=args.compat)

@@ -31,7 +31,15 @@ The shadow walk regrouped by receiver (``any_hit_to_point(regroup=True)``)
 runs on tiles of 128 rays: its three forms (resident flat, streamed flat,
 two-level resident and streamed) are held to the plain version tile by
 tile on the same inputs, on the 3x bunny too, and the regrouped entry
-point gives the unregrouped flags on the card.
+point gives the unregrouped flags on the card. The streamed flat and
+two-level forms are the split walk (ray groups walk segments of a
+tile's key row apart; a replay recounts the visits): held also on the
+3x bunny's 1080p heaviest regrouped tile (over 2,000 visits, its
+receivers across a top-level jump of the morton order) with segments of
+the default length and of 1, 7 and 64 block visits, on supers of 2, 7
+and 32 blocks in segments of 1 and 5, and on tiles whose prune falls
+after a later visit, walked in segments of 1 and 2, where segments past
+the fall visit under a stale prune uncounted.
 
 The resident flat walk runs each tile on one CTA, copies the next block
 while it visits one, and in the shadow modes hands the tile's live rays
@@ -258,7 +266,8 @@ def with_short_rows(args):
 def prune_trace(mode, args, opts, tile):
     """One tile's plain walk alone: (the tile prune before visit 0 and
     after each executed visit, the executed visits)."""
-    rays = slice(tile * walk.TILE, (tile + 1) * walk.TILE)
+    width = args[2].shape[1] // args[0].numel()
+    rays = slice(tile * width, (tile + 1) * width)
     one = (args[0][tile:tile + 1], args[1][tile:tile + 1],
            args[2][:, rays].contiguous(), args[3], *(a[rays] for a in args[4:]))
     trace = []
@@ -462,6 +471,105 @@ def test_regrouped_kernel_heavy(heavy, walk_form, stream):
     _same_per_tile("any_dest", args, dict(opts, stream=stream))
 
 
+def _tiles_of(args, opts, tiles):
+    """The walk inputs of ``tiles`` alone (in that order)."""
+    counts, keys, rays, w, occ0 = args
+    width = rays.shape[1] // counts.numel()
+    sel = torch.as_tensor(tiles, device=counts.device)
+    ids = (sel[:, None] * width + torch.arange(width, device=sel.device)
+           ).reshape(-1)
+    out = (counts[sel].contiguous(), keys[sel].contiguous(),
+           rays[:, ids].contiguous(), w, occ0[ids].contiguous())
+    if opts["S"] > 1:
+        opts = dict(opts, hull=opts["hull"][sel].contiguous())
+    return out, opts
+
+
+@pytest.fixture(scope="module")
+def straddle():
+    """The regrouped shadow walk of the 3x bunny's 1920 x 1080 frame, flat
+    and two-level (all its 4,968 blocks in supers), cut to its heaviest
+    tile and three others (the next heaviest, a light one, an empty one):
+    the heaviest walks over 2,000 visits, its 128 receivers straddling a
+    jump of the morton curve (first and last codes apart in bit 27 or
+    higher)."""
+    from ceres_tpu_torch.accel import morton
+
+    dev = _card()
+    verts, faces = subdivide(*ct.load_obj(os.path.join(ROOT, "data",
+                                                       "bunny.obj")), 3)
+    vt, ft = torch.as_tensor(verts, device=dev), torch.as_tensor(faces,
+                                                                 device=dev)
+    soup = ct.triangle_soup(vt, ft)
+    cs = build_clusters_treelet(ct.triangle_soup(vt, ft, with_normals=False))
+    eye = np.asarray(EYES["bunny"], np.float32)
+    cam = ct.Camera.make(eye=eye, dir=verts.mean(axis=0) - eye, up=(0, 1, 0),
+                         fov=60.0, device=dev)
+    dirs = tuple(tiling.swizzle_plane(p)
+                 for p in camera_ray_columns(cam, 1920, 1080))
+    hit, pay = mk.closest_hit_common_origin(soup, cam.eye, dirs, clusters=cs,
+                                            normal_cols=True)
+    points = _hit_points(cam.eye, dirs, hit, pay)
+    sun = torch.as_tensor(SUN, device=dev)
+    perm = mk._receiver_order(cs, points, ~hit.mask)
+    code = morton.morton_codes(torch.stack([c[perm] for c in points], -1),
+                               *prepass._scene_root(cs))
+    out = {}
+    for walk_form, threshold in (("flat", prepass._HIER_MIN_CLUSTERS),
+                                 ("hier", 1)):
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(prepass, "_HIER_MIN_CLUSTERS", threshold)
+            args, opts = regrouped_inputs(cs, sun, points, ~hit.mask)
+        visits = walk._walk_any_dest_plain(*args, **opts)[1]
+        order = visits.argsort(descending=True).tolist()
+        heavy = order[0]
+        assert int(visits[heavy]) >= 2000
+        first, last = int(code[heavy * 128]), int(code[heavy * 128 + 127])
+        assert (first ^ last).bit_length() - 1 >= 27
+        light = next(t for t in order if 0 < int(visits[t]) < 20)
+        empty = int((visits == 0).nonzero()[0])
+        out[walk_form] = _tiles_of(args, opts, [heavy, order[1], light,
+                                                empty])
+    return out
+
+
+# The forms of the split walk: (walk form, streamed weights). The
+# resident flat 128-ray walk is walk_solo.
+SPLIT_FORMS = [("flat", True), ("hier", False), ("hier", True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seg", [0, 1, 7, 64])
+@pytest.mark.parametrize("walk_form,stream", SPLIT_FORMS)
+def test_split_walk_straddling_tile(straddle, walk_form, stream, seg,
+                                    monkeypatch):
+    # The two cluster walks of 128-ray tiles (the streamed flat form,
+    # K5-128, and the two-level forms, K7a-128) split each tile's key row
+    # into segments walked apart: the default kSeg128, and segments of 1,
+    # 7 and 64 block visits.
+    args, opts = straddle[walk_form]
+    monkeypatch.setattr(walk, "_SPLIT_SEG", seg)
+    tiles = _same_per_tile("any_dest", args, dict(opts, stream=stream))
+    assert int(tiles[0]) >= 2000 and int(tiles[3]) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seg", [1, 2])
+def test_split_walk_drops_stale_visits(card_inputs, seg, monkeypatch):
+    # Tiles whose prune falls at a visit after the first, with the next
+    # candidate inside the prune before it: in segments of one or two
+    # visits the groups' later segments run at once, each with the rays
+    # that no earlier segment had found occluded when it started, so a
+    # segment past the fall may visit under a stale prune. The replay
+    # counts only the sequential walk's visits.
+    args, opts = card_inputs["flat"]["any_dest_t128"]
+    args, cut = with_dropped_speculation("any_dest", args, opts, later=True)
+    assert cut, "no visit after the first lowers a tile's prune"
+    monkeypatch.setattr(walk, "_SPLIT_SEG", seg)
+    tiles = _same_per_tile("any_dest", args, dict(opts, stream=True))
+    assert all(int(tiles[t]) == int(args[0][t]) - 1 for t in cut)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("ties", [False, True])
 def test_regrouped_cluster_walk_supers(supers, ties):
@@ -470,6 +578,18 @@ def test_regrouped_cluster_walk_supers(supers, ties):
     assert opts["S"] == S
     if ties:
         args = with_ties(args)
+    for stream in (False, True):
+        _same_per_tile("any_dest", args, dict(opts, stream=stream))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seg", [1, 5])
+def test_split_walk_supers(supers, seg, monkeypatch):
+    # Supers of 2, 7 and 32 blocks in segments of a few block visits (one
+    # super a segment but for S = 2 at seg 5: two).
+    S, inputs = supers
+    args, opts = inputs["any_dest_t128"]
+    monkeypatch.setattr(walk, "_SPLIT_SEG", seg)
     for stream in (False, True):
         _same_per_tile("any_dest", args, dict(opts, stream=stream))
 
@@ -685,6 +805,7 @@ def test_kernel_source_constants_match_python():
     assert int(const("kC")) == walk.CLUSTER_SIZE
     assert int(const("kR")) == walk.TILE
     assert int(const("kR128")) == walk.REGROUP_TILE == mk._REGROUP_TILE
+    assert int(const("kSeg128")) > 0 and walk._SPLIT_SEG == 0
     assert int(const("kPlanes")) == walk.WEIGHT_PLANES
     assert int(const("kPlanesGeneric")) == walk.GENERIC_PLANES
     assert int(const("kPrunePad")) == walk._PRUNE_PAD
