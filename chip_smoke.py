@@ -1856,9 +1856,58 @@ def regrouped_inputs(cs, sun, points, skip):
 
 
 # Phase 20's scenes and the variant each one's regrouped call launches.
-REGROUPED = {"bunny": "walk_any_dest_t128", 3: "walk_any_dest_stream_t128",
+REGROUPED = {"bunny": "walk_any_dest_t128", "dragon": "walk_any_dest_t128",
+             3: "walk_any_dest_stream_t128",
              4: "walk_any_dest_hier_stream_t128"}
 HEAVY_TILES = 5   # the regrouped tiles phase 20 describes
+
+
+def tiles_in_order(args, opts, order):
+    """A walk's (args, opts) with its tiles taken in ``order`` (a
+    permutation of them): each tile's flags and visits move with it."""
+    counts, keys, rays, w, occ0 = args
+    width = rays.shape[1] // counts.numel()
+    ids = (order[:, None] * width
+           + torch.arange(width, device=order.device)).reshape(-1)
+    moved = (counts[order].contiguous(), keys[order].contiguous(),
+             rays[:, ids].contiguous(), w, occ0[ids].contiguous())
+    if opts["S"] > 1:
+        opts = dict(opts, hull=opts["hull"][order].contiguous())
+    return moved, opts
+
+
+def heaviest_tile(kname, name, args, opts, tiles_p, ms, reps, card):
+    """Where a 128-ray kernel's time goes, from its heaviest tile ``t``
+    (the plain walk's visits ``tiles_p``): the kernel on t alone (its own
+    chain), on every tile but t, with t moved to the front of the grid,
+    and with no candidates at all (the cost of the grid's CTAs)."""
+    from ceres_tpu_torch.ops import walk
+
+    counts = args[0]
+    t = int(tiles_p.argmax())
+    v = int(tiles_p[t])
+
+    def timed(c, a=args, o=opts):
+        return cuda_ms(lambda: walk.walk_any_dest(c, *a[1:], **o), reps)
+
+    only = torch.zeros_like(counts)
+    only[t] = counts[t]
+    rest = counts.clone()
+    rest[t] = 0
+    idx = torch.arange(counts.numel(), device=counts.device)
+    order = torch.cat([idx[t:t + 1], idx[:t], idx[t + 1:]])
+    front, fopts = tiles_in_order(args, opts, order)
+    alone, without = timed(only), timed(rest)
+    first, empty = timed(front[0], front, fopts), timed(torch.zeros_like(
+        counts))
+    live = counts > 0
+    print(f"phase 20 {kname} {name}: heaviest tile {t} of {counts.numel()} "
+          f"({int(live[:t].sum())} of the {int(live.sum())} tiles with "
+          f"candidates before it; {int((tiles_p > 0).sum())} tiles visit): "
+          f"alone {alone:.4f} ms = {v} visits x {alone * 1e3 / v:.3f} us; "
+          f"every other tile {without:.4f} ms; it first in the grid "
+          f"{first:.4f} ms; no candidates at all {empty:.4f} ms; whole "
+          f"kernel {ms:.4f} ms [{card}]", flush=True)
 
 
 def heavy_tiles(cs, points, skip, out, tiles, n=HEAVY_TILES):
@@ -1899,21 +1948,23 @@ def heavy_tiles(cs, points, skip, out, tiles, n=HEAVY_TILES):
 
 def phase20(dev, card, large):
     """The shadow wavefront regrouped by receiver at 1080p on the bunny
-    and the 3x and 4x bunny. Returns the regrouped calls' launches and
-    the 128-ray kernels' results on the forms the calls take."""
+    and the 3x and 4x bunny, and on the dragon at 960 x 540. Returns the
+    regrouped calls' launches and the 128-ray kernels' results on the
+    forms the calls take (the bunny's for the resident flat form)."""
     import ceres_tpu_torch as ct
     from ceres_tpu_torch.ops import megakernel as mk
     from ceres_tpu_torch.ops import walk
 
-    scenes = {"bunny": scene("bunny", dev)}
-    scenes.update({levels: large[levels][:4] for levels in (3, 4)})
+    scenes = {key: (*scene(key, dev), size)
+              for key, size in (("bunny", (W, H)), ("dragon", (960, 540)))}
+    scenes.update({levels: (*large[levels][:4], (W, H)) for levels in (3, 4)})
     path_launches, results = {}, {}
-    for key, (vt, ft, cam, cs) in scenes.items():
-        name = "bunny" if key == "bunny" else f"bunny x{key}"
-        label = (f"{name} {W}x{H} ({ft.shape[0]} triangles, "
+    for key, (vt, ft, cam, cs, (w, h)) in scenes.items():
+        name = key if isinstance(key, str) else f"bunny x{key}"
+        label = (f"{name} {w}x{h} ({ft.shape[0]} triangles, "
                  f"{cs.num_clusters} blocks")
         soup = ct.triangle_soup(vt, ft, with_normals=False)
-        _, sun, points, skip = shadow_wavefront(vt, ft, cam, cs, W, H)
+        _, sun, points, skip = shadow_wavefront(vt, ft, cam, cs, w, h)
 
         def call(regroup):
             return mk.any_hit_to_point(soup, sun, points, skip=skip,
@@ -1932,7 +1983,7 @@ def phase20(dev, card, large):
         off = int((got != base).sum())
         steps = int(counts["traversal_steps"])
         base_steps = int(base_counts["traversal_steps"])
-        n = REGROUP_CALLS if key == "bunny" else LARGE_REGROUP_CALLS
+        n = REGROUP_CALLS if isinstance(key, str) else LARGE_REGROUP_CALLS
         t_g, t_u = alternated_times([lambda i: call(True),
                                      lambda i: call(False)], n)
         print(f"phase 20 regrouped shadow wavefront, {label}): launches "
@@ -1948,7 +1999,7 @@ def phase20(dev, card, large):
               f"{max(t_u):.3f}) [{card}]", flush=True)
         check(off == 0 and int(base.sum()) > 0,
               f"phase 20 {name}: regrouped flags differ on {off} rays")
-        reps = 20 if key == "bunny" else 5
+        reps = 20 if isinstance(key, str) else 5
         for tile, (args, opts) in (
                 (128, regrouped_inputs(cs, sun, points, skip)),
                 (512, mk._any_dest_inputs(cs, sun, points, skip))):
@@ -1968,22 +2019,12 @@ def phase20(dev, card, large):
                 if tile == 128 and stream == opts["stream"]:
                     check(kname == REGROUPED[key],
                           f"phase 20 {name}: regrouped inputs walk {kname}")
-                    results[kname] = r
+                    results.setdefault(kname, r)   # the bunny's
                 if tile == 128:
-                    # The heaviest tile's own chain: the kernel on that
-                    # tile alone (every other key row cut to nothing).
-                    tiles_p = plain_ref[1]
-                    t = int(tiles_p.argmax())
-                    only = torch.zeros_like(args[0])
-                    only[t] = args[0][t]
-                    alone = cuda_ms(lambda: walk.walk_any_dest(
-                        only, *args[1:], **dict(opts, stream=stream)), reps)
-                    v = int(tiles_p[t])
-                    print(f"phase 20 {kname} {name}: heaviest tile alone "
-                          f"{alone:.4f} ms = {v} visits x "
-                          f"{alone * 1e3 / v:.3f} us; whole kernel "
-                          f"{r['ms']:.4f} ms [{card}]", flush=True)
-            if tile == 128 and key != "bunny":
+                    heaviest_tile(kname, name, args,
+                                  dict(opts, stream=stream), plain_ref[1],
+                                  r["ms"], reps, card)
+            if tile == 128:
                 for line in heavy_tiles(cs, points, skip, plain_ref[0],
                                         plain_ref[1]):
                     print(f"phase 20 heavy regrouped tile, {name}: {line}",
