@@ -1285,9 +1285,9 @@ struct SoloShared {
   alignas(16) float sw[2][kC * rec_floats(M)];  // the block and the next
   // Alternating with the visits (one barrier each): the warps' maxima of
   // the prune, and (shadow walks) their live ballots and each thread's ray.
-  int red[2][kR / 32];
-  unsigned live[2][kR / 32];
-  int ids[2][occlusion(M) ? kR : 1];
+  int red[2][R / 32];
+  unsigned live[2][R / 32];
+  int ids[2][occlusion(M) ? R : 1];
   unsigned occm[R / 32];  // shadow walks: rays occluded during the walk
 };
 
@@ -1296,13 +1296,12 @@ struct SoloShared {
 // ran up to 16% faster than at two CTAs an SM (64 registers) on the card
 // (PERF.md, PR 6).
 template <int M, int R>
-__global__ void __launch_bounds__(kR, 1)
+__global__ void __launch_bounds__(R, kR / R)
 walk_solo(const int* __restrict__ counts, const int* __restrict__ keys,
           const float* __restrict__ rays, const float* __restrict__ w,
           const int* __restrict__ occ0, int* __restrict__ out,
           int* __restrict__ visits, int n_rays, int n_k, int cmask) {
-  constexpr int K = kR / R;    // threads a ray: 1, or 4 at 128 rays
-  constexpr int kW = kR / 32;  // warps
+  constexpr int kW = R / 32;  // warps
   __shared__ SoloShared<M, R> sh;
 
   const int tile = blockIdx.x;
@@ -1310,24 +1309,21 @@ walk_solo(const int* __restrict__ counts, const int* __restrict__ keys,
   const int lane = t & 31;
   const int base = tile * R;
   const int count = counts[tile];
-  const int occ = occlusion(M) ? occ0[base + t / K] : 0;
+  const int occ = occlusion(M) ? occ0[base + t] : 0;
   if (count == 0) {  // most tiles of a frame see no candidate
-    if (K == 1 || t < R) {
-      out[base + t] = occlusion(M) ? (K == 1 ? occ : occ0[base + t]) : -1;
-    }
+    out[base + t] = occlusion(M) ? occ : -1;
     if (t == 0) visits[tile] = 0;
     return;
   }
 
-  // Closest walks: thread t walks ray t throughout. Shadow walks: the K
-  // threads of slot t / K walk ray rid of the tile (-1: none), chosen at
-  // every prune max.
-  int rid = t / K;
-  Ray<M> r(rays, n_rays, base + t / K);
+  // Closest walks: thread t walks ray t throughout. Shadow walks: thread
+  // t walks ray rid of the tile (-1: none), chosen at every prune max.
+  int rid = t;
+  Ray<M> r(rays, n_rays, base + t);
   int best = kBigCleanI;  // closest: best t key (low lane bits clear)
   int pid = -1;           // closest: packed slot id of the winner
   int red = 0;            // the buffers of the next prune max
-  if (occlusion(M) && t < R / 32) sh.occm[t] = 0;
+  if (occlusion(M) && t < kW) sh.occm[t] = 0;
 
   // The prune max: the part of each thread's ray (live: a shadow ray not
   // yet occluded), and for the shadow walks the handover of live rays.
@@ -1337,14 +1333,14 @@ walk_solo(const int* __restrict__ counts, const int* __restrict__ keys,
     const int v = __reduce_max_sync(0xffffffffu, part);
     if (lane == 0) sh.red[red][t >> 5] = v;
     if (occlusion(M)) {
-      const unsigned bal = __ballot_sync(0xffffffffu, live && t % K == 0);
+      const unsigned bal = __ballot_sync(0xffffffffu, live);
       if (lane == 0) sh.live[red][t >> 5] = bal;
       sh.ids[red][t] = rid;
     }
     __syncthreads();
     const int prune = __reduce_max_sync(0xffffffffu, sh.red[red][lane & (kW - 1)]);
     if (occlusion(M)) {
-      const int at = live_entry<kW>(sh.live[red], t / K);
+      const int at = live_entry<kW>(sh.live[red], t);
       rid = at < 0 ? -1 : sh.ids[red][at];
     }
     red ^= 1;
@@ -1360,14 +1356,14 @@ walk_solo(const int* __restrict__ counts, const int* __restrict__ keys,
     int nxt = src.pop(&m2);
     bool ahead = m2 <= prune;
     int b = 0;  // sh.sw[b] holds cur, sh.sw[b ^ 1] nxt
-    stage_block<M, true, kR>(sh.sw[b], w, cur);
+    stage_block<M, true, R>(sh.sw[b], w, cur);
     if (ahead) {
-      stage_block<M, true, kR>(sh.sw[b ^ 1], w, nxt);
+      stage_block<M, true, R>(sh.sw[b ^ 1], w, nxt);
       wait_async<1>();
     } else {
       wait_async<0>();
     }
-    int held = t / K;  // the ray in r
+    int held = t;  // the ray in r
     auto hold = [&] {
       if (occlusion(M) && rid >= 0 && rid != held) {
         r = Ray<M>(rays, n_rays, base + rid);
@@ -1379,13 +1375,8 @@ walk_solo(const int* __restrict__ counts, const int* __restrict__ keys,
     while (true) {
       bool live = true;  // closest walks: unused
       if (occlusion(M)) {
-        int x;
-        if constexpr (K == 1) {
-          x = rid >= 0 ? visit_result<M, 1>(sh.sw[b], 0, r, 0) : 0;
-        } else {  // every thread of a warp takes part in its shuffles
-          x = visit_result<M, K>(sh.sw[b], rid < 0, r, t % K);
-        }
-        if (x && t % K == 0) atomicOr(&sh.occm[rid >> 5], 1u << (rid & 31));
+        const int x = rid >= 0 ? visit_result<M, 1>(sh.sw[b], 0, r, 0) : 0;
+        if (x) atomicOr(&sh.occm[rid >> 5], 1u << (rid & 31));
         live = rid >= 0 && !x;
       } else {
         take_key(visit_result<M, 1>(sh.sw[b], 0, r, 0), cur, best, pid);
@@ -1398,15 +1389,12 @@ walk_solo(const int* __restrict__ counts, const int* __restrict__ keys,
       b ^= 1;
       nxt = src.pop(&m2);
       ahead = m2 <= prune;  // sh.sw[b ^ 1] was last read before the barrier
-      if (ahead) stage_block<M, true, kR>(sh.sw[b ^ 1], w, nxt);
+      if (ahead) stage_block<M, true, R>(sh.sw[b ^ 1], w, nxt);
       hold();
     }
   }
   if (occlusion(M)) {
-    if (K == 1 || t < R) {
-      out[base + t] = (K == 1 ? occ : occ0[base + t])
-                      | ((sh.occm[t >> 5] >> lane) & 1);
-    }
+    out[base + t] = occ | ((sh.occm[t >> 5] >> lane) & 1);
   } else {
     out[base + t] = pid;
   }
@@ -1470,7 +1458,7 @@ template <int M, int R>
 int resident_solo(int device) {
   int per_sm = 0, sms = 0;
   cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, walk_solo<M, R>, kR, 0);
+      &per_sm, walk_solo<M, R>, R, 0);
   if (err == cudaSuccess) {
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   }
@@ -1514,8 +1502,8 @@ int launch_flat(bool stream_w, const int* counts, const int* keys,
         st, counts, keys, rays, w, occ0, nullptr, nullptr, nullptr, out,
         visits, n_tiles, n_c, cmask, 1);
   }
-  walk_solo<M, R><<<n_tiles, kR, 0, st>>>(counts, keys, rays, w, occ0, out,
-                                          visits, n_tiles * R, n_c, cmask);
+  walk_solo<M, R><<<n_tiles, R, 0, st>>>(counts, keys, rays, w, occ0, out,
+                                         visits, n_tiles * R, n_c, cmask);
   return (int)cudaGetLastError();
 }
 
@@ -1554,19 +1542,6 @@ int launch_split(const int* counts, const int* keys, const float* rays,
   constexpr int R = kR128, K = kK128;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  // Pass 2's grid: the CTAs the card holds at once (one card a process).
-  static int ctas = 0;
-  if (ctas == 0) {
-    int per_sm = 0, sms = 0;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, split_more<M, kStream, K, kHier, R>, R, 0);
-    if (err == cudaSuccess) {
-      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                   device);
-    }
-    if (err != cudaSuccess) return (int)err;
-    ctas = per_sm * sms;
-  }
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int n_rays = n_tiles * R;
   auto* ctr = reinterpret_cast<unsigned long long*>(scratch);
@@ -1576,24 +1551,38 @@ int launch_split(const int* counts, const int* keys, const float* rays,
   int* off = units + n_tiles;
   seg = seg > 0 ? seg : kSeg128;
   if (kHier) seg = max(1, seg / S);
-  err = cudaMemsetAsync(ctr, 0, sizeof(*ctr), st);
-  if (err == cudaSuccess) {
-    split_walk<M, kStream, K, kHier, R><<<n_tiles * K, R, 0, st>>>(
-        counts, keys, rays, w, occ0, hull, bbox, first, pstar, n_rays, n_k,
-        cmask, S, seg);
-    err = cudaGetLastError();
-  }
-  if (err == cudaSuccess) {
-    split_list<K, R><<<(n_tiles + 3) / 4, 128, 0, st>>>(
-        counts, keys, rays, occ0, pstar, ctr, list, units, off, n_tiles,
-        n_rays, n_k, cmask, seg);
-    err = cudaGetLastError();
-  }
-  if (err == cudaSuccess) {
-    split_more<M, kStream, K, kHier, R><<<ctas, R, 0, st>>>(
-        counts, keys, rays, w, occ0, hull, bbox, first, pstar, ctr, list,
-        units, off, n_rays, n_k, cmask, S, seg);
-    err = cudaGetLastError();
+  split_walk<M, kStream, K, kHier, R><<<n_tiles * K, R, 0, st>>>(
+      counts, keys, rays, w, occ0, hull, bbox, first, pstar, n_rays, n_k,
+      cmask, S, seg);
+  err = cudaGetLastError();
+  // Later segments exist only where a key row is longer than a segment.
+  if (err == cudaSuccess && n_k > seg) {
+    // Pass 2's grid: the CTAs the card holds at once (one card a process).
+    static int ctas = 0;
+    if (ctas == 0) {
+      int per_sm = 0, sms = 0;
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, split_more<M, kStream, K, kHier, R>, R, 0);
+      if (err == cudaSuccess) {
+        err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                     device);
+      }
+      if (err != cudaSuccess) return (int)err;
+      ctas = per_sm * sms;
+    }
+    err = cudaMemsetAsync(ctr, 0, sizeof(*ctr), st);
+    if (err == cudaSuccess) {
+      split_list<K, R><<<(n_tiles + 3) / 4, 128, 0, st>>>(
+          counts, keys, rays, occ0, pstar, ctr, list, units, off, n_tiles,
+          n_rays, n_k, cmask, seg);
+      err = cudaGetLastError();
+    }
+    if (err == cudaSuccess) {
+      split_more<M, kStream, K, kHier, R><<<ctas, R, 0, st>>>(
+          counts, keys, rays, w, occ0, hull, bbox, first, pstar, ctr, list,
+          units, off, n_rays, n_k, cmask, S, seg);
+      err = cudaGetLastError();
+    }
   }
   if (err == cudaSuccess) {
     split_replay<kHier, R><<<n_tiles, kReplay, 0, st>>>(
@@ -1645,9 +1634,8 @@ extern "C" int ceres_walk_any_dest(const int* counts, const int* keys,
 
 // The shadow wavefront regrouped by receiver (megakernel.any_hit_to_point
 // with regroup): ceres_walk_any_dest on tiles of 128 rays, so rays, occ0
-// and out hold n_tiles * 128. The streamed form is the split walk, with
-// scratch (2 + 131 n_tiles int32) and seg (block visits a segment, 0:
-// kSeg128); the resident form (walk_solo) uses neither.
+// and out hold n_tiles * 128. Both forms are the split walk, with scratch
+// (2 + 131 n_tiles int32) and seg (block visits a segment, 0: kSeg128).
 extern "C" int ceres_walk_any_dest_t128(const int* counts, const int* keys,
                                         const float* rays, const float* w,
                                         const int* occ0, int* out,
@@ -1655,17 +1643,13 @@ extern "C" int ceres_walk_any_dest_t128(const int* counts, const int* keys,
                                         int n_tiles, int n_c, int cmask,
                                         int seg, int stream_w, int device,
                                         void* stream) {
-  if (stream_w) {
-    return launch_split<kAnyDest, true, false>(
-        counts, keys, rays, w, occ0, nullptr, nullptr, nullptr, out, visits,
-        scratch, n_tiles, n_c, cmask, 1, seg, device, stream);
-  }
-  const cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  walk_solo<kAnyDest, kR128><<<n_tiles, kR, 0,
-                               static_cast<cudaStream_t>(stream)>>>(
-      counts, keys, rays, w, occ0, out, visits, n_tiles * kR128, n_c, cmask);
-  return (int)cudaGetLastError();
+  return stream_w
+      ? launch_split<kAnyDest, true, false>(
+            counts, keys, rays, w, occ0, nullptr, nullptr, nullptr, out,
+            visits, scratch, n_tiles, n_c, cmask, 1, seg, device, stream)
+      : launch_split<kAnyDest, false, false>(
+            counts, keys, rays, w, occ0, nullptr, nullptr, nullptr, out,
+            visits, scratch, n_tiles, n_c, cmask, 1, seg, device, stream);
 }
 
 extern "C" int ceres_walk_any(const int* counts, const int* keys,
@@ -1762,7 +1746,7 @@ extern "C" int ceres_walk_resident_clusters(int mode, int hier, int stream_w,
                       : resident_split<kAnyDest, false, true>(device);
     }
     return stream_w ? resident_split<kAnyDest, true, false>(device)
-                    : resident_solo<kAnyDest, kR128>(device);
+                    : resident_split<kAnyDest, false, false>(device);
   }
   if (tile != kR) return -(int)cudaErrorInvalidValue;
   switch (mode) {

@@ -210,13 +210,12 @@ def _launch(mode, counts, keys, rays, w, occ0, hull, bbox, first, S, stream):
     ptrs += [out.data_ptr(), visits.data_ptr()]
     if tile != TILE:
         fn += f"_t{tile}"
-        # The split walk's scratch (the resident flat form has none): a
-        # counter, each ray's first occluding position, and the tiles with
-        # later segments, their units and offsets.
-        scratch = (torch.empty(2 + (tile + 3) * n_tiles, dtype=torch.int32,
-                               device=rays.device)
-                   if S > 1 or stream else None)
-        ptrs.append(0 if scratch is None else scratch.data_ptr())
+        # The split walk's scratch: a counter, each ray's first occluding
+        # position, and the tiles with later segments, their units and
+        # offsets.
+        scratch = torch.empty(2 + (tile + 3) * n_tiles, dtype=torch.int32,
+                              device=rays.device)
+        ptrs.append(scratch.data_ptr())
         ints.append(_SPLIT_SEG)
     err = getattr(lib, fn)(
         *ptrs, *ints, int(stream), rays.device.index,

@@ -433,9 +433,11 @@ def build_log():
         return fh.read()
 
 
-def solo_registers():
-    """Registers a thread of each resident flat walk (walk_solo<M, R>)
-    takes, from the build's report, by variant name without ``walk_``."""
+def resident_registers():
+    """Registers a thread of each resident flat walk takes, from the
+    build's report, by variant name without ``walk_``: walk_solo<M, 512>,
+    and at 128 rays the split walk's first pass (split_walk<kAnyDest,
+    false, K, false, 128>)."""
     from ceres_tpu_torch.ops import walk
 
     regs, fn = {}, ""
@@ -444,9 +446,11 @@ def solo_registers():
         used = re.search(r"Used (\d+) registers", line)
         if entry:
             fn = entry.group(1)
-        elif used and "walk_solo" in fn:
-            mode, tile = map(int, re.search(r"walk_soloILi(\d+)ELi(\d+)EE",
-                                            fn).groups())
+            continue
+        solo = re.search(r"walk_soloILi(\d+)ELi(\d+)EE", fn)
+        split = re.search(r"split_walkILi(\d+)ELb0ELi\d+ELb0ELi(\d+)EE", fn)
+        if used and (solo or split):
+            mode, tile = map(int, (solo or split).groups())
             name = walk._variant(list(walk.RAY_ROWS)[mode], 1, False, tile)
             regs[name[5:]] = int(used.group(1))
     return regs
@@ -535,16 +539,19 @@ def report(phase, kname, label, r, card):
     from ceres_tpu_torch.ops import walk
 
     tile = r["tile"]
-    if tile != walk.TILE and (r["S"] > 1 or r["stream"]):
-        form = (f"{'two-level' if r['S'] > 1 else 'flat streamed'} split "
-                f"walk: {cluster_ctas('kK128')} ray groups a tile of {tile} "
-                f"rays, segments of {cluster_ctas('kSeg128')} block visits")
+    if tile != walk.TILE:
+        kind = ("two-level" if r["S"] > 1 else
+                "flat streamed" if r["stream"] else "flat resident")
+        form = (f"{kind} split walk: {cluster_ctas('kK128')} ray groups a "
+                f"tile of {tile} rays, segments of {cluster_ctas('kSeg128')} "
+                f"block visits")
     elif r["S"] > 1:
         form = f"two-level: K {cluster_ctas('kK')}, {tile} rays a tile"
     elif r["stream"]:
         form = f"flat streamed: K {cluster_ctas('kKFlat')}, {tile} rays a tile"
     else:
-        regs = solo_registers()[walk._variant(r["mode"], 1, False, tile)[5:]]
+        regs = resident_registers()[walk._variant(r["mode"], 1, False,
+                                                  tile)[5:]]
         form = (f"flat resident: one CTA a tile (walk_solo, {tile} rays, "
                 f"{regs} registers)")
     print(f"phase {phase} {kname} {form}; executed visits {r['steps']}; "
@@ -2136,17 +2143,18 @@ def main(argv=None):
           f"{builds['bvh_build.cpp'][0]}), objparse.cpp "
           f"{builds['objparse.cpp'][1]:.1f} s (built "
           f"{builds['objparse.cpp'][0]})", flush=True)
-    regs = solo_registers()
+    regs = resident_registers()
     check(set(regs) == set(walk.RAY_ROWS) | {"any_dest_t128"},
-          f"no register report for every walk_solo: {regs}")
+          f"no register report for every resident flat walk: {regs}")
     fit = {walk._variant(mode, S, stream, tile)[5:]:
            walk.resident_clusters(mode, S, stream, dev, tile)
            for mode in walk.RAY_ROWS for tile in walk.TILES[mode]
            for S, stream in ((1, False), (1, True), (2, True))}
     print(f"phase 2 tiles the card holds at once (clusters of K CTAs, kK "
           f"{cluster_ctas('kK')}, kKFlat {cluster_ctas('kKFlat')}, at 128 "
-          f"rays a tile kK128 {cluster_ctas('kK128')}; resident flat: CTAs, "
-          f"walk_solo registers {regs}): {fit}", flush=True)
+          f"rays a tile kK128 {cluster_ctas('kK128')}; resident flat: CTAs "
+          f"of walk_solo, tiles of the split walk at 128 rays; their "
+          f"registers {regs}): {fit}", flush=True)
     check(min(fit.values()) > 0, "a walk does not fit the card")
     if only:
         if 20 in only:

@@ -31,15 +31,18 @@ The shadow walk regrouped by receiver (``any_hit_to_point(regroup=True)``)
 runs on tiles of 128 rays: its three forms (resident flat, streamed flat,
 two-level resident and streamed) are held to the plain version tile by
 tile on the same inputs, on the 3x bunny too, and the regrouped entry
-point gives the unregrouped flags on the card. The streamed flat and
-two-level forms are the split walk (ray groups walk segments of a
-tile's key row apart; a replay recounts the visits): held also on the
-3x bunny's 1080p heaviest regrouped tile (over 2,000 visits, its
-receivers across a top-level jump of the morton order) with segments of
-the default length and of 1, 7 and 64 block visits, on supers of 2, 7
-and 32 blocks in segments of 1 and 5, and on tiles whose prune falls
-after a later visit, walked in segments of 1 and 2, where segments past
-the fall visit under a stale prune uncounted.
+point gives the unregrouped flags on the card. Every form is the split
+walk (ray groups walk segments of a tile's key row apart; a replay
+recounts the visits): held also on the 3x bunny's 1080p heaviest
+regrouped tile (over 2,000 visits, its receivers across a top-level
+jump of the morton order) with segments of the default length and of 1,
+7 and 64 block visits, in each form; on the bunny's 1080p heaviest
+regrouped tile (resident flat, over 40 visits) in the same segments; on
+the dragon's 64 x 64 wavefront, whose rows of 268 blocks are longer than
+a segment (resident flat); on supers of 2, 7 and 32 blocks in segments
+of 1 and 5; and on tiles whose prune falls after a later visit, walked
+in segments of 1 and 2 (flat, resident and streamed), where segments
+past the fall visit under a stale prune uncounted.
 
 The resident flat walk runs each tile on one CTA, copies the next block
 while it visits one, and in the shadow modes hands the tile's live rays
@@ -533,9 +536,10 @@ def straddle():
     return out
 
 
-# The forms of the split walk: (walk form, streamed weights). The
-# resident flat 128-ray walk is walk_solo.
-SPLIT_FORMS = [("flat", True), ("hier", False), ("hier", True)]
+# The forms of the split walk: (walk form, streamed weights); every
+# 128-ray form is the split walk.
+SPLIT_FORMS = [("flat", True), ("hier", False), ("hier", True),
+               ("flat", False)]
 
 
 @pytest.mark.cuda
@@ -566,8 +570,9 @@ def test_split_walk_drops_stale_visits(card_inputs, seg, monkeypatch):
     args, cut = with_dropped_speculation("any_dest", args, opts, later=True)
     assert cut, "no visit after the first lowers a tile's prune"
     monkeypatch.setattr(walk, "_SPLIT_SEG", seg)
-    tiles = _same_per_tile("any_dest", args, dict(opts, stream=True))
-    assert all(int(tiles[t]) == int(args[0][t]) - 1 for t in cut)
+    for stream in (False, True):
+        tiles = _same_per_tile("any_dest", args, dict(opts, stream=stream))
+        assert all(int(tiles[t]) == int(args[0][t]) - 1 for t in cut)
 
 
 @pytest.mark.cuda
@@ -592,6 +597,72 @@ def test_split_walk_supers(supers, seg, monkeypatch):
     monkeypatch.setattr(walk, "_SPLIT_SEG", seg)
     for stream in (False, True):
         _same_per_tile("any_dest", args, dict(opts, stream=stream))
+
+
+def _seg128():
+    """walk.cu's kSeg128: block visits a segment of the split walk."""
+    src = open(os.path.join(os.path.dirname(walk.__file__), "csrc",
+                            "walk.cu")).read()
+    return int(re.search(r"constexpr int kSeg128 = (\d+);", src).group(1))
+
+
+@pytest.fixture(scope="module")
+def resident_rows():
+    """The regrouped shadow walk on resident weights, flat: the bunny's
+    1920 x 1080 frame (61 blocks) cut to its heaviest tile (over 40
+    visits, with receivers no block occludes), the next heaviest, a
+    light one and an empty one; and the dragon's 64 x 64 frame (268
+    blocks, more than a segment), whose heaviest tiles walk past the
+    first segment."""
+    dev = _card()
+    verts, faces = ct.load_obj(os.path.join(ROOT, "data", "bunny.obj"))
+    vt, ft = torch.as_tensor(verts, device=dev), torch.as_tensor(faces,
+                                                                 device=dev)
+    soup = ct.triangle_soup(vt, ft)
+    cs = build_clusters_quality(ct.triangle_soup(vt, ft, with_normals=False))
+    eye = np.asarray(EYES["bunny"], np.float32)
+    cam = ct.Camera.make(eye=eye, dir=verts.mean(axis=0) - eye, up=(0, 1, 0),
+                         fov=60.0, device=dev)
+    dirs = tuple(tiling.swizzle_plane(p)
+                 for p in camera_ray_columns(cam, 1920, 1080))
+    hit, pay = mk.closest_hit_common_origin(soup, cam.eye, dirs, clusters=cs,
+                                            normal_cols=True)
+    points = _hit_points(cam.eye, dirs, hit, pay)
+    args, opts = regrouped_inputs(cs, torch.as_tensor(SUN, device=dev),
+                                  points, ~hit.mask)
+    visits = walk._walk_any_dest_plain(*args, **opts)[1]
+    order = visits.argsort(descending=True).tolist()
+    light = next(t for t in order if 0 < int(visits[t]) < 4)
+    empty = int((visits == 0).nonzero()[0])
+    bunny = _tiles_of(args, opts, [order[0], order[1], light, empty])
+    dragon = _inputs("dragon", dev, size=(64, 64))["flat"]["any_dest_t128"]
+    return {"bunny": bunny, "dragon": dragon}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seg", [0, 1, 7, 64])
+def test_split_walk_resident_heaviest_tile(resident_rows, seg, monkeypatch):
+    # The resident flat 128-ray walk (K2-128) on the bunny's heaviest
+    # regrouped 1080p tile: its lit receivers keep the prune up, so its
+    # ray groups walk most of the key row; in one segment (the default)
+    # and in segments of 1, 7 and 64 block visits.
+    args, opts = resident_rows["bunny"]
+    assert opts["S"] == 1 and not opts["stream"]
+    monkeypatch.setattr(walk, "_SPLIT_SEG", seg)
+    tiles = _same_per_tile("any_dest", args, opts)
+    assert int(tiles[0]) >= 40 and int(tiles[3]) == 0
+
+
+@pytest.mark.cuda
+def test_split_walk_resident_rows_past_a_segment(resident_rows):
+    # The dragon's key rows of 268 blocks, longer than a segment of
+    # kSeg128: tiles that walk past the first segment take the later
+    # ones on resident weights, and the replay counts their visits.
+    args, opts = resident_rows["dragon"]
+    assert opts["S"] == 1 and not opts["stream"]
+    assert args[1].shape[1] > _seg128()
+    tiles = _same_per_tile("any_dest", args, opts)
+    assert int(tiles.max()) > _seg128()
 
 
 @pytest.mark.cuda

@@ -33,6 +33,12 @@ a plain model, ``walk._split_walk_plain``: on these tiles and on the
 bunny's regrouped 64 x 64 wavefront, with segments of 1, 3, 7 and 256
 block visits and 1, 2 or 8 ray groups a tile, its flags and visits must
 equal the plain walk's exactly.
+
+The dragon's regrouped 64 x 64 wavefront (268 blocks: key rows longer
+than a segment) is the resident flat form, K2-128's: its flags equal the
+JAX package's ``regroup=True`` (boundary cases checked in float64), its
+visits the JAX walk's tile by tile, and the split walk's schedule, in
+segments of 64 and of the default 256, the plain walk's.
 """
 
 import numpy as np
@@ -281,6 +287,62 @@ def test_split_schedule_on_the_bunny(bunny_regrouped, form, seg):
     del opts["stream"]
     ref, ref_visits = walk._walk_any_dest_plain(*args, **opts)
     assert int(ref_visits.max()) > 5 * seg
+    got, visits = walk._split_walk_plain(*args, **opts, seg=seg)
+    assert torch.equal(got, ref)
+    assert torch.equal(visits, ref_visits)
+
+
+@pytest.fixture(scope="module")
+def dragon_regrouped(dragon):
+    """The dragon's 64 x 64 shadow wavefront (``test_torch_walk.py``'s
+    receivers): (cut, sun, points, skip), JAX arrays. Its SweepSAH cut
+    has 268 blocks, so a key row is longer than a segment of the split
+    walk (walk.cu's kSeg128, 256 block visits), and flat with resident
+    weights: the form of K2-128."""
+    cs, _, _, sun, points, skip = _mesh_scene(*dragon, EYES["dragon"])
+    return cs, sun, points, skip
+
+
+def test_dragon_regrouped_matches_jax(dragon_regrouped):
+    # Flags against the JAX package's regroup=True ray for ray (f32
+    # boundary cases each checked in float64), and the executed visits of
+    # every tile against its walk's on that tile alone; two tiles walk
+    # past the first segment.
+    cs, sun, points, skip = dragon_regrouped
+    args, opts, perm, _ = _port_inputs(cs, sun, points, skip)
+    assert opts["S"] == 1 and not opts["stream"]
+    assert args[1].shape[1] == 268
+    jargs, kw, jperm = _jax_inputs(cs, sun, points, skip)
+    np.testing.assert_array_equal(perm.numpy(), np.asarray(jperm))
+    ref = np.asarray(jmk.any_hit_to_point(None, sun, points, skip=skip,
+                                          clusters=cs, regroup=True))
+    got = pmk.any_hit_to_point(None, _port(sun), _port(points),
+                               skip=_port(skip),
+                               clusters=convert.cluster_set(cs),
+                               regroup=True).numpy()
+    assert ref.sum() > 0
+    d = tuple(np.asarray(points[a] - sun[a]) for a in range(3))
+    for ray in np.nonzero(got != ref)[0]:   # boundary cases only
+        assert abs(_shadow_margin(cs, sun, d, ray)) <= 1e-6
+    flags, visits = walk._walk_any_dest_plain(*args, **opts)
+    differ = np.nonzero(flags.numpy() != np.asarray(jmk._walk_pallas(
+        *jargs, tcap_col=4, mode="any_dest", stream=False, interpret=True,
+        **kw)[0]).reshape(-1))[0]
+    assert int((visits > 256).sum()) >= 2
+    for tile in range(args[0].numel()):
+        if args[0][tile] > 0 and not np.any(differ // 128 == tile):
+            assert int(visits[tile]) == _jax_tile_visits(jargs, kw, tile)
+
+
+@pytest.mark.parametrize("seg", [64, 256])
+def test_dragon_split_schedule_matches_plain(dragon_regrouped, seg):
+    # K2-128's schedule on rows longer than a segment: at the default of
+    # 256 block visits the tiles that walk past it take a later segment.
+    args, opts, _, _ = _port_inputs(*dragon_regrouped)
+    opts = dict(opts)
+    del opts["stream"]
+    ref, ref_visits = walk._walk_any_dest_plain(*args, **opts)
+    assert int(ref_visits.max()) > 256
     got, visits = walk._split_walk_plain(*args, **opts, seg=seg)
     assert torch.equal(got, ref)
     assert torch.equal(visits, ref_visits)
