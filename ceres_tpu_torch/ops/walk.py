@@ -16,9 +16,9 @@ each flat or two-level (``S > 1``), with weights staged per visit or
 streamed (``stream=True``). The kernels are CUDA C++ for sm_90a in
 ``csrc/walk.cu``: the streamed flat and the two-level forms walk each
 tile on a thread-block cluster, the resident flat form on one CTA
-(``walk_solo``); on 128-ray tiles the streamed flat and two-level forms
-are the split walk (ray groups walk segments of a tile's key row apart,
-and a replay recounts the visits: ``_split_walk_plain`` models it).
+(``walk_solo``); on 128-ray tiles every form is the split walk (ray
+groups walk segments of a tile's key row apart, and a replay recounts
+the visits: ``_split_walk_plain`` models it).
 Each wrapper dispatches on the device of its tensors:
 
   * CPU tensors go to the plain version (the CPU tests run it);
@@ -91,9 +91,9 @@ REGROUP_TILE = 128  # rays per tile of the regrouped shadow wavefront
 TILES = {m: (TILE, REGROUP_TILE) if m == "any_dest" else (TILE,)
          for m in RAY_ROWS}
 
-# Block visits a segment of the split walk (the streamed flat and the
-# two-level kernels on REGROUP_TILE rays): 0 takes walk.cu's kSeg128; the
-# card tests set a few to split small inputs.
+# Block visits a segment of the split walk (the kernels on REGROUP_TILE
+# rays): 0 takes walk.cu's kSeg128; the card tests set a few to split
+# small inputs.
 _SPLIT_SEG = 0
 
 # Tiles evaluated at once by the plain versions: bounds their
@@ -210,10 +210,10 @@ def _launch(mode, counts, keys, rays, w, occ0, hull, bbox, first, S, stream):
     ptrs += [out.data_ptr(), visits.data_ptr()]
     if tile != TILE:
         fn += f"_t{tile}"
-        # The split walk's scratch: a counter, each ray's first occluding
-        # position, and the tiles with later segments, their units and
-        # offsets.
-        scratch = torch.empty(2 + (tile + 3) * n_tiles, dtype=torch.int32,
+        # The split walk's scratch: three counters, each ray's first
+        # occluding position, the tiles with candidates, and the tiles
+        # with later segments, their units and offsets.
+        scratch = torch.empty(4 + (tile + 4) * n_tiles, dtype=torch.int32,
                               device=rays.device)
         ptrs.append(scratch.data_ptr())
         ints.append(_SPLIT_SEG)
@@ -488,9 +488,9 @@ def _occlusion_plain(mode, counts, keys, rays, w, occ0, hull, bbox, first,
 def _split_walk_plain(counts, keys, rays, w, occ0, hull=None, bbox=None,
                       first=None, *, S=1, seg=256, groups=8):
     """The split walk's schedule (``walk.cu``'s split_walk, split_list,
-    split_more and split_replay: the streamed flat and the two-level
-    any_dest kernels on 128-ray tiles), in plain PyTorch: (flags,
-    visits), which must equal ``_walk_any_dest_plain``'s.
+    split_more and split_replay: the any_dest kernels on 128-ray tiles),
+    in plain PyTorch: (flags, visits), which must equal
+    ``_walk_any_dest_plain``'s.
 
     A unit is a set of R / ``groups`` of a tile's rays over one segment of
     its key row: ``seg`` candidates (two-level: ``seg // S`` supers, at

@@ -436,8 +436,8 @@ def build_log():
 def resident_registers():
     """Registers a thread of each resident flat walk takes, from the
     build's report, by variant name without ``walk_``: walk_solo<M, 512>,
-    and at 128 rays the split walk's first pass (split_walk<kAnyDest,
-    false, K, false, 128>)."""
+    and at 128 rays the flat split walk's first pass (split_walk<kAnyDest,
+    *, K, false, 128>, which the flat form takes on resident weights too)."""
     from ceres_tpu_torch.ops import walk
 
     regs, fn = {}, ""
@@ -448,7 +448,7 @@ def resident_registers():
             fn = entry.group(1)
             continue
         solo = re.search(r"walk_soloILi(\d+)ELi(\d+)EE", fn)
-        split = re.search(r"split_walkILi(\d+)ELb0ELi\d+ELb0ELi(\d+)EE", fn)
+        split = re.search(r"split_walkILi(\d+)ELb\dELi\d+ELb0ELi(\d+)EE", fn)
         if used and (solo or split):
             mode, tile = map(int, (solo or split).groups())
             name = walk._variant(list(walk.RAY_ROWS)[mode], 1, False, tile)

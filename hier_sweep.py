@@ -3,7 +3,7 @@
     python3 hier_sweep.py [--ks 2,4,8] [--flat-ks 2,4,8] [--k128s 2,4,8]
                           [--segs 64,256,1024]
                           [--out ceres_tpu_torch/_build/sweep]
-    python3 hier_sweep.py --turns _checkout/parent [--phases 20]
+    python3 hier_sweep.py --turns _checkout/parent[,DIR...] [--phases 20]
     python3 hier_sweep.py --probe [DIR]
     python3 hier_sweep.py --sass DIR
 
@@ -33,6 +33,9 @@ both checkouts' kernels in parallel and runs ``chip_smoke.py`` in DIR,
 here, here and in DIR (parent, change, change, parent), printing the same
 lines of each run and its training phases' times, and does nothing else
 (``--phases 20`` passes on to each run: the regrouped walks alone).
+``--turns DIR,DIR2`` puts another checkout (an alternative design)
+between them: DIR, DIR2, here, here, DIR2, DIR (tags parent, the
+directory's name, change).
 
 ``--probe [DIR]`` (DIR a checkout, this one by default) times the steps
 of one visit of the 128-ray cluster walk as DIR's walk.cu has it
@@ -405,9 +408,10 @@ def main():
     ap.add_argument("--flat-ks", default="2,4,8")
     ap.add_argument("--k128s", default="2,4,8")
     ap.add_argument("--segs", default="64,256,1024")
-    ap.add_argument("--turns", metavar="DIR",
+    ap.add_argument("--turns", metavar="DIR[,DIR2...]",
                     help="time DIR's chip_smoke.py against this one's in "
-                    "turns (DIR, here, here, DIR), and nothing else")
+                    "turns (DIR, DIR2, ..., here, here, ..., DIR2, DIR), "
+                    "and nothing else")
     ap.add_argument("--phases", help="with --turns: run chip_smoke.py "
                     "--phases PHASES in each turn")
     ap.add_argument("--sass", metavar="DIR",
@@ -432,9 +436,13 @@ def main():
         sass_diff(args.sass)
         return
     if args.turns:
-        dirs = {"parent": os.path.abspath(args.turns), "change": ROOT}
+        parent, *others = args.turns.split(",")
+        dirs = {"parent": os.path.abspath(parent)}
+        dirs.update({os.path.basename(os.path.normpath(d)): os.path.abspath(d)
+                     for d in others})
+        dirs["change"] = ROOT
         failed = build_all(dirs)
-        turns = ("parent", "change", "change", "parent")
+        turns = (*dirs, *reversed(dirs))
         extra = ("--phases", args.phases) if args.phases else ()
         for i, tag in enumerate(turns):
             if (tag not in failed
