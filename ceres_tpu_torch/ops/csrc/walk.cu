@@ -31,8 +31,7 @@
 // kAnyDest in all three forms, the shadow wavefront regrouped by receiver
 // (_REGROUP_TILE, from any_hit_to_point(regroup=True); the C entry points
 // ending in _t128). A block has R threads. At 128 rays every form is the
-// split walk (split_live, split_walk, split_list, split_more,
-// split_replay; below).
+// split walk (split_walk, split_list, split_more, split_replay; below).
 // The plain PyTorch versions that define the exact results are in
 // ceres_tpu_torch/ops/walk.py (_walk_closest_plain, _walk_any_dest_plain,
 // _walk_any_plain).
@@ -104,24 +103,16 @@
 //
 // The split walk (the shadow walk at kR128 rays, flat or two-level,
 // resident or streamed). A regrouped tile holds a compact patch of
-// receivers, but
-// where the morton order jumps it holds two distant ones, and with one
-// receiver that no block occludes its prune stays at t = 1 + pad: such a
-// tile walks its whole key row (on the 4x bunny 14,997 member visits, the
-// screen tiles' heaviest 1,587), and a walk that keeps the tile's visits
-// in one chain is as slow as that tile (PERF.md). But a ray's
-// flag needs only its own first occluder, and the sequential walk's
+// receivers, but where the morton order jumps it holds two distant ones,
+// and with one receiver that no block occludes its prune stays at t = 1
+// + pad: such a tile walks its whole key row (on the 4x bunny 14,997
+// member visits, the screen tiles' heaviest 1,587), and a walk that keeps
+// the tile's visits in one chain is as slow as that tile (PERF.md). But a
+// ray's flag needs only its own first occluder, and the sequential walk's
 // visits follow from every ray's first occluding position. So:
-//   split_live    one warp a tile: a tile with no candidate (most of a
-//                 frame's) gets its outputs here, the others go on a
-//                 list that the passes below walk on grids of the CTAs
-//                 the card holds at once, so an empty tile costs no CTA
-//                 (on the bunny they cost 0.1 ms of 0.37; PERF.md);
-//   split_walk    one CTA for each of a listed tile's kK128 ray groups
-//                 (R / K rays, K threads a ray, lanes split as in
-//                 walk_tile), with no cluster and no exchange (a CTA
-//                 draws the next group from a counter when it is done
-//                 with one): the group walks the
+//   split_walk    one CTA for each of the tile's kK128 ray groups (R / K
+//                 rays, K threads a ray, lanes split as in walk_tile),
+//                 with no cluster and no exchange: the group walks the
 //                 first segment of the key row (kSeg128 block visits;
 //                 two-level, kSeg128 / S supers) in order while an
 //                 entry is within the group's own prune, and stores the
@@ -138,7 +129,7 @@
 //                 segment has found occluded (the first segment's finds,
 //                 and those of later ones already stored), and takes the
 //                 min of its finds with atomicMin;
-//   split_replay  one CTA a listed tile: flags (start flags, or an occluder
+//   split_replay  one CTA a tile: flags (start flags, or an occluder
 //                 found), and the executed visits of the sequential
 //                 walk: before position q its live rays are those whose
 //                 first occluder is at q or later, which gives its prune
@@ -203,10 +194,10 @@
 // visits out of one chain: its segments run at once on separate CTAs, a
 // ray group stops with its own rays, and a visit has one block barrier
 // (the unit's prune max) and no exchange; at 128 rays a visit of one ray
-// a thread is a chain of 128 pairs, of a ray group 16 (PERF.md, PR 13:
-// on the bunny's regrouped wavefront walk_solo took 0.62 ms, the split
-// walk 0.37). FMA contraction and several rays per thread are later
-// work.
+// a thread is a chain of 128 pairs, of a ray group 16 (PERF.md: on the
+// bunny's regrouped 1080p wavefront one ray a thread took 0.62 ms on one
+// H100, the split walk 0.37). FMA contraction and several rays per thread
+// are later work.
 //
 // Exactness. Built with --fmad=false and written in the plain version's
 // operation order, so kernel and plain version agree bit for bit on the
@@ -890,15 +881,14 @@ __device__ __forceinline__ int live_entry(const unsigned* msk, int u) {
   return -1;
 }
 
-// The split walk: the shadow walk at kR128 rays a tile (split_live,
-// split_walk, split_list, split_more and split_replay; the design is in
-// the header comment). A unit is up to R / K of a tile's
-// rays (K threads a ray, one CTA) over one segment of the tile's key
-// row: it visits the segment's blocks in order while their entry is
-// within the unit's own prune, and notes for each of its rays the
-// position of its first occluder (flat: the candidate's index in the
-// row; two-level: kSuperMax x the super's index + the member's rank in
-// entry order).
+// The split walk: the shadow walk at kR128 rays a tile (split_walk,
+// split_list, split_more and split_replay; the design is in the header
+// comment). A unit is up to R / K of a tile's rays (K threads a ray, one
+// CTA) over one segment of the tile's key row: it visits the segment's
+// blocks in order while their entry is within the unit's own prune, and
+// notes for each of its rays the position of its first occluder (flat:
+// the candidate's index in the row; two-level: kSuperMax x the super's
+// index + the member's rank in entry order).
 
 // Candidates [pos, end) of a tile's key row, each key read two ahead;
 // pop() also gives the candidate's position.
@@ -1069,57 +1059,27 @@ __device__ __forceinline__ void walk_unit(
   }
 }
 
-// Before the passes, one warp a tile. Most tiles of a frame see no
-// candidate: such a tile gets its outputs here (its start flags, no
-// visit), and the passes walk only the others, appended to live (n_live
-// counts them), on grids of the CTAs the card holds at once. So a tile
-// with no candidate costs no CTA of its own.
-template <int R>
-__global__ void __launch_bounds__(kR128)
-split_live(const int* __restrict__ counts, const int* __restrict__ occ0,
-           int* __restrict__ out, int* __restrict__ visits,
-           int* __restrict__ live, int* __restrict__ n_live, int n_tiles) {
-  const int tile = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (tile >= n_tiles) return;
-  if (counts[tile] > 0) {
-    if (lane == 0) live[atomicAdd(n_live, 1)] = tile;
-    return;
-  }
-#pragma unroll
-  for (int i = lane; i < R; i += 32) out[tile * R + i] = occ0[tile * R + i];
-  if (lane == 0) visits[tile] = 0;
-}
-
-// Pass 1: the first segment (seg candidates) of every ray group of the
-// live tiles: item i is group i % K of tile live[i / K], its rays
-// (i % K) R / K to (i % K + 1) R / K - 1. A CTA takes item blockIdx.x,
-// then the next one from the counter next_item, drawn while it walks.
+// Pass 1: the first segment (seg candidates) of every ray group, one CTA
+// each: group c of a tile is its rays c R / K to (c + 1) R / K - 1.
 template <int M, bool kStream, int K, bool kHier, int R>
 __global__ void __launch_bounds__(R, min_ctas(M, R))
 split_walk(const int* __restrict__ counts, const int* __restrict__ keys,
            const float* __restrict__ rays, const float* __restrict__ w,
            const int* __restrict__ occ0, const float* __restrict__ hull,
            const float* __restrict__ bbox, const int* __restrict__ first,
-           int* __restrict__ pstar, const int* __restrict__ live,
-           const int* __restrict__ n_live, int* __restrict__ next_item,
-           int n_rays, int n_k, int cmask, int S, int seg) {
+           int* __restrict__ pstar, int n_rays, int n_k, int cmask, int S,
+           int seg) {
   __shared__ SplitShared<M, R> sh;
-  __shared__ int next;
-  const int items = *n_live * K;
-  for (int i = blockIdx.x; i < items;) {
-    int drawn = 0;
-    if (threadIdx.x == 0) drawn = atomicAdd(next_item, 1) + gridDim.x;
-    const int tile = live[i / K];
-    walk_unit<M, kStream, K, kHier, R>(
-        sh, tile, i % K * (R / K) + threadIdx.x / K, 0,
-        min(counts[tile], seg), true, keys, rays, w, occ0, hull, bbox, first,
-        pstar, n_rays, n_k, cmask, S);
-    // Every thread read the last next before walk_unit's first barrier.
-    if (threadIdx.x == 0) next = drawn;
-    __syncthreads();
-    i = next;
+  const int tile = blockIdx.x / K;
+  const int ray = blockIdx.x % K * (R / K) + threadIdx.x / K;
+  const int count = counts[tile];
+  if (count == 0) {  // most tiles of a frame see no candidate
+    if (threadIdx.x % K == 0) pstar[tile * R + ray] = INT_MAX;
+    return;
   }
+  walk_unit<M, kStream, K, kHier, R>(sh, tile, ray, 0, min(count, seg),
+                                     true, keys, rays, w, occ0, hull, bbox,
+                                     first, pstar, n_rays, n_k, cmask, S);
 }
 
 // Between the passes, one warp a tile. A tile with candidates past its
@@ -1214,17 +1174,16 @@ split_more(const int* __restrict__ counts, const int* __restrict__ keys,
   }
 }
 
-// Pass 3, one CTA of kReplay threads a live tile (CTA c takes live
-// tiles c, c + gridDim.x, ...): the flags (start flags, or a first
-// occluder found) and the executed visits of the tile's sequential walk,
-// replayed from its rays' first occluding positions: before position q
-// the rays live are those not started occluded whose first occluder is
-// at q or later, so the tile prune there is the max of their caps +
-// kPrunePad, and the walk takes candidates in order while their entry is
-// within it (two-level: each super's members in entry order while within
-// it). Both sides of that test are monotone in q, so the candidates taken
-// are found by bisection, and a super over which the prune does not move
-// takes every member within it.
+// Pass 3, one CTA of kReplay threads a tile: the flags (start flags, or a
+// first occluder found) and the executed visits of the tile's
+// sequential walk, replayed from its rays' first occluding positions:
+// before position q the rays live are those not started occluded whose
+// first occluder is at q or later, so the tile prune there is the max of
+// their caps + kPrunePad, and the walk takes candidates in order while
+// their entry is within it (two-level: each super's members in entry
+// order while within it). Both sides of that test are monotone in q, so
+// the candidates taken are found by bisection, and a super over which
+// the prune does not move takes every member within it.
 constexpr int kReplay = 256;
 
 template <bool kHier, int R>
@@ -1233,14 +1192,23 @@ split_replay(const int* __restrict__ counts, const int* __restrict__ keys,
              const float* __restrict__ rays, const int* __restrict__ occ0,
              const float* __restrict__ hull, const float* __restrict__ bbox,
              const int* __restrict__ first, const int* __restrict__ pstar,
-             const int* __restrict__ live, const int* __restrict__ n_live,
              int* __restrict__ out, int* __restrict__ visits, int n_rays,
              int n_k, int cmask, int S) {
   constexpr int kW = kReplay / 32;
   __shared__ int at[R], part[R];  // each ray: live before at, its cap
   __shared__ float hl[kHullCols];
   __shared__ int taken, sum[kW];
+  const int tile = blockIdx.x;
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  if (t < R) {
+    const int ray = tile * R + t;
+    const int p = pstar[ray], o = occ0[ray];
+    out[ray] = o | (p != INT_MAX);
+    at[t] = o ? -1 : p;
+    part[t] = __float_as_int(rays[tcap_row(kAnyDest) * n_rays + ray]);
+  }
+  if (kHier && t < kHullCols) hl[t] = hull[(size_t)tile * kHullCols + t];
+  __syncthreads();
   // The tile prune before position q, on one warp.
   auto prune_at = [&](int q) {
     int v = kNegI;
@@ -1248,68 +1216,54 @@ split_replay(const int* __restrict__ counts, const int* __restrict__ keys,
     for (int i = lane; i < R; i += 32) v = max(v, at[i] >= q ? part[i] : kNegI);
     return __reduce_max_sync(0xffffffffu, v) + kPrunePad;
   };
-  const int n_tiles = *n_live;
-  for (int u = blockIdx.x; u < n_tiles; u += gridDim.x) {
-    const int tile = live[u];
-    __syncthreads();  // the last tile's reads of the shared arrays are done
-    if (t < R) {
-      const int ray = tile * R + t;
-      const int p = pstar[ray], o = occ0[ray];
-      out[ray] = o | (p != INT_MAX);
-      at[t] = o ? -1 : p;
-      part[t] = __float_as_int(rays[tcap_row(kAnyDest) * n_rays + ray]);
-    }
-    if (kHier && t < kHullCols) hl[t] = hull[(size_t)tile * kHullCols + t];
-    __syncthreads();
-    const int* krow = keys + (size_t)tile * n_k;
-    const int step = kHier ? kSuperMax : 1;
-    if (warp == 0) {
-      int lo = 0, hi = counts[tile];
-      while (lo < hi) {
-        const int mid = (lo + hi) >> 1;
-        if ((krow[mid] & ~cmask) <= prune_at(mid * step)) {
-          lo = mid + 1;
-        } else {
-          hi = mid;
-        }
-      }
-      if (lane == 0) taken = lo;
-    }
-    __syncthreads();
-    const int n = taken;
-    if (!kHier) {
-      if (t == 0) visits[tile] = n;
-      continue;
-    }
-    const unsigned all = S == kSuperMax ? 0xffffffffu : ((1u << S) - 1u);
-    int v = 0;
-    Head h;
-    if (warp < n) load_head(h, krow, warp, bbox, first, cmask, S);
-    for (int k = warp; k < n; k += kW) {
-      const int ent = lane < S ? member_entry(hl, h.box) : INT_MAX;
-      if (k + kW < n) load_head(h, krow, k + kW, bbox, first, cmask, S);
-      const int p0 = prune_at(k * kSuperMax);
-      if (p0 == prune_at(k * kSuperMax + kSuperMax - 1)) {
-        v += __popc(__ballot_sync(0xffffffffu, ent <= p0));
+  const int* krow = keys + (size_t)tile * n_k;
+  const int step = kHier ? kSuperMax : 1;
+  if (warp == 0) {
+    int lo = 0, hi = counts[tile];
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if ((krow[mid] & ~cmask) <= prune_at(mid * step)) {
+        lo = mid + 1;
       } else {
-        unsigned rem = all;
-        for (int j = 0; j < S; ++j) {
-          int m;
-          const int s = next_member(ent, rem, &m);
-          if (m > prune_at(k * kSuperMax + j)) break;
-          rem &= ~(1u << s);
-          ++v;
-        }
+        hi = mid;
       }
     }
-    if (lane == 0) sum[warp] = v;
-    __syncthreads();
-    if (t == 0) {
-      int total = 0;
-#pragma unroll
-      for (int i = 0; i < kW; ++i) total += sum[i];
-      visits[tile] = total;
+    if (lane == 0) taken = lo;
+  }
+  __syncthreads();
+  const int n = taken;
+  if (!kHier) {
+    if (t == 0) visits[tile] = n;
+    return;
+  }
+  const unsigned all = S == kSuperMax ? 0xffffffffu : ((1u << S) - 1u);
+  int v = 0;
+  Head h;
+  if (warp < n) load_head(h, krow, warp, bbox, first, cmask, S);
+  for (int k = warp; k < n; k += kW) {
+    const int ent = lane < S ? member_entry(hl, h.box) : INT_MAX;
+    if (k + kW < n) load_head(h, krow, k + kW, bbox, first, cmask, S);
+    const int p0 = prune_at(k * kSuperMax);
+    if (p0 == prune_at(k * kSuperMax + kSuperMax - 1)) {
+      v += __popc(__ballot_sync(0xffffffffu, ent <= p0));
+    } else {
+      unsigned rem = all;
+      for (int j = 0; j < S; ++j) {
+        int m;
+        const int s = next_member(ent, rem, &m);
+        if (m > prune_at(k * kSuperMax + j)) break;
+        rem &= ~(1u << s);
+        ++v;
+      }
     }
+  }
+  if (lane == 0) sum[warp] = v;
+  __syncthreads();
+  if (t == 0) {
+    int total = 0;
+#pragma unroll
+    for (int i = 0; i < kW; ++i) total += sum[i];
+    visits[tile] = total;
   }
 }
 
@@ -1578,13 +1532,13 @@ int launch_hier(bool stream_w, const int* counts, const int* keys,
                                         n_tiles, n_s, cmask, S);
 }
 
-// The split walk on n_tiles tiles of kR128 rays: the scratch header
-// cleared, then its passes. scratch holds the later segments' counter (8
-// bytes), the live tiles' count and pass 1's item counter, each ray's
-// first occluding position, and the live tiles and the list of tiles
-// with later segments, their units and offsets (n_tiles each at most).
-// seg: block visits a segment (0: kSeg128); the two-level walk takes seg
-// / S supers a segment (at least one).
+// The split walk on n_tiles tiles of kR128 rays: its passes, the later
+// segments' (the list's counter cleared first) only where a key row is
+// longer than a segment. scratch holds the counter (8 bytes), each
+// ray's first occluding position, and the list of tiles with later
+// segments, their units and offsets (n_tiles each at most). seg: block
+// visits a segment (0: kSeg128); the two-level walk takes seg / S supers
+// a segment (at least one).
 template <int M, bool kStream, bool kHier>
 int launch_split(const int* counts, const int* keys, const float* rays,
                  const float* w, const int* occ0, const float* hull,
@@ -1594,57 +1548,43 @@ int launch_split(const int* counts, const int* keys, const float* rays,
   constexpr int R = kR128, K = kK128;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  // The passes' grids: the CTAs the card holds at once (one card a
-  // process).
-  static const int walk_ctas =
-      card_ctas(split_walk<M, kStream, K, kHier, R>, R, device);
-  static const int replay_ctas =
-      card_ctas(split_replay<kHier, R>, kReplay, device);
-  if (walk_ctas < 0 || replay_ctas < 0) return -min(walk_ctas, replay_ctas);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int n_rays = n_tiles * R;
   auto* ctr = reinterpret_cast<unsigned long long*>(scratch);
-  int* n_live = scratch + 2;
-  int* next_item = scratch + 3;
-  int* pstar = scratch + 4;
-  int* live = pstar + n_rays;
-  int* list = live + n_tiles;
+  int* pstar = scratch + 2;
+  int* list = pstar + n_rays;
   int* units = list + n_tiles;
   int* off = units + n_tiles;
   seg = seg > 0 ? seg : kSeg128;
   if (kHier) seg = max(1, seg / S);
-  err = cudaMemsetAsync(scratch, 0, 4 * sizeof(int), st);
-  if (err == cudaSuccess) {
-    split_live<R><<<(n_tiles + 3) / 4, 128, 0, st>>>(
-        counts, occ0, out, visits, live, n_live, n_tiles);
-    err = cudaGetLastError();
-  }
-  if (err == cudaSuccess) {
-    split_walk<M, kStream, K, kHier, R><<<walk_ctas, R, 0, st>>>(
-        counts, keys, rays, w, occ0, hull, bbox, first, pstar, live, n_live,
-        next_item, n_rays, n_k, cmask, S, seg);
-    err = cudaGetLastError();
-  }
+  split_walk<M, kStream, K, kHier, R><<<n_tiles * K, R, 0, st>>>(
+      counts, keys, rays, w, occ0, hull, bbox, first, pstar, n_rays, n_k,
+      cmask, S, seg);
+  err = cudaGetLastError();
   // Later segments exist only where a key row is longer than a segment.
   if (err == cudaSuccess && n_k > seg) {
-    static const int more_ctas =
+    // Pass 2's grid: the CTAs the card holds at once (one card a process).
+    static const int ctas =
         card_ctas(split_more<M, kStream, K, kHier, R>, R, device);
-    if (more_ctas < 0) return -more_ctas;
-    split_list<K, R><<<(n_tiles + 3) / 4, 128, 0, st>>>(
-        counts, keys, rays, occ0, pstar, ctr, list, units, off, n_tiles,
-        n_rays, n_k, cmask, seg);
-    err = cudaGetLastError();
+    if (ctas < 0) return -ctas;
+    err = cudaMemsetAsync(ctr, 0, sizeof(*ctr), st);
     if (err == cudaSuccess) {
-      split_more<M, kStream, K, kHier, R><<<more_ctas, R, 0, st>>>(
+      split_list<K, R><<<(n_tiles + 3) / 4, 128, 0, st>>>(
+          counts, keys, rays, occ0, pstar, ctr, list, units, off, n_tiles,
+          n_rays, n_k, cmask, seg);
+      err = cudaGetLastError();
+    }
+    if (err == cudaSuccess) {
+      split_more<M, kStream, K, kHier, R><<<ctas, R, 0, st>>>(
           counts, keys, rays, w, occ0, hull, bbox, first, pstar, ctr, list,
           units, off, n_rays, n_k, cmask, S, seg);
       err = cudaGetLastError();
     }
   }
   if (err == cudaSuccess) {
-    split_replay<kHier, R><<<replay_ctas, kReplay, 0, st>>>(
-        counts, keys, rays, occ0, hull, bbox, first, pstar, live, n_live,
-        out, visits, n_rays, n_k, cmask, S);
+    split_replay<kHier, R><<<n_tiles, kReplay, 0, st>>>(
+        counts, keys, rays, occ0, hull, bbox, first, pstar, out, visits,
+        n_rays, n_k, cmask, S);
     err = cudaGetLastError();
   }
   return (int)err;
@@ -1691,10 +1631,10 @@ extern "C" int ceres_walk_any_dest(const int* counts, const int* keys,
 
 // The shadow wavefront regrouped by receiver (megakernel.any_hit_to_point
 // with regroup): ceres_walk_any_dest on tiles of 128 rays, so rays, occ0
-// and out hold n_tiles * 128, on the split walk with scratch (4 + 132
+// and out hold n_tiles * 128, on the split walk with scratch (2 + 131
 // n_tiles int32) and seg (block visits a segment, 0: kSeg128). Both forms
 // stage blocks with cp.async: on resident weights plain copies were
-// slower on the card (PERF.md, PR 13), so stream_w moves nothing here.
+// slower on the card (PERF.md), so stream_w moves nothing here.
 extern "C" int ceres_walk_any_dest_t128(const int* counts, const int* keys,
                                         const float* rays, const float* w,
                                         const int* occ0, int* out,

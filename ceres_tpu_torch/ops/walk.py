@@ -210,10 +210,10 @@ def _launch(mode, counts, keys, rays, w, occ0, hull, bbox, first, S, stream):
     ptrs += [out.data_ptr(), visits.data_ptr()]
     if tile != TILE:
         fn += f"_t{tile}"
-        # The split walk's scratch: three counters, each ray's first
-        # occluding position, the tiles with candidates, and the tiles
-        # with later segments, their units and offsets.
-        scratch = torch.empty(4 + (tile + 4) * n_tiles, dtype=torch.int32,
+        # The split walk's scratch: a counter, each ray's first occluding
+        # position, and the tiles with later segments, their units and
+        # offsets.
+        scratch = torch.empty(2 + (tile + 3) * n_tiles, dtype=torch.int32,
                               device=rays.device)
         ptrs.append(scratch.data_ptr())
         ints.append(_SPLIT_SEG)

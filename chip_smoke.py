@@ -150,19 +150,23 @@ its own line:
      (``megakernel.any_hit_to_point(regroup=True)``: morton order of the
      receiving points, 128-ray tiles), at 1920 x 1080 on each frame's
      receiving points and skip as ``render_pipeline`` forms them: the
-     bunny (SweepSAH cut, resident: K2-128), the 3x bunny (treelet cut,
-     streamed flat: K5-128) and the 4x bunny (two-level: K7a-128, streamed
-     and resident): the call launches its 128-ray variant once and the
-     512-ray walk not at all, and its flags equal ``regroup=False``'s ray
-     for ray; each 128-ray kernel and the 512-ray walk on the unregrouped
-     inputs held to their plain versions tile by tile, with visits,
-     lane-visits (visits x tile width), heaviest tile, ms, bound and
-     share; each 128-ray kernel on its heaviest tile alone (that tile's
-     own chain); on the 3x and 4x bunny the 5 heaviest regrouped tiles:
-     visits, live rays and those never occluded, first and last morton
-     code and their highest differing bit, and the receivers' bounding
-     box against the scene root's; the whole regrouped and unregrouped
-     calls' ms, alternated;
+     bunny (SweepSAH cut, resident flat: K2-128), the dragon at 960 x 540
+     (SweepSAH cut of 268 blocks, rows longer than a segment of the split
+     walk: K2-128), the 3x bunny (treelet cut, streamed flat: K5-128) and
+     the 4x bunny (two-level: K7a-128, streamed and resident): the call
+     launches its 128-ray variant once and the 512-ray walk not at all,
+     and its flags equal ``regroup=False``'s ray for ray; each 128-ray
+     kernel and the 512-ray walk on the unregrouped inputs held to their
+     plain versions tile by tile, with visits, lane-visits (visits x tile
+     width), heaviest tile, ms, bound and share; each 128-ray kernel on
+     its heaviest tile alone (that tile's own chain), on every tile but
+     that one, with that tile moved to the front of the grid and with no
+     candidates at all (its grid's own cost), with the tile's place in
+     the grid and how many tiles have candidates; the 5 heaviest
+     regrouped tiles: visits, live rays and those never occluded, first
+     and last morton code and their highest differing bit, and the
+     receivers' bounding box against the scene root's; the whole
+     regrouped and unregrouped calls' ms, alternated;
  21. the golden oracle on the card's host: ``render()`` of
      ``scenes.bunny_scene()`` at 64 x 64 on the card, smooth and flat,
      megakernel and bruteforce, against
@@ -184,7 +188,8 @@ visit (visits x 512 x 128 pairs); the shadow walks skip rays already
 occluded and stop a ray at its first occluder, so their pairs are the
 plain walk's count of exactly those. Each kernel also gets a line of its
 own: its form (two-level or flat streamed, with the cluster size K of
-``walk.cu``, or flat resident: one CTA a tile, with its registers), its
+``walk.cu``; flat resident: one CTA a tile, with its registers; at 128
+rays the split walk's ray groups and segment), its
 visits, the heaviest tile's visits
 and the time per visit of that tile they imply, kernel ms, bound and
 share.

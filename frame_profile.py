@@ -20,9 +20,10 @@ functions that took the first call's time); then the step of that fit
 read). ``--regrouped`` traces the scene's shadow wavefront regrouped by
 receiver instead (``chip_smoke.py`` phase 20's call,
 ``any_hit_to_point(regroup=True)`` on the frame's receiving points), the
-whole call and then its walk alone on the call's inputs: on the 3x and
-4x bunny the split walk's kernels (its first segments, the list of tiles
-with later ones, those, the replay).
+whole call and then its walk alone on the call's inputs: the split
+walk's kernels (its first segments, then, where a key row is longer than
+a segment, the list of tiles with later ones and those, and the replay;
+on the bunny, K2-128).
 Prints the card's name
 and power limit, ms/frame (median of CUDA events over the frames), then
 from a ``torch.profiler`` trace of the same number of frames: device
