@@ -22,6 +22,9 @@ restores. Without a mesh the step renders through ``render_pipeline``,
 the JAX package's unsharded path: its column-form rays round in another
 order than ``render_sharded``'s row form, so a pixel's last bits differ
 between the two, and each fit keeps the path of its JAX counterpart.
+
+On the card the refitted step without a mesh is captured as a CUDA graph
+(``utils.graphs``), the counterpart of the JAX package's jitted step.
 """
 
 from __future__ import annotations
@@ -89,11 +92,46 @@ def make_train_step(faces, camera: Camera, sun, config: RenderConfig,
     place of the LBVH build. Without it the megakernel backend builds
     the cut inside every step.
 
+    On the card the refitted step without a mesh is one CUDA graph (the
+    counterpart of the JAX package's jitted step): the first call runs
+    the step eagerly on a side stream and captures it, and every call
+    after replays refit, render, loss, ``backward`` and the optimizer
+    step at once. The optimizer must then be capturable
+    (``torch.optim.Adam(..., capturable=True)``), or this raises. Its
+    hyperparameters are those of the capture. A ``target``, and an
+    ``opt_state`` whose tensors are not the optimizer's own (a restored
+    checkpoint, a carried optax state; empty dicts start Adam afresh),
+    are copied into the graph's tensors before the replay. The step that
+    builds its cut (no ``clusters0``: the LBVH build syncs with the host)
+    and the step over a mesh run eagerly.
+
     With ``mesh`` (``parallel.sharded.Mesh``) the image is rendered by
     ``render_sharded`` over the mesh's ranks, the loss is taken on every
     rank over the whole image, and the gradients arrive summed over the
     ranks.
     """
+    if clusters0 is None or mesh is not None or not _on_card(
+            clusters0.lo.device):
+        return _make_eager_step(faces, camera, sun, config, optimizer,
+                                mesh=mesh, clusters0=clusters0)
+    if not all(g.get("capturable", False) for g in optimizer.param_groups):
+        raise ValueError("make_train_step: the refitted step on the card is "
+                         "captured as a CUDA graph, which needs a capturable "
+                         "optimizer: build it with capturable=True, as in "
+                         "torch.optim.Adam(params.values(), lr=..., "
+                         "capturable=True)")
+    return _captured_step(_loss_fn(faces, camera, sun, config, None,
+                                   clusters0), optimizer)
+
+
+def _on_card(device) -> bool:
+    """Whether a step on ``device`` is captured (the card's)."""
+    return torch.device(device).type == "cuda"
+
+
+def _loss_fn(faces, camera, sun, config, mesh, clusters0):
+    """``loss(params, target)``: render the parameters and take
+    ``image_loss``."""
 
     def loss_fn(params, target):
         cam = _camera_with(camera, params)
@@ -110,13 +148,28 @@ def make_train_step(faces, camera: Camera, sun, config: RenderConfig,
                                        config, clusters=clusters)
         return image_loss(image, target)
 
+    return loss_fn
+
+
+def _check_leaves(optimizer, state: TrainState) -> None:
+    leaves = [p for g in optimizer.param_groups for p in g["params"]]
+    params = list(state.params.values())
+    if len(leaves) != len(params) or any(
+            a is not b for a, b in zip(leaves, params)):
+        raise ValueError("the optimizer must be built over the leaf "
+                         "tensors of state.params, in their order")
+
+
+def _make_eager_step(faces, camera: Camera, sun, config: RenderConfig,
+                     optimizer: torch.optim.Optimizer, mesh=None,
+                     clusters0=None):
+    """:func:`make_train_step`'s step run op by op: every step without
+    ``clusters0`` or over a mesh, any step off the card, and the
+    reference the captured step is held to."""
+    loss_fn = _loss_fn(faces, camera, sun, config, mesh, clusters0)
+
     def step(state: TrainState, target) -> tuple[TrainState, torch.Tensor]:
-        leaves = [p for g in optimizer.param_groups for p in g["params"]]
-        params = list(state.params.values())
-        if len(leaves) != len(params) or any(
-                a is not b for a, b in zip(leaves, params)):
-            raise ValueError("the optimizer must be built over the leaf "
-                             "tensors of state.params, in their order")
+        _check_leaves(optimizer, state)
         for name, p in state.params.items():
             optimizer.state[p] = state.opt_state[name]
         optimizer.zero_grad(set_to_none=True)
@@ -129,6 +182,71 @@ def make_train_step(faces, camera: Camera, sun, config: RenderConfig,
                 loss.detach())
 
     return step
+
+
+def _captured_step(loss_fn, optimizer: torch.optim.Optimizer):
+    """The step as one CUDA graph (``utils.graphs``), captured at the
+    first call after that call's eager step."""
+    from ceres_tpu_torch.utils import graphs
+
+    held = {}   # the graph and its target buffer, once captured
+
+    def body(params, target):
+        # The capture's backward fills new gradient tensors of its own;
+        # the previous call's (the warm-up's) are copied into them.
+        held["grads"] = [p.grad for p in params.values()]
+        optimizer.zero_grad(set_to_none=True)
+        loss = loss_fn(params, target)
+        loss.backward()
+        optimizer.step()
+        return loss.detach()
+
+    def step(state: TrainState, target) -> tuple[TrainState, torch.Tensor]:
+        _check_leaves(optimizer, state)
+        if "graph" not in held:
+            for name, p in state.params.items():
+                # Adam keeps a restored "step" on the CPU; a capturable
+                # one keeps it beside the parameter.
+                optimizer.state[p] = {k: v.to(p.device) for k, v in
+                                      state.opt_state[name].items()}
+            held["target"] = torch.as_tensor(target).detach().clone()
+            held["graph"] = graphs.capture(
+                lambda: body(state.params, held["target"]),
+                (state.params, held["target"]))
+            for p, g in zip(state.params.values(), held.pop("grads")):
+                if g is not None:
+                    p.grad.copy_(g)
+            loss = held["graph"].first
+        else:
+            for name, p in state.params.items():
+                _load_state(optimizer.state[p], state.opt_state[name])
+            if tuple(target.shape) != tuple(held["target"].shape):
+                raise ValueError(f"target: the step was captured at "
+                                 f"{tuple(held['target'].shape)}, got "
+                                 f"{tuple(target.shape)}")
+            held["target"].copy_(target)
+            loss = held["graph"].replay().clone()
+        return (TrainState(state.params,
+                           {name: optimizer.state[p]
+                            for name, p in state.params.items()}), loss)
+
+    return step
+
+
+def _load_state(static: dict, given: dict) -> None:
+    """Copy a parameter's optimizer state ``given`` into the captured
+    step's ``static`` tensors; an empty ``given`` zeroes them, Adam's
+    start."""
+    if given is static:
+        return
+    if given and set(given) != set(static):
+        raise ValueError(f"opt_state holds {sorted(given)}, the captured "
+                         f"step {sorted(static)}")
+    for k, x in static.items():
+        if not given:
+            x.zero_()
+        elif given[k] is not x:
+            x.copy_(given[k])
 
 
 def _latest(checkpoint_dir: str) -> Optional[int]:
@@ -201,7 +319,9 @@ def fit_vertices(
 
     ``refit=True`` on the megakernel backend builds the treelet cut once
     from the initial vertices and refits it every step (``clusters0`` of
-    :func:`make_train_step`), on every rank of a mesh alike.
+    :func:`make_train_step`), on every rank of a mesh alike. Without a
+    mesh that step runs on the card as a CUDA graph, with a capturable
+    Adam.
     """
     device = (mesh.device if mesh is not None
               else resolve_device(vertices, device, "fit_vertices"))
@@ -235,7 +355,11 @@ def fit_vertices(
     if refit and config.backend == "megakernel":
         clusters0 = build_clusters_treelet(
             triangle_soup(v0, faces, with_normals=False))
-    optimizer = torch.optim.Adam(state.params.values(), lr=learning_rate)
+    # The refitted step on the card is captured (make_train_step).
+    optimizer = torch.optim.Adam(
+        state.params.values(), lr=learning_rate,
+        capturable=(clusters0 is not None and mesh is None
+                    and _on_card(device)))
     step = make_train_step(faces, camera, sun, config, optimizer, mesh=mesh,
                            clusters0=clusters0)
     history = []

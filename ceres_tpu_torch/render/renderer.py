@@ -35,6 +35,10 @@ at the winners, or with ``f64_exact`` the search in float64 too.
 Stats: "rays" counts traversals (one per pixel plus one shadow ray per
 primary hit), "hits" counts primary hits plus occluded shadow rays, the
 reference renderer's counting.
+
+``render_graph`` captures a static scene's frame as a CUDA graph
+(``FrameGraph``), the counterpart of the JAX package's ``_render_jit``
+(``jax.jit`` over ``render_pipeline``).
 """
 
 from __future__ import annotations
@@ -459,6 +463,115 @@ def render(vertices, faces, camera: Camera, sun_position,
     return render_pipeline(vertices, faces, camera, sun_position, config,
                            clusters=clusters,
                            spheres=_as_spheres(spheres, dtype, device))
+
+
+class FrameGraph:
+    """A static scene's frame, captured once as a CUDA graph and replayed
+    (the counterpart of the JAX package's jitted ``render_pipeline``).
+    Made by :func:`render_graph`.
+
+    ``frame(sun_position=None, camera=None)`` copies a new sun and/or the
+    camera's eye, dir, up and fov into the graph's buffers, replays the
+    frame and returns ``(image, stats)``: the graph's own output tensors,
+    which the next call overwrites (clone what must outlive it). Pass
+    the sun and the camera as tensors on the card: a host array costs a
+    copy that waits on the device. On the CPU (only when asked for, by
+    CPU tensors or ``device="cpu"``) each call runs ``render_pipeline``
+    eagerly on the same buffers and returns fresh tensors.
+    """
+
+    def __init__(self, vertices, faces, camera: Camera, sun_position,
+                 config: RenderConfig, clusters, table_cols, spheres):
+        self._vertices = vertices
+        self._faces = faces
+        self._camera = camera
+        self._sun = sun_position
+        self._config = config
+        self._clusters = clusters
+        self._table = table_cols
+        self._spheres = spheres
+        self._graph = None
+        if vertices.device.type != "cpu":
+            from ceres_tpu_torch.utils import graphs
+
+            self._graph = graphs.capture(
+                self._frame, (vertices, faces, camera, sun_position,
+                              clusters, table_cols, spheres))
+
+    @property
+    def launches(self) -> dict:
+        """Walk launches a replay makes, by variant (empty on the CPU)."""
+        return dict(self._graph.launches) if self._graph else {}
+
+    def _frame(self):
+        with torch.no_grad():
+            return render_pipeline(self._vertices, self._faces, self._camera,
+                                   self._sun, self._config,
+                                   clusters=self._clusters,
+                                   spheres=self._spheres,
+                                   table_cols=self._table)
+
+    def __call__(self, sun_position=None, camera: Optional[Camera] = None):
+        if sun_position is not None:
+            self._sun.copy_(torch.as_tensor(sun_position))
+        if camera is not None:
+            for name in ("eye", "dir", "up", "fov"):
+                getattr(self._camera, name).copy_(
+                    torch.as_tensor(getattr(camera, name)))
+        if self._graph is None:
+            return self._frame()
+        return self._graph.replay()
+
+
+def render_graph(vertices, faces, camera: Camera, sun_position,
+                 config: RenderConfig, clusters, table_cols, spheres=None,
+                 device=None) -> FrameGraph:
+    """Capture the frame of a static scene as a CUDA graph: a
+    :class:`FrameGraph`, called once a frame with the moved sun or
+    camera.
+
+    ``clusters`` (the scene's prebuilt cut) and ``table_cols``
+    (``prepare_winner_table``) are required and must lie on the device:
+    building either syncs with the host, so a frame loop builds them
+    once. Inputs may be numpy arrays or tensors; the mesh, camera, sun
+    and ``spheres`` are copied into the graph's buffers in the vertices'
+    dtype. Runs on ``device`` as ``render()`` resolves it (the card
+    unless CPU tensors or ``device="cpu"`` are given). Only the cluster
+    walk is captured: ``backend="bruteforce"`` (the oracle) and
+    ``f64_exact`` (the float64 walk, ``ops.walk_f64``) raise.
+    """
+    _check_config(config)
+    if config.backend != "megakernel":
+        raise ValueError("render_graph captures the cluster walk "
+                         "(backend='megakernel'); backend='bruteforce' is "
+                         "the all-pairs oracle, run it through "
+                         "render_pipeline")
+    if config.f64_exact:
+        raise ValueError("render_graph: f64_exact searches in float64 on "
+                         "the plain walk (ops.walk_f64), which is not "
+                         "captured; run it through render_pipeline")
+    if clusters is None or table_cols is None:
+        raise ValueError("render_graph needs the prebuilt cut and winner "
+                         "table (clusters, table_cols): building them "
+                         "syncs with the host")
+    device = resolve_device(vertices, device, "render_graph")
+    vertices = torch.as_tensor(vertices, device=device).detach().clone()
+    faces = torch.as_tensor(faces, device=device).clone()
+    dtype = vertices.dtype
+    camera = Camera(*(torch.as_tensor(getattr(camera, k), dtype=dtype,
+                                      device=device).detach().clone()
+                      for k in ("eye", "dir", "up", "fov")))
+    sun_position = torch.as_tensor(sun_position, dtype=dtype,
+                                   device=device).detach().clone()
+    spheres = _as_spheres(spheres, dtype, device)
+    if spheres is not None:
+        spheres = tuple(x.clone() for x in spheres)
+    for name, x in (("clusters", clusters.lo), ("table_cols", table_cols)):
+        if x.device != vertices.device:
+            raise ValueError(f"render_graph: {name} is on {x.device}, the "
+                             f"frame on {vertices.device}")
+    return FrameGraph(vertices, faces, camera, sun_position, config,
+                      clusters, table_cols, spheres)
 
 
 def _as_spheres(spheres, dtype, device):

@@ -172,11 +172,32 @@ its own line:
      megakernel and bruteforce, against
      ``ceres_tpu_torch.utils.golden.render_golden`` (NumPy float64, no
      JAX): at most 1% of pixels off by more than 2e-3, primary hits within
-     1% of W x H (``tests/test_render_golden.py``'s rule).
+     1% of W x H (``tests/test_render_golden.py``'s rule);
+ 22. CUDA graphs (``render.renderer.render_graph``, and
+     ``diff.make_train_step``'s captured refitted step), each against its
+     eager run: the bench frame (bunny 1080p, SweepSAH cut and winner
+     table: K1 + K2), the reference-exact bunny (K1 + K3), the 3x bunny
+     (K5 closest + any_dest), the 4x bunny (K6 + K7a) and the
+     reference-exact 4x bunny (K6 + K7b), each captured once and replayed
+     with the sun moved: one replay with the counts set to 0 just before
+     it launches each variant once; stats equal to ``render_pipeline``'s
+     on the same inputs, the image within one level (vertex normals are
+     summed with ``index_add_`` atomics), each graph-launched walk's ids
+     or flags and visits equal to the eager frame's same launch and to a
+     launch on the graph's own inputs; CUDA-event ms/frame of eager and
+     graph frames alternated (median, min/max), rays/s, and frames/s of
+     each back to back on the host clock; every frame config (smooth,
+     flat, normal; default and reference-exact; shadows on and off) at
+     256 x 256 replayed against its eager frame; the config 4b refitted
+     step (bunny 1080p, Adam over the vertices and the eye) and the 4x
+     bunny's (vertices) from seeded vertex noise, captured against eager
+     (each with a capturable Adam): losses of 3 steps and the parameters
+     after them within phase 12's rule, a replayed step's launches, peak
+     memory, ms/step alternated.
 
 ``python3 chip_smoke.py --phases 20`` runs phases 1, 2 and the phases
-listed (of 20 and 21) and prints no JSON record: the cluster-size sweep
-of the 128-ray walk (``hier_sweep.py --k128s``) runs it.
+listed (of 20, 21 and 22) and prints no JSON record: the cluster-size
+sweep of the 128-ray walk (``hier_sweep.py --k128s``) runs it.
 
 Every kernel-vs-plain check holds each tile's executed visits, not only
 their sum, and prints the kernel's bound: the larger of its fp32
@@ -286,6 +307,14 @@ RANK_SEED = 19
 REGROUP_CALLS = 10
 LARGE_REGROUP_CALLS = 5
 GOLDEN_SIZE = 64
+# Phase 22: frames of the bench frame timed, eager and captured
+# alternated; of the large and reference-exact frames; steps compared
+# and the 4b step's timed; the size of the config matrix's frames.
+GRAPH_FRAMES = 20
+GRAPH_LARGE_FRAMES = 5
+GRAPH_STEPS = 3
+GRAPH_STEP_TIMES = 10
+MATRIX_SIZE = 256
 # Modes of the walk and their wrappers in ops.walk.
 WALKS = {"closest": "walk_closest", "closest_window": "walk_closest",
          "any_dest": "walk_any_dest", "any": "walk_any"}
@@ -900,7 +929,8 @@ def fit_step(dev, sc, config, target, noisy):
     params = {"vertices": v0.clone().requires_grad_()}
     train = make_train_step(ft, cam, torch.as_tensor(sc.sun, device=dev),
                             config, torch.optim.Adam(params.values(),
-                                                     lr=2e-4),
+                                                     lr=2e-4,
+                                                     capturable=True),
                             clusters0=cs0)
     state = [TrainState(params, {"vertices": {}})]
 
@@ -1013,7 +1043,8 @@ def phase14(dev, card, v, f, cs0):
     target, _ = ct.render_pipeline(vt, ft, cam, sun, config, clusters=cs0)
     params = {"vertices": moved.clone().requires_grad_()}
     step = make_train_step(ft, cam, sun, config,
-                           torch.optim.Adam(params.values(), lr=1e-5),
+                           torch.optim.Adam(params.values(), lr=1e-5,
+                                            capturable=True),
                            clusters0=cs0)
     state = TrainState(params, {"vertices": {}})
     torch.cuda.reset_peak_memory_stats()
@@ -1509,8 +1540,10 @@ def phase18(dev, card, builds, meshes, large):
 
 @contextlib.contextmanager
 def recorded_walks():
-    """The walks a path launches, with their inputs: (wrapper name, args,
-    opts) in launch order."""
+    """The walks a path launches, with their inputs and outputs: (wrapper
+    name, args, opts, (out, visits)) in launch order. Inside a CUDA graph's
+    capture the tensors recorded are the graph's own, which each replay
+    overwrites."""
     from ceres_tpu_torch.ops import walk
 
     seen = []
@@ -1518,8 +1551,9 @@ def recorded_walks():
 
     def recorder(name, fn):
         def record(*args, **opts):
-            seen.append((name, args, opts))
-            return fn(*args, **opts)
+            out = fn(*args, **opts)
+            seen.append((name, args, opts, out))
+            return out
         return record
 
     for name, fn in real.items():
@@ -1537,7 +1571,7 @@ def hold_recorded(phase, seen, label, card, reps=3):
     from ceres_tpu_torch.ops import walk
 
     names = []
-    for name, args, opts in seen:
+    for name, args, opts, _ in seen:
         mode = {"walk_closest": "closest", "walk_any_dest": "any_dest",
                 "walk_any": "any"}[name]
         if opts.get("window"):
@@ -2095,14 +2129,314 @@ def phase21(dev, card):
     return launches
 
 
+def graph_frame(label, vt, ft, cam, cs, config, frames, card):
+    """A frame captured by ``render_graph`` against ``render_pipeline``
+    on the same scene, cut and winner table, the sun moved 1e-3: the
+    path's run (the counts set to 0 just before one replay and read just
+    after: one launch a variant), stats equal, images within one
+    level, each graph-launched walk's ids or flags and visits equal to
+    the eager frame's same launch and to a relaunch on the graph's own
+    inputs; then ``frames`` of each alternated (CUDA events) and back to
+    back (host clock). Returns the replay's launches."""
+    import ceres_tpu_torch as ct
+    from ceres_tpu_torch.ops import walk
+    from ceres_tpu_torch.render.renderer import (prepare_winner_table,
+                                                 render_graph)
+    from ceres_tpu_torch.utils.graphs import tensors
+
+    sun = torch.as_tensor(SUN, device=vt.device)
+    table = prepare_winner_table(ct.triangle_soup(vt, ft), cs, config)
+    with recorded_walks() as seen:
+        fg = render_graph(vt, ft, cam, sun, config, cs, table)
+    captured = seen[len(seen) - sum(fg.launches.values()):]
+    walk.reset_launches()
+    image, stats = fg(sun_position=sun + 1e-3)
+    torch.cuda.synchronize()
+    launches = {k: n for k, n in walk.launches.items() if n}
+    image, stats = image.clone(), {k: int(x) for k, x in stats.items()}
+
+    def eager(i):
+        return ct.render_pipeline(vt, ft, cam, sun + i * 1e-3, config,
+                                  clusters=cs, table_cols=table)
+
+    with recorded_walks() as eager_seen:
+        (img_e, st_e), eager_launches = launches_of(lambda: eager(1))
+    st_e = {k: int(x) for k, x in st_e.items()}
+    check(launches == fg.launches == eager_launches
+          and set(launches.values()) == {1},
+          f"phase 22 {label}: a replay launched {launches}, the capture "
+          f"{fg.launches}, the eager frame {eager_launches}")
+    check(stats == st_e, f"phase 22 {label}: stats {stats}, eager {st_e}")
+    one, more = levels_apart(image.cpu(), img_e.cpu())
+    check(more == 0 and bool(torch.isfinite(image).all())
+          and float(image.max()) > 0,
+          f"phase 22 {label}: {more} pixels more than one level from the "
+          f"eager frame's")
+    visits, inputs_equal = 0, True
+    for (name, args, opts, (out, vis)), (e_name, e_args, e_opts,
+                                         (e_out, e_vis)) in zip(captured,
+                                                                eager_seen):
+        same_in = name == e_name and all(
+            torch.equal(a, b) for a, b in zip(tensors((args, opts)),
+                                              tensors((e_args, e_opts))))
+        inputs_equal &= same_in
+        check(torch.equal(out, e_out) and torch.equal(vis, e_vis),
+              f"phase 22 {label}: the graph's {name} differs from the "
+              f"eager frame's (inputs equal: {same_in})")
+        r_out, r_vis = getattr(walk, name)(*args, **opts)
+        check(torch.equal(r_out, out) and torch.equal(r_vis, vis),
+              f"phase 22 {label}: the graph's {name} differs from a launch "
+              f"on its own inputs")
+        visits += int(vis.sum())
+
+    def graph(i):
+        return fg(sun_position=sun + i * 1e-3)
+
+    e_t, g_t = alternated_times((eager, graph), frames)
+    walls = {}
+    for name, fn in (("eager", eager), ("graph", graph)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(frames):
+            fn(i)
+        torch.cuda.synchronize()
+        walls[name] = frames / (time.perf_counter() - t0)
+    e_ms, g_ms = statistics.median(e_t), statistics.median(g_t)
+    print(f"phase 22 {label} {config.width}x{config.height}: launches a "
+          f"replay {launches}; rays {stats['rays']} hits {stats['hits']} "
+          f"shadow_hits {stats['shadow_hits']} executed visits {visits}, "
+          f"equal to eager (walk inputs equal: {inputs_equal}); pixels one "
+          f"level apart {one}; ms/frame eager median {e_ms:.3f} (min "
+          f"{min(e_t):.3f} max {max(e_t):.3f}), graph median {g_ms:.3f} "
+          f"(min {min(g_t):.3f} max {max(g_t):.3f}), CUDA events, {frames} "
+          f"of each alternated; rays/s eager {stats['rays'] / e_ms * 1e3:.4e}"
+          f", graph {stats['rays'] / g_ms * 1e3:.4e}; host clock, {frames} "
+          f"frames back to back: eager {walls['eager']:.2f} frames/s, graph "
+          f"{walls['graph']:.2f} frames/s [{card}]", flush=True)
+    return launches
+
+
+def graph_matrix(vt, ft, cam, cs, card):
+    """Every frame config captured at MATRIX_SIZE on the bunny: default
+    and reference-exact, smooth, flat and normal, shadows on and off,
+    with the traversal counters; each replay against the eager frame
+    (stats equal, images within one level, the same launches). Returns
+    the replays' launches."""
+    import ceres_tpu_torch as ct
+    from ceres_tpu_torch.ops import walk
+    from ceres_tpu_torch.render.renderer import (MODES, prepare_winner_table,
+                                                 render_graph)
+
+    sun = torch.as_tensor(SUN, device=vt.device)
+    launches, worst, n = {}, 0, 0
+    for compat in (False, True):
+        for mode in MODES:
+            for shadows in (True, False):
+                config = ct.RenderConfig(
+                    width=MATRIX_SIZE, height=MATRIX_SIZE, mode=mode,
+                    backend="megakernel", shadows=shadows,
+                    traversal_stats=True, reference_compat=compat)
+                label = (f"phase 22 {mode} shadows={shadows} "
+                         f"reference_compat={compat}")
+                table = prepare_winner_table(ct.triangle_soup(vt, ft), cs,
+                                             config)
+                fg = render_graph(vt, ft, cam, sun, config, cs, table)
+                walk.reset_launches()
+                img, st = fg(sun_position=sun + 1e-3)
+                torch.cuda.synchronize()
+                launched = {k: c for k, c in walk.launches.items() if c}
+                (img_e, st_e), eager_l = launches_of(
+                    lambda: ct.render_pipeline(vt, ft, cam, sun + 1e-3,
+                                               config, clusters=cs,
+                                               table_cols=table))
+                one, more = levels_apart(img.cpu(), img_e.cpu())
+                check(launched == eager_l and more == 0
+                      and {k: int(x) for k, x in st.items()}
+                      == {k: int(x) for k, x in st_e.items()},
+                      f"{label}: the replay differs from the eager frame "
+                      f"(launches {launched} / {eager_l}, {more} pixels "
+                      f"off by more than a level)")
+                launches = merge(launches, launched)
+                worst, n = max(worst, one), n + 1
+    print(f"phase 22 config matrix, bunny {MATRIX_SIZE}x{MATRIX_SIZE}: {n} "
+          f"configs captured and replayed, each equal to its eager frame "
+          f"(stats with visits exact, at most {worst} pixels one level "
+          f"apart); launches {launches} [{card}]", flush=True)
+    return launches
+
+
+def refit_steps(vt, ft, cam, cs0, eye):
+    """A refitted train step at 1080p as ``make_train_step`` captures it
+    on the card and as ``inverse._make_eager_step`` runs it, each with
+    its own capturable Adam (lr 1e-5) over the same start: the vertices
+    moved by seeded noise (LARGE_NOISE of the mesh's extent, as phase
+    14), and the eye with ``eye`` (config 4b); ``image_loss`` against
+    the unmoved mesh's frame, ``cs0`` (the unmoved mesh's cut) refitted
+    in the step: {"eager": (one(i), state), "graph": ...}, ``state`` a
+    one-item list holding the step's current TrainState."""
+    import ceres_tpu_torch as ct
+    from ceres_tpu_torch.diff import TrainState, inverse
+
+    sun = torch.as_tensor(SUN, device=vt.device)
+    config = ct.RenderConfig(width=W, height=H, backend="megakernel")
+    target, _ = ct.render_pipeline(vt, ft, cam, sun, config, clusters=cs0)
+    scale = float((vt - vt.mean(0)).abs().max())
+    noise = np.random.default_rng(22).standard_normal(tuple(vt.shape))
+    start = vt + torch.as_tensor(LARGE_NOISE * scale * noise,
+                                 dtype=vt.dtype, device=vt.device)
+    steps = {}
+    for name, make in (("eager", inverse._make_eager_step),
+                       ("graph", inverse.make_train_step)):
+        params = {"vertices": start.clone().requires_grad_()}
+        if eye:
+            params["eye"] = cam.eye.detach().clone().requires_grad_()
+        opt = torch.optim.Adam(params.values(), lr=1e-5, capturable=True)
+        step = make(ft, cam, sun, config, opt, clusters0=cs0)
+        state = [TrainState(params, {k: {} for k in params})]
+
+        def one(i=0, step=step, state=state):
+            state[0], loss = step(state[0], target)
+            return loss
+
+        steps[name] = (one, state)
+    return steps
+
+
+def within(got, want):
+    """Phase 12's rule: |got - want| <= 1e-5 max|want| + 1e-4 |want|."""
+    want, got = torch.as_tensor(want).double(), torch.as_tensor(got).double()
+    tol = 1e-5 * float(want.abs().max()) + 1e-4 * want.abs()
+    return bool(((got - want).abs() <= tol).all())
+
+
+def graph_step(label, vt, ft, cam, cs0, eye, times, want, card):
+    """``refit_steps``' captured step against its eager one over
+    GRAPH_STEPS steps, each taken by both from the eager step's state
+    (parameters and Adam's; the captured step's first call is its
+    capture): loss, gradients and the parameters after the step under
+    phase 12's rule. Chained runs are not compared: a silhouette pixel
+    that one run's last bits flip moves the loss and the next steps'
+    gradients. Then peak memory of a few steps of each, the path's run
+    (one replay with the counts set to 0 just before it: one launch of
+    each of ``want``) and ``times`` steps of each alternated. Returns the
+    replay's launches."""
+    from ceres_tpu_torch.diff import TrainState
+    from ceres_tpu_torch.ops import walk
+
+    steps = refit_steps(vt, ft, cam, cs0, eye)
+    (eager, e_state), (graph, g_state) = steps["eager"], steps["graph"]
+    worst = {}
+    for i in range(GRAPH_STEPS):
+        params = {k: x.detach().clone() for k, x in e_state[0].params.items()}
+        opt = {k: {kk: x.clone() for kk, x in st.items()}
+               for k, st in e_state[0].opt_state.items()}
+        got = {}
+        for name, one, state in (("eager", eager, e_state),
+                                 ("graph", graph, g_state)):
+            if name == "graph":
+                with torch.no_grad():
+                    for k, x in state[0].params.items():
+                        x.copy_(params[k])
+                state[0] = TrainState(state[0].params, opt)
+            loss = float(one(i))
+            got[name] = (loss, {k: x.grad.detach().clone()
+                                for k, x in state[0].params.items()},
+                         {k: x.detach().clone()
+                          for k, x in state[0].params.items()})
+        (le, ge, pe), (lg, gg, pg) = got["eager"], got["graph"]
+        check(np.isfinite(lg) and within(lg, le),
+              f"phase 22 {label} step {i + 1}: loss {lg}, eager {le}")
+        for k in pe:
+            for what, a, b in (("gradient", gg[k], ge[k]),
+                               ("parameters", pg[k], pe[k])):
+                diff = float((a - b).abs().max())
+                worst[k, what] = max(worst.get((k, what), 0.0), diff)
+                check(within(a, b), f"phase 22 {label} step {i + 1}: the "
+                      f"{what} of {k} outside phase 12's rule (max diff "
+                      f"{diff:.3e}, max |eager| "
+                      f"{float(b.abs().max()):.3e})")
+    peaks = {}
+    for name, one, _ in (("eager", eager, None), ("graph", graph, None)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for i in range(GRAPH_STEPS):
+            one(i)
+        torch.cuda.synchronize()
+        peaks[name] = (torch.cuda.max_memory_allocated() / 2**20,
+                       torch.cuda.max_memory_reserved() / 2**20)
+    walk.reset_launches()
+    graph()
+    torch.cuda.synchronize()
+    launches = {k: n for k, n in walk.launches.items() if n}
+    check(launches == {k: 1 for k in want},
+          f"phase 22 {label}: a replayed step launched {launches}")
+    e_t, g_t = alternated_times((eager, graph), times)
+    diffs = ", ".join(f"{what} of {k} {d:.3e}"
+                      for (k, what), d in worst.items())
+    print(f"phase 22 {label} refitted train step {W}x{H}, Adam lr 1e-5 "
+          f"over {'the vertices and the eye' if eye else 'the vertices'}: "
+          f"{GRAPH_STEPS} steps each from the eager step's state, loss, "
+          f"gradients and parameters within phase 12's rule (max diffs "
+          f"{diffs}; last loss {le:.6e}, graph {lg:.6e}); launches a "
+          f"replay {launches}; ms/step eager median "
+          f"{statistics.median(e_t):.3f} (min {min(e_t):.3f} max "
+          f"{max(e_t):.3f}), graph median {statistics.median(g_t):.3f} (min "
+          f"{min(g_t):.3f} max {max(g_t):.3f}), CUDA events, {times} of "
+          f"each alternated; peak memory allocated/reserved over "
+          f"{GRAPH_STEPS} steps eager {peaks['eager'][0]:.1f}/"
+          f"{peaks['eager'][1]:.1f} MiB, graph {peaks['graph'][0]:.1f}/"
+          f"{peaks['graph'][1]:.1f} MiB (the capture's pool reserved) "
+          f"[{card}]", flush=True)
+    return launches
+
+
+def phase22(dev, card, large):
+    """CUDA graphs of the frame and the refitted train step, each against
+    its eager run. Returns the replays' launches."""
+    import ceres_tpu_torch as ct
+    from ceres_tpu_torch.accel.clusters import build_clusters_treelet
+
+    vt, ft, cam, cs = scene("bunny", dev)
+    base = ct.RenderConfig(width=W, height=H, backend="megakernel")
+    compat = dataclasses.replace(base, reference_compat=True)
+    cases = [("bunny", (vt, ft, cam, cs), base, GRAPH_FRAMES),
+             ("reference-exact bunny", (vt, ft, cam, cs), compat,
+              GRAPH_LARGE_FRAMES),
+             ("bunny x3", large[3][:4], base, GRAPH_LARGE_FRAMES),
+             ("bunny x4", large[4][:4], base, GRAPH_LARGE_FRAMES),
+             ("reference-exact bunny x4", large[4][:4], compat,
+              GRAPH_STEPS)]
+    wants = [("walk_closest", "walk_any_dest"), ("walk_closest", "walk_any"),
+             LARGE[3], LARGE[4],
+             ("walk_closest_hier_stream", "walk_any_hier_stream")]
+    launches = {}
+    for (label, sc, config, frames), want in zip(cases, wants):
+        launched = graph_frame(label, *sc, config, frames, card)
+        check(set(launched) == set(want),
+              f"phase 22 {label}: launched {launched}, not {want}")
+        launches = merge(launches, launched)
+        torch.cuda.empty_cache()
+    launches = merge(launches, graph_matrix(vt, ft, cam, cs, card))
+
+    cs0 = build_clusters_treelet(ct.triangle_soup(vt, ft, with_normals=False))
+    launches = merge(launches, graph_step(
+        "config 4b, bunny", vt, ft, cam, cs0, True, GRAPH_STEP_TIMES,
+        ("walk_closest", "walk_any_dest"), card))
+    launches = merge(launches, graph_step(
+        "bunny x4", *large[4][:4], False, LARGE_STEPS, LARGE[4], card))
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", help="run phases 1, 2 and these only "
-                    "(comma-separated, of 20 and 21), with no JSON record")
+                    "(comma-separated, of 20, 21 and 22), with no JSON "
+                    "record")
     only = ap.parse_args(argv).phases
     only = [int(x) for x in only.split(",")] if only else None
-    check(only is None or set(only) <= {20, 21},
-          f"--phases takes 20 and 21, not {only}")
+    check(only is None or set(only) <= {20, 21, 22},
+          f"--phases takes 20, 21 and 22, not {only}")
     # Phase 1: device.
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: the port's smoke test "
@@ -2162,10 +2496,14 @@ def main(argv=None):
           f"registers {regs}): {fit}", flush=True)
     check(min(fit.values()) > 0, "a walk does not fit the card")
     if only:
+        large = (large_scenes(dev, bunny_meshes())
+                 if {20, 22} & set(only) else None)
         if 20 in only:
-            phase20(dev, card, large_scenes(dev, bunny_meshes()))
+            phase20(dev, card, large)
         if 21 in only:
             phase21(dev, card)
+        if 22 in only:
+            phase22(dev, card, large)
         print(f"phases 1, 2, {', '.join(map(str, only))} done", flush=True)
         return
 
@@ -2400,6 +2738,8 @@ def main(argv=None):
     results.update(regrouped)
     # Phase 21: the golden oracle on the card's host.
     path_launches = merge(path_launches, phase21(dev, card))
+    # Phase 22: the frame and the refitted step as CUDA graphs.
+    path_launches = merge(path_launches, phase22(dev, card, large))
 
     missing = [k for k in REPLACES if not path_launches.get(k)]
     check(not missing, f"no path launched {missing}")

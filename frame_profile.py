@@ -4,6 +4,7 @@ NVIDIA card.
     python3 frame_profile.py [--scene bunny4] [--compat] [--frames 3]
     python3 frame_profile.py --step [--frames 3]
     python3 frame_profile.py --regrouped [--scene bunny4] [--frames 3]
+    python3 frame_profile.py --graph [--scene bunny] [--frames 3]
 
 Renders ``chip_smoke.py``'s frame of the scene (``bunny``: bunny.obj on
 the SweepSAH cut; ``bunny3``/``bunny4``: the 3x/4x subdivided bunny on
@@ -23,7 +24,10 @@ receiver instead (``chip_smoke.py`` phase 20's call,
 whole call and then its walk alone on the call's inputs: the split
 walk's kernels (its first segments, then, where a key row is longer than
 a segment, the list of tiles with later ones and those, and the replay;
-on the bunny, K2-128).
+on the bunny, K2-128). ``--graph`` traces the scene's frame eagerly and
+then replayed as a CUDA graph (``render_graph``, ``chip_smoke.py`` phase
+22's), then config 4b's refitted train step eagerly and replayed
+(``make_train_step`` on the card; phase 22's ``refit_steps``).
 Prints the card's name
 and power limit, ms/frame (median of CUDA events over the frames), then
 from a ``torch.profiler`` trace of the same number of frames: device
@@ -172,6 +176,39 @@ def regrouped(vt, ft, cam, cs, args, card):
             f"{label}: its walk alone ({name})", card)
 
 
+def graphs(vt, ft, cam, cs, sun, args, card):
+    """Trace the frame and the config 4b refitted step, each eager and
+    replayed as a CUDA graph."""
+    import chip_smoke as smoke
+    import ceres_tpu_torch as ct
+    from ceres_tpu_torch.accel.clusters import build_clusters_treelet
+    from ceres_tpu_torch.render.renderer import (prepare_winner_table,
+                                                 render_graph)
+
+    config = ct.RenderConfig(width=smoke.W, height=smoke.H,
+                             backend="megakernel")
+    table = prepare_winner_table(ct.triangle_soup(vt, ft), cs, config)
+    fg = render_graph(vt, ft, cam, sun, config, cs, table)
+    label = f"{args.scene} {smoke.W}x{smoke.H}"
+    profile(lambda i: ct.render_pipeline(vt, ft, cam, sun + i * 1e-3, config,
+                                         clusters=cs, table_cols=table),
+            args.frames, f"{label} frame, eager", card)
+    profile(lambda i: fg(sun_position=sun + i * 1e-3), args.frames,
+            f"{label} frame, CUDA graph replayed", card)
+    del fg
+    v, f = ct.load_obj(os.path.join(ROOT, "data", "bunny.obj"))
+    cam = smoke.camera(v, smoke.EYE, vt.device)
+    vt, ft = (torch.as_tensor(v, device=vt.device),
+              torch.as_tensor(f, device=vt.device))
+    cs0 = build_clusters_treelet(ct.triangle_soup(vt, ft, with_normals=False))
+    steps = smoke.refit_steps(vt, ft, cam, cs0, eye=True)
+    for name, (one, _) in steps.items():
+        profile(one, args.frames, f"bunny {smoke.W}x{smoke.H} config 4b "
+                f"refitted train step, "
+                f"{'eager' if name == 'eager' else 'CUDA graph replayed'}",
+                card, top=16)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scene", default="bunny4",
@@ -179,6 +216,7 @@ def main() -> None:
     ap.add_argument("--compat", action="store_true")
     ap.add_argument("--step", action="store_true")
     ap.add_argument("--regrouped", action="store_true")
+    ap.add_argument("--graph", action="store_true")
     ap.add_argument("--frames", type=int, default=3)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -236,6 +274,9 @@ def main() -> None:
                                                      with_normals=False))
     if args.regrouped:
         regrouped(vt, ft, cam, cs, args, card)
+        return
+    if args.graph:
+        graphs(vt, ft, cam, cs, sun, args, card)
         return
     config = ct.RenderConfig(width=smoke.W, height=smoke.H,
                              backend="megakernel",

@@ -56,6 +56,15 @@ vertices and the eye equal the CPU's (rtol 1e-4, atol 1e-5 max|g|: the
 card sums the backward's repeated indices in another order), a 5-step
 ``fit_vertices`` lowers the loss, and a checkpointed fit resumes to the
 uninterrupted one.
+
+The frame and the refitted train step as CUDA graphs
+(``render.renderer.render_graph``, ``diff.make_train_step`` on the
+card): every frame config (smooth, flat, normal; default and
+reference-exact; shadows on and off) replayed against the eager frame
+(stats exact, images within one level), the eager frame and step under
+``torch.cuda.set_sync_debug_mode("error")`` (no host sync on the path a
+graph captures), and the captured step against the eager one over 3
+steps.
 """
 
 import dataclasses
@@ -864,6 +873,148 @@ def test_checkpoint_and_resume_on_card(tmp_path):
     _, none_left = fit_vertices(vertices + 0.05, faces, camera, sun, target,
                                 steps=7, checkpoint_dir=ckpt, **kw)
     assert none_left == []
+
+
+def _graph_scene(size):
+    """The bunny on the card with its SweepSAH cut, the bench camera and
+    a config at size x size."""
+    dev = _card()
+    verts, faces = ct.load_obj(os.path.join(ROOT, "data", "bunny.obj"))
+    eye = np.asarray(EYES["bunny"], np.float32)
+    cam = ct.Camera.make(eye=eye, dir=verts.mean(axis=0) - eye, up=(0, 1, 0),
+                         fov=60.0, device=dev)
+    vt, ft = torch.as_tensor(verts, device=dev), torch.as_tensor(faces,
+                                                                 device=dev)
+    cs = build_clusters_quality(ct.triangle_soup(vt, ft, with_normals=False))
+    return vt, ft, cam, cs, torch.as_tensor(SUN, device=dev)
+
+
+def _levels_apart(a, b):
+    from ceres_tpu_torch.utils.image import to_uint8
+
+    return int(np.abs(to_uint8(a.cpu()).astype(int)
+                      - to_uint8(b.cpu()).astype(int)).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shadows", [True, False])
+@pytest.mark.parametrize("compat", [False, True])
+@pytest.mark.parametrize("mode", ["smooth", "flat", "normal"])
+def test_graph_frame_equals_eager_on_card(mode, compat, shadows):
+    # The replayed frame against render_pipeline on the same inputs, for
+    # three suns: stats exact, images within one level (corner normals
+    # are summed with index_add_ atomics), one launch a walk a replay.
+    from ceres_tpu_torch.render.renderer import (prepare_winner_table,
+                                                 render_graph)
+
+    size = 256
+    vt, ft, cam, cs, sun = _graph_scene(size)
+    config = ct.RenderConfig(width=size, height=size, mode=mode,
+                             backend="megakernel", shadows=shadows,
+                             reference_compat=compat, traversal_stats=True)
+    table = prepare_winner_table(ct.triangle_soup(vt, ft), cs, config)
+    fg = render_graph(vt, ft, cam, sun, config, cs, table)
+    want = {"walk_closest": 1}
+    if shadows:
+        want["walk_any" if compat else "walk_any_dest"] = 1
+    assert fg.launches == want
+    for i in range(3):
+        walk.reset_launches()
+        img, st = fg(sun_position=sun + i * 1e-3)
+        torch.cuda.synchronize()
+        assert {k: n for k, n in walk.launches.items() if n} == want
+        img_e, st_e = ct.render_pipeline(vt, ft, cam, sun + i * 1e-3, config,
+                                         clusters=cs, table_cols=table)
+        assert {k: int(x) for k, x in st.items()} == {
+            k: int(x) for k, x in st_e.items()}
+        assert _levels_apart(img, img_e) <= 1
+        assert img.device.type == "cuda" and float(img.max()) > 0
+
+
+@pytest.mark.cuda
+def test_frame_and_step_make_no_host_sync():
+    # The frame path and the refitted step wait on the device nowhere:
+    # what a CUDA graph needs, held on the eager calls.
+    from ceres_tpu_torch.diff import TrainState, inverse
+    from ceres_tpu_torch.render.renderer import prepare_winner_table
+
+    size = 128
+    vt, ft, cam, cs, sun = _graph_scene(size)
+    config = ct.RenderConfig(width=size, height=size, backend="megakernel")
+    table = prepare_winner_table(ct.triangle_soup(vt, ft), cs, config)
+    target = ct.render_pipeline(vt, ft, cam, sun, config, clusters=cs)[0]
+    params = {"vertices": (vt + 1e-4).requires_grad_(),
+              "eye": cam.eye.clone().requires_grad_()}
+    opt = torch.optim.Adam(params.values(), lr=1e-5, capturable=True)
+    step = inverse._make_eager_step(ft, cam, sun, config, opt, clusters0=cs)
+    state = TrainState(params, {k: {} for k in params})
+    state, _ = step(state, target)      # Adam's state exists
+    moved = sun + 1e-3
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ct.render_pipeline(vt, ft, cam, moved, config, clusters=cs,
+                           table_cols=table)
+        step(state, target)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_captured_step_equals_eager_on_card():
+    # make_train_step's captured step (its first call eager, then
+    # replays) against the eager step over 3 steps, each taken by both
+    # from the eager step's state (the captured step is handed Adam's
+    # state as a carried opt_state): loss, gradients and parameters
+    # within rtol 1e-4, atol 1e-5 max|x| (the backward's atomics sum in
+    # no fixed order). Chained runs are not compared: one silhouette
+    # pixel flipped by the last bits moves the next steps.
+    from ceres_tpu_torch.diff import TrainState, inverse
+
+    size = 128
+    vt, ft, cam, cs, sun = _graph_scene(size)
+    config = ct.RenderConfig(width=size, height=size, backend="megakernel")
+    target = ct.render_pipeline(vt, ft, cam, sun, config, clusters=cs)[0]
+    noise = np.random.default_rng(7).standard_normal(tuple(vt.shape))
+    start = vt + torch.as_tensor(2e-4 * noise, dtype=vt.dtype,
+                                 device=vt.device)
+    runs = {}
+    for name, make in (("eager", inverse._make_eager_step),
+                       ("graph", inverse.make_train_step)):
+        params = {"vertices": start.clone().requires_grad_(),
+                  "eye": cam.eye.clone().requires_grad_()}
+        opt = torch.optim.Adam(params.values(), lr=1e-5, capturable=True)
+        runs[name] = [make(ft, cam, sun, config, opt, clusters0=cs),
+                      TrainState(params, {k: {} for k in params})]
+    for _ in range(3):
+        state = runs["eager"][1]
+        params = {k: x.detach().clone() for k, x in state.params.items()}
+        opt = {k: {kk: x.clone() for kk, x in st.items()}
+               for k, st in state.opt_state.items()}
+        out = {}
+        for name, run in runs.items():
+            if name == "graph":
+                with torch.no_grad():
+                    for k, x in run[1].params.items():
+                        x.copy_(params[k])
+                run[1] = TrainState(run[1].params, opt)
+            walk.reset_launches()
+            run[1], loss = run[0](run[1], target)
+            torch.cuda.synchronize()
+            assert {k: n for k, n in walk.launches.items() if n} == {
+                "walk_closest": 1, "walk_any_dest": 1}
+            out[name] = (float(loss), *({k: f(x) for k, x in
+                                         run[1].params.items()}
+                                        for f in (lambda x: x.grad.clone(),
+                                                  lambda x: x.detach())))
+        (le, ge, pe), (lg, gg, pg) = out["eager"], out["graph"]
+        assert abs(lg - le) <= 1e-4 * abs(le)
+        for k in pe:
+            for got, want in ((gg[k], ge[k]), (pg[k], pe[k])):
+                torch.testing.assert_close(
+                    got, want, rtol=1e-4,
+                    atol=1e-5 * float(want.abs().max()))
 
 
 def test_kernel_source_constants_match_python():
