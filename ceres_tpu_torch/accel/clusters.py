@@ -12,9 +12,12 @@ The device builders run in torch on the soup's device: the morton-run
 cut (``build_clusters``) and the LBVH treelet cut
 (``build_clusters_treelet``, the default structure of ``render()``),
 with the JAX package's static budgets and fallbacks, so cluster count,
-super width and the walk variant they select are the same. A structure
-built once is refitted to moved vertices (``refit_clusters``), as the
-train step does every step.
+super width and the walk variant they select are the same. Every shape
+follows from the triangle count, and no builder reads the device (the
+fallbacks are selected by ``torch.where`` on device flags), so each can
+be captured in a CUDA graph: the counterpart of the JAX package building
+them under ``jax.jit``. A structure built once is refitted to moved
+vertices (``refit_clusters``), as the train step does every step.
 """
 
 from __future__ import annotations
@@ -160,6 +163,10 @@ def build_clusters_treelet(soup: TriangleSoup,
     falls back to uniform S-runs of fine ids when the fine cut fell back
     or the super cut overflows. The structure (perm, boxes, supers) is
     detached; the records stay differentiable w.r.t. the soup.
+
+    As in the JAX package, each fallback is computed beside the cut and
+    selected on the device (``torch.where`` on a 0-d flag): the build
+    never reads the device, so it can be captured in a CUDA graph.
     """
     T = soup.num_triangles
     _check_soup_size(T)
@@ -170,14 +177,16 @@ def build_clusters_treelet(soup: TriangleSoup,
     dev = soup.p0.device
 
     bvh = lbvh_mod.build_lbvh(soup)
-    starts, cluster_of = lbvh_mod.cluster_cut(bvh, C)
+    starts, cut_of = lbvh_mod.cluster_cut(bvh, C)
     pos = torch.arange(T, dtype=torch.int32, device=dev)
-    use_cut = int(starts.sum()) <= n_cap
-    if use_cut:
-        seg_start = torch.cummax(torch.where(starts > 0, pos, 0), 0).values
-    else:
-        cluster_of = pos // C
-        seg_start = cluster_of * C
+    run_of = pos // C
+    # Both cuts are computed and one is selected on the device: a 0-d
+    # flag, never read on the host.
+    use_cut = starts.sum() <= n_cap
+    cluster_of = torch.where(use_cut, cut_of, run_of)
+    seg_start = torch.where(
+        use_cut, torch.cummax(torch.where(starts > 0, pos, 0), 0).values,
+        run_of * C)
     slot = (cluster_of * C + (pos - seg_start)).long()
 
     order = bvh.order
@@ -195,21 +204,21 @@ def build_clusters_treelet(soup: TriangleSoup,
 
     S = _super_slots(n_cap)
     n_s_cap = 2 * (-(-n_cap // S))
-    use_super = False
-    if use_cut:
-        starts2, super_of = lbvh_mod.super_cut(bvh, starts, S)
-        use_super = int(starts2.sum()) <= n_s_cap
-    if use_super:
-        # First sorted position of each super -> the fine id at it.
-        first_pos = pos[starts2 == 1]
-        sp = torch.full((n_s_cap,), T, dtype=torch.int32, device=dev)
-        sp[super_of[starts2 == 1].long()] = first_pos
-        super_first = torch.where(
-            sp < T, cluster_of[sp.clamp(0, T - 1).long()], n_cap)
-    else:
-        super_first = torch.clamp(
-            torch.arange(n_s_cap, dtype=torch.int32, device=dev) * S,
-            max=n_cap)
+    starts2, super_of = lbvh_mod.super_cut(
+        bvh, torch.where(use_cut, starts, (pos % C == 0).to(torch.int32)), S)
+    use_super = use_cut & (starts2.sum() <= n_s_cap)
+    # First sorted position of each super by a min scatter; positions
+    # that start no super, and supers past the budget, go to the extra
+    # slot n_s_cap, sliced off (the JAX package's dropped slot).
+    into = torch.where((starts2 == 1) & (super_of < n_s_cap), super_of,
+                       n_s_cap).long()
+    sp = torch.full((n_s_cap + 1,), T, dtype=torch.int32, device=dev)
+    sp = sp.scatter_reduce_(0, into, pos, reduce="amin")[:n_s_cap]
+    first_cut = torch.where(sp < T, cluster_of[sp.clamp(0, T - 1).long()],
+                            n_cap)
+    first_uniform = torch.clamp(
+        torch.arange(n_s_cap, dtype=torch.int32, device=dev) * S, max=n_cap)
+    super_first = torch.where(use_super, first_cut, first_uniform)
     return ClusterSet(p0=p0, e1=e1, e2=e2, n=n, lo=lo, hi=hi, perm=perm,
                       super_first=super_first.to(torch.int32), super_S=S)
 

@@ -11,10 +11,15 @@ by fixed-trip doubling and binary searches over the sorted (code, index)
 keys, then boxes are refit bottom-up by fixed-depth passes. No step
 depends on another node's result, so each is a handful of whole-tensor
 ops. Every array equals the JAX package's: the argsort is stable, the
-leading-zero count is exact integer arithmetic, scatters filter their
-out-of-range indices as XLA's ``mode="drop"`` drops them, and box
-unions use XLA's min/max (``utils.minmax``). Index arithmetic runs in
-int64 and is returned as int32, as in the JAX package.
+leading-zero count is exact integer arithmetic, scatters send the
+entries XLA's ``mode="drop"`` drops to one extra row that is sliced off,
+and box unions use XLA's min/max (``utils.minmax``). Index arithmetic
+runs in int64 and is returned as int32, as in the JAX package.
+
+Every shape is fixed by the triangle count and no step reads the device
+(no ``nonzero``, no boolean-mask index, no host copy), so the build and
+both cuts can be captured in a CUDA graph, as the JAX package builds
+them under ``jax.jit``.
 """
 
 from __future__ import annotations
@@ -143,13 +148,14 @@ def build_lbvh(soup: TriangleSoup) -> Lbvh:
     left = torch.where(left_is_leaf, -(gamma + 1), gamma)
     right = torch.where(right_is_leaf, -(gamma + 2), gamma + 1)
 
-    # Parents by scatter; the JAX package sends the other kind of child to
-    # an out-of-range slot that its scatter drops, here filtered out.
-    parent = torch.full((n - 1,), -1, dtype=torch.int64, device=dev)
-    leaf_parent = torch.zeros(n, dtype=torch.int64, device=dev)
+    # Parents by scatter; as in the JAX package, the other kind of child
+    # goes to an out-of-range slot: one extra row, sliced off.
+    parent = torch.full((n,), -1, dtype=torch.int64, device=dev)
+    leaf_parent = torch.zeros(n + 1, dtype=torch.int64, device=dev)
     for child, is_leaf in ((gamma, left_is_leaf), (gamma + 1, right_is_leaf)):
-        parent[child[~is_leaf]] = i[~is_leaf]
-        leaf_parent[child[is_leaf]] = i[is_leaf]
+        parent[torch.where(is_leaf, n - 1, child)] = i
+        leaf_parent[torch.where(is_leaf, child, n)] = i
+    parent, leaf_parent = parent[:n - 1], leaf_parent[:n]
 
     # Leaf AABBs in sorted order.
     p0 = soup.p0.detach()
@@ -189,8 +195,7 @@ def _refit_boxes(left, right, leaf_lo, leaf_hi):
     ``chip_smoke.py`` phase 13 in one call in turns, NVIDIA H100 80GB HBM3
     at 700 W)."""
     n1 = left.shape[0]
-    inf = torch.tensor(float("inf"), dtype=leaf_lo.dtype,
-                       device=leaf_lo.device)
+    inf = leaf_lo.new_full((), float("inf"))   # a fill, not a host copy
     grad = leaf_lo.requires_grad or leaf_hi.requires_grad
     key = (lambda x: x) if grad else minmax.ordered
     unkey = (lambda x: x) if grad else minmax.from_ordered
@@ -235,10 +240,16 @@ def sah_cost(bvh: Lbvh, traversal_cost: float = 1.0) -> torch.Tensor:
 
 def _starts(T, cut, range_lo, leaf_cut, device):
     """(T,) int32 0/1 marks of the cut nodes' first positions and of the
-    singleton leaves, and each position's group id (prefix sum - 1)."""
-    starts = torch.zeros(T, dtype=torch.int32, device=device)
-    starts[range_lo[cut].long()] = 1
-    starts[leaf_cut.nonzero().squeeze(1)] = 1
+    singleton leaves, and each position's group id (prefix sum - 1). The
+    nodes and leaves not cut mark the extra slot T, sliced off (the JAX
+    package's dropped slot)."""
+    # index_fill_, not ``starts[idx] = 1``: that copies the 1 from host
+    # memory, which a CUDA graph capture refuses.
+    starts = torch.zeros(T + 1, dtype=torch.int32, device=device)
+    starts.index_fill_(0, torch.where(cut, range_lo.long(), T), 1)
+    starts.index_fill_(0, torch.where(leaf_cut, torch.arange(T, device=device),
+                                      T), 1)
+    starts = starts[:T]
     return starts, torch.cumsum(starts, 0, dtype=torch.int32) - 1
 
 

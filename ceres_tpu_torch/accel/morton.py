@@ -43,8 +43,9 @@ def quantize(points: torch.Tensor, lo: torch.Tensor,
     Degenerate extents (flat scenes) map to coordinate 0 on that axis."""
     extent = hi - lo
     # A tensor numerator: ``number / tensor`` is reciprocal-then-multiply
-    # in torch, not one division.
-    grid = extent.new_tensor(float(GRID_DIM))
+    # in torch, not one division. A fill, not a host copy, which would
+    # wait on the device.
+    grid = torch.full_like(extent, float(GRID_DIM))
     scale = torch.where(extent > 0, grid / extent, 0.0)
     g = (points - lo) * scale
     return g.to(torch.int32).clamp(0, GRID_DIM - 1)

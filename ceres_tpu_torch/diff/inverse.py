@@ -23,8 +23,10 @@ the JAX package's unsharded path: its column-form rays round in another
 order than ``render_sharded``'s row form, so a pixel's last bits differ
 between the two, and each fit keeps the path of its JAX counterpart.
 
-On the card the refitted step without a mesh is captured as a CUDA graph
-(``utils.graphs``), the counterpart of the JAX package's jitted step.
+On the card the step without a mesh, on the cluster walk, is captured
+as a CUDA graph (``utils.graphs``), the counterpart of the JAX package's
+jitted step: refitted, or building its cut inside the step as the JAX
+package's rebuilt step does.
 """
 
 from __future__ import annotations
@@ -92,41 +94,50 @@ def make_train_step(faces, camera: Camera, sun, config: RenderConfig,
     place of the LBVH build. Without it the megakernel backend builds
     the cut inside every step.
 
-    On the card the refitted step without a mesh is one CUDA graph (the
-    counterpart of the JAX package's jitted step): the first call runs
-    the step eagerly on a side stream and captures it, and every call
-    after replays refit, render, loss, ``backward`` and the optimizer
-    step at once. The optimizer must then be capturable
+    On the card the step without a mesh, with ``backend="megakernel"``
+    and without ``f64_exact``, is one CUDA graph (the counterpart of the
+    JAX package's jitted step): the first call runs the step eagerly on
+    a side stream and captures it, and every call after replays the
+    refit or the build of the cut, render, loss, ``backward`` and the
+    optimizer step at once. The optimizer must then be capturable
     (``torch.optim.Adam(..., capturable=True)``), or this raises. Its
     hyperparameters are those of the capture. A ``target``, and an
     ``opt_state`` whose tensors are not the optimizer's own (a restored
     checkpoint, a carried optax state; empty dicts start Adam afresh),
-    are copied into the graph's tensors before the replay. The step that
-    builds its cut (no ``clusters0``: the LBVH build syncs with the host)
-    and the step over a mesh run eagerly.
+    are copied into the graph's tensors before the replay. The step over
+    a mesh, any step off the card, the oracle backend and ``f64_exact``
+    run eagerly.
 
     With ``mesh`` (``parallel.sharded.Mesh``) the image is rendered by
     ``render_sharded`` over the mesh's ranks, the loss is taken on every
     rank over the whole image, and the gradients arrive summed over the
     ranks.
     """
-    if clusters0 is None or mesh is not None or not _on_card(
-            clusters0.lo.device):
+    device = optimizer.param_groups[0]["params"][0].device
+    if not _captured(config, mesh, device):
         return _make_eager_step(faces, camera, sun, config, optimizer,
                                 mesh=mesh, clusters0=clusters0)
     if not all(g.get("capturable", False) for g in optimizer.param_groups):
-        raise ValueError("make_train_step: the refitted step on the card is "
-                         "captured as a CUDA graph, which needs a capturable "
-                         "optimizer: build it with capturable=True, as in "
-                         "torch.optim.Adam(params.values(), lr=..., "
-                         "capturable=True)")
+        raise ValueError(f"make_train_step: the "
+                         f"{'rebuilt' if clusters0 is None else 'refitted'}"
+                         f" step on the card is captured as a CUDA graph, "
+                         f"which needs a capturable optimizer: build it with "
+                         f"capturable=True, as in torch.optim.Adam("
+                         f"params.values(), lr=..., capturable=True)")
     return _captured_step(_loss_fn(faces, camera, sun, config, None,
                                    clusters0), optimizer)
 
 
 def _on_card(device) -> bool:
-    """Whether a step on ``device`` is captured (the card's)."""
+    """Whether ``device`` is the card's."""
     return torch.device(device).type == "cuda"
+
+
+def _captured(config: RenderConfig, mesh, device) -> bool:
+    """Whether ``make_train_step`` captures the step: on the card, without
+    a mesh, on the cluster walk in float32."""
+    return (mesh is None and _on_card(device)
+            and config.backend == "megakernel" and not config.f64_exact)
 
 
 def _loss_fn(faces, camera, sun, config, mesh, clusters0):
@@ -163,9 +174,9 @@ def _check_leaves(optimizer, state: TrainState) -> None:
 def _make_eager_step(faces, camera: Camera, sun, config: RenderConfig,
                      optimizer: torch.optim.Optimizer, mesh=None,
                      clusters0=None):
-    """:func:`make_train_step`'s step run op by op: every step without
-    ``clusters0`` or over a mesh, any step off the card, and the
-    reference the captured step is held to."""
+    """:func:`make_train_step`'s step run op by op: the step over a
+    mesh, any step off the card, the oracle backend and ``f64_exact``,
+    and the reference the captured step is held to."""
     loss_fn = _loss_fn(faces, camera, sun, config, mesh, clusters0)
 
     def step(state: TrainState, target) -> tuple[TrainState, torch.Tensor]:
@@ -319,9 +330,10 @@ def fit_vertices(
 
     ``refit=True`` on the megakernel backend builds the treelet cut once
     from the initial vertices and refits it every step (``clusters0`` of
-    :func:`make_train_step`), on every rank of a mesh alike. Without a
-    mesh that step runs on the card as a CUDA graph, with a capturable
-    Adam.
+    :func:`make_train_step`), on every rank of a mesh alike; with
+    ``refit=False`` every step builds it anew. Without a mesh the step
+    runs on the card as a CUDA graph, refitted or rebuilt, with a
+    capturable Adam.
     """
     device = (mesh.device if mesh is not None
               else resolve_device(vertices, device, "fit_vertices"))
@@ -355,11 +367,8 @@ def fit_vertices(
     if refit and config.backend == "megakernel":
         clusters0 = build_clusters_treelet(
             triangle_soup(v0, faces, with_normals=False))
-    # The refitted step on the card is captured (make_train_step).
-    optimizer = torch.optim.Adam(
-        state.params.values(), lr=learning_rate,
-        capturable=(clusters0 is not None and mesh is None
-                    and _on_card(device)))
+    optimizer = torch.optim.Adam(state.params.values(), lr=learning_rate,
+                                 capturable=_captured(config, mesh, device))
     step = make_train_step(faces, camera, sun, config, optimizer, mesh=mesh,
                            clusters0=clusters0)
     history = []

@@ -37,6 +37,7 @@ import os
 import pickle
 import queue
 import tempfile
+import threading
 import time
 import traceback
 from typing import Optional
@@ -218,6 +219,13 @@ def _rank_main(fn, rank, world_size, init_method, device, backend, timeout,
         shutdown()
 
 
+# run_ranks calls under way, and whether the first of them found no
+# resource tracker running.
+_calls = 0
+_calls_lock = threading.Lock()
+_tracker_ours = False
+
+
 def run_ranks(fn, world_size: int, *args, device=None,
               backend: Optional[str] = None, timeout: float = 600.0):
     """Run ``fn(*args)`` on ``world_size`` ranks of one group on this host
@@ -232,14 +240,56 @@ def run_ranks(fn, world_size: int, *args, device=None,
     ``device="cpu"`` runs gloo on the CPU with one thread a rank. As soon as one rank fails the others are killed and this raises
     with that rank's traceback; so it does after ``timeout`` seconds, and
     a collective waits at most as long.
+
+    It returns with no process of its own left: the ranks are joined, and
+    so is multiprocessing's resource tracker when the calls under way
+    started it (the spawn start method starts one; left alone, it would
+    outlive this process by the moment it takes to see its pipe close).
     """
-    import multiprocessing
+    from multiprocessing import resource_tracker
 
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError("run_ranks: no CUDA card; pass device='cpu' "
                                "to run CPU ranks")
         device = "cuda"
+    global _calls, _tracker_ours
+    tracker = resource_tracker._resource_tracker
+    with _calls_lock:
+        if _calls == 0:
+            _tracker_ours = tracker._fd is None
+        _calls += 1
+    try:
+        return _spawn_ranks(fn, world_size, args, device, backend, timeout)
+    finally:
+        # The last of the calls that run at once (threads) stops it.
+        with _calls_lock:
+            _calls -= 1
+            if _calls == 0 and _tracker_ours:
+                _stop_tracker(tracker)
+
+
+def _stop_tracker(tracker) -> None:
+    """Close the resource tracker's pipe and reap it. Every semaphore it
+    tracked is released by then, so it exits with nothing to clean up."""
+    stop = getattr(tracker, "_stop", None)
+    if stop is not None:
+        stop()
+        return
+    with tracker._lock:
+        if tracker._fd is None:
+            return
+        os.close(tracker._fd)
+        tracker._fd = None
+        os.waitpid(tracker._pid, 0)
+        tracker._pid = None
+
+
+def _spawn_ranks(fn, world_size, args, device, backend, timeout):
+    """``run_ranks`` itself: spawn, gather, join, and release the queues'
+    semaphores before it returns or raises."""
+    import multiprocessing
+
     ctx = multiprocessing.get_context("spawn")
     # The arguments go through a queue, not the process objects: a start
     # then writes little to its child and cannot block on a child that
@@ -262,6 +312,11 @@ def run_ranks(fn, world_size: int, *args, device=None,
                 try:
                     rank, ok, payload = results.get(timeout=1.0)
                 except queue.Empty:
+                    # Handled below, outside this block: an error raised
+                    # here would carry the Empty's traceback, whose frame
+                    # keeps the queue and its semaphores alive.
+                    rank = None
+                if rank is None:
                     gone = [r for r, p in enumerate(procs)
                             if r not in out and p.exitcode is not None]
                     if gone:
@@ -286,6 +341,24 @@ def run_ranks(fn, world_size: int, *args, device=None,
                 if p.is_alive():
                     p.kill()
                     p.join()
-            inbox.close()
-            results.close()
+                p.close()
+            if len(out) < world_size:
+                # A rank that died before it took its arguments left them
+                # in the pipe, where the feeder thread waits to write the
+                # rest: take them back.
+                with contextlib.suppress(queue.Empty, OSError, EOFError):
+                    while True:
+                        inbox.get(timeout=1.0)
+            for q in (inbox, results):
+                q.close()
+            # The feeder thread ends once it has written what it holds;
+            # one still blocked is left behind rather than waited on.
+            feeder = inbox._thread
+            if feeder is not None:
+                feeder.join(timeout=30)
+                if feeder.is_alive():
+                    inbox.cancel_join_thread()
+            # A traceback keeps this frame: drop the queues and processes
+            # from it, so that the queues' semaphores are unlinked now.
+            del inbox, results, q, procs, feeder
     return [out[r] for r in range(world_size)]

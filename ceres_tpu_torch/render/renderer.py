@@ -466,17 +466,20 @@ def render(vertices, faces, camera: Camera, sun_position,
 
 
 class FrameGraph:
-    """A static scene's frame, captured once as a CUDA graph and replayed
-    (the counterpart of the JAX package's jitted ``render_pipeline``).
-    Made by :func:`render_graph`.
+    """A frame captured once as a CUDA graph and replayed (the
+    counterpart of the JAX package's jitted ``render_pipeline``). Made by
+    :func:`render_graph`.
 
-    ``frame(sun_position=None, camera=None)`` copies a new sun and/or the
-    camera's eye, dir, up and fov into the graph's buffers, replays the
-    frame and returns ``(image, stats)``: the graph's own output tensors,
-    which the next call overwrites (clone what must outlive it). Pass
-    the sun and the camera as tensors on the card: a host array costs a
-    copy that waits on the device. On the CPU (only when asked for, by
-    CPU tensors or ``device="cpu"``) each call runs ``render_pipeline``
+    ``frame(sun_position=None, camera=None, vertices=None)`` copies a new
+    sun, the camera's eye, dir, up and fov, and/or moved vertices (same
+    shape and dtype) into the graph's buffers, replays the frame and
+    returns ``(image, stats)``: the graph's own output tensors, which the
+    next call overwrites (clone what must outlive it). Moved vertices
+    need a graph that builds its cut: one captured with a prebuilt
+    ``clusters`` or ``table_cols`` refuses them, as that cut would be
+    stale. Pass inputs as tensors on the card: a host array costs a copy
+    that waits on the device. On the CPU (only when asked for, by CPU
+    tensors or ``device="cpu"``) each call runs ``render_pipeline``
     eagerly on the same buffers and returns fresh tensors.
     """
 
@@ -511,7 +514,22 @@ class FrameGraph:
                                    spheres=self._spheres,
                                    table_cols=self._table)
 
-    def __call__(self, sun_position=None, camera: Optional[Camera] = None):
+    def __call__(self, sun_position=None, camera: Optional[Camera] = None,
+                 vertices=None):
+        if vertices is not None:
+            if self._clusters is not None or self._table is not None:
+                raise ValueError("FrameGraph: moved vertices need a frame "
+                                 "that builds its cut; this one was "
+                                 "captured with a prebuilt clusters or "
+                                 "table_cols, which would be stale")
+            vertices = torch.as_tensor(vertices)
+            if (vertices.shape != self._vertices.shape
+                    or vertices.dtype != self._vertices.dtype):
+                raise ValueError(
+                    f"FrameGraph: vertices {tuple(vertices.shape)} "
+                    f"{vertices.dtype}, the graph's "
+                    f"{tuple(self._vertices.shape)} {self._vertices.dtype}")
+            self._vertices.copy_(vertices)
         if sun_position is not None:
             self._sun.copy_(torch.as_tensor(sun_position))
         if camera is not None:
@@ -524,20 +542,21 @@ class FrameGraph:
 
 
 def render_graph(vertices, faces, camera: Camera, sun_position,
-                 config: RenderConfig, clusters, table_cols, spheres=None,
-                 device=None) -> FrameGraph:
-    """Capture the frame of a static scene as a CUDA graph: a
-    :class:`FrameGraph`, called once a frame with the moved sun or
-    camera.
+                 config: RenderConfig, clusters=None, table_cols=None,
+                 spheres=None, device=None) -> FrameGraph:
+    """Capture a frame as a CUDA graph: a :class:`FrameGraph`, called
+    once a frame with the moved sun, camera or vertices.
 
-    ``clusters`` (the scene's prebuilt cut) and ``table_cols``
-    (``prepare_winner_table``) are required and must lie on the device:
-    building either syncs with the host, so a frame loop builds them
-    once. Inputs may be numpy arrays or tensors; the mesh, camera, sun
-    and ``spheres`` are copied into the graph's buffers in the vertices'
-    dtype. Runs on ``device`` as ``render()`` resolves it (the card
-    unless CPU tensors or ``device="cpu"`` are given). Only the cluster
-    walk is captured: ``backend="bruteforce"`` (the oracle) and
+    With ``clusters`` (the scene's prebuilt cut) and ``table_cols``
+    (``prepare_winner_table``), on the device, the graph replays a
+    static scene's frame. Without them it builds the LBVH treelet cut
+    and the winner table inside the graph, as the JAX package's jitted
+    ``render()`` does: the frame of a deforming scene, called with its
+    moved vertices. Inputs may be numpy arrays or tensors; the mesh,
+    camera, sun and ``spheres`` are copied into the graph's buffers in
+    the vertices' dtype. Runs on ``device`` as ``render()`` resolves it
+    (the card unless CPU tensors or ``device="cpu"`` are given). Only the
+    cluster walk is captured: ``backend="bruteforce"`` (the oracle) and
     ``f64_exact`` (the float64 walk, ``ops.walk_f64``) raise.
     """
     _check_config(config)
@@ -550,10 +569,6 @@ def render_graph(vertices, faces, camera: Camera, sun_position,
         raise ValueError("render_graph: f64_exact searches in float64 on "
                          "the plain walk (ops.walk_f64), which is not "
                          "captured; run it through render_pipeline")
-    if clusters is None or table_cols is None:
-        raise ValueError("render_graph needs the prebuilt cut and winner "
-                         "table (clusters, table_cols): building them "
-                         "syncs with the host")
     device = resolve_device(vertices, device, "render_graph")
     vertices = torch.as_tensor(vertices, device=device).detach().clone()
     faces = torch.as_tensor(faces, device=device).clone()
@@ -566,8 +581,9 @@ def render_graph(vertices, faces, camera: Camera, sun_position,
     spheres = _as_spheres(spheres, dtype, device)
     if spheres is not None:
         spheres = tuple(x.clone() for x in spheres)
-    for name, x in (("clusters", clusters.lo), ("table_cols", table_cols)):
-        if x.device != vertices.device:
+    for name, x in (("clusters", None if clusters is None else clusters.lo),
+                    ("table_cols", table_cols)):
+        if x is not None and x.device != vertices.device:
             raise ValueError(f"render_graph: {name} is on {x.device}, the "
                              f"frame on {vertices.device}")
     return FrameGraph(vertices, faces, camera, sun_position, config,

@@ -193,11 +193,26 @@ its own line:
      bunny's (vertices) from seeded vertex noise, captured against eager
      (each with a capturable Adam): losses of 3 steps and the parameters
      after them within phase 12's rule, a replayed step's launches, peak
-     memory, ms/step alternated.
+     memory, ms/step alternated;
+ 23. the LBVH treelet build inside CUDA graphs, each against its eager
+     run: ``lbvh.build_lbvh`` and ``build_clusters_treelet`` captured on
+     the bunny, the dragon and the 4x bunny and replayed on the vertices
+     moved by seeded noise, every array bit-equal to an eager build of
+     them, and the build's CUDA-event ms, graph and eager alternated;
+     the frame of a deforming scene (``render_graph`` without a prebuilt
+     cut or winner table, both built in the graph) at 1080p on the bunny
+     (K1 + K2) and the 4x bunny (K6 + K7a), each frame's vertices moved
+     by seeded noise (LARGE_NOISE) and every frame held to the eager
+     ``render_pipeline`` that builds its cut as phase 22 holds a frame;
+     the rebuilt train steps (``make_train_step`` without
+     ``clusters0``: config 4b at 1080p, with the forward under
+     ``torch.no_grad()`` captured and eager for bwd/fwd, and the 4x
+     bunny's), held and timed as phase 22 holds the refitted ones.
 
 ``python3 chip_smoke.py --phases 20`` runs phases 1, 2 and the phases
-listed (of 20, 21 and 22) and prints no JSON record: the cluster-size
-sweep of the 128-ray walk (``hier_sweep.py --k128s``) runs it.
+listed (of 20, 21, 22 and 23) and prints no JSON record: the
+cluster-size sweep of the 128-ray walk (``hier_sweep.py --k128s``) runs
+it.
 
 Every kernel-vs-plain check holds each tile's executed visits, not only
 their sum, and prints the kernel's bound: the larger of its fp32
@@ -216,7 +231,9 @@ and the time per visit of that tile they imply, kernel ms, bound and
 share.
 
 Each path runs with the launch counts set to 0 just before it and read
-just after (a train step counts as one run). Any failed check exits non-zero. The line before last is the
+just after (a train step counts as one run). Before the JSON records,
+no process that the script started may be left (``child_processes``).
+Any failed check exits non-zero. The line before last is the
 kernels' JSON record (every variant a path launches); the last line is
 the device record. Needs no network and no JAX.
 """
@@ -315,6 +332,14 @@ GRAPH_LARGE_FRAMES = 5
 GRAPH_STEPS = 3
 GRAPH_STEP_TIMES = 10
 MATRIX_SIZE = 256
+# Phase 23: builds timed, graph and eager alternated, a scene; deforming
+# frames held and timed (bunny; the 4x bunny); the rebuilt 4b step's
+# steps and forwards timed; the seed of the frames' vertex noise.
+BUILD_TIMES = 5
+DEFORM_FRAMES = 10
+DEFORM_LARGE_FRAMES = 3
+REBUILT_STEP_TIMES = 20
+DEFORM_SEED = 23
 # Modes of the walk and their wrappers in ops.walk.
 WALKS = {"closest": "walk_closest", "closest_window": "walk_closest",
          "any_dest": "walk_any_dest", "any": "walk_any"}
@@ -339,6 +364,24 @@ def fail(msg):
 def check(cond, msg):
     if not cond:
         fail(msg)
+
+
+def child_processes():
+    """Pid and command line of each process whose parent is this one."""
+    kids = {}
+    for pid in os.listdir("/proc"):
+        if not pid.isdigit():
+            continue
+        try:
+            with open(f"/proc/{pid}/stat") as fh:
+                ppid = int(fh.read().rsplit(")", 1)[1].split()[1])
+            if ppid != os.getpid():
+                continue
+            with open(f"/proc/{pid}/cmdline") as fh:
+                kids[int(pid)] = fh.read().replace("\0", " ").strip()[:120]
+        except (OSError, IndexError, ValueError):
+            continue
+    return kids
 
 
 def cuda_ms(fn, reps):
@@ -2129,15 +2172,29 @@ def phase21(dev, card):
     return launches
 
 
-def graph_frame(label, vt, ft, cam, cs, config, frames, card):
-    """A frame captured by ``render_graph`` against ``render_pipeline``
-    on the same scene, cut and winner table, the sun moved 1e-3: the
-    path's run (the counts set to 0 just before one replay and read just
-    after: one launch a variant), stats equal, images within one
-    level, each graph-launched walk's ids or flags and visits equal to
-    the eager frame's same launch and to a relaunch on the graph's own
-    inputs; then ``frames`` of each alternated (CUDA events) and back to
-    back (host clock). Returns the replay's launches."""
+def deformed(vt, i):
+    """The vertices of frame i of a deforming scene: ``vt`` moved by
+    seeded noise, LARGE_NOISE of the mesh's extent (as phase 14)."""
+    gen = torch.Generator(device=vt.device).manual_seed(DEFORM_SEED + i)
+    scale = float((vt - vt.mean(0)).abs().max())
+    return vt + LARGE_NOISE * scale * torch.randn(
+        vt.shape, generator=gen, device=vt.device, dtype=vt.dtype)
+
+
+def graph_frame(label, vt, ft, cam, cs, config, frames, card, phase=22):
+    """A frame captured by ``render_graph`` against ``render_pipeline``.
+    With ``cs``, a static scene's frame on that cut and its winner table,
+    the sun moved 1e-3 a frame; with ``cs`` None, a deforming scene's:
+    the graph builds the treelet cut and the winner table, and frame i
+    moves the vertices (``deformed``), as does the eager frame, which
+    builds its cut too. Held (one frame of a static scene, every frame
+    of a deforming one): the path's run (the counts set to 0 just before
+    the first held replay and read just after: one launch a variant),
+    stats equal, images within one level, each graph-launched walk's ids
+    or flags and visits equal to the eager frame's same launch, and on
+    the first also to a relaunch on the graph's own inputs; then
+    ``frames`` of each alternated (CUDA events) and back to back (host
+    clock). Returns the path's launches."""
     import ceres_tpu_torch as ct
     from ceres_tpu_torch.ops import walk
     from ceres_tpu_torch.render.renderer import (prepare_winner_table,
@@ -2145,52 +2202,71 @@ def graph_frame(label, vt, ft, cam, cs, config, frames, card):
     from ceres_tpu_torch.utils.graphs import tensors
 
     sun = torch.as_tensor(SUN, device=vt.device)
-    table = prepare_winner_table(ct.triangle_soup(vt, ft), cs, config)
+    if cs is None:
+        table, held = None, range(frames)
+        moved = [deformed(vt, i) for i in range(frames)]
+
+        def graph(i):
+            return fg(vertices=moved[i % frames])
+
+        def eager(i):
+            return ct.render_pipeline(moved[i % frames], ft, cam, sun, config)
+    else:
+        table, held = prepare_winner_table(ct.triangle_soup(vt, ft), cs,
+                                           config), (1,)
+
+        def graph(i):
+            return fg(sun_position=sun + i * 1e-3)
+
+        def eager(i):
+            return ct.render_pipeline(vt, ft, cam, sun + i * 1e-3, config,
+                                      clusters=cs, table_cols=table)
+
     with recorded_walks() as seen:
         fg = render_graph(vt, ft, cam, sun, config, cs, table)
     captured = seen[len(seen) - sum(fg.launches.values()):]
-    walk.reset_launches()
-    image, stats = fg(sun_position=sun + 1e-3)
-    torch.cuda.synchronize()
-    launches = {k: n for k, n in walk.launches.items() if n}
-    image, stats = image.clone(), {k: int(x) for k, x in stats.items()}
-
-    def eager(i):
-        return ct.render_pipeline(vt, ft, cam, sun + i * 1e-3, config,
-                                  clusters=cs, table_cols=table)
-
-    with recorded_walks() as eager_seen:
-        (img_e, st_e), eager_launches = launches_of(lambda: eager(1))
-    st_e = {k: int(x) for k, x in st_e.items()}
-    check(launches == fg.launches == eager_launches
-          and set(launches.values()) == {1},
-          f"phase 22 {label}: a replay launched {launches}, the capture "
-          f"{fg.launches}, the eager frame {eager_launches}")
-    check(stats == st_e, f"phase 22 {label}: stats {stats}, eager {st_e}")
-    one, more = levels_apart(image.cpu(), img_e.cpu())
-    check(more == 0 and bool(torch.isfinite(image).all())
-          and float(image.max()) > 0,
-          f"phase 22 {label}: {more} pixels more than one level from the "
-          f"eager frame's")
-    visits, inputs_equal = 0, True
-    for (name, args, opts, (out, vis)), (e_name, e_args, e_opts,
-                                         (e_out, e_vis)) in zip(captured,
-                                                                eager_seen):
-        same_in = name == e_name and all(
-            torch.equal(a, b) for a, b in zip(tensors((args, opts)),
-                                              tensors((e_args, e_opts))))
-        inputs_equal &= same_in
-        check(torch.equal(out, e_out) and torch.equal(vis, e_vis),
-              f"phase 22 {label}: the graph's {name} differs from the "
-              f"eager frame's (inputs equal: {same_in})")
-        r_out, r_vis = getattr(walk, name)(*args, **opts)
-        check(torch.equal(r_out, out) and torch.equal(r_vis, vis),
-              f"phase 22 {label}: the graph's {name} differs from a launch "
-              f"on its own inputs")
-        visits += int(vis.sum())
-
-    def graph(i):
-        return fg(sun_position=sun + i * 1e-3)
+    visits, inputs_equal, one = 0, True, 0
+    for k, i in enumerate(held):
+        walk.reset_launches()
+        image, stats = graph(i)
+        torch.cuda.synchronize()
+        launched = {n: c for n, c in walk.launches.items() if c}
+        image, stats = image.clone(), {n: int(x) for n, x in stats.items()}
+        with recorded_walks() as eager_seen:
+            (img_e, st_e), eager_launches = launches_of(lambda: eager(i))
+        st_e = {n: int(x) for n, x in st_e.items()}
+        check(launched == fg.launches == eager_launches
+              and set(launched.values()) == {1},
+              f"phase {phase} {label} frame {i}: a replay launched "
+              f"{launched}, the capture {fg.launches}, the eager frame "
+              f"{eager_launches}")
+        check(stats == st_e, f"phase {phase} {label} frame {i}: stats "
+              f"{stats}, eager {st_e}")
+        apart, more = levels_apart(image.cpu(), img_e.cpu())
+        check(more == 0 and bool(torch.isfinite(image).all())
+              and float(image.max()) > 0,
+              f"phase {phase} {label} frame {i}: {more} pixels more than "
+              f"one level from the eager frame's")
+        one = max(one, apart)
+        if k == 0:
+            launches = launched
+        for (name, args, opts, (out, vis)), (e_name, e_args, e_opts,
+                                             (e_out, e_vis)) in zip(
+                                                 captured, eager_seen):
+            same_in = name == e_name and all(
+                torch.equal(a, b) for a, b in zip(tensors((args, opts)),
+                                                  tensors((e_args, e_opts))))
+            inputs_equal &= same_in
+            check(torch.equal(out, e_out) and torch.equal(vis, e_vis),
+                  f"phase {phase} {label} frame {i}: the graph's {name} "
+                  f"differs from the eager frame's (inputs equal: "
+                  f"{same_in})")
+            if k == 0:
+                r_out, r_vis = getattr(walk, name)(*args, **opts)
+                check(torch.equal(r_out, out) and torch.equal(r_vis, vis),
+                      f"phase {phase} {label}: the graph's {name} differs "
+                      f"from a launch on its own inputs")
+                visits += int(vis.sum())
 
     e_t, g_t = alternated_times((eager, graph), frames)
     walls = {}
@@ -2202,16 +2278,20 @@ def graph_frame(label, vt, ft, cam, cs, config, frames, card):
         torch.cuda.synchronize()
         walls[name] = frames / (time.perf_counter() - t0)
     e_ms, g_ms = statistics.median(e_t), statistics.median(g_t)
-    print(f"phase 22 {label} {config.width}x{config.height}: launches a "
-          f"replay {launches}; rays {stats['rays']} hits {stats['hits']} "
-          f"shadow_hits {stats['shadow_hits']} executed visits {visits}, "
-          f"equal to eager (walk inputs equal: {inputs_equal}); pixels one "
-          f"level apart {one}; ms/frame eager median {e_ms:.3f} (min "
-          f"{min(e_t):.3f} max {max(e_t):.3f}), graph median {g_ms:.3f} "
-          f"(min {min(g_t):.3f} max {max(g_t):.3f}), CUDA events, {frames} "
-          f"of each alternated; rays/s eager {stats['rays'] / e_ms * 1e3:.4e}"
-          f", graph {stats['rays'] / g_ms * 1e3:.4e}; host clock, {frames} "
-          f"frames back to back: eager {walls['eager']:.2f} frames/s, graph "
+    what = ("the cut and winner table built in each frame, the vertices "
+            f"moved by seeded noise; {len(held)} frames held"
+            if cs is None else "the sun moved")
+    print(f"phase {phase} {label} {config.width}x{config.height} ({what}): "
+          f"launches a replay {launches}; rays {stats['rays']} hits "
+          f"{stats['hits']} shadow_hits {stats['shadow_hits']} executed "
+          f"visits {visits}, equal to eager (walk inputs equal: "
+          f"{inputs_equal}); pixels one level apart {one}; ms/frame eager "
+          f"median {e_ms:.3f} (min {min(e_t):.3f} max {max(e_t):.3f}), "
+          f"graph median {g_ms:.3f} (min {min(g_t):.3f} max "
+          f"{max(g_t):.3f}), CUDA events, {frames} of each alternated; "
+          f"rays/s eager {stats['rays'] / e_ms * 1e3:.4e}, graph "
+          f"{stats['rays'] / g_ms * 1e3:.4e}; host clock, {frames} frames "
+          f"back to back: eager {walls['eager']:.2f} frames/s, graph "
           f"{walls['graph']:.2f} frames/s [{card}]", flush=True)
     return launches
 
@@ -2266,14 +2346,15 @@ def graph_matrix(vt, ft, cam, cs, card):
 
 
 def refit_steps(vt, ft, cam, cs0, eye):
-    """A refitted train step at 1080p as ``make_train_step`` captures it
-    on the card and as ``inverse._make_eager_step`` runs it, each with
-    its own capturable Adam (lr 1e-5) over the same start: the vertices
-    moved by seeded noise (LARGE_NOISE of the mesh's extent, as phase
-    14), and the eye with ``eye`` (config 4b); ``image_loss`` against
-    the unmoved mesh's frame, ``cs0`` (the unmoved mesh's cut) refitted
-    in the step: {"eager": (one(i), state), "graph": ...}, ``state`` a
-    one-item list holding the step's current TrainState."""
+    """A train step at 1080p as ``make_train_step`` captures it on the
+    card and as ``inverse._make_eager_step`` runs it, each with its own
+    capturable Adam (lr 1e-5) over the same start: the vertices moved by
+    seeded noise (LARGE_NOISE of the mesh's extent, as phase 14), and
+    the eye with ``eye`` (config 4b); ``image_loss`` against the unmoved
+    mesh's frame, ``cs0`` (the unmoved mesh's cut) refitted in the step,
+    or with ``cs0`` None the cut built in the step: ({"eager": (one(i),
+    state), "graph": ...}, the target), ``state`` a one-item list
+    holding the step's current TrainState."""
     import ceres_tpu_torch as ct
     from ceres_tpu_torch.diff import TrainState, inverse
 
@@ -2299,7 +2380,7 @@ def refit_steps(vt, ft, cam, cs0, eye):
             return loss
 
         steps[name] = (one, state)
-    return steps
+    return steps, target
 
 
 def within(got, want):
@@ -2309,7 +2390,8 @@ def within(got, want):
     return bool(((got - want).abs() <= tol).all())
 
 
-def graph_step(label, vt, ft, cam, cs0, eye, times, want, card):
+def graph_step(label, vt, ft, cam, cs0, eye, times, want, card, phase=22,
+               ratio=False):
     """``refit_steps``' captured step against its eager one over
     GRAPH_STEPS steps, each taken by both from the eager step's state
     (parameters and Adam's; the captured step's first call is its
@@ -2318,12 +2400,17 @@ def graph_step(label, vt, ft, cam, cs0, eye, times, want, card):
     that one run's last bits flip moves the loss and the next steps'
     gradients. Then peak memory of a few steps of each, the path's run
     (one replay with the counts set to 0 just before it: one launch of
-    each of ``want``) and ``times`` steps of each alternated. Returns the
-    replay's launches."""
-    from ceres_tpu_torch.diff import TrainState
+    each of ``want``) and ``times`` steps of each alternated; with
+    ``ratio`` also the same loss's forward under ``torch.no_grad()``,
+    eager and captured, alternated with them, and bwd/fwd of each
+    (``ratio_line``). Returns the replay's launches."""
+    import ceres_tpu_torch as ct
+    from ceres_tpu_torch.diff import TrainState, inverse
     from ceres_tpu_torch.ops import walk
+    from ceres_tpu_torch.utils.graphs import capture
 
-    steps = refit_steps(vt, ft, cam, cs0, eye)
+    dev = vt.device
+    steps, target = refit_steps(vt, ft, cam, cs0, eye)
     (eager, e_state), (graph, g_state) = steps["eager"], steps["graph"]
     worst = {}
     for i in range(GRAPH_STEPS):
@@ -2345,13 +2432,13 @@ def graph_step(label, vt, ft, cam, cs0, eye, times, want, card):
                           for k, x in state[0].params.items()})
         (le, ge, pe), (lg, gg, pg) = got["eager"], got["graph"]
         check(np.isfinite(lg) and within(lg, le),
-              f"phase 22 {label} step {i + 1}: loss {lg}, eager {le}")
+              f"phase {phase} {label} step {i + 1}: loss {lg}, eager {le}")
         for k in pe:
             for what, a, b in (("gradient", gg[k], ge[k]),
                                ("parameters", pg[k], pe[k])):
                 diff = float((a - b).abs().max())
                 worst[k, what] = max(worst.get((k, what), 0.0), diff)
-                check(within(a, b), f"phase 22 {label} step {i + 1}: the "
+                check(within(a, b), f"phase {phase} {label} step {i + 1}: the "
                       f"{what} of {k} outside phase 12's rule (max diff "
                       f"{diff:.3e}, max |eager| "
                       f"{float(b.abs().max()):.3e})")
@@ -2369,11 +2456,31 @@ def graph_step(label, vt, ft, cam, cs0, eye, times, want, card):
     torch.cuda.synchronize()
     launches = {k: n for k, n in walk.launches.items() if n}
     check(launches == {k: 1 for k in want},
-          f"phase 22 {label}: a replayed step launched {launches}")
-    e_t, g_t = alternated_times((eager, graph), times)
+          f"phase {phase} {label}: a replayed step launched {launches}")
+    fns = [eager, graph]
+    if ratio:
+        config = ct.RenderConfig(width=W, height=H, backend="megakernel")
+        loss = inverse._loss_fn(ft, cam, torch.as_tensor(SUN, device=dev),
+                                config, None, cs0)
+
+        def forward(state):
+            with torch.no_grad():
+                return loss(state[0].params, target)
+
+        fwd_graph = capture(lambda: forward(g_state), g_state[0].params)
+        fns += [lambda i: forward(e_state), lambda i: fwd_graph.replay()]
+    e_t, g_t, *fwd_t = alternated_times(fns, times)
     diffs = ", ".join(f"{what} of {k} {d:.3e}"
                       for (k, what), d in worst.items())
-    print(f"phase 22 {label} refitted train step {W}x{H}, Adam lr 1e-5 "
+    ratios = ""
+    if ratio:
+        ratios = (f"; forward (no_grad) median eager "
+                  f"{statistics.median(fwd_t[0]):.3f}, graph "
+                  f"{statistics.median(fwd_t[1]):.3f} ms; eager "
+                  f"{ratio_line(e_t, fwd_t[0])}; graph "
+                  f"{ratio_line(g_t, fwd_t[1])}")
+    cut = "refitted" if cs0 is not None else "rebuilt"
+    print(f"phase {phase} {label} {cut} train step {W}x{H}, Adam lr 1e-5 "
           f"over {'the vertices and the eye' if eye else 'the vertices'}: "
           f"{GRAPH_STEPS} steps each from the eager step's state, loss, "
           f"gradients and parameters within phase 12's rule (max diffs "
@@ -2382,7 +2489,7 @@ def graph_step(label, vt, ft, cam, cs0, eye, times, want, card):
           f"{statistics.median(e_t):.3f} (min {min(e_t):.3f} max "
           f"{max(e_t):.3f}), graph median {statistics.median(g_t):.3f} (min "
           f"{min(g_t):.3f} max {max(g_t):.3f}), CUDA events, {times} of "
-          f"each alternated; peak memory allocated/reserved over "
+          f"each alternated{ratios}; peak memory allocated/reserved over "
           f"{GRAPH_STEPS} steps eager {peaks['eager'][0]:.1f}/"
           f"{peaks['eager'][1]:.1f} MiB, graph {peaks['graph'][0]:.1f}/"
           f"{peaks['graph'][1]:.1f} MiB (the capture's pool reserved) "
@@ -2428,15 +2535,105 @@ def phase22(dev, card, large):
     return launches
 
 
+def graph_build(label, vt, ft, times, card):
+    """The LBVH and the treelet cut (``lbvh.build_lbvh``,
+    ``build_clusters_treelet``) each captured as a CUDA graph on the
+    mesh and replayed on its vertices moved by seeded noise
+    (``deformed``): every array bit-equal to an eager build of the moved
+    vertices; then ``times`` treelet builds of each, graph and eager,
+    alternated (CUDA events)."""
+    import ceres_tpu_torch as ct
+    from ceres_tpu_torch.accel import lbvh
+    from ceres_tpu_torch.accel.clusters import build_clusters_treelet
+    from ceres_tpu_torch.utils.graphs import capture, tensors
+
+    buf = vt.clone()
+    builds = {"build_lbvh": lbvh.build_lbvh,
+              "build_clusters_treelet": build_clusters_treelet}
+    graphs = {name: capture(lambda fn=fn: fn(ct.triangle_soup(
+        buf, ft, with_normals=False)), (buf,)) for name, fn in builds.items()}
+    moved = deformed(vt, 0)
+    buf.copy_(moved)
+    arrays = 0
+    for name, fn in builds.items():
+        got = graphs[name].replay()
+        want = fn(ct.triangle_soup(moved, ft, with_normals=False))
+        torch.cuda.synchronize()
+        pairs = list(zip(tensors(got), tensors(want)))
+        check(len(tensors(got)) == len(tensors(want)) and all(
+            a.dtype == b.dtype and torch.equal(a, b) for a, b in pairs),
+              f"phase 23 {label}: the captured {name} differs from the "
+              f"eager one")
+        arrays += len(pairs)
+    cs = got
+
+    def eager(i):
+        return build_clusters_treelet(ct.triangle_soup(buf, ft,
+                                                       with_normals=False))
+
+    e_t, g_t = alternated_times(
+        (eager, lambda i: graphs["build_clusters_treelet"].replay()), times)
+    print(f"phase 23 build {label} ({ft.shape[0]} triangles, "
+          f"{cs.num_clusters} blocks, S {cs.super_S}): build_lbvh and "
+          f"build_clusters_treelet replayed on moved vertices, {arrays} "
+          f"arrays bit-equal to the eager build's; treelet build ms eager "
+          f"median {statistics.median(e_t):.3f} (min {min(e_t):.3f} max "
+          f"{max(e_t):.3f}), graph median {statistics.median(g_t):.3f} (min "
+          f"{min(g_t):.3f} max {max(g_t):.3f}), CUDA events, {times} of "
+          f"each alternated [{card}]", flush=True)
+
+
+def phase23(dev, card, large):
+    """The LBVH treelet build inside CUDA graphs, each against its eager
+    run: the build alone, the frame of a deforming scene that builds its
+    cut (``render_graph`` without a prebuilt cut), and the rebuilt train
+    steps (``make_train_step`` without ``clusters0``). Returns the
+    paths' launches."""
+    import ceres_tpu_torch as ct
+
+    v, f = ct.load_obj(BUNNY)
+    vt, ft = torch.as_tensor(v, device=dev), torch.as_tensor(f, device=dev)
+    dv, df = ct.load_obj(os.path.join(ROOT, "data", "dragon.obj"))
+    for label, mesh in (("bunny", (vt, ft)),
+                        ("dragon", (torch.as_tensor(dv, device=dev),
+                                    torch.as_tensor(df, device=dev))),
+                        ("bunny x4", large[4][:2])):
+        graph_build(label, *mesh, BUILD_TIMES, card)
+        torch.cuda.empty_cache()
+    cam = camera(v, EYE, dev)
+    config = ct.RenderConfig(width=W, height=H, backend="megakernel")
+    launches = {}
+    for label, sc, frames, want in (
+            ("deforming bunny", (vt, ft, cam), DEFORM_FRAMES,
+             ("walk_closest", "walk_any_dest")),
+            ("deforming bunny x4", large[4][:3], DEFORM_LARGE_FRAMES,
+             LARGE[4])):
+        launched = graph_frame(label, *sc, None, config, frames, card,
+                               phase=23)
+        check(set(launched) == set(want),
+              f"phase 23 {label}: launched {launched}, not {want}")
+        launches = merge(launches, launched)
+        torch.cuda.empty_cache()
+    launches = merge(launches, graph_step(
+        "config 4b, bunny", vt, ft, cam, None, True, REBUILT_STEP_TIMES,
+        ("walk_closest", "walk_any_dest"), card, phase=23, ratio=True))
+    torch.cuda.empty_cache()
+    launches = merge(launches, graph_step(
+        "bunny x4", *large[4][:3], None, False, LARGE_STEPS, LARGE[4], card,
+        phase=23))
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", help="run phases 1, 2 and these only "
-                    "(comma-separated, of 20, 21 and 22), with no JSON "
+                    "(comma-separated, of 20, 21, 22 and 23), with no JSON "
                     "record")
     only = ap.parse_args(argv).phases
     only = [int(x) for x in only.split(",")] if only else None
-    check(only is None or set(only) <= {20, 21, 22},
-          f"--phases takes 20, 21 and 22, not {only}")
+    check(only is None or set(only) <= {20, 21, 22, 23},
+          f"--phases takes 20, 21, 22 and 23, not {only}")
     # Phase 1: device.
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: the port's smoke test "
@@ -2497,13 +2694,15 @@ def main(argv=None):
     check(min(fit.values()) > 0, "a walk does not fit the card")
     if only:
         large = (large_scenes(dev, bunny_meshes())
-                 if {20, 22} & set(only) else None)
+                 if {20, 22, 23} & set(only) else None)
         if 20 in only:
             phase20(dev, card, large)
         if 21 in only:
             phase21(dev, card)
         if 22 in only:
             phase22(dev, card, large)
+        if 23 in only:
+            phase23(dev, card, large)
         print(f"phases 1, 2, {', '.join(map(str, only))} done", flush=True)
         return
 
@@ -2740,9 +2939,15 @@ def main(argv=None):
     path_launches = merge(path_launches, phase21(dev, card))
     # Phase 22: the frame and the refitted step as CUDA graphs.
     path_launches = merge(path_launches, phase22(dev, card, large))
+    # Phase 23: the build inside the graphs: deforming frames, rebuilt steps.
+    path_launches = merge(path_launches, phase23(dev, card, large))
 
     missing = [k for k in REPLACES if not path_launches.get(k)]
     check(not missing, f"no path launched {missing}")
+    # Every process the phases started (compilers, ranks, the resource
+    # tracker that spawning ranks starts) has ended and been reaped.
+    left = child_processes()
+    check(not left, f"processes left running: {left}")
 
     # No PyTorch call computes a front-to-back walk with early exit:
     # library_ms is null for every variant.

@@ -5,6 +5,7 @@ NVIDIA card.
     python3 frame_profile.py --step [--frames 3]
     python3 frame_profile.py --regrouped [--scene bunny4] [--frames 3]
     python3 frame_profile.py --graph [--scene bunny] [--frames 3]
+    python3 frame_profile.py --graph --step [--rebuild] [--frames 3]
 
 Renders ``chip_smoke.py``'s frame of the scene (``bunny``: bunny.obj on
 the SweepSAH cut; ``bunny3``/``bunny4``: the 3x/4x subdivided bunny on
@@ -27,7 +28,11 @@ a segment, the list of tiles with later ones and those, and the replay;
 on the bunny, K2-128). ``--graph`` traces the scene's frame eagerly and
 then replayed as a CUDA graph (``render_graph``, ``chip_smoke.py`` phase
 22's), then config 4b's refitted train step eagerly and replayed
-(``make_train_step`` on the card; phase 22's ``refit_steps``).
+(``make_train_step`` on the card; phase 22's ``refit_steps``);
+``--graph --step`` traces only the steps, and with ``--rebuild`` the
+step that builds its cut (phase 23's), after the treelet build alone,
+eager and replayed (``build_clusters_treelet`` of the bunny in a CUDA
+graph), which gives the build's share of the replayed step.
 Prints the card's name
 and power limit, ms/frame (median of CUDA events over the frames), then
 from a ``torch.profiler`` trace of the same number of frames: device
@@ -181,7 +186,6 @@ def graphs(vt, ft, cam, cs, sun, args, card):
     replayed as a CUDA graph."""
     import chip_smoke as smoke
     import ceres_tpu_torch as ct
-    from ceres_tpu_torch.accel.clusters import build_clusters_treelet
     from ceres_tpu_torch.render.renderer import (prepare_winner_table,
                                                  render_graph)
 
@@ -196,15 +200,37 @@ def graphs(vt, ft, cam, cs, sun, args, card):
     profile(lambda i: fg(sun_position=sun + i * 1e-3), args.frames,
             f"{label} frame, CUDA graph replayed", card)
     del fg
+    graph_steps(vt.device, args, card)
+
+
+def graph_steps(dev, args, card):
+    """Trace config 4b's train step (refitted, or with ``--rebuild`` its
+    cut built in the step, after the build alone), eager and replayed as
+    a CUDA graph."""
+    import chip_smoke as smoke
+    import ceres_tpu_torch as ct
+    from ceres_tpu_torch.accel.clusters import build_clusters_treelet
+    from ceres_tpu_torch.utils.graphs import capture
+
     v, f = ct.load_obj(os.path.join(ROOT, "data", "bunny.obj"))
-    cam = smoke.camera(v, smoke.EYE, vt.device)
-    vt, ft = (torch.as_tensor(v, device=vt.device),
-              torch.as_tensor(f, device=vt.device))
-    cs0 = build_clusters_treelet(ct.triangle_soup(vt, ft, with_normals=False))
-    steps = smoke.refit_steps(vt, ft, cam, cs0, eye=True)
+    cam = smoke.camera(v, smoke.EYE, dev)
+    vt, ft = torch.as_tensor(v, device=dev), torch.as_tensor(f, device=dev)
+    soup = ct.triangle_soup(vt, ft, with_normals=False)
+    cs0 = None
+    if args.rebuild:
+        g = capture(lambda: build_clusters_treelet(soup), (vt,))
+        for name, fn in (("eager", lambda i: build_clusters_treelet(soup)),
+                         ("CUDA graph replayed", lambda i: g.replay())):
+            profile(fn, args.frames, f"bunny treelet build ({ft.shape[0]} "
+                    f"triangles), {name}", card, top=12)
+        del g
+    else:
+        cs0 = build_clusters_treelet(soup)
+    steps, _ = smoke.refit_steps(vt, ft, cam, cs0, eye=True)
+    cut = "rebuilt" if args.rebuild else "refitted"
     for name, (one, _) in steps.items():
         profile(one, args.frames, f"bunny {smoke.W}x{smoke.H} config 4b "
-                f"refitted train step, "
+                f"{cut} train step, "
                 f"{'eager' if name == 'eager' else 'CUDA graph replayed'}",
                 card, top=16)
 
@@ -217,8 +243,11 @@ def main() -> None:
     ap.add_argument("--step", action="store_true")
     ap.add_argument("--regrouped", action="store_true")
     ap.add_argument("--graph", action="store_true")
+    ap.add_argument("--rebuild", action="store_true")
     ap.add_argument("--frames", type=int, default=3)
     args = ap.parse_args()
+    if args.rebuild and not (args.graph and args.step):
+        ap.error("--rebuild traces the rebuilt step: with --graph --step")
     if not torch.cuda.is_available():
         sys.exit("frame_profile needs an NVIDIA card")
     sys.path.insert(0, ROOT)
@@ -233,6 +262,9 @@ def main() -> None:
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip().splitlines()[0]
     sun = torch.as_tensor(smoke.SUN, device=dev)
+    if args.graph and args.step:
+        graph_steps(dev, args, card)
+        return
     if args.step:
         v, f = ct.load_obj(os.path.join(ROOT, "data", "bunny.obj"))
         cam = smoke.camera(v, smoke.EYE, dev)

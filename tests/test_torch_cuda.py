@@ -57,14 +57,18 @@ card sums the backward's repeated indices in another order), a 5-step
 ``fit_vertices`` lowers the loss, and a checkpointed fit resumes to the
 uninterrupted one.
 
-The frame and the refitted train step as CUDA graphs
+The frame and the train step as CUDA graphs
 (``render.renderer.render_graph``, ``diff.make_train_step`` on the
 card): every frame config (smooth, flat, normal; default and
 reference-exact; shadows on and off) replayed against the eager frame
 (stats exact, images within one level), the eager frame and step under
 ``torch.cuda.set_sync_debug_mode("error")`` (no host sync on the path a
 graph captures), and the captured step against the eager one over 3
-steps.
+steps, refitted and rebuilt. The LBVH treelet build and its cuts, the
+morton runs and the refit under the same sync check; the build captured
+and replayed, bit-equal to the eager build; the frame of a deforming
+scene (``render_graph`` without a prebuilt cut, called with moved
+vertices) against the eager frame that builds its cut.
 """
 
 import dataclasses
@@ -961,15 +965,15 @@ def test_frame_and_step_make_no_host_sync():
     torch.cuda.synchronize()
 
 
-@pytest.mark.cuda
-def test_captured_step_equals_eager_on_card():
+def _held_steps(refit):
     # make_train_step's captured step (its first call eager, then
     # replays) against the eager step over 3 steps, each taken by both
     # from the eager step's state (the captured step is handed Adam's
     # state as a carried opt_state): loss, gradients and parameters
     # within rtol 1e-4, atol 1e-5 max|x| (the backward's atomics sum in
     # no fixed order). Chained runs are not compared: one silhouette
-    # pixel flipped by the last bits moves the next steps.
+    # pixel flipped by the last bits moves the next steps. Refitted: the
+    # SweepSAH cut refitted in each step; else each step builds its cut.
     from ceres_tpu_torch.diff import TrainState, inverse
 
     size = 128
@@ -985,7 +989,8 @@ def test_captured_step_equals_eager_on_card():
         params = {"vertices": start.clone().requires_grad_(),
                   "eye": cam.eye.clone().requires_grad_()}
         opt = torch.optim.Adam(params.values(), lr=1e-5, capturable=True)
-        runs[name] = [make(ft, cam, sun, config, opt, clusters0=cs),
+        runs[name] = [make(ft, cam, sun, config, opt,
+                           clusters0=cs if refit else None),
                       TrainState(params, {k: {} for k in params})]
     for _ in range(3):
         state = runs["eager"][1]
@@ -1015,6 +1020,108 @@ def test_captured_step_equals_eager_on_card():
                 torch.testing.assert_close(
                     got, want, rtol=1e-4,
                     atol=1e-5 * float(want.abs().max()))
+
+
+@pytest.mark.cuda
+def test_captured_step_equals_eager_on_card():
+    _held_steps(refit=True)
+
+
+@pytest.mark.cuda
+def test_captured_rebuilt_step_equals_eager_on_card():
+    _held_steps(refit=False)
+
+
+@pytest.mark.cuda
+def test_build_makes_no_host_sync():
+    # The LBVH build, both cuts, the treelet ClusterSet, the morton runs,
+    # the refit and a frame and a train step that build their cut wait
+    # on the device nowhere: what a CUDA graph of them needs.
+    from ceres_tpu_torch.accel import clusters, lbvh
+    from ceres_tpu_torch.diff import TrainState, inverse
+
+    size = 64
+    vt, ft, cam, _, sun = _graph_scene(size)
+    soup = ct.triangle_soup(vt, ft, with_normals=False)
+    config = ct.RenderConfig(width=size, height=size, backend="megakernel")
+    target = ct.render_pipeline(vt, ft, cam, sun, config)[0]
+    params = {"vertices": (vt + 1e-4).requires_grad_()}
+    opt = torch.optim.Adam(params.values(), lr=1e-5, capturable=True)
+    step = inverse._make_eager_step(ft, cam, sun, config, opt)
+    state, _ = step(TrainState(params, {"vertices": {}}), target)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        bvh = lbvh.build_lbvh(soup)
+        starts, _ = lbvh.cluster_cut(bvh, clusters.CLUSTER_SIZE)
+        lbvh.super_cut(bvh, starts, 8)
+        cs = clusters.build_clusters_treelet(soup)
+        clusters.build_clusters(soup)
+        clusters.refit_clusters(cs, soup)
+        lbvh.refit(bvh, soup)
+        ct.render_pipeline(vt + 1e-4, ft, cam, sun, config)
+        step(state, target)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_captured_build_equals_eager_on_card():
+    # The treelet build and the LBVH captured and replayed on moved
+    # vertices: every array bit-equal to an eager build of those.
+    from ceres_tpu_torch.accel import lbvh
+    from ceres_tpu_torch.utils import graphs
+
+    vt, ft, _, _, _ = _graph_scene(8)
+    buf = vt.clone()
+
+    def build():
+        soup = ct.triangle_soup(buf, ft, with_normals=False)
+        return lbvh.build_lbvh(soup), build_clusters_treelet(soup)
+
+    g = graphs.capture(build, (buf,))
+    noise = np.random.default_rng(9).standard_normal(tuple(vt.shape))
+    buf.copy_(vt + torch.as_tensor(1e-3 * noise, dtype=vt.dtype,
+                                   device=vt.device))
+    got = g.replay()
+    want = build()
+    torch.cuda.synchronize()
+    for a, b in zip(graphs.tensors(got), graphs.tensors(want)):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert got[1].super_S == want[1].super_S
+
+
+@pytest.mark.cuda
+def test_deforming_graph_frame_equals_eager_on_card():
+    # render_graph without a prebuilt cut or table, replayed with the
+    # vertices moved by seeded noise: stats exact, images within one
+    # level, one launch a walk a replay.
+    from ceres_tpu_torch.render.renderer import render_graph
+
+    size = 256
+    vt, ft, cam, cs, sun = _graph_scene(size)
+    config = ct.RenderConfig(width=size, height=size, backend="megakernel",
+                             traversal_stats=True)
+    fg = render_graph(vt, ft, cam, sun, config)
+    want = {"walk_closest": 1, "walk_any_dest": 1}
+    assert fg.launches == want
+    with pytest.raises(ValueError, match="stale"):
+        render_graph(vt, ft, cam, sun, config, clusters=cs)(vertices=vt)
+    scale = float((vt - vt.mean(0)).abs().max())
+    for i in range(3):
+        noise = np.random.default_rng(40 + i).standard_normal(tuple(vt.shape))
+        moved = vt + torch.as_tensor(2e-3 * scale * noise, dtype=vt.dtype,
+                                     device=vt.device)
+        walk.reset_launches()
+        img, st = fg(vertices=moved)
+        torch.cuda.synchronize()
+        assert {k: n for k, n in walk.launches.items() if n} == want
+        img_e, st_e = ct.render_pipeline(moved, ft, cam, sun, config)
+        assert {k: int(x) for k, x in st.items()} == {
+            k: int(x) for k, x in st_e.items()}
+        assert _levels_apart(img, img_e) <= 1
+        assert float(img.max()) > 0
 
 
 def test_kernel_source_constants_match_python():

@@ -488,6 +488,54 @@ def test_launcher_times_out():
     assert time.monotonic() - t0 < 120
 
 
+def _children():
+    """Pids of the processes whose parent is this one."""
+    kids = set()
+    for pid in os.listdir("/proc"):
+        if not pid.isdigit():
+            continue
+        try:
+            with open(f"/proc/{pid}/stat") as fh:
+                ppid = int(fh.read().rsplit(")", 1)[1].split()[1])
+        except (OSError, IndexError, ValueError):
+            continue
+        if ppid == os.getpid():
+            kids.add(int(pid))
+    return kids
+
+
+@pytest.mark.filterwarnings("error::pytest.PytestUnraisableExceptionWarning")
+@pytest.mark.parametrize("ends", ["returns", "a rank exits", "a rank fails",
+                                  "times out"])
+def test_launcher_leaves_no_process(ends):
+    # The ranks, and the resource tracker that spawning them starts, are
+    # reaped before the launcher returns or raises; the queues' semaphores
+    # are released first (a semaphore released after the tracker stopped
+    # fails to unlink, which the warning filter turns into an error).
+    import gc
+    from multiprocessing import resource_tracker
+
+    tracker = resource_tracker._resource_tracker
+    before, tracked = _children(), tracker._fd is not None
+    if ends == "returns":
+        out = distributed.run_ranks(os.getpid, 2, device="cpu", timeout=120)
+        assert len(set(out)) == 2
+    elif ends == "a rank exits":
+        with pytest.raises(RuntimeError, match="before it reported"):
+            distributed.run_ranks(os._exit, 2, 3, device="cpu", timeout=120)
+    elif ends == "a rank fails":
+        with pytest.raises(RuntimeError, match="rank 1 fails on purpose"):
+            distributed.run_ranks(selfcheck.fail_on, 2, 1, device="cpu",
+                                  timeout=120)
+    else:
+        with pytest.raises(TimeoutError):
+            distributed.run_ranks(time.sleep, 2, 300, device="cpu",
+                                  timeout=8)
+    gc.collect()
+    assert not _children() - before
+    assert (tracker._fd is not None) == tracked
+
+
 @pytest.mark.parametrize("launch", ["run_ranks", "dryrun_multichip"])
 def test_launchers_default_to_the_card(monkeypatch, launch):
     # Without device= the ranks go to the card: with none, the launchers

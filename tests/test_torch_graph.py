@@ -11,13 +11,24 @@
     the same cut: under 0.5% of the pixels off by more than 1e-4, rays
     and hits within 0.2% (``chip_smoke.py``'s rule against the JAX
     fixtures);
+  * a deforming scene's frame: ``render_graph`` without a prebuilt cut
+    or winner table builds both in the frame, and called with vertices
+    moved by seeded noise equals a fresh ``render_pipeline`` that
+    builds its cut, bit for bit, and the JAX package's jitted
+    ``render()`` on the same vertices by the rule above; a graph with a
+    prebuilt cut or table refuses moved vertices, as does one given
+    vertices of another shape;
   * the launch counts of ``utils.graphs``: a capture leaves the walk
     counts where the warm-up call put them, and each replay adds the
     captured launches (the CUDA calls stood in for by fakes here);
-  * what is refused: the oracle backend, ``f64_exact``, a frame without
-    its prebuilt cut or table, CPU tensors handed to a capture, and on
-    the card a refitted train step with a non-capturable optimizer (the
-    device check patched);
+  * what is refused: the oracle backend, ``f64_exact``, CPU tensors
+    handed to a capture, and on the card a refitted or rebuilt train
+    step with a non-capturable optimizer (the device check patched);
+  * which steps are captured on the card: refitted and rebuilt, not over
+    a mesh, on the oracle or with ``f64_exact``; the rebuilt step run through
+    the capture with the CUDA calls faked (its first call's loss and
+    gradients those of the eager step), and ``fit_vertices`` building a
+    capturable Adam with and without the refit;
   * how the captured step takes a carried optimizer state
     (``_load_state``).
 
@@ -147,13 +158,70 @@ def test_render_graph_refuses_uncaptured_paths(scene, kwargs, match):
                      config, cs, table, device="cpu")
 
 
-@pytest.mark.parametrize("missing", ["clusters", "table_cols"])
-def test_render_graph_needs_the_prebuilt_scene(scene, missing):
+NOISE = 1e-3   # of the bunny's extent: the deforming frames' vertices
+
+
+def _moved(verts, i):
+    """The bunny's vertices moved by seeded noise (frame i)."""
+    scale = np.abs(verts - verts.mean(0)).max()
+    noise = np.random.default_rng(30 + i).standard_normal(verts.shape)
+    return (verts + NOISE * scale * noise).astype(np.float32)
+
+
+@pytest.fixture(scope="module")
+def deforming_frames(scene):
+    """A FrameGraph that builds its cut and winner table, called with
+    moved vertices: (vertices, its (image, stats), a fresh
+    render_pipeline's without a cut) of each call."""
+    verts, faces, _, _, _, config = scene
+    cam = convert.camera(_cameras(verts)[0])
+    fg = render_graph(verts, faces, cam, SUN, config, device="cpu")
+    out = []
+    for i in range(3):
+        moved = _moved(verts, i)
+        got = fg(vertices=torch.as_tensor(moved))
+        fresh = ct.render_pipeline(torch.as_tensor(moved),
+                                   torch.as_tensor(faces), cam,
+                                   torch.as_tensor(SUN), config)
+        out.append((moved, got, fresh))
+    return out
+
+
+def test_deforming_frame_graph_equals_a_fresh_frame(deforming_frames):
+    for _, (img, st), (img_f, st_f) in deforming_frames:
+        assert torch.equal(img, img_f)
+        assert st.keys() == st_f.keys()
+        assert all(torch.equal(st[k], st_f[k]) for k in st)
+    images = [img for _, (img, _), _ in deforming_frames]
+    assert not torch.equal(images[0], images[1])
+
+
+def test_deforming_frame_graph_matches_the_jitted_jax_render(
+        scene, deforming_frames):
+    verts, faces, _, _, _, _ = scene
+    cam = _cameras(verts)[0]
+    for moved, (img, st), _ in deforming_frames:
+        jimg, jst = jrenderer.render(moved, faces, cam, SUN, **CONFIG)
+        off = (np.abs(img.numpy() - np.asarray(jimg)).max(-1) > 1e-4).mean()
+        assert off < 0.005
+        for k in ("rays", "hits"):
+            assert abs(int(st[k]) - int(jst[k])) <= 0.002 * int(jst[k]), k
+        assert int(st["primary_hits"]) > 0
+
+
+@pytest.mark.parametrize("prebuilt, shape", [
+    ("clusters", None), ("table_cols", None), (None, (10, 3))])
+def test_frame_graph_refuses_moved_vertices(scene, prebuilt, shape):
     verts, faces, _, cs, table, config = scene
-    kw = {"clusters": cs, "table_cols": table, missing: None}
-    with pytest.raises(ValueError, match="prebuilt"):
-        render_graph(verts, faces, convert.camera(_cameras(verts)[0]), SUN,
-                     config, device="cpu", **kw)
+    kw = {"clusters": cs, "table_cols": table}
+    fg = render_graph(verts, faces, convert.camera(_cameras(verts)[0]), SUN,
+                      config, device="cpu",
+                      **({prebuilt: kw[prebuilt]} if prebuilt else {}))
+    moved = torch.as_tensor(_moved(verts, 0) if shape is None
+                            else np.zeros(shape, np.float32))
+    with pytest.raises(ValueError, match=r"stale" if prebuilt
+                       else r"vertices \(10, 3\)"):
+        fg(vertices=moved)
 
 
 class _FakeGraph:
@@ -225,35 +293,111 @@ def quad():
     return vt, ft, cam, cs
 
 
-@pytest.mark.parametrize("capturable, mesh, refit, raises", [
-    (False, False, True, True),
-    (True, False, True, False),
-    (False, False, False, False),   # the rebuilt step stays eager
-    (False, True, True, False),     # so does the step over a mesh
-])
-def test_train_step_on_card_needs_a_capturable_optimizer(
-        quad, monkeypatch, capturable, mesh, refit, raises):
+def _make_step(quad, monkeypatch, capturable, mesh, refit, **config):
+    """make_train_step on the card (the device check patched): the step,
+    or "captured" where it goes to _captured_step."""
     vt, ft, cam, cs = quad
     monkeypatch.setattr(pinv, "_on_card", lambda device: True)
-    captured = []
-    monkeypatch.setattr(pinv, "_captured_step",
-                        lambda *a: captured.append(a) or "captured")
+    monkeypatch.setattr(pinv, "_captured_step", lambda *a: "captured")
     params = {"vertices": vt.clone().requires_grad_()}
     # capturable=True on CPU parameters is refused by Adam's step, not
     # its constructor: only the flag is read here.
     opt = torch.optim.Adam(params.values(), lr=1e-3, capturable=capturable)
-    config = ct.RenderConfig(width=8, height=8, backend="megakernel")
-    kw = dict(mesh=object() if mesh else None,
-              clusters0=cs if refit else None)
+    config = ct.RenderConfig(**{"width": 8, "height": 8,
+                                "backend": "megakernel", **config})
+    return pinv.make_train_step(ft, cam, torch.as_tensor(SUN), config, opt,
+                                mesh=object() if mesh else None,
+                                clusters0=cs if refit else None)
+
+
+@pytest.mark.parametrize("capturable, mesh, refit, raises", [
+    (False, False, True, True),
+    (True, False, True, False),
+    (False, False, False, True),    # the rebuilt step is captured too
+    (True, False, False, False),
+    (False, True, True, False),     # the step over a mesh is not
+])
+def test_train_step_on_card_needs_a_capturable_optimizer(
+        quad, monkeypatch, capturable, mesh, refit, raises):
     if raises:
-        with pytest.raises(ValueError, match="capturable=True"):
-            pinv.make_train_step(ft, cam, torch.as_tensor(SUN), config, opt,
-                                 **kw)
+        with pytest.raises(ValueError, match=(
+                f"{'refitted' if refit else 'rebuilt'} step.*"
+                f"capturable=True")):
+            _make_step(quad, monkeypatch, capturable, mesh, refit)
         return
-    step = pinv.make_train_step(ft, cam, torch.as_tensor(SUN), config, opt,
-                                **kw)
-    assert (step == "captured") == (refit and not mesh)
-    assert len(captured) == int(refit and not mesh)
+    step = _make_step(quad, monkeypatch, capturable, mesh, refit)
+    assert (step == "captured") == (not mesh)
+
+
+@pytest.mark.parametrize("config", [{"backend": "bruteforce"},
+                                    {"f64_exact": True}])
+@pytest.mark.parametrize("refit", [True, False])
+def test_oracle_and_f64_steps_stay_eager(quad, monkeypatch, refit, config):
+    step = _make_step(quad, monkeypatch, False, False, refit, **config)
+    assert step != "captured"
+
+
+def test_rebuilt_step_goes_through_the_capture(bunny, fake_cuda,
+                                               monkeypatch):
+    # The step without clusters0 as the card runs it, with the CUDA calls
+    # faked: make_train_step captures it (the fake capture runs the body
+    # once more), and its first call's loss and gradients are the eager
+    # step's, each building the cut from the same vertices; a second
+    # call replays.
+    import torch.optim.adam as adam
+
+    verts, faces = bunny
+    monkeypatch.setattr(pinv, "_on_card", lambda device: True)
+    monkeypatch.setattr(graphs, "_on_card", lambda x, what: None)
+    supported = adam._get_capturable_supported_devices
+    monkeypatch.setattr(adam, "_get_capturable_supported_devices",
+                        lambda *a, **k: [*supported(*a, **k), "cpu"])
+    captures = []
+    capture = graphs.capture
+    monkeypatch.setattr(graphs, "capture",
+                        lambda fn, inputs=(): captures.append(fn) or capture(
+                            fn, inputs))
+    config = ct.RenderConfig(width=16, height=16, backend="megakernel")
+    cam = convert.camera(_cameras(verts)[0])
+    ft, sun = torch.as_tensor(faces), torch.as_tensor(SUN)
+    target = torch.zeros((16, 16, 3))
+    runs = {}
+    for name, make in (("graph", pinv.make_train_step),
+                       ("eager", pinv._make_eager_step)):
+        params = {"vertices": torch.as_tensor(_moved(verts, 0))
+                  .requires_grad_()}
+        opt = torch.optim.Adam(params.values(), lr=1e-5, capturable=True)
+        step = make(ft, cam, sun, config, opt)
+        state, loss = step(pinv.TrainState(params, {"vertices": {}}), target)
+        runs[name] = (step, state, float(loss),
+                      params["vertices"].grad.clone())
+    assert len(captures) == 1
+    (g_step, g_state, g_loss, g_grad), (_, _, e_loss, e_grad) = (
+        runs["graph"], runs["eager"])
+    assert g_loss == e_loss > 0
+    assert torch.equal(g_grad, e_grad) and bool(g_grad.abs().sum() > 0)
+    g_step(g_state, target)
+    assert len(captures) == 1
+
+
+@pytest.mark.parametrize("refit", [True, False])
+def test_fit_vertices_builds_a_capturable_adam(quad, monkeypatch, refit):
+    vt, ft, cam, _ = quad
+    monkeypatch.setattr(pinv, "_on_card", lambda device: True)
+    built = []
+
+    def make_train_step(faces, camera, sun, config, optimizer, mesh=None,
+                        clusters0=None):
+        built.append((optimizer, clusters0))
+        return lambda state, target: (state, torch.zeros(()))
+
+    monkeypatch.setattr(pinv, "make_train_step", make_train_step)
+    config = ct.RenderConfig(width=8, height=8, backend="megakernel")
+    pinv.fit_vertices(vt, ft, cam, SUN, torch.zeros((8, 8, 3)),
+                      config=config, steps=1, refit=refit, device="cpu")
+    (opt, clusters0), = built
+    assert (clusters0 is not None) == refit
+    assert all(g["capturable"] for g in opt.param_groups)
 
 
 def test_captured_step_takes_a_carried_state():

@@ -11,9 +11,16 @@ cross product rounds differently from the port's, as in
 ``test_torch_accel.py``).
 
 Scenes: bunny (4,968 triangles, 78 treelet blocks), a seeded random
-soup, a soup of at most C triangles (the fixed-run fallback) and a
+soup, a soup of at most C triangles (the fixed-run fallback), a
 comb-shaped soup whose cut overflows its budget (the fixed-run fallback
-inside the treelet budget, with uniform supers).
+inside the treelet budget, with uniform supers) and one whose fine cut
+fits while its super cut overflows (the treelet cut with uniform
+supers).
+
+The builders have no data-dependent operation, what a CUDA graph
+capture needs: they run under ``FakeTensorMode``, where an operation
+whose output shape or a host value depends on the data (``nonzero``,
+a boolean-mask index, ``.item()``) raises.
 """
 
 import numpy as np
@@ -55,11 +62,29 @@ def _comb():
     return verts.reshape(-1, 3).astype(np.float32), faces.astype(np.int32)
 
 
+def _super_comb(C=8, groups=31):
+    """``groups`` runs of C triangles with one centroid each, the run k
+    at the grid cell of morton code 2^k - 1: each run splits off near
+    the root, so the cut at C has one cluster a run (31, within its
+    budget 62) and the super cut at S = 8 needs 24 supers, more than its
+    budget 16."""
+    cells = np.zeros((groups, 3))
+    for k in range(groups):
+        for j in range(k):
+            cells[k, j % 3] += 1 << (j // 3)
+    centers = np.repeat(cells + 0.25, C, axis=0)
+    corners = np.asarray([[0.1, 0, 0], [-0.05, 0.1, 0], [-0.05, -0.1, 0]])
+    verts = (centers[:, None] + corners).reshape(-1, 3).astype(np.float32)
+    return verts, np.arange(len(verts)).reshape(-1, 3).astype(np.int32)
+
+
 def _mesh(name, bunny):
     if name == "bunny":
         return bunny
     if name == "comb":
         return _comb()
+    if name == "super_comb":
+        return _super_comb()
     rng = np.random.default_rng({"random": 3, "small": 4}[name])
     T = {"random": 900, "small": 100}[name]
     verts = rng.standard_normal((T // 2, 3)).astype(np.float32)
@@ -155,7 +180,8 @@ def test_lbvh_and_cuts_match(name, bunny):
 
 
 @pytest.mark.parametrize("name, C", [("bunny", 128), ("random", 128),
-                                     ("small", 128), ("comb", 32)])
+                                     ("small", 128), ("comb", 32),
+                                     ("super_comb", 8)])
 def test_treelet_clusterset_matches(name, C, bunny):
     jsoup, psoup = _soups(*_mesh(name, bunny))
     ref = jax.jit(jcl.build_clusters_treelet, static_argnums=1)(jsoup, C)
@@ -178,6 +204,18 @@ def test_treelet_clusterset_matches(name, C, bunny):
         np.testing.assert_array_equal(got.perm.numpy()[:T],
                                       np.asarray(ref.perm)[:T])
         np.testing.assert_array_equal(got.super_first.numpy(), [0, 4])
+    if name == "super_comb":   # the fine cut fits, the super cut does not
+        bvh = plbvh.build_lbvh(psoup)
+        starts, _ = plbvh.cluster_cut(bvh, C)
+        starts2, _ = plbvh.super_cut(bvh, starts, got.super_S)
+        n_s_cap = got.super_first.shape[0]
+        assert int(starts.sum()) <= got.num_clusters
+        assert int(starts2.sum()) > n_s_cap
+        perm = got.perm.numpy().reshape(got.num_clusters, C)
+        assert (perm[:int(starts.sum())] >= 0).all()   # the treelet cut
+        np.testing.assert_array_equal(
+            got.super_first.numpy(),
+            np.minimum(np.arange(n_s_cap) * got.super_S, got.num_clusters))
 
 
 def test_super_slots_match():
@@ -194,3 +232,30 @@ def test_quality_cut_supers_match(bunny):
     assert got.super_S == ref.super_S == 8
     _same(got.super_first, ref.super_first, "super_first")
     _same(got.perm, ref.perm, "perm")
+
+
+@pytest.mark.parametrize("name", ["bunny", "small", "comb"])
+def test_builders_have_no_data_dependent_op(name, bunny):
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from ceres_tpu_torch.ops import megakernel as pmk
+
+    verts, faces = _mesh(name, bunny)
+    C = 32 if name == "comb" else 128
+    with FakeTensorMode() as mode:
+        vt, ft = (mode.from_tensor(torch.as_tensor(x)) for x in (verts, faces))
+        soup = pmesh.triangle_soup(vt, ft)
+        T = soup.num_triangles
+        bvh = plbvh.build_lbvh(soup)
+        starts, cluster_of = plbvh.cluster_cut(bvh, C)
+        starts2, _ = plbvh.super_cut(bvh, starts, 8)
+        cs = pcl.build_clusters_treelet(soup, C)
+        runs = pcl.build_clusters(soup, C)
+        refit = pcl.refit_clusters(cs, soup)
+        table = pmk.winner_table(soup, cs)
+    assert bvh.parent.shape == (T - 1,) and bvh.leaf_parent.shape == (T,)
+    assert starts.shape == cluster_of.shape == starts2.shape == (T,)
+    n_c = 1 if T <= C else 2 * (-(-T // C))
+    assert cs.num_clusters == refit.num_clusters == n_c
+    assert runs.num_clusters == -(-T // C)
+    assert table.shape == (n_c * C, 9)
