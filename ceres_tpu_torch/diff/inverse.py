@@ -44,6 +44,7 @@ from ceres_tpu_torch.models.mesh import triangle_soup
 from ceres_tpu_torch.parallel.sharded import render_sharded
 from ceres_tpu_torch.render.renderer import (RenderConfig, render_pipeline,
                                              resolve_device)
+from ceres_tpu_torch.utils import spans
 
 # Checkpoints kept in ``checkpoint_dir``, newest first (orbax's
 # ``max_to_keep=2`` in the JAX package).
@@ -112,6 +113,12 @@ def make_train_step(faces, camera: Camera, sun, config: RenderConfig,
     ``render_sharded`` over the mesh's ranks, the loss is taken on every
     rank over the whole image, and the gradients arrive summed over the
     ranks.
+
+    ``step.span_ms()`` gives the last step's span milliseconds by name
+    (``utils.spans``: ``step.refit``, ``step.forward``, ``step.loss``,
+    ``step.backward``, ``step.optim`` and the frame's spans inside them)
+    when spans were on at the capture (an eager step: at that step),
+    else None; ``step.record`` is its span record, or None.
     """
     device = optimizer.param_groups[0]["params"][0].device
     if not _captured(config, mesh, device):
@@ -148,18 +155,34 @@ def _loss_fn(faces, camera, sun, config, mesh, clusters0):
         cam = _camera_with(camera, params)
         clusters = None
         if clusters0 is not None:
-            soup = triangle_soup(params["vertices"].detach(), faces,
-                                 with_normals=False)
-            clusters = refit_clusters(clusters0, soup)
-        if mesh is not None:
-            image, _ = render_sharded(params["vertices"], faces, cam, sun,
-                                      config, mesh=mesh, clusters=clusters)
-        else:
-            image, _ = render_pipeline(params["vertices"], faces, cam, sun,
-                                       config, clusters=clusters)
-        return image_loss(image, target)
+            with spans.span("step.refit"):
+                soup = triangle_soup(params["vertices"].detach(), faces,
+                                     with_normals=False)
+                clusters = refit_clusters(clusters0, soup)
+        with spans.span("step.forward"):
+            if mesh is not None:
+                image, _ = render_sharded(params["vertices"], faces, cam,
+                                          sun, config, mesh=mesh,
+                                          clusters=clusters)
+            else:
+                image, _ = render_pipeline(params["vertices"], faces, cam,
+                                           sun, config, clusters=clusters)
+        with spans.span("step.loss"):
+            return image_loss(image, target)
 
     return loss_fn
+
+
+def _train(optimizer, loss_fn, params, target) -> torch.Tensor:
+    """One step's work: zero the gradients, the loss, its backward and
+    the optimizer's step; returns the loss."""
+    optimizer.zero_grad(set_to_none=True)
+    loss = loss_fn(params, target)
+    with spans.span("step.backward"):
+        loss.backward()
+    with spans.span("step.optim"):
+        optimizer.step()
+    return loss
 
 
 def _check_leaves(optimizer, state: TrainState) -> None:
@@ -178,21 +201,22 @@ def _make_eager_step(faces, camera: Camera, sun, config: RenderConfig,
     mesh, any step off the card, the oracle backend and ``f64_exact``,
     and the reference the captured step is held to."""
     loss_fn = _loss_fn(faces, camera, sun, config, mesh, clusters0)
+    device = optimizer.param_groups[0]["params"][0].device
 
     def step(state: TrainState, target) -> tuple[TrainState, torch.Tensor]:
         _check_leaves(optimizer, state)
         for name, p in state.params.items():
             optimizer.state[p] = state.opt_state[name]
-        optimizer.zero_grad(set_to_none=True)
-        loss = loss_fn(state.params, target)
-        loss.backward()
-        optimizer.step()
+        with spans.recording(device) as record:
+            loss = _train(optimizer, loss_fn, state.params, target)
+        if record is not None:
+            step.record = record
         return (TrainState(state.params,
                            {name: optimizer.state[p]
                             for name, p in state.params.items()}),
                 loss.detach())
 
-    return step
+    return _with_spans(step)
 
 
 def _captured_step(loss_fn, optimizer: torch.optim.Optimizer):
@@ -206,11 +230,7 @@ def _captured_step(loss_fn, optimizer: torch.optim.Optimizer):
         # The capture's backward fills new gradient tensors of its own;
         # the previous call's (the warm-up's) are copied into them.
         held["grads"] = [p.grad for p in params.values()]
-        optimizer.zero_grad(set_to_none=True)
-        loss = loss_fn(params, target)
-        loss.backward()
-        optimizer.step()
-        return loss.detach()
+        return _train(optimizer, loss_fn, params, target).detach()
 
     def step(state: TrainState, target) -> tuple[TrainState, torch.Tensor]:
         _check_leaves(optimizer, state)
@@ -224,23 +244,36 @@ def _captured_step(loss_fn, optimizer: torch.optim.Optimizer):
             held["graph"] = graphs.capture(
                 lambda: body(state.params, held["target"]),
                 (state.params, held["target"]))
+            step.record = held["graph"].record
             for p, g in zip(state.params.values(), held.pop("grads")):
                 if g is not None:
                     p.grad.copy_(g)
             loss = held["graph"].first
         else:
-            for name, p in state.params.items():
-                _load_state(optimizer.state[p], state.opt_state[name])
-            if tuple(target.shape) != tuple(held["target"].shape):
-                raise ValueError(f"target: the step was captured at "
-                                 f"{tuple(held['target'].shape)}, got "
-                                 f"{tuple(target.shape)}")
-            held["target"].copy_(target)
-            loss = held["graph"].replay().clone()
+            with spans.host("step.inputs"):
+                for name, p in state.params.items():
+                    _load_state(optimizer.state[p], state.opt_state[name])
+                if tuple(target.shape) != tuple(held["target"].shape):
+                    raise ValueError(f"target: the step was captured at "
+                                     f"{tuple(held['target'].shape)}, got "
+                                     f"{tuple(target.shape)}")
+                held["target"].copy_(target)
+            with spans.host("step.replay"):
+                loss = held["graph"].replay().clone()
         return (TrainState(state.params,
                            {name: optimizer.state[p]
                             for name, p in state.params.items()}), loss)
 
+    return _with_spans(step)
+
+
+def _with_spans(step):
+    """``step`` with ``record`` (its span record, None until a step sets
+    it) and ``span_ms()`` (that record's milliseconds by span name, or
+    None)."""
+    step.record = None
+    step.span_ms = lambda: (None if step.record is None
+                            else step.record.span_ms())
     return step
 
 

@@ -103,6 +103,10 @@ def load() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.ceres_walk_resident_clusters.argtypes = [_I] * 5
     lib.ceres_walk_resident_clusters.restype = _I
+    lib.ceres_span_stamp.argtypes = [_P, _I, _I, _P]
+    lib.ceres_span_stamp.restype = _I
+    lib.ceres_graph_nodes.argtypes = [_P, _P]
+    lib.ceres_graph_nodes.restype = _I
     lib.ceres_error_string.argtypes = [ctypes.c_int]
     lib.ceres_error_string.restype = ctypes.c_char_p
     return lib

@@ -212,6 +212,7 @@
 #include <climits>
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
+#include <vector>
 
 namespace cg = cooperative_groups;
 
@@ -1754,6 +1755,54 @@ extern "C" int ceres_walk_resident_clusters(int mode, int hier, int stream_w,
     case kAny: return resident_clusters<kAny, kR>(hier, stream_w, device);
   }
   return -(int)cudaErrorInvalidValue;
+}
+
+// Span stamps (utils/spans.py). One thread writes the card's global timer
+// (ns) into slots[k]; captured in a CUDA graph, it is one of the graph's
+// nodes and each replay writes its own time. It replaces no TPU kernel:
+// it times the phases of a replayed frame or step without a profiler.
+// extern "C" keeps its name whole in a profiler trace.
+extern "C" __global__ void ceres_span_stamp_kernel(long long* slots, int k) {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  slots[k] = static_cast<long long>(t);
+}
+
+// Launch the stamp on `stream`; returns a cudaError_t.
+extern "C" int ceres_span_stamp(long long* slots, int k, int device,
+                                void* stream) {
+  const cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  ceres_span_stamp_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
+      slots, k);
+  return (int)cudaGetLastError();
+}
+
+// The nodes of a captured CUDA graph by type: counts[0] kernels, [1]
+// copies, [2] fills, [3] any other; returns a cudaError_t.
+extern "C" int ceres_graph_nodes(void* graph, long long* counts) {
+  const cudaGraph_t g = static_cast<cudaGraph_t>(graph);
+  size_t n = 0;
+  cudaError_t err = cudaGraphGetNodes(g, nullptr, &n);
+  if (err != cudaSuccess) return (int)err;
+  std::vector<cudaGraphNode_t> nodes(n);
+  if (n > 0) {
+    err = cudaGraphGetNodes(g, nodes.data(), &n);
+    if (err != cudaSuccess) return (int)err;
+  }
+  for (int i = 0; i < 4; ++i) counts[i] = 0;
+  for (size_t i = 0; i < n; ++i) {
+    cudaGraphNodeType type;
+    err = cudaGraphNodeGetType(nodes[i], &type);
+    if (err != cudaSuccess) return (int)err;
+    switch (type) {
+      case cudaGraphNodeTypeKernel: ++counts[0]; break;
+      case cudaGraphNodeTypeMemcpy: ++counts[1]; break;
+      case cudaGraphNodeTypeMemset: ++counts[2]; break;
+      default: ++counts[3];
+    }
+  }
+  return (int)cudaSuccess;
 }
 
 extern "C" const char* ceres_error_string(int err) {

@@ -53,6 +53,7 @@ from ceres_tpu_torch.ops.intersect import Hit
 from ceres_tpu_torch.ops.prepass import (
     _BIG, COMMON_ROWS, GENERIC_ROWS, TILE, _ULP_PAD, _hier_setup, _pad_rays,
     _ray_tcap, _scene_root, _tile_candidate_keys, _use_stream)
+from ceres_tpu_torch.utils import spans
 
 # Rays per tile of the shadow wavefront regrouped by receiver (the JAX
 # package's name; its CERES_REGROUP_TILE override has no counterpart).
@@ -93,7 +94,8 @@ def _treelet(soup: TriangleSoup, clusters):
     structure)."""
     if clusters is not None:
         return clusters
-    return build_clusters_treelet(_detached(soup))
+    with spans.span("build"):
+        return build_clusters_treelet(_detached(soup))
 
 
 def _check_f64(soup: TriangleSoup, cs) -> None:
@@ -171,7 +173,8 @@ def _closest_inputs(cs, eye, dir_cols, tmin=None, tmax=None):
 def _closest_search(cs, eye, dir_cols, tmin=None, tmax=None):
     """Detached winner search: (packed slot ids (R,) int32, counters)."""
     R = dir_cols[0].shape[0]
-    args, opts = _closest_inputs(cs, eye, dir_cols, tmin, tmax)
+    with spans.span("closest.prep"):
+        args, opts = _closest_inputs(cs, eye, dir_cols, tmin, tmax)
     pidx, visits = walk.walk_closest(*args, **opts)
     steps = visits.sum()
     return pidx[:R], {"traversal_steps": steps, "mt_block_visits": steps}
@@ -254,23 +257,26 @@ def closest_hit_common_origin(soup: TriangleSoup, eye, dirs, clusters=None,
                                                    tmax)
     else:
         pidx, counts = _closest_search(cs, eye, dir_cols, tmin, tmax)
-    mask = pidx >= 0
-    table = (table_cols if table_cols is not None
-             else winner_table(soup, cs, payload))
-    idx = pidx.clamp(min=0).long()
-    rec = _gather_rows(table, idx).t().contiguous().unbind(0)
-    t, u, v = _winner_tuv(rec, eye, dir_cols)
-    hit = Hit(t=torch.where(mask, t, torch.inf),
-              u=torch.where(mask, u, 0.0),
-              v=torch.where(mask, v, 0.0),
-              prim_id=torch.where(mask, cs.perm[idx], 0),
-              mask=mask)
-    out_pay = tuple(rec[9:])
-    if normal_cols:
-        e1, e2 = rec[3:6], rec[6:9]
-        out_pay = (e1[1] * e2[2] - e1[2] * e2[1],
-                   e1[2] * e2[0] - e1[0] * e2[2],
-                   e1[0] * e2[1] - e1[1] * e2[0]) + out_pay
+    table = table_cols
+    if table is None:
+        with spans.span("build"):
+            table = winner_table(soup, cs, payload)
+    with spans.span("closest.gather"):
+        mask = pidx >= 0
+        idx = pidx.clamp(min=0).long()
+        rec = _gather_rows(table, idx).t().contiguous().unbind(0)
+        t, u, v = _winner_tuv(rec, eye, dir_cols)
+        hit = Hit(t=torch.where(mask, t, torch.inf),
+                  u=torch.where(mask, u, 0.0),
+                  v=torch.where(mask, v, 0.0),
+                  prim_id=torch.where(mask, cs.perm[idx], 0),
+                  mask=mask)
+        out_pay = tuple(rec[9:])
+        if normal_cols:
+            e1, e2 = rec[3:6], rec[6:9]
+            out_pay = (e1[1] * e2[2] - e1[2] * e2[1],
+                       e1[2] * e2[0] - e1[0] * e2[2],
+                       e1[0] * e2[1] - e1[1] * e2[0]) + out_pay
     out = (hit,) if payload is None and not normal_cols else (hit, out_pay)
     if with_counts:
         counts["mt_pairs"] = (counts["mt_block_visits"]
@@ -303,7 +309,8 @@ def any_hit(soup: TriangleSoup, origin_shift, origins, dirs, skip=None,
             cs, origin_shift, _cols(origins), _cols(dirs), skip)
         steps = counts["traversal_steps"]
     else:
-        args, opts = _any_inputs(cs, origin_shift, origins, dirs, skip)
+        with spans.span("shadow.prep"):
+            args, opts = _any_inputs(cs, origin_shift, origins, dirs, skip)
         occ, visits = walk.walk_any(*args, **opts)
         steps = visits.sum()
         result = (occ[:R] == 1) & ~skip
@@ -374,12 +381,13 @@ def any_hit_to_point(soup: TriangleSoup, dest, points, skip=None,
         steps = counts["traversal_steps"]
     else:
         perm = None
-        if regroup:
-            perm = _receiver_order(cs, points, skip)
-            points = tuple(c[perm] for c in _cols(points))
-            skip = skip[perm]
-            tile = _REGROUP_TILE
-        args, opts = _any_dest_inputs(cs, dest, points, skip, tile)
+        with spans.span("shadow.prep"):
+            if regroup:
+                perm = _receiver_order(cs, points, skip)
+                points = tuple(c[perm] for c in _cols(points))
+                skip = skip[perm]
+                tile = _REGROUP_TILE
+            args, opts = _any_dest_inputs(cs, dest, points, skip, tile)
         occ, visits = walk.walk_any_dest(*args, **opts)
         steps = visits.sum()
         result = (occ[:R] == 1) & ~skip

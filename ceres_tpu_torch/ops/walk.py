@@ -63,6 +63,7 @@ import torch
 from ceres_tpu_torch.accel.clusters import (_SUPER_MAX, CLUSTER_SIZE,
                                             GENERIC_PLANES, WEIGHT_PLANES)
 from ceres_tpu_torch.ops.prepass import _BIG, _ULP_PAD, TILE, _cid_bits
+from ceres_tpu_torch.utils import spans
 from ceres_tpu_torch.utils.minmax import fmax, fmin
 
 # The walk's early exit stays conservative only while this slack, in int
@@ -107,10 +108,13 @@ def _variant(mode: str, S: int, stream: bool, tile: int = TILE) -> str:
             + ("" if tile == TILE else f"_t{tile}"))
 
 
-# Kernel launches per variant since the last reset_launches(). Counted
-# where a wrapper launches its kernel and nowhere else.
-launches = {_variant(m, S, st, tile): 0 for m in RAY_ROWS for tile in TILES[m]
-            for S in (1, 2) for st in (False, True)}
+# Kernel launches per variant since the last reset_launches(), the
+# counter ``walk.launches`` of ``utils.spans``. Counted where a wrapper
+# launches its kernel and nowhere else.
+launches = spans.counter(
+    "walk.launches", [_variant(m, S, st, tile) for m in RAY_ROWS
+                      for tile in TILES[m] for S in (1, 2)
+                      for st in (False, True)])
 
 
 def reset_launches() -> None:
@@ -234,11 +238,12 @@ def walk_closest(counts, keys, rays, w, hull=None, bbox=None, first=None, *,
     [tmin, tmax]."""
     mode = "closest_window" if window else "closest"
     _check(mode, counts, keys, rays, w, None, hull, bbox, first, S)
-    if rays.device.type == "cpu":
-        return _walk_closest_plain(counts, keys, rays, w, hull, bbox, first,
-                                   S=S, window=window)
-    return _launch(mode, counts, keys, rays, w, None, hull, bbox, first, S,
-                   stream)
+    with spans.span("walk"):
+        if rays.device.type == "cpu":
+            return _walk_closest_plain(counts, keys, rays, w, hull, bbox,
+                                       first, S=S, window=window)
+        return _launch(mode, counts, keys, rays, w, None, hull, bbox, first,
+                       S, stream)
 
 
 def walk_any_dest(counts, keys, rays, w, occ0, hull=None, bbox=None,
@@ -246,11 +251,12 @@ def walk_any_dest(counts, keys, rays, w, occ0, hull=None, bbox=None,
     """Occlusion of each segment from the common origin (t = 0) to its
     receiving point (t = 1): (flags, visits)."""
     _check("any_dest", counts, keys, rays, w, occ0, hull, bbox, first, S)
-    if rays.device.type == "cpu":
-        return _walk_any_dest_plain(counts, keys, rays, w, occ0, hull, bbox,
-                                    first, S=S)
-    return _launch("any_dest", counts, keys, rays, w, occ0, hull, bbox, first,
-                   S, stream)
+    with spans.span("walk"):
+        if rays.device.type == "cpu":
+            return _walk_any_dest_plain(counts, keys, rays, w, occ0, hull,
+                                        bbox, first, S=S)
+        return _launch("any_dest", counts, keys, rays, w, occ0, hull, bbox,
+                       first, S, stream)
 
 
 def walk_any(counts, keys, rays, w, occ0, hull=None, bbox=None, first=None,
@@ -258,11 +264,12 @@ def walk_any(counts, keys, rays, w, occ0, hull=None, bbox=None, first=None,
     """Occlusion of rays with their own origins: any triangle at t >= 0,
     however far (flags, visits)."""
     _check("any", counts, keys, rays, w, occ0, hull, bbox, first, S)
-    if rays.device.type == "cpu":
-        return _walk_any_plain(counts, keys, rays, w, occ0, hull, bbox, first,
-                               S=S)
-    return _launch("any", counts, keys, rays, w, occ0, hull, bbox, first, S,
-                   stream)
+    with spans.span("walk"):
+        if rays.device.type == "cpu":
+            return _walk_any_plain(counts, keys, rays, w, occ0, hull, bbox,
+                                   first, S=S)
+        return _launch("any", counts, keys, rays, w, occ0, hull, bbox, first,
+                       S, stream)
 
 
 # ---------------------------------------------------------------------------

@@ -55,7 +55,7 @@ from ceres_tpu_torch.models.mesh import TriangleSoup, triangle_soup
 from ceres_tpu_torch.ops import intersect as mt
 from ceres_tpu_torch.ops import megakernel
 from ceres_tpu_torch.ops import sphere as sphere_ops
-from ceres_tpu_torch.utils import tiling
+from ceres_tpu_torch.utils import spans, tiling
 
 SELF_INTERSECT_OFFSET = -1e-5
 MODES = ("smooth", "flat", "normal")
@@ -199,34 +199,36 @@ def render_wavefront_cols(soup: TriangleSoup, camera: Camera, sun_position,
         with_counts=want_counts, normal_cols=True,
         exact_f64=config.f64_exact, table_cols=table_cols)
     (hit, pay), counts1 = (res[:2], res[2]) if want_counts else (res, None)
-    mask = hit.mask
-    if config.reference_compat:
-        point = _compat_points(hit, pay, n_pay)
-    else:
-        point = _hit_points(camera.eye, dir_cols, hit, pay[0:3])
-    n, u_eff, v_eff = pay[0:3], hit.u, hit.v
-    corner_cols = pay[3:12] if config.mode == "smooth" else None
-    if spheres is not None:
-        centers, radii = spheres
-        s_t, s_mask, _, s_nrm = sphere_ops.closest_hit_common_origin_cols(
-            camera.eye, dir_cols, centers, radii)
-        sph_win = s_mask & (s_t < hit.t)    # hit.t is inf at misses
-        mask = mask | s_mask
-        st_safe = torch.where(sph_win, s_t, 0.0)
-        # Offset along the outward normal: the triangles' -1e-5 * n runs
-        # along their left-handed normal, into the surface.
-        point = tuple(torch.where(
-            sph_win, camera.eye[a] + st_safe * dir_cols[a]
-            - SELF_INTERSECT_OFFSET * s_nrm[a], point[a]) for a in range(3))
-        n = tuple(torch.where(sph_win, s_nrm[a], n[a]) for a in range(3))
-        u_eff = torch.where(sph_win, 0.0, u_eff)
-        v_eff = torch.where(sph_win, 0.0, v_eff)
-        if corner_cols is not None:
-            corner_cols = [torch.where(sph_win, s_nrm[j % 3], corner_cols[j])
-                           for j in range(9)]
-    sl = tuple(sun_position[a] - point[a] for a in range(3))
-    sl_inv = torch.rsqrt(sl[0] * sl[0] + sl[1] * sl[1] + sl[2] * sl[2])
-    sun_line = tuple(c * sl_inv for c in sl)
+    with spans.span("shade"):
+        mask = hit.mask
+        if config.reference_compat:
+            point = _compat_points(hit, pay, n_pay)
+        else:
+            point = _hit_points(camera.eye, dir_cols, hit, pay[0:3])
+        n, u_eff, v_eff = pay[0:3], hit.u, hit.v
+        corner_cols = pay[3:12] if config.mode == "smooth" else None
+        if spheres is not None:
+            centers, radii = spheres
+            s_t, s_mask, _, s_nrm = sphere_ops.closest_hit_common_origin_cols(
+                camera.eye, dir_cols, centers, radii)
+            sph_win = s_mask & (s_t < hit.t)    # hit.t is inf at misses
+            mask = mask | s_mask
+            st_safe = torch.where(sph_win, s_t, 0.0)
+            # Offset along the outward normal: the triangles' -1e-5 * n
+            # runs along their left-handed normal, into the surface.
+            point = tuple(torch.where(
+                sph_win, camera.eye[a] + st_safe * dir_cols[a]
+                - SELF_INTERSECT_OFFSET * s_nrm[a], point[a])
+                for a in range(3))
+            n = tuple(torch.where(sph_win, s_nrm[a], n[a]) for a in range(3))
+            u_eff = torch.where(sph_win, 0.0, u_eff)
+            v_eff = torch.where(sph_win, 0.0, v_eff)
+            if corner_cols is not None:
+                corner_cols = [torch.where(sph_win, s_nrm[j % 3],
+                                           corner_cols[j]) for j in range(9)]
+        sl = tuple(sun_position[a] - point[a] for a in range(3))
+        sl_inv = torch.rsqrt(sl[0] * sl[0] + sl[1] * sl[1] + sl[2] * sl[2])
+        sun_line = tuple(c * sl_inv for c in sl)
 
     counts2 = None
     if config.shadows:
@@ -251,18 +253,19 @@ def render_wavefront_cols(soup: TriangleSoup, camera: Camera, sun_position,
     else:
         occluded = torch.zeros_like(mask)
 
-    if config.mode == "smooth":
-        shade = shading_mod.smooth_shading_cols(
-            sun_line, corner_cols, dir_cols, u_eff, v_eff,
-            reference_compat=config.reference_compat)
-    else:
-        shade = shading_mod.flat_shading_cols(n, guard=mask)
-        if config.mode == "normal":   # no lighting, no shadows
-            occluded = torch.zeros_like(occluded)
-    lit = mask & ~occluded
-    color = tuple(torch.where(lit, s, 0.0) for s in shade)
-    stats = _wavefront_stats(mask, occluded, dir_cols[0].shape[0], soup,
-                             config, counts1, counts2)
+    with spans.span("shade"):
+        if config.mode == "smooth":
+            shade = shading_mod.smooth_shading_cols(
+                sun_line, corner_cols, dir_cols, u_eff, v_eff,
+                reference_compat=config.reference_compat)
+        else:
+            shade = shading_mod.flat_shading_cols(n, guard=mask)
+            if config.mode == "normal":   # no lighting, no shadows
+                occluded = torch.zeros_like(occluded)
+        lit = mask & ~occluded
+        color = tuple(torch.where(lit, s, 0.0) for s in shade)
+        stats = _wavefront_stats(mask, occluded, dir_cols[0].shape[0], soup,
+                                 config, counts1, counts2)
     return color, stats
 
 
@@ -402,23 +405,28 @@ def render_pipeline(vertices: torch.Tensor, faces: torch.Tensor,
     if faces.shape[0] == 0:
         raise ValueError("scene has no triangles")
     _check_config(config)
-    soup = triangle_soup(vertices, faces,
-                         with_normals=config.mode == "smooth")
-    if config.backend == "bruteforce":
-        dirs = camera_rays(camera, config.width, config.height).reshape(-1, 3)
-        color, stats = render_wavefront(soup, camera, sun_position, dirs,
-                                        config, spheres=spheres)
-        return color.reshape(config.height, config.width, 3), stats
-    planes = camera_ray_columns(camera, config.width, config.height)
-    dir_cols = tuple(tiling.swizzle_plane(p) for p in planes)
-    color, stats = render_wavefront_cols(
-        soup, camera, sun_position, dir_cols, config, clusters=clusters,
-        spheres=spheres, table_cols=table_cols)
-    image = torch.stack([tiling.unswizzle_plane(c, config.height, config.width)
-                         for c in color], dim=-1)
-    # Padding rays are inert; drop them from the ray count.
-    stats["rays"] = stats["rays"] - (dir_cols[0].shape[0]
-                                     - config.height * config.width)
+    with spans.recording(vertices.device), spans.span("frame"):
+        soup = triangle_soup(vertices, faces,
+                             with_normals=config.mode == "smooth")
+        if config.backend == "bruteforce":
+            dirs = camera_rays(camera, config.width,
+                               config.height).reshape(-1, 3)
+            color, stats = render_wavefront(soup, camera, sun_position, dirs,
+                                            config, spheres=spheres)
+            return color.reshape(config.height, config.width, 3), stats
+        with spans.span("primary"):
+            planes = camera_ray_columns(camera, config.width, config.height)
+            dir_cols = tuple(tiling.swizzle_plane(p) for p in planes)
+        color, stats = render_wavefront_cols(
+            soup, camera, sun_position, dir_cols, config, clusters=clusters,
+            spheres=spheres, table_cols=table_cols)
+        with spans.span("shade"):
+            image = torch.stack([tiling.unswizzle_plane(c, config.height,
+                                                        config.width)
+                                 for c in color], dim=-1)
+            # Padding rays are inert; drop them from the ray count.
+            stats["rays"] = stats["rays"] - (dir_cols[0].shape[0]
+                                             - config.height * config.width)
     return image, stats
 
 
@@ -481,6 +489,11 @@ class FrameGraph:
     that waits on the device. On the CPU (only when asked for, by CPU
     tensors or ``device="cpu"``) each call runs ``render_pipeline``
     eagerly on the same buffers and returns fresh tensors.
+
+    ``span_ms()`` gives the last call's span milliseconds by name (see
+    ``utils.spans``) when spans were on at the capture (on the CPU: at
+    that call), else None; ``record`` is the span record behind it (the
+    capture's; on the CPU the last call's made with spans on), or None.
     """
 
     def __init__(self, vertices, faces, camera: Camera, sun_position,
@@ -494,17 +507,24 @@ class FrameGraph:
         self._table = table_cols
         self._spheres = spheres
         self._graph = None
+        self.record = None
         if vertices.device.type != "cpu":
             from ceres_tpu_torch.utils import graphs
 
             self._graph = graphs.capture(
                 self._frame, (vertices, faces, camera, sun_position,
                               clusters, table_cols, spheres))
+            self.record = self._graph.record
 
     @property
     def launches(self) -> dict:
         """Walk launches a replay makes, by variant (empty on the CPU)."""
         return dict(self._graph.launches) if self._graph else {}
+
+    def span_ms(self):
+        """The last call's span milliseconds by name, or None (spans were
+        off); on the card this waits for the device."""
+        return None if self.record is None else self.record.span_ms()
 
     def _frame(self):
         with torch.no_grad():
@@ -516,6 +536,19 @@ class FrameGraph:
 
     def __call__(self, sun_position=None, camera: Optional[Camera] = None,
                  vertices=None):
+        with spans.host("frame.inputs"):
+            self._inputs(sun_position, camera, vertices)
+        if self._graph is not None:
+            with spans.host("frame.replay"):
+                return self._graph.replay()
+        with spans.recording(self._vertices.device) as record:
+            out = self._frame()
+        if record is not None:
+            self.record = record
+        return out
+
+    def _inputs(self, sun_position, camera, vertices):
+        """Copy the call's inputs into the graph's buffers."""
         if vertices is not None:
             if self._clusters is not None or self._table is not None:
                 raise ValueError("FrameGraph: moved vertices need a frame "
@@ -536,9 +569,6 @@ class FrameGraph:
             for name in ("eye", "dir", "up", "fov"):
                 getattr(self._camera, name).copy_(
                     torch.as_tensor(getattr(camera, name)))
-        if self._graph is None:
-            return self._frame()
-        return self._graph.replay()
 
 
 def render_graph(vertices, faces, camera: Camera, sun_position,

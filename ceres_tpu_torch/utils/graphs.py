@@ -12,10 +12,19 @@ on the host runs during a replay, so ``fn`` must not wait on the device
 (no ``.item()``, no host copy, no shape that depends on data); a
 capture that hits such a call raises.
 
-The walk kernels count their launches in Python (``ops.walk.launches``),
-which a replay does not run: the capture records how far each count
-rose and every replay adds that, so the counts stay those of eager
-calls. The warm-up call's launches are real and count as such.
+The port's counters (``utils.spans.counters``: the walk kernels'
+launches, ``ops.walk.launches``, among them) count in Python, which a
+replay does not run: the capture records how far each counter rose and
+every replay adds that, so the counts stay those of eager calls. The
+warm-up call's counts are real and count as such.
+
+With spans on (``utils.spans.enable``) the capture owns a span record
+(``Graph.record``): the spans that ``fn`` opens stamp the card's clock
+as nodes of the graph, so every replay times its phases (the record's
+``span_ms()`` after a synchronise). The graph is then kept past its
+capture long enough to count its nodes by type, less the stamps, which
+each replay adds to the counter ``graph.nodes``. With spans off the
+capture is the plain one.
 
 Everything is on the card: a CPU tensor among the inputs or outputs
 raises, and a failed capture or replay raises; there is no eager
@@ -28,7 +37,7 @@ import dataclasses
 
 import torch
 
-from ceres_tpu_torch.ops import walk
+from ceres_tpu_torch.utils import spans
 
 
 def tensors(x):
@@ -55,20 +64,22 @@ def _on_card(x, what: str) -> None:
 class Graph:
     """A captured call: ``replay()`` reruns it and returns ``outputs``,
     the captured call's tensors, overwritten by each replay. ``first``
-    is what the warm-up call returned; ``launches`` the walk
-    launches a replay makes, by variant."""
+    is what the warm-up call returned; ``counts`` what a replay adds to
+    each counter, by key (``launches``: the walk launches, by variant);
+    ``record`` the span record (None: captured with spans off)."""
 
     def __init__(self, graph: torch.cuda.CUDAGraph, outputs, first,
-                 launches: dict):
+                 counts: dict, record=None):
         self._graph = graph
         self.outputs = outputs
         self.first = first
-        self.launches = launches
+        self.counts = counts
+        self.launches = counts.get("walk.launches", {})
+        self.record = record
 
     def replay(self):
         self._graph.replay()
-        for name, n in self.launches.items():
-            walk.launches[name] += n
+        spans.add(self.counts)
         return self.outputs
 
 
@@ -82,15 +93,19 @@ def capture(fn, inputs=()) -> Graph:
     with torch.cuda.stream(side):
         first = fn()
     torch.cuda.current_stream().wait_stream(side)
-    before = dict(walk.launches)
-    graph = torch.cuda.CUDAGraph()
+    before = spans.snapshot()
+    traced = spans.enabled()
+    graph = (torch.cuda.CUDAGraph(keep_graph=True) if traced
+             else torch.cuda.CUDAGraph())
     try:
-        with torch.cuda.graph(graph):
+        with spans.recording("cuda") as record, torch.cuda.graph(graph):
             outputs = fn()
     finally:
-        # The capture recorded its launches; it ran none.
-        launched = {k: walk.launches[k] - n for k, n in before.items()
-                    if walk.launches[k] != n}
-        walk.launches.update(before)
+        # The capture recorded its counts; it ran nothing.
+        counts = spans.rose_since(before)
     _on_card(outputs, "the outputs")
-    return Graph(graph, outputs, first, launched)
+    if traced:
+        counts["graph.nodes"] = spans.graph_nodes(graph.raw_cuda_graph(),
+                                                  record.stamps)
+        graph.instantiate()
+    return Graph(graph, outputs, first, counts, record)

@@ -6,6 +6,7 @@ NVIDIA card.
     python3 frame_profile.py --regrouped [--scene bunny4] [--frames 3]
     python3 frame_profile.py --graph [--scene bunny] [--frames 3]
     python3 frame_profile.py --graph --step [--rebuild] [--frames 3]
+    python3 frame_profile.py --spans [--scene bunny4] [--step] [--frames 3]
 
 Renders ``chip_smoke.py``'s frame of the scene (``bunny``: bunny.obj on
 the SweepSAH cut; ``bunny3``/``bunny4``: the 3x/4x subdivided bunny on
@@ -33,6 +34,15 @@ then replayed as a CUDA graph (``render_graph``, ``chip_smoke.py`` phase
 step that builds its cut (phase 23's), after the treelet build alone,
 eager and replayed (``build_clusters_treelet`` of the bunny in a CUDA
 graph), which gives the build's share of the replayed step.
+``--spans`` is the operator's view of the port's spans
+(``ceres_tpu_torch.utils.spans``): the scene's static frame (or with
+``--step`` config 4b's refitted train step) captured as a CUDA graph
+with spans on, replayed and traced; it prints the last replay's device
+ms by span from the stamps (total and self), the trace's idle gaps, each
+named by the innermost ``ceres.*`` host span over it, and the offset
+between each stamp's global-timer value and the start of its stamp
+kernel in the trace, which stays within 5 us over a replay when the
+stamps and the trace read one clock.
 Prints the card's name
 and power limit, ms/frame (median of CUDA events over the frames), then
 from a ``torch.profiler`` trace of the same number of frames: device
@@ -49,6 +59,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import dataclasses
 import os
 import statistics
 import subprocess
@@ -57,19 +68,15 @@ import sys
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, ROOT)
 
+from raybench.trace import record as trace_record  # noqa: E402
+from raybench.trace import union as _union  # noqa: E402
 
-def _union(intervals):
-    """Total length of the union of (start, end) intervals."""
-    total, end = 0.0, float("-inf")
-    for a, b in sorted(intervals):
-        if a > end:
-            total += b - a
-            end = b
-        elif b > end:
-            total += b - end
-            end = b
-    return total
+STAMP_KERNEL = "ceres_span_stamp_kernel"
+# Most a stamp's offset from its kernel's start in the trace may move over
+# a replay, in us, for the two to read one clock.
+ONE_CLOCK_US = 5.0
 
 
 def walk_input_times(vt, ft, cam, cs, sun):
@@ -235,6 +242,78 @@ def graph_steps(dev, args, card):
                 card, top=16)
 
 
+def span_view(run, n, label, card, spanned):
+    """Replay ``run(i)`` n times, trace n more (``raybench.trace``), and
+    print the last replay's spans from its stamps (``spanned.record``:
+    the span record of a frame graph or a train step, captured with
+    spans on), the trace's idle gaps
+    named by the innermost ``ceres.*`` host span, and each stamp's clock
+    offset from its kernel's start in the trace."""
+    for i in range(n):
+        run(i)
+    torch.cuda.synchronize()
+    tr = trace_record(run, n)
+    rec = spanned.record
+    print(f"{label}: device ms of the last replay by span, from its "
+          f"{rec.stamps} stamps [{card}]", flush=True)
+    for name, row in rec.span_ms().items():
+        print(f"  {name:16s} total {row['total']:10.4f}  self "
+              f"{row['self']:10.4f}", flush=True)
+    named = dataclasses.replace(
+        tr, host=[h for h in tr.host if h[0].startswith("ceres.")])
+    print(f"{label}: idle gaps of {n} traced replays (busy "
+          f"{tr.busy_s / tr.window_s:.1%} of {tr.window_s * 1e3:.3f} ms), "
+          f"by the innermost ceres.* host span", flush=True)
+    for name, s in named.idle_gaps():
+        print(f"  {s * 1e3:9.4f} ms  {name}", flush=True)
+    starts = sorted(a for name, a, _ in tr.device if STAMP_KERNEL in name)
+    times = rec.times_ns()
+    if len(starts) < len(times):
+        print(f"{label}: the trace shows {len(starts)} stamp kernels, "
+              f"fewer than a replay's {len(times)}", flush=True)
+        return
+    offsets = [t / 1e3 - a for t, a in zip(times, starts[-len(times):])]
+    spread = max(offsets) - min(offsets)
+    print(f"{label}: stamp clock - its kernel's start in the trace "
+          f"{min(offsets):.3f} .. {max(offsets):.3f} us over {len(offsets)} "
+          f"stamps, spread {spread:.3f} us: "
+          f"{'one clock' if spread <= ONE_CLOCK_US else 'NOT one clock'} "
+          f"(limit {ONE_CLOCK_US} us)", flush=True)
+
+
+def span_step(dev, n, card):
+    """Config 4b's refitted train step at 1080p (the bunny, its treelet
+    cut refitted, a capturable Adam over the vertices and the eye, the
+    unmoved frame as target) captured with spans on, in ``span_view``."""
+    import chip_smoke as smoke
+    import ceres_tpu_torch as ct
+    from ceres_tpu_torch.accel.clusters import build_clusters_treelet
+    from ceres_tpu_torch.diff import TrainState, inverse
+
+    v, f = ct.load_obj(os.path.join(ROOT, "data", "bunny.obj"))
+    cam = smoke.camera(v, smoke.EYE, dev)
+    vt, ft = torch.as_tensor(v, device=dev), torch.as_tensor(f, device=dev)
+    sun = torch.as_tensor(smoke.SUN, device=dev)
+    config = ct.RenderConfig(width=smoke.W, height=smoke.H,
+                             backend="megakernel")
+    cs0 = build_clusters_treelet(ct.triangle_soup(vt, ft,
+                                                  with_normals=False))
+    target, _ = ct.render_pipeline(vt, ft, cam, sun, config, clusters=cs0)
+    params = {"vertices": (vt + 1e-4).requires_grad_(),
+              "eye": cam.eye.detach().clone().requires_grad_()}
+    opt = torch.optim.Adam(params.values(), lr=1e-5, capturable=True)
+    step = inverse.make_train_step(ft, cam, sun, config, opt, clusters0=cs0)
+    state = [TrainState(params, {k: {} for k in params})]
+
+    def one(i):
+        state[0], loss = step(state[0], target)
+        return loss
+
+    one(0)
+    span_view(one, n, f"bunny {smoke.W}x{smoke.H} config 4b refitted train "
+              f"step, replayed", card, step)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scene", default="bunny4",
@@ -244,13 +323,13 @@ def main() -> None:
     ap.add_argument("--regrouped", action="store_true")
     ap.add_argument("--graph", action="store_true")
     ap.add_argument("--rebuild", action="store_true")
+    ap.add_argument("--spans", action="store_true")
     ap.add_argument("--frames", type=int, default=3)
     args = ap.parse_args()
     if args.rebuild and not (args.graph and args.step):
         ap.error("--rebuild traces the rebuilt step: with --graph --step")
     if not torch.cuda.is_available():
         sys.exit("frame_profile needs an NVIDIA card")
-    sys.path.insert(0, ROOT)
     import chip_smoke as smoke
     import ceres_tpu_torch as ct
     from ceres_tpu_torch.accel.clusters import build_clusters_treelet
@@ -262,6 +341,13 @@ def main() -> None:
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip().splitlines()[0]
     sun = torch.as_tensor(smoke.SUN, device=dev)
+    if args.spans:
+        from ceres_tpu_torch.utils import spans
+
+        spans.enable(True)
+    if args.spans and args.step:
+        span_step(dev, args.frames, card)
+        return
     if args.graph and args.step:
         graph_steps(dev, args, card)
         return
@@ -306,6 +392,17 @@ def main() -> None:
                                                      with_normals=False))
     if args.regrouped:
         regrouped(vt, ft, cam, cs, args, card)
+        return
+    if args.spans:
+        from ceres_tpu_torch.render.renderer import render_graph
+
+        config = ct.RenderConfig(width=smoke.W, height=smoke.H,
+                                 backend="megakernel")
+        table = prepare_winner_table(ct.triangle_soup(vt, ft), cs, config)
+        fg = render_graph(vt, ft, cam, sun, config, cs, table)
+        span_view(lambda i: fg(sun_position=sun + i * 1e-3), args.frames,
+                  f"{args.scene} {smoke.W}x{smoke.H} frame, CUDA graph "
+                  f"replayed", card, fg)
         return
     if args.graph:
         graphs(vt, ft, cam, cs, sun, args, card)

@@ -68,7 +68,11 @@ steps, refitted and rebuilt. The LBVH treelet build and its cuts, the
 morton runs and the refit under the same sync check; the build captured
 and replayed, bit-equal to the eager build; the frame of a deforming
 scene (``render_graph`` without a prebuilt cut, called with moved
-vertices) against the eager frame that builds its cut.
+vertices) against the eager frame that builds its cut. The spans
+(``utils.spans``): a frame graph captured with them off holds the plain
+capture's nodes and with them on those and its stamp kernels alone; the
+1080p frame's ``walk`` spans within 10% of CUDA events around the same
+walks; the captured train step's five ``step.*`` spans.
 """
 
 import dataclasses
@@ -1122,6 +1126,138 @@ def test_deforming_graph_frame_equals_eager_on_card():
             k: int(x) for k, x in st_e.items()}
         assert _levels_apart(img, img_e) <= 1
         assert float(img.max()) > 0
+
+
+@pytest.fixture
+def spans_on():
+    from ceres_tpu_torch.utils import spans
+
+    spans.enable(True)
+    try:
+        yield spans
+    finally:
+        spans.enable(False)
+
+
+def _static_graph(width, height):
+    """The bunny's static frame (SweepSAH cut, winner table) captured by
+    ``render_graph``: (the FrameGraph, sun, frame inputs)."""
+    from ceres_tpu_torch.render.renderer import (prepare_winner_table,
+                                                 render_graph)
+
+    vt, ft, cam, cs, sun = _graph_scene(width)
+    config = ct.RenderConfig(width=width, height=height, backend="megakernel")
+    table = prepare_winner_table(ct.triangle_soup(vt, ft), cs, config)
+    fg = render_graph(vt, ft, cam, sun, config, cs, table)
+    return fg, sun, (vt, ft, cam, config, cs, table)
+
+
+@pytest.mark.cuda
+def test_spans_add_only_their_stamps_to_the_frame_graph():
+    # Captured with spans off, the frame's graph is the plain capture of
+    # the frame (torch.cuda.graph around the same call, counted here with
+    # the graph kept); with spans on it holds those nodes and its stamp
+    # kernels, which graph.nodes leaves out and each replay adds.
+    from ceres_tpu_torch.utils import spans
+
+    fg, sun, _ = _static_graph(256, 256)
+    assert fg._graph.record is None and "graph.nodes" not in fg._graph.counts
+    plain = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(plain):
+        fg._frame()
+    off = spans.graph_nodes(plain.raw_cuda_graph(), 0)
+    assert off["kernel"] > 100
+    spans.enable(True)
+    try:
+        on_fg, _, _ = _static_graph(256, 256)
+    finally:
+        spans.enable(False)
+    graph = on_fg._graph
+    assert graph.counts["graph.nodes"] == off
+    raw = spans.graph_nodes(graph._graph.raw_cuda_graph(), 0)
+    assert raw["kernel"] == off["kernel"] + graph.record.stamps
+    assert graph.record.stamps == 2 * len(graph.record.spans) >= 20
+    before = dict(spans.counters["graph.nodes"])
+    on_fg(sun_position=sun)
+    torch.cuda.synchronize()
+    assert {k: n - before[k] for k, n in
+            spans.counters["graph.nodes"].items()} == off
+
+
+@pytest.mark.cuda
+def test_walk_spans_time_the_walks(spans_on):
+    # The replayed 1080p frame's walk spans against CUDA events around
+    # the same walks (their inputs recorded from the eager frame, each
+    # launched 20 times between its two events, so that the host's
+    # launch hides behind the kernels), within 10%: medians of 5.
+    import statistics
+
+    fg, sun, (vt, ft, cam, config, cs, table) = _static_graph(1920, 1080)
+    seen = []
+    saved = {n: getattr(walk, n) for n in ("walk_closest", "walk_any_dest")}
+
+    def recorder(fn):
+        def call(*args, **opts):
+            seen.append((fn, args, opts))
+            return fn(*args, **opts)
+        return call
+
+    try:
+        for name, fn in saved.items():
+            setattr(walk, name, recorder(fn))
+        ct.render_pipeline(vt, ft, cam, sun, config, clusters=cs,
+                           table_cols=table)
+    finally:
+        for name, fn in saved.items():
+            setattr(walk, name, fn)
+    assert len(seen) == 2
+    events = 0.0
+    for fn, args, opts in seen:
+        times = []
+        for _ in range(6):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(20):
+                fn(*args, **opts)
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end) / 20)
+        events += statistics.median(times[1:])
+    walks = []
+    for i in range(6):
+        fg(sun_position=sun)
+        torch.cuda.synchronize()
+        walks.append(fg.span_ms()["walk"]["total"])
+    span = statistics.median(walks[1:])
+    assert abs(span - events) <= 0.1 * events, (span, events)
+
+
+@pytest.mark.cuda
+def test_captured_step_spans(spans_on):
+    # The refitted step captured with spans on: its replays time the five
+    # step spans, the frame inside step.forward.
+    from ceres_tpu_torch.diff import TrainState, inverse
+
+    size = 128
+    vt, ft, cam, cs, sun = _graph_scene(size)
+    config = ct.RenderConfig(width=size, height=size, backend="megakernel")
+    target = ct.render_pipeline(vt, ft, cam, sun, config, clusters=cs)[0]
+    params = {"vertices": (vt + 1e-4).requires_grad_(),
+              "eye": cam.eye.clone().requires_grad_()}
+    opt = torch.optim.Adam(params.values(), lr=1e-5, capturable=True)
+    step = inverse.make_train_step(ft, cam, sun, config, opt, clusters0=cs)
+    state = TrainState(params, {k: {} for k in params})
+    assert step.span_ms() is None
+    for _ in range(3):
+        state, loss = step(state, target)
+    torch.cuda.synchronize()
+    ms = step.span_ms()
+    for name in ("step.refit", "step.forward", "step.loss", "step.backward",
+                 "step.optim", "frame", "walk"):
+        assert ms[name]["total"] > 0, name
+    assert ms["step.forward"]["total"] >= ms["frame"]["total"]
+    assert float(loss) > 0
 
 
 def test_kernel_source_constants_match_python():

@@ -18,9 +18,10 @@
     ``render()`` on the same vertices by the rule above; a graph with a
     prebuilt cut or table refuses moved vertices, as does one given
     vertices of another shape;
-  * the launch counts of ``utils.graphs``: a capture leaves the walk
-    counts where the warm-up call put them, and each replay adds the
-    captured launches (the CUDA calls stood in for by fakes here);
+  * the counts of ``utils.graphs``: a capture leaves the walk launches,
+    and every other counter of ``utils.spans``' registry, where the
+    warm-up call put them, and each replay adds the captured rise (the
+    CUDA calls stood in for by fakes here);
   * what is refused: the oracle backend, ``f64_exact``, CPU tensors
     handed to a capture, and on the card a refitted or rebuilt train
     step with a non-capturable optimizer (the device check patched);
@@ -54,7 +55,7 @@ from ceres_tpu_torch.diff import inverse as pinv
 from ceres_tpu_torch.ops import walk
 from ceres_tpu_torch.render.renderer import (prepare_winner_table,
                                              render_graph)
-from ceres_tpu_torch.utils import convert, graphs
+from ceres_tpu_torch.utils import convert, graphs, spans
 
 torch.set_num_threads(1)
 
@@ -253,7 +254,9 @@ def fake_cuda(monkeypatch):
 
 
 def test_capture_counts_launches_per_replay(fake_cuda, monkeypatch):
-    monkeypatch.setattr(walk, "launches", dict.fromkeys(walk.launches, 0))
+    fresh = dict.fromkeys(walk.launches, 0)
+    monkeypatch.setattr(walk, "launches", fresh)
+    monkeypatch.setitem(spans.counters, "walk.launches", fresh)
 
     def frame():
         # A frame that launches K1 and K2 once each.
@@ -272,6 +275,35 @@ def test_capture_counts_launches_per_replay(fake_cuda, monkeypatch):
     assert g._graph.replays == 3
     assert {k: n for k, n in walk.launches.items() if n} == {
         "walk_closest": 3, "walk_any_dest": 3}
+
+
+def test_replay_adds_every_counters_capture_rise(fake_cuda, monkeypatch):
+    # Every counter of utils.spans' registry, not only the walk launches:
+    # the capture puts each back where the warm-up left it and records
+    # its rise, which each replay adds.
+    fresh = dict.fromkeys(walk.launches, 0)
+    monkeypatch.setattr(walk, "launches", fresh)
+    monkeypatch.setitem(spans.counters, "walk.launches", fresh)
+    monkeypatch.setitem(spans.counters, "test.rows", {"in": 0, "out": 5})
+
+    def frame():
+        walk.launches["walk_closest"] += 1
+        spans.counters["test.rows"]["in"] += 7
+        return "out"
+
+    g = graphs.capture(frame)
+    assert g.counts == {"walk.launches": {"walk_closest": 1},
+                        "test.rows": {"in": 7}}
+    assert g.launches == {"walk_closest": 1}
+    assert spans.counters["test.rows"] == {"in": 7, "out": 5}
+    assert g.record is None
+    for _ in range(2):
+        g.replay()
+    assert spans.counters["test.rows"] == {"in": 21, "out": 5}
+    assert walk.launches["walk_closest"] == 3
+    walk.reset_launches()
+    assert not any(walk.launches.values())
+    assert spans.counters["walk.launches"] is walk.launches
 
 
 def test_capture_refuses_cpu_tensors(fake_cuda):
