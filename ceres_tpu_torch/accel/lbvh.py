@@ -1,4 +1,4 @@
-"""LBVH: Karras-style linear BVH from a sort and vectorised searches, in
+"""LBVH: Karras-style linear BVH from a sort and per-node searches, in
 torch on the soup's device (counterpart of ``ceres_tpu/accel/lbvh.py``:
 ``Lbvh``, ``_delta_fn``, ``build_lbvh``, ``_child_box``,
 ``_refit_boxes``, ``refit``, ``sah_cost``, ``cluster_cut``,
@@ -8,18 +8,29 @@ T leaves (one per triangle, in morton order) and T - 1 internal nodes.
 Internal node i covers the sorted range [range_lo[i], range_hi[i]] and
 splits it at gamma[i]; every node's range and split is found on its own
 by fixed-trip doubling and binary searches over the sorted (code, index)
-keys, then boxes are refit bottom-up by fixed-depth passes. No step
-depends on another node's result, so each is a handful of whole-tensor
-ops. Every array equals the JAX package's: the argsort is stable, the
-leading-zero count is exact integer arithmetic, scatters send the
-entries XLA's ``mode="drop"`` drops to one extra row that is sliced off,
-and box unions use XLA's min/max (``utils.minmax``). Index arithmetic
-runs in int64 and is returned as int32, as in the JAX package.
+keys, then boxes are fitted bottom-up. Every array equals the JAX
+package's: the argsort is stable, the leading-zero count is exact integer
+arithmetic, and box unions use XLA's min/max (``utils.minmax``). Index
+arithmetic runs in int64 and is returned as int32, as in the JAX package.
 
-Every shape is fixed by the triangle count and no step reads the device
-(no ``nonzero``, no boolean-mask index, no host copy), so the build and
-both cuts can be captured in a CUDA graph, as the JAX package builds
-them under ``jax.jit``.
+Two forms, chosen by what the call can observe:
+
+  * on the card, two kernels (``csrc/lbvh.cu``, built and bound by
+    ``ops._build``): the hierarchy, one thread an internal node, and the
+    boxes, one thread a leaf climbing to the root, where the second child
+    to arrive at a node takes the union. Each launch adds one to its key
+    of the counter ``lbvh.launches`` (``utils.spans``);
+  * elsewhere (the CPU, ``FakeTensorMode``), and for a ``refit`` whose
+    leaf boxes carry gradients, the plain version: no step depends on
+    another node's result, so each is a handful of whole-tensor ops, and
+    boxes are refit by fixed-depth passes. Scatters send the entries
+    XLA's ``mode="drop"`` drops to one extra row that is sliced off.
+
+Both forms give the same arrays bit for bit. Every shape is fixed by the
+triangle count and no step reads the device (no ``nonzero``, no
+boolean-mask index, no host copy), so the build and both cuts can be
+captured in a CUDA graph, as the JAX package builds them under
+``jax.jit``.
 """
 
 from __future__ import annotations
@@ -30,10 +41,20 @@ import torch
 
 from ceres_tpu_torch.accel import morton
 from ceres_tpu_torch.models.mesh import TriangleSoup
-from ceres_tpu_torch.utils import minmax
+from ceres_tpu_torch.utils import minmax, spans
 
 # Refit passes: morton trees over (code, index) keys are at most 62 deep.
 MAX_DEPTH = 64
+
+# Kernel launches by kernel since the last reset_launches(), the counter
+# ``lbvh.launches`` of ``utils.spans``. Counted where a launch succeeds
+# and nowhere else.
+launches = spans.counter("lbvh.launches", ("hierarchy", "boxes"))
+
+
+def reset_launches() -> None:
+    for name in launches:
+        launches[name] = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -96,20 +117,62 @@ def _corner_bounds(p0, p1, p2):
 
 
 def build_lbvh(soup: TriangleSoup) -> Lbvh:
-    """Build the LBVH of a triangle soup (T >= 2)."""
-    T = soup.num_triangles
-    if T < 2:
+    """Build the LBVH of a triangle soup (T >= 2): with the kernels on the
+    card, else with the plain version."""
+    if soup.num_triangles < 2:
         raise ValueError("LBVH needs at least 2 triangles")
-    dev = soup.p0.device
+    if soup.p0.device.type == "cuda":
+        return _build_lbvh_card(soup)
+    return _build_lbvh_plain(soup)
+
+
+def _sorted_keys(soup: TriangleSoup):
+    """The morton codes of the centroids in sorted order, int64, and the
+    stable sort's order (int64)."""
     centers = soup.centers().detach()
     codes = morton.morton_codes(centers, minmax.amin(centers, 0),
                                 minmax.amax(centers, 0))
     order = torch.argsort(codes, stable=True)
-    hi_keys = codes[order].to(torch.int64)   # sorted
-    lo_keys = torch.arange(T, device=dev)    # tiebreak: unique by position
+    return codes[order].to(torch.int64), order
 
-    n = T
-    delta = _delta_fn(hi_keys, lo_keys, n)
+
+def _corners(soup: TriangleSoup):
+    return soup.p0.detach(), soup.e1.detach(), soup.e2.detach()
+
+
+def _build_lbvh_plain(soup: TriangleSoup) -> Lbvh:
+    keys, order = _sorted_keys(soup)
+    left, right, rlo, rhi, parent, leaf_parent = _hierarchy_plain(keys)
+    node_lo, node_hi, leaf_lo, leaf_hi = _boxes_plain(
+        order, left, right, *_corners(soup))
+    i32 = torch.int32
+    return Lbvh(order=order.to(i32), left=left.to(i32), right=right.to(i32),
+                range_lo=rlo.to(i32), range_hi=rhi.to(i32),
+                parent=parent.to(i32), leaf_parent=leaf_parent.to(i32),
+                node_lo=node_lo, node_hi=node_hi,
+                leaf_lo=leaf_lo, leaf_hi=leaf_hi)
+
+
+def _build_lbvh_card(soup: TriangleSoup) -> Lbvh:
+    keys, order = _sorted_keys(soup)
+    order = order.to(torch.int32)
+    left, right, rlo, rhi, parent, leaf_parent = _hierarchy_card(keys)
+    node_lo, node_hi, leaf_lo, leaf_hi = _boxes_card(
+        order, left, right, parent, leaf_parent, *_corners(soup))
+    return Lbvh(order=order, left=left, right=right, range_lo=rlo,
+                range_hi=rhi, parent=parent, leaf_parent=leaf_parent,
+                node_lo=node_lo, node_hi=node_hi,
+                leaf_lo=leaf_lo, leaf_hi=leaf_hi)
+
+
+def _hierarchy_plain(keys: torch.Tensor):
+    """(left, right, range_lo, range_hi, parent, leaf_parent), int64, of
+    the (T,) sorted keys: every internal node's searches as whole-tensor
+    passes."""
+    n = keys.shape[0]
+    dev = keys.device
+    lo_keys = torch.arange(n, device=dev)    # tiebreak: unique by position
+    delta = _delta_fn(keys, lo_keys, n)
     i = torch.arange(n - 1, device=dev)
 
     # Direction: toward the longer common prefix.
@@ -155,21 +218,78 @@ def build_lbvh(soup: TriangleSoup) -> Lbvh:
     for child, is_leaf in ((gamma, left_is_leaf), (gamma + 1, right_is_leaf)):
         parent[torch.where(is_leaf, n - 1, child)] = i
         leaf_parent[torch.where(is_leaf, child, n)] = i
-    parent, leaf_parent = parent[:n - 1], leaf_parent[:n]
+    return left, right, rlo, rhi, parent[:n - 1], leaf_parent[:n]
 
-    # Leaf AABBs in sorted order.
-    p0 = soup.p0.detach()
-    p1 = p0 - soup.e1.detach()
-    p2 = p0 + soup.e2.detach()
-    leaf_lo, leaf_hi = _corner_bounds(p0[order], p1[order], p2[order])
+
+def _boxes_plain(order, left, right, p0, e1, e2):
+    """(node_lo, node_hi, leaf_lo, leaf_hi): the leaf AABBs in sorted
+    order from the corners p0, p0 - e1, p0 + e2, then the node boxes by
+    ``_refit_boxes``."""
+    order = order.long()
+    leaf_lo, leaf_hi = _corner_bounds(p0[order], (p0 - e1)[order],
+                                      (p0 + e2)[order])
     node_lo, node_hi = _refit_boxes(left, right, leaf_lo, leaf_hi)
+    return node_lo, node_hi, leaf_lo, leaf_hi
 
-    i32 = torch.int32
-    return Lbvh(order=order.to(i32), left=left.to(i32), right=right.to(i32),
-                range_lo=rlo.to(i32), range_hi=rhi.to(i32),
-                parent=parent.to(i32), leaf_parent=leaf_parent.to(i32),
-                node_lo=node_lo, node_hi=node_hi,
-                leaf_lo=leaf_lo, leaf_hi=leaf_hi)
+
+def _check(x, dtype, shape, what):
+    if x.dtype != dtype or tuple(x.shape) != shape or not x.is_contiguous():
+        raise ValueError(f"lbvh kernels: {what} must be a contiguous {shape} "
+                         f"{dtype}, not {tuple(x.shape)} {x.dtype}")
+
+
+def _launch(kernel: str, tensors, ints) -> None:
+    """Launch ``ceres_lbvh_<kernel>`` on the current stream of the
+    tensors' card; a failed launch raises."""
+    from ceres_tpu_torch.ops import _build
+
+    dev = tensors[0].device
+    for x in tensors:
+        if x.device != dev:
+            raise ValueError(f"lbvh kernels: tensors on {dev} and {x.device}")
+    lib = _build.load("lbvh")
+    fn = f"ceres_lbvh_{kernel}"
+    err = getattr(lib, fn)(*(x.data_ptr() for x in tensors), *ints,
+                           dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{fn} kernel launch failed: "
+                           f"{lib.ceres_lbvh_error_string(err).decode()} "
+                           f"({err})")
+    launches[kernel] += 1
+
+
+def _hierarchy_card(keys: torch.Tensor):
+    """``_hierarchy_plain`` as one kernel, one thread an internal node;
+    int32 out."""
+    n = keys.shape[0]
+    _check(keys, torch.int64, (n,), "keys")
+    out = [keys.new_empty((n - 1,), dtype=torch.int32) for _ in range(5)]
+    out.append(keys.new_empty((n,), dtype=torch.int32))
+    _launch("hierarchy", [keys, *out], [n])
+    return out
+
+
+def _boxes_card(order, left, right, parent, leaf_parent, p0, e1, e2):
+    """``_boxes_plain`` as one kernel, one thread a leaf climbing by
+    arrival counters (zeroed here: a fill, a memset in a graph)."""
+    n = order.shape[0]
+    for x, shape, what in ((order, (n,), "order"), (left, (n - 1,), "left"),
+                           (right, (n - 1,), "right"),
+                           (parent, (n - 1,), "parent"),
+                           (leaf_parent, (n,), "leaf_parent")):
+        _check(x, torch.int32, shape, what)
+    if p0.dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"lbvh kernels: corners of {p0.dtype}")
+    p0, e1, e2 = (x.contiguous() for x in (p0, e1, e2))
+    for x, what in ((p0, "p0"), (e1, "e1"), (e2, "e2")):
+        _check(x, p0.dtype, (n, 3), what)
+    leaf_lo, leaf_hi = (p0.new_empty((n, 3)) for _ in range(2))
+    node_lo, node_hi = (p0.new_empty((n - 1, 3)) for _ in range(2))
+    arrivals = torch.zeros(n - 1, dtype=torch.int32, device=p0.device)
+    _launch("boxes", [order, left, right, parent, leaf_parent, p0, e1, e2,
+                      arrivals, leaf_lo, leaf_hi, node_lo, node_hi],
+            [n, int(p0.dtype == torch.float64)])
+    return node_lo, node_hi, leaf_lo, leaf_hi
 
 
 def _child_box(c, node_lo, node_hi, leaf_lo, leaf_hi):
@@ -214,12 +334,17 @@ def _refit_boxes(left, right, leaf_lo, leaf_hi):
 def refit(bvh: Lbvh, soup: TriangleSoup) -> Lbvh:
     """Recompute every AABB of ``bvh`` for moved vertices, keeping the
     topology: leaf boxes from the soup's corners in sorted order, then
-    the node boxes bottom-up. Differentiable w.r.t. the soup."""
-    order = bvh.order.long()
-    p0 = soup.p0[order]
-    leaf_lo, leaf_hi = _corner_bounds(p0, (soup.p0 - soup.e1)[order],
-                                      (soup.p0 + soup.e2)[order])
-    node_lo, node_hi = _refit_boxes(bvh.left, bvh.right, leaf_lo, leaf_hi)
+    the node boxes bottom-up. Differentiable w.r.t. the soup: where the
+    leaf boxes would carry gradients the plain passes run (gradients split
+    at ties), else on the card the boxes kernel."""
+    corners = (soup.p0, soup.e1, soup.e2)
+    grad = torch.is_grad_enabled() and any(x.requires_grad for x in corners)
+    if soup.p0.device.type == "cuda" and not grad:
+        boxes = _boxes_card(bvh.order, bvh.left, bvh.right, bvh.parent,
+                            bvh.leaf_parent, *corners)
+    else:
+        boxes = _boxes_plain(bvh.order, bvh.left, bvh.right, *corners)
+    node_lo, node_hi, leaf_lo, leaf_hi = boxes
     return dataclasses.replace(bvh, node_lo=node_lo, node_hi=node_hi,
                                leaf_lo=leaf_lo, leaf_hi=leaf_hi)
 

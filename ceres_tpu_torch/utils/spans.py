@@ -2,9 +2,10 @@
 time goes, timed on the device inside the CUDA graph that runs it.
 
 Counters. ``counters`` maps a counter's name to its counts by key:
-``walk.launches`` (walk kernel launches by variant, ``ops.walk``) and
-``graph.nodes`` (the nodes a replayed CUDA graph runs, by type: kernel,
-memcpy, memset, other). A capture (``utils.graphs``) records how far each
+``walk.launches`` (walk kernel launches by variant, ``ops.walk``),
+``lbvh.launches`` (the LBVH build's kernel launches, ``hierarchy`` and
+``boxes``, ``accel.lbvh``) and ``graph.nodes`` (the nodes a replayed
+CUDA graph runs, by type: kernel, memcpy, memset, other). A capture (``utils.graphs``) records how far each
 counter rose and every replay adds that, so replayed calls count as eager
 ones do; a capture made with spans on also counts its graph's nodes,
 less its stamps, into ``graph.nodes`` at each replay.

@@ -12,8 +12,9 @@ treelet cut, same camera, sun and resolution. Phases, each printed on
 its own line:
 
   1. device: require CUDA; print the card and its power limit;
-  2. build: compile the walk kernels from ``ceres_tpu_torch/ops/csrc``;
-     the tiles each walk holds on the card at once;
+  2. build: compile the walk kernels from ``ceres_tpu_torch/ops/csrc``
+     and the LBVH kernels from ``ceres_tpu_torch/accel/csrc``; the tiles
+     each walk holds on the card at once;
   3. kernel vs plain (bunny): K1 and K2 against their plain PyTorch
      versions on the bunny path's inputs (1920 x 1080: 4,080 tiles over
      61 clusters) and on dragon at 960 x 540 (268 clusters: cluster-id
@@ -195,10 +196,17 @@ its own line:
      after them within phase 12's rule, a replayed step's launches, peak
      memory, ms/step alternated;
  23. the LBVH treelet build inside CUDA graphs, each against its eager
-     run: ``lbvh.build_lbvh`` and ``build_clusters_treelet`` captured on
-     the bunny, the dragon and the 4x bunny and replayed on the vertices
-     moved by seeded noise, every array bit-equal to an eager build of
-     them, and the build's CUDA-event ms, graph and eager alternated;
+     run: the LBVH kernels (``accel/csrc/lbvh.cu``: the hierarchy, one
+     thread a node, and the boxes, one thread a leaf) against the plain
+     version on the same card tensors, every ``Lbvh`` array bit-equal,
+     one launch of each a build, and each kernel's CUDA-event ms (mean
+     of LBVH_REPS) beside its bound and its plain part's ms, on the
+     bunny, the dragon and the 4x bunny; ``lbvh.build_lbvh`` and
+     ``build_clusters_treelet`` captured on those scenes and replayed on
+     the vertices moved by seeded noise, every array bit-equal to an
+     eager build of them, the treelet build captured again through the
+     plain version, bit-equal, and the build's CUDA-event ms, eager,
+     plain graph and kernel graph alternated;
      the frame of a deforming scene (``render_graph`` without a prebuilt
      cut or winner table, both built in the graph) at 1080p on the bunny
      (K1 + K2) and the 4x bunny (K6 + K7a), each frame's vertices moved
@@ -336,6 +344,7 @@ MATRIX_SIZE = 256
 # frames held and timed (bunny; the 4x bunny); the rebuilt 4b step's
 # steps and forwards timed; the seed of the frames' vertex noise.
 BUILD_TIMES = 5
+LBVH_REPS = 20
 DEFORM_FRAMES = 10
 DEFORM_LARGE_FRAMES = 3
 REBUILT_STEP_TIMES = 20
@@ -502,11 +511,11 @@ def positives(mode, out, args):
     return int(((out == 1) & (args[4] == 0)).sum())
 
 
-def build_log():
-    """nvcc's -Xptxas=-v report of the kernels' build."""
+def build_log(name="walk"):
+    """nvcc's -Xptxas=-v report of a source's build (``_build.SOURCES``)."""
     from ceres_tpu_torch.ops import _build
 
-    with open(_build.library_path()[:-3] + ".log") as fh:
+    with open(_build.library_path(name)[:-3] + ".log") as fh:
         return fh.read()
 
 
@@ -2196,12 +2205,15 @@ def graph_frame(label, vt, ft, cam, cs, config, frames, card, phase=22):
     ``frames`` of each alternated (CUDA events) and back to back (host
     clock). Returns the path's launches."""
     import ceres_tpu_torch as ct
+    from ceres_tpu_torch.accel import lbvh
     from ceres_tpu_torch.ops import walk
     from ceres_tpu_torch.render.renderer import (prepare_winner_table,
                                                  render_graph)
     from ceres_tpu_torch.utils.graphs import tensors
 
     sun = torch.as_tensor(SUN, device=vt.device)
+    # A frame that builds its cut launches each LBVH kernel once.
+    builds = {"hierarchy": int(cs is None), "boxes": int(cs is None)}
     if cs is None:
         table, held = None, range(frames)
         moved = [deformed(vt, i) for i in range(frames)]
@@ -2228,9 +2240,12 @@ def graph_frame(label, vt, ft, cam, cs, config, frames, card, phase=22):
     visits, inputs_equal, one = 0, True, 0
     for k, i in enumerate(held):
         walk.reset_launches()
+        lbvh.reset_launches()
         image, stats = graph(i)
         torch.cuda.synchronize()
         launched = {n: c for n, c in walk.launches.items() if c}
+        check(lbvh.launches == builds, f"phase {phase} {label} frame {i}: "
+              f"a replay launched the LBVH kernels {lbvh.launches}")
         image, stats = image.clone(), {n: int(x) for n, x in stats.items()}
         with recorded_walks() as eager_seen:
             (img_e, st_e), eager_launches = launches_of(lambda: eager(i))
@@ -2282,7 +2297,7 @@ def graph_frame(label, vt, ft, cam, cs, config, frames, card, phase=22):
             f"moved by seeded noise; {len(held)} frames held"
             if cs is None else "the sun moved")
     print(f"phase {phase} {label} {config.width}x{config.height} ({what}): "
-          f"launches a replay {launches}; rays {stats['rays']} hits "
+          f"launches a replay {launches}, LBVH kernels {builds}; rays {stats['rays']} hits "
           f"{stats['hits']} shadow_hits {stats['shadow_hits']} executed "
           f"visits {visits}, equal to eager (walk inputs equal: "
           f"{inputs_equal}); pixels one level apart {one}; ms/frame eager "
@@ -2535,13 +2550,82 @@ def phase22(dev, card, large):
     return launches
 
 
+def same_bits(a, b):
+    """Equal tensors of one dtype, floats compared as bit patterns (the
+    sign of a zero included)."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.is_floating_point():
+        view = torch.int32 if a.dtype == torch.float32 else torch.int64
+        return torch.equal(a.view(view), b.view(view))
+    return torch.equal(a, b)
+
+
+def lbvh_kernels(label, vt, ft, card, reps=LBVH_REPS):
+    """The LBVH kernels (``accel/csrc/lbvh.cu``) against the plain
+    version run on the same card tensors: every ``Lbvh`` array bit-equal
+    and one launch of each kernel a build; then each kernel's CUDA-event
+    ms (mean of ``reps`` launches) beside its bound, bytes over
+    PEAK_BYTES (each input read once and each output written once), and
+    the ms of the plain version's part that it replaces."""
+    import dataclasses
+
+    import ceres_tpu_torch as ct
+    from ceres_tpu_torch.accel import lbvh
+
+    soup = ct.triangle_soup(vt, ft, with_normals=False)
+    before = dict(lbvh.launches)
+    got = lbvh.build_lbvh(soup)
+    rose = {k: n - before[k] for k, n in lbvh.launches.items()}
+    want = lbvh._build_lbvh_plain(soup)
+    torch.cuda.synchronize()
+    fields = [f.name for f in dataclasses.fields(got)]
+    differ = [f for f in fields
+              if not same_bits(getattr(got, f), getattr(want, f))]
+    check(not differ, f"phase 23 {label}: the LBVH kernels' {differ} differ "
+          f"from the plain version's")
+    check(rose == {"hierarchy": 1, "boxes": 1},
+          f"phase 23 {label}: a build launched {rose}")
+    keys, order = lbvh._sorted_keys(soup)
+    corners = lbvh._corners(soup)
+    topo = (got.left, got.right, got.parent, got.leaf_parent)
+    T = keys.shape[0]
+    size = corners[0].element_size()
+    times = {
+        "hierarchy": (cuda_ms(lambda: lbvh._hierarchy_card(keys), reps),
+                      cuda_ms(lambda: lbvh._hierarchy_plain(keys), reps),
+                      8 * T + 4 * (5 * (T - 1) + T)),
+        "boxes": (cuda_ms(lambda: lbvh._boxes_card(got.order, *topo,
+                                                    *corners), reps),
+                  cuda_ms(lambda: lbvh._boxes_plain(order, got.left,
+                                                    got.right, *corners),
+                          reps),
+                  # order, topology, arrivals (zeroed, counted), corners;
+                  # leaf and node boxes written
+                  4 * T + 4 * (3 * (T - 1) + T) + 4 * (T - 1)
+                  + 9 * size * T + 6 * size * (2 * T - 1))}
+    parts = []
+    for name, (ms, plain_ms, nbytes) in times.items():
+        bound = nbytes / PEAK_BYTES * 1e3
+        parts.append(f"{name} {ms:.4f} ms (bound {bound:.4f} ms by bytes, "
+                     f"{100 * bound / ms:.1f}%; plain {plain_ms:.3f} ms)")
+    print(f"phase 23 lbvh kernels {label} ({T} triangles, "
+          f"{corners[0].dtype}): {len(fields)} arrays bit-equal to the "
+          f"plain version's, one launch of each a build; "
+          f"{'; '.join(parts)}; CUDA events, mean of {reps} [{card}]",
+          flush=True)
+
+
 def graph_build(label, vt, ft, times, card):
     """The LBVH and the treelet cut (``lbvh.build_lbvh``,
     ``build_clusters_treelet``) each captured as a CUDA graph on the
     mesh and replayed on its vertices moved by seeded noise
     (``deformed``): every array bit-equal to an eager build of the moved
-    vertices; then ``times`` treelet builds of each, graph and eager,
-    alternated (CUDA events)."""
+    vertices; the treelet cut captured again with the LBVH's plain
+    version (``lbvh._build_lbvh_plain``, the build before the kernels),
+    bit-equal to the kernels' graph; then ``times`` treelet builds of
+    each, eager, plain graph and kernel graph, alternated (CUDA
+    events)."""
     import ceres_tpu_torch as ct
     from ceres_tpu_torch.accel import lbvh
     from ceres_tpu_torch.accel.clusters import build_clusters_treelet
@@ -2552,6 +2636,13 @@ def graph_build(label, vt, ft, times, card):
               "build_clusters_treelet": build_clusters_treelet}
     graphs = {name: capture(lambda fn=fn: fn(ct.triangle_soup(
         buf, ft, with_normals=False)), (buf,)) for name, fn in builds.items()}
+    kernel_build = lbvh.build_lbvh
+    lbvh.build_lbvh = lbvh._build_lbvh_plain
+    try:
+        plain_graph = capture(lambda: build_clusters_treelet(
+            ct.triangle_soup(buf, ft, with_normals=False)), (buf,))
+    finally:
+        lbvh.build_lbvh = kernel_build
     moved = deformed(vt, 0)
     buf.copy_(moved)
     arrays = 0
@@ -2561,26 +2652,38 @@ def graph_build(label, vt, ft, times, card):
         torch.cuda.synchronize()
         pairs = list(zip(tensors(got), tensors(want)))
         check(len(tensors(got)) == len(tensors(want)) and all(
-            a.dtype == b.dtype and torch.equal(a, b) for a, b in pairs),
+            same_bits(a, b) for a, b in pairs),
               f"phase 23 {label}: the captured {name} differs from the "
               f"eager one")
         arrays += len(pairs)
     cs = got
+    plain = plain_graph.replay()
+    torch.cuda.synchronize()
+    check(all(same_bits(a, b) for a, b in zip(tensors(plain), tensors(cs))),
+          f"phase 23 {label}: the treelet build's graph through the plain "
+          f"LBVH differs from the kernels'")
+    launched = plain_graph.counts.get("lbvh.launches", {})
+    check(not any(launched.values()),
+          f"phase 23 {label}: the plain graph launched {launched}")
 
     def eager(i):
         return build_clusters_treelet(ct.triangle_soup(buf, ft,
                                                        with_normals=False))
 
-    e_t, g_t = alternated_times(
-        (eager, lambda i: graphs["build_clusters_treelet"].replay()), times)
+    e_t, p_t, g_t = alternated_times(
+        (eager, lambda i: plain_graph.replay(),
+         lambda i: graphs["build_clusters_treelet"].replay()), times)
     print(f"phase 23 build {label} ({ft.shape[0]} triangles, "
           f"{cs.num_clusters} blocks, S {cs.super_S}): build_lbvh and "
           f"build_clusters_treelet replayed on moved vertices, {arrays} "
-          f"arrays bit-equal to the eager build's; treelet build ms eager "
+          f"arrays bit-equal to the eager build's, the plain LBVH's graph "
+          f"bit-equal; treelet build ms eager "
           f"median {statistics.median(e_t):.3f} (min {min(e_t):.3f} max "
-          f"{max(e_t):.3f}), graph median {statistics.median(g_t):.3f} (min "
-          f"{min(g_t):.3f} max {max(g_t):.3f}), CUDA events, {times} of "
-          f"each alternated [{card}]", flush=True)
+          f"{max(e_t):.3f}), plain graph median {statistics.median(p_t):.3f} "
+          f"(min {min(p_t):.3f} max {max(p_t):.3f}), graph median "
+          f"{statistics.median(g_t):.3f} (min {min(g_t):.3f} max "
+          f"{max(g_t):.3f}), CUDA events, {times} of each alternated "
+          f"[{card}]", flush=True)
 
 
 def phase23(dev, card, large):
@@ -2598,6 +2701,7 @@ def phase23(dev, card, large):
                         ("dragon", (torch.as_tensor(dv, device=dev),
                                     torch.as_tensor(df, device=dev))),
                         ("bunny x4", large[4][:2])):
+        lbvh_kernels(label, *mesh, card)
         graph_build(label, *mesh, BUILD_TIMES, card)
         torch.cuda.empty_cache()
     cam = camera(v, EYE, dev)
@@ -2666,15 +2770,20 @@ def main(argv=None):
         ok = fn()
         return ok, time.perf_counter() - t0
 
-    with ThreadPoolExecutor(3) as pool:
+    with ThreadPoolExecutor(4) as pool:
         jobs = {name: pool.submit(seconds, fn) for name, fn in (
-            ("walk.cu", _build.load), ("bvh_build.cpp", bvh_native.available),
+            ("walk.cu", _build.load), ("lbvh.cu", lambda: _build.load("lbvh")),
+            ("bvh_build.cpp", bvh_native.available),
             ("objparse.cpp", obj_native.available))}
         builds = {name: job.result() for name, job in jobs.items()}
     build_s = builds["walk.cu"][1]
     ptxas = " | ".join(line.strip() for line in build_log().splitlines()
                        if "registers" in line)
-    print(f"phase 2 build: {build_s:.1f} s ({ptxas}); g++ alongside: "
+    lbvh_ptxas = " | ".join(line.strip() for line in
+                            build_log("lbvh").splitlines()
+                            if "registers" in line)
+    print(f"phase 2 build: {build_s:.1f} s ({ptxas}); lbvh.cu alongside "
+          f"{builds['lbvh.cu'][1]:.1f} s ({lbvh_ptxas}); g++ alongside: "
           f"bvh_build.cpp {builds['bvh_build.cpp'][1]:.1f} s (built "
           f"{builds['bvh_build.cpp'][0]}), objparse.cpp "
           f"{builds['objparse.cpp'][1]:.1f} s (built "

@@ -73,6 +73,18 @@ vertices) against the eager frame that builds its cut. The spans
 capture's nodes and with them on those and its stamp kernels alone; the
 1080p frame's ``walk`` spans within 10% of CUDA events around the same
 walks; the captured train step's five ``step.*`` spans.
+
+The LBVH build's kernels (``accel/csrc/lbvh.cu``: the hierarchy, one
+thread an internal node, and the boxes, one thread a leaf climbing by
+arrival counters) against the plain version run on the same card
+tensors, every ``Lbvh`` array bit-equal (floats as bit patterns, dtype
+included), on the bunny, the 4x bunny (1.27M triangles, many tied morton
+codes), a seeded random soup, the comb and super-comb soups, soups of 2
+and 3 triangles, a soup on the coordinate planes (zeros of both signs in
+the boxes) and the bunny in float64; a refit without gradients (the
+boxes kernel) against the plain boxes; the treelet ``ClusterSet`` built
+on either; a refit with gradients on the card keeps the plain passes;
+``lbvh.launches`` rises by one a kernel a build, eager or replayed.
 """
 
 import dataclasses
@@ -1073,7 +1085,8 @@ def test_build_makes_no_host_sync():
 @pytest.mark.cuda
 def test_captured_build_equals_eager_on_card():
     # The treelet build and the LBVH captured and replayed on moved
-    # vertices: every array bit-equal to an eager build of those.
+    # vertices: every array bit-equal to an eager build of those. Both
+    # builds launch each LBVH kernel once, eager or replayed.
     from ceres_tpu_torch.accel import lbvh
     from ceres_tpu_torch.utils import graphs
 
@@ -1084,23 +1097,155 @@ def test_captured_build_equals_eager_on_card():
         soup = ct.triangle_soup(buf, ft, with_normals=False)
         return lbvh.build_lbvh(soup), build_clusters_treelet(soup)
 
+    lbvh.reset_launches()
     g = graphs.capture(build, (buf,))
+    both = {"hierarchy": 2, "boxes": 2}
+    assert lbvh.launches == both                   # the warm-up call's
+    assert g.counts["lbvh.launches"] == both
     noise = np.random.default_rng(9).standard_normal(tuple(vt.shape))
     buf.copy_(vt + torch.as_tensor(1e-3 * noise, dtype=vt.dtype,
                                    device=vt.device))
     got = g.replay()
+    assert lbvh.launches == {"hierarchy": 4, "boxes": 4}
     want = build()
+    assert lbvh.launches == {"hierarchy": 6, "boxes": 6}
     torch.cuda.synchronize()
     for a, b in zip(graphs.tensors(got), graphs.tensors(want)):
-        assert a.dtype == b.dtype and torch.equal(a, b)
+        assert _same_bits(a, b)
     assert got[1].super_S == want[1].super_S
+
+
+LBVH_SOUPS = ("bunny", "bunny4x", "random", "comb", "super_comb", "two",
+              "three", "planes", "float64")
+
+
+def _same_bits(a, b):
+    """Equal dtype, shape and values, floats as bit patterns (the sign
+    of a zero included)."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.is_floating_point():
+        view = torch.int32 if a.dtype == torch.float32 else torch.int64
+        return torch.equal(a.view(view), b.view(view))
+    return torch.equal(a, b)
+
+
+def _lbvh_mesh(name):
+    """(vertices, faces) of an LBVH test soup: the bunny (float32 or
+    float64), the 4x bunny (the benchmark's 1.27M triangles, rich in
+    tied morton codes), a seeded random soup, and ``lbvh_soups``'."""
+    import lbvh_soups as soups
+
+    if name in ("bunny", "bunny4x", "float64"):
+        verts, faces = ct.load_obj(os.path.join(ROOT, "data", "bunny.obj"))
+        if name == "bunny4x":
+            verts, faces = subdivide(verts, faces, 4)
+        return verts.astype(np.float64 if name == "float64" else np.float32), \
+            faces
+    if name == "random":
+        rng = np.random.default_rng(3)
+        verts = rng.standard_normal((450, 3)).astype(np.float32)
+        return verts, rng.integers(0, 450, (900, 3)).astype(np.int32)
+    if name in ("two", "three"):
+        return soups.tiny({"two": 2, "three": 3}[name])
+    return getattr(soups, name)()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", LBVH_SOUPS)
+def test_lbvh_kernels_equal_plain(name, monkeypatch):
+    # The LBVH kernels against the plain version run on the same card
+    # tensors: every Lbvh array bit-equal, dtype included, one launch of
+    # each kernel a build; a refit (no gradients: the boxes kernel)
+    # against the plain boxes; the treelet ClusterSet built on either.
+    from ceres_tpu_torch.accel import lbvh
+
+    dev = _card()
+    verts, faces = _lbvh_mesh(name)
+    vt = torch.as_tensor(verts, device=dev)
+    ft = torch.as_tensor(faces, device=dev)
+    soup = ct.triangle_soup(vt, ft, with_normals=False)
+    lbvh.reset_launches()
+    got = lbvh.build_lbvh(soup)
+    assert lbvh.launches == {"hierarchy": 1, "boxes": 1}
+    want = lbvh._build_lbvh_plain(soup)
+    assert lbvh.launches == {"hierarchy": 1, "boxes": 1}
+    assert got.node_lo.dtype == vt.dtype
+    for field in dataclasses.fields(got):
+        assert _same_bits(getattr(got, field.name),
+                          getattr(want, field.name)), field.name
+
+    scale = float((vt - vt.mean(0)).abs().max())
+    noise = np.random.default_rng(21).standard_normal(verts.shape)
+    moved = ct.triangle_soup(
+        vt + torch.as_tensor(2e-3 * scale * noise, dtype=vt.dtype,
+                             device=dev), ft, with_normals=False)
+    refit = lbvh.refit(got, moved)
+    assert lbvh.launches == {"hierarchy": 1, "boxes": 2}
+    plain = lbvh._boxes_plain(got.order, got.left, got.right, moved.p0,
+                              moved.e1, moved.e2)
+    for a, b in zip((refit.node_lo, refit.node_hi, refit.leaf_lo,
+                     refit.leaf_hi), plain):
+        assert _same_bits(a, b)
+
+    cs = build_clusters_treelet(soup)
+    monkeypatch.setattr(lbvh, "build_lbvh", lbvh._build_lbvh_plain)
+    cs_plain = build_clusters_treelet(soup)
+    from ceres_tpu_torch.utils.graphs import tensors
+
+    for a, b in zip(tensors(cs), tensors(cs_plain)):
+        assert _same_bits(a, b)
+    assert cs.super_S == cs_plain.super_S
+
+
+@pytest.mark.cuda
+def test_refit_with_grad_takes_the_plain_passes_on_card():
+    # Leaf boxes that carry gradients keep the fmin/fmax passes on the
+    # card (no kernel launch): the same boxes as the kernel's, and the
+    # gradients of the CPU's (rtol 1e-4, atol 1e-5 max|g|: the card sums
+    # the gathers' backward in another order).
+    from ceres_tpu_torch.accel import lbvh
+
+    dev = _card()
+    verts, faces = _lbvh_mesh("bunny")
+    rng = np.random.default_rng(22)
+    moved = verts + 1e-3 * rng.standard_normal(verts.shape).astype(np.float32)
+    T = faces.shape[0]
+    weights = [rng.standard_normal((n, 3)).astype(np.float32)
+               for n in (T - 1, T - 1, T, T)]
+    grads = []
+    for device in ("cpu", dev):
+        ft = torch.as_tensor(faces, device=device)
+        bvh = lbvh.build_lbvh(ct.triangle_soup(
+            torch.as_tensor(verts, device=device), ft, with_normals=False))
+        v = torch.tensor(moved, device=device, requires_grad=True)
+        soup = ct.triangle_soup(v, ft, with_normals=False)
+        lbvh.reset_launches()
+        refit = lbvh.refit(bvh, soup)
+        assert lbvh.launches == {"hierarchy": 0, "boxes": 0}
+        boxes = (refit.node_lo, refit.node_hi, refit.leaf_lo, refit.leaf_hi)
+        sum((x * torch.as_tensor(w, device=device)).sum()
+            for x, w in zip(boxes, weights)).backward()
+        grads.append(v.grad.cpu().numpy())
+        if device != "cpu":
+            with torch.no_grad():
+                kernel = lbvh.refit(bvh, soup)
+            assert lbvh.launches == {"hierarchy": 0, "boxes": 1}
+            for a, b in zip(boxes, (kernel.node_lo, kernel.node_hi,
+                                    kernel.leaf_lo, kernel.leaf_hi)):
+                assert _same_bits(a.detach(), b)
+    cpu, card = grads
+    assert np.abs(cpu).max() > 0
+    np.testing.assert_allclose(card, cpu, rtol=1e-4,
+                               atol=1e-5 * np.abs(cpu).max())
 
 
 @pytest.mark.cuda
 def test_deforming_graph_frame_equals_eager_on_card():
     # render_graph without a prebuilt cut or table, replayed with the
     # vertices moved by seeded noise: stats exact, images within one
-    # level, one launch a walk a replay.
+    # level, one launch a walk and an LBVH kernel a replay.
+    from ceres_tpu_torch.accel import lbvh
     from ceres_tpu_torch.render.renderer import render_graph
 
     size = 256
@@ -1118,9 +1263,11 @@ def test_deforming_graph_frame_equals_eager_on_card():
         moved = vt + torch.as_tensor(2e-3 * scale * noise, dtype=vt.dtype,
                                      device=vt.device)
         walk.reset_launches()
+        lbvh.reset_launches()
         img, st = fg(vertices=moved)
         torch.cuda.synchronize()
         assert {k: n for k, n in walk.launches.items() if n} == want
+        assert lbvh.launches == {"hierarchy": 1, "boxes": 1}
         img_e, st_e = ct.render_pipeline(moved, ft, cam, sun, config)
         assert {k: int(x) for k, x in st.items()} == {
             k: int(x) for k, x in st_e.items()}

@@ -10,18 +10,32 @@ normals ``n`` of the packed records are held to ``atol=1e-6`` (XLA's
 cross product rounds differently from the port's, as in
 ``test_torch_accel.py``).
 
-Scenes: bunny (4,968 triangles, 78 treelet blocks), a seeded random
-soup, a soup of at most C triangles (the fixed-run fallback), a
-comb-shaped soup whose cut overflows its budget (the fixed-run fallback
-inside the treelet budget, with uniform supers) and one whose fine cut
-fits while its super cut overflows (the treelet cut with uniform
-supers).
+Scenes (``lbvh_soups.py`` has the synthetic ones): bunny (4,968
+triangles, 78 treelet blocks), a seeded random soup, a soup of at most C
+triangles (the fixed-run fallback), a comb-shaped soup whose cut
+overflows its budget (the fixed-run fallback inside the treelet budget,
+with uniform supers), one whose fine cut fits while its super cut
+overflows (the treelet cut with uniform supers), a soup on the
+coordinate planes (boxes bounded by zeros of both signs) and soups of 2
+and 3 triangles.
 
 The builders have no data-dependent operation, what a CUDA graph
 capture needs: they run under ``FakeTensorMode``, where an operation
 whose output shape or a host value depends on the data (``nonzero``,
 a boolean-mask index, ``.item()``) raises.
+
+On the card the LBVH is built by two kernels (``accel/csrc/lbvh.cu``),
+held to the plain version by ``test_torch_cuda.py``. Here: a CPU soup
+takes the plain version and launches nothing, a refit whose boxes carry
+gradients keeps the plain passes (gradients equal to ``jax.grad``'s),
+the kernels' wrappers refuse inputs the kernels do not take before any
+launch, and every C entry point of the port's CUDA sources is declared
+as its source has it (``c_void_p`` for each pointer and the stream),
+read from the sources without building or loading them.
 """
+
+import re
+
 
 import numpy as np
 import jax
@@ -41,6 +55,9 @@ from ceres_tpu_torch.accel import cuts as pcuts
 from ceres_tpu_torch.accel import lbvh as plbvh
 from ceres_tpu_torch.accel import morton as pmorton
 from ceres_tpu_torch.models import mesh as pmesh
+from ceres_tpu_torch.ops import _build
+
+import lbvh_soups as soups
 
 torch.set_num_threads(1)
 
@@ -48,43 +65,17 @@ LBVH_FIELDS = ("order", "left", "right", "range_lo", "range_hi", "parent",
                "leaf_parent", "node_lo", "node_hi", "leaf_lo", "leaf_hi")
 
 
-def _comb():
-    """38 triangles whose centroids lie on the x axis at grid cells 0-15
-    (two each), 31, 63, ..., 1023: each power of two splits off one
-    triangle near the root, so a cut at C = 32 needs 7 clusters, more
-    than its budget 2 * ceil(38 / 32) = 4."""
-    xs = np.concatenate([np.repeat(np.arange(16), 2),
-                         [31, 63, 127, 255, 511, 1023]]) + 0.25
-    verts = np.stack([np.stack([xs, np.zeros_like(xs), np.zeros_like(xs)], 1),
-                      np.stack([xs + 0.1, np.ones_like(xs), xs * 0], 1),
-                      np.stack([xs - 0.1, -np.ones_like(xs), xs * 0], 1)], 1)
-    faces = np.arange(3 * len(xs)).reshape(-1, 3)
-    return verts.reshape(-1, 3).astype(np.float32), faces.astype(np.int32)
-
-
-def _super_comb(C=8, groups=31):
-    """``groups`` runs of C triangles with one centroid each, the run k
-    at the grid cell of morton code 2^k - 1: each run splits off near
-    the root, so the cut at C has one cluster a run (31, within its
-    budget 62) and the super cut at S = 8 needs 24 supers, more than its
-    budget 16."""
-    cells = np.zeros((groups, 3))
-    for k in range(groups):
-        for j in range(k):
-            cells[k, j % 3] += 1 << (j // 3)
-    centers = np.repeat(cells + 0.25, C, axis=0)
-    corners = np.asarray([[0.1, 0, 0], [-0.05, 0.1, 0], [-0.05, -0.1, 0]])
-    verts = (centers[:, None] + corners).reshape(-1, 3).astype(np.float32)
-    return verts, np.arange(len(verts)).reshape(-1, 3).astype(np.int32)
-
-
 def _mesh(name, bunny):
     if name == "bunny":
         return bunny
     if name == "comb":
-        return _comb()
+        return soups.comb()
     if name == "super_comb":
-        return _super_comb()
+        return soups.super_comb()
+    if name == "planes":
+        return soups.planes()
+    if name in ("two", "three"):
+        return soups.tiny({"two": 2, "three": 3}[name])
     rng = np.random.default_rng({"random": 3, "small": 4}[name])
     T = {"random": 900, "small": 100}[name]
     verts = rng.standard_normal((T // 2, 3)).astype(np.float32)
@@ -160,7 +151,8 @@ def test_clz_matches():
           jax.lax.clz(jnp.asarray(x)), "clz")
 
 
-@pytest.mark.parametrize("name", ["bunny", "random"])
+@pytest.mark.parametrize("name", ["bunny", "random", "planes", "two",
+                                  "three"])
 def test_lbvh_and_cuts_match(name, bunny):
     jsoup, psoup = _soups(*_mesh(name, bunny))
     ref = jax.jit(jlbvh.build_lbvh)(jsoup)
@@ -259,3 +251,125 @@ def test_builders_have_no_data_dependent_op(name, bunny):
     assert cs.num_clusters == refit.num_clusters == n_c
     assert runs.num_clusters == -(-T // C)
     assert table.shape == (n_c * C, 9)
+
+
+@pytest.mark.parametrize("name", ["bunny", "planes"])
+def test_cpu_soup_takes_the_plain_version(name, bunny, monkeypatch):
+    def no_library(name="walk"):
+        raise AssertionError(f"a CPU build loaded the {name} library")
+
+    monkeypatch.setattr(_build, "load", no_library)
+    plbvh.reset_launches()
+    _, psoup = _soups(*_mesh(name, bunny))
+    got = plbvh.build_lbvh(psoup)
+    want = plbvh._build_lbvh_plain(psoup)
+    for field in LBVH_FIELDS:
+        _same(getattr(got, field), getattr(want, field), field)
+    plbvh.refit(got, psoup)
+    pcl.build_clusters_treelet(psoup)
+    assert plbvh.launches == {"hierarchy": 0, "boxes": 0}
+
+
+@pytest.mark.parametrize("name", ["random", "small"])
+def test_refit_with_grad_keeps_the_plain_passes(name, bunny):
+    # Boxes that carry gradients take the fmin/fmax passes, whose
+    # gradients equal jax.grad's of the JAX refit (soups without tied
+    # corners), and whose values equal the refit without gradients.
+    verts, faces = _mesh(name, bunny)
+    rng = np.random.default_rng(14)
+    moved = verts + 0.01 * rng.standard_normal(verts.shape).astype(np.float32)
+    jsoup, psoup = _soups(verts, faces)
+    jbvh = jax.jit(jlbvh.build_lbvh)(jsoup)
+    pbvh = plbvh.build_lbvh(psoup)
+    T = faces.shape[0]
+    weights = [rng.standard_normal((n, 3)).astype(np.float32)
+               for n in (T - 1, T - 1, T, T)]
+
+    def boxes(b):
+        return b.node_lo, b.node_hi, b.leaf_lo, b.leaf_hi
+
+    def jloss(v):
+        b = jlbvh.refit(jbvh, jmesh.triangle_soup(v, jnp.asarray(faces),
+                                                   with_normals=False))
+        return sum((x * w).sum() for x, w in zip(boxes(b), weights))
+
+    jg = np.asarray(jax.jit(jax.grad(jloss))(jnp.asarray(moved)))
+    plbvh.reset_launches()
+    v = torch.tensor(moved, requires_grad=True)
+    pre = plbvh.refit(pbvh, pmesh.triangle_soup(v, torch.as_tensor(faces),
+                                                with_normals=False))
+    assert all(x.requires_grad for x in boxes(pre))
+    sum((x * torch.as_tensor(w)).sum()
+        for x, w in zip(boxes(pre), weights)).backward()
+    assert plbvh.launches == {"hierarchy": 0, "boxes": 0}
+    assert np.abs(jg).max() > 0
+    np.testing.assert_allclose(v.grad.numpy(), jg, rtol=1e-4,
+                               atol=1e-5 * np.abs(jg).max())
+    with torch.no_grad():
+        plain = plbvh.refit(pbvh, pmesh.triangle_soup(
+            v, torch.as_tensor(faces), with_normals=False))
+    for got, want in zip(boxes(pre), boxes(plain)):
+        _same(got.detach(), want, "boxes")
+
+
+def _refusals():
+    keys = torch.arange(6, dtype=torch.int64)
+    i32 = torch.zeros(6, dtype=torch.int32)
+    n1 = torch.zeros(5, dtype=torch.int32)
+    corners = torch.zeros(6, 3)
+    return {
+        "int32 keys": lambda: plbvh._hierarchy_card(keys.to(torch.int32)),
+        "strided keys": lambda: plbvh._hierarchy_card(
+            torch.arange(12)[::2]),
+        "int64 order": lambda: plbvh._boxes_card(
+            i32.long(), n1, n1, n1, i32, corners, corners, corners),
+        "short parent": lambda: plbvh._boxes_card(
+            i32, n1, n1, n1[:4], i32, corners, corners, corners),
+        "float16 corners": lambda: plbvh._boxes_card(
+            i32, n1, n1, n1, i32, *(corners.half(),) * 3),
+        "mixed corners": lambda: plbvh._boxes_card(
+            i32, n1, n1, n1, i32, corners, corners.double(), corners),
+    }
+
+
+@pytest.mark.parametrize("what", list(_refusals()))
+def test_kernel_wrappers_refuse_before_launching(what, monkeypatch):
+    def no_launch(*args):
+        raise AssertionError("launched")
+
+    monkeypatch.setattr(plbvh, "_launch", no_launch)
+    with pytest.raises(ValueError, match="lbvh kernels"):
+        _refusals()[what]()
+
+
+_C_TYPES = {"int": _build.ctypes.c_int, "const char*": _build.ctypes.c_char_p}
+
+
+def _entry_points(source):
+    """{name: (argument types, return type)} of the ``extern "C"``
+    functions that return an int or a string in a CUDA source: a
+    pointer or the stream as ``c_void_p``, an int as ``c_int``."""
+    with open(source) as fh:
+        text = fh.read()
+    out = {}
+    for ret, name, params in re.findall(
+            r'extern "C" (int|const char\*) (\w+)\(([^)]*)\)', text):
+        args = []
+        for param in params.split(","):
+            param = " ".join(param.split())
+            if "*" in param:
+                args.append(_build.ctypes.c_void_p)
+            else:
+                assert param.startswith("int "), (name, param)
+                args.append(_build.ctypes.c_int)
+        out[name] = (tuple(args), _C_TYPES[ret])
+    return out
+
+
+@pytest.mark.parametrize("name", sorted(_build.SOURCES))
+def test_c_entry_points_declared_as_in_the_source(name):
+    want = _entry_points(_build.SOURCES[name])
+    assert want, name
+    got = {fn: (tuple(args), ret)
+           for fn, (args, ret) in _build.SIGNATURES[name].items()}
+    assert got == want
