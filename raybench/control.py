@@ -15,6 +15,9 @@ as a run compares the port:
     its loss taken over the image's top half only, the mean over that
     half.
 
+A kind found by file (``raybench/kinds/<kind>.py``) gives its own
+readings: its ``control(spec, seed, root, dev)``.
+
 A state left unchanged reads 1 on ``change_gap`` by its definition and
 needs no run. Needs no part of the port: it runs only the reference.
 """
@@ -100,12 +103,15 @@ def fit_readings(spec, seed, root, dev):
 
 
 def readings(root, cell, seed, dev):
-    from raybench import manifest
+    from raybench import loops, manifest
 
     spec = manifest.cell(root, cell)
-    if spec["traffic"]["kind"] == "fit":
+    kind = spec["traffic"]["kind"]
+    if kind == "fit":
         return fit_readings(spec, seed, root, dev)
-    return frame_readings(spec, seed, root, dev)
+    if kind == "frames":
+        return frame_readings(spec, seed, root, dev)
+    return loops.kind(root, kind).control(spec, seed, root, dev)
 
 
 def main(argv=None) -> int:

@@ -3,7 +3,23 @@
 
 ``run_cell`` takes the device it runs on, so that the CPU tests can
 drive a whole run at a tiny size; ``run.py`` refuses to run without a
-card.
+card, or with fewer cards than the cell's ``chips``.
+
+A loop of a kind found by file (``loops.kind``) may also define:
+
+  * ``returns``: what its calls return, as the built-in kinds do:
+    ``"frames"`` ((image, stats): the window sums ``stats["rays"]`` and
+    keeps the compared outputs) or ``"fit"`` (a loss);
+  * ``check(window)``: the numbers that decide ``correct``, in place of
+    the built-in kinds' ``_check``;
+  * for a cell over several cards (its ``chips``, which the harness
+    reports as ``device.count``; the loop runs the other ranks,
+    ``ranks.py``): ``announce(i)``, which the window calls before call
+    i's clock starts (the hand-off to the other ranks),
+    ``over_ranks(device)``, which gives the ``device`` object the peak
+    memory of the fullest card and the busy seconds averaged over the
+    cards, and ``abandon()``, which ends the other ranks where the run
+    raises.
 """
 
 from __future__ import annotations
@@ -62,6 +78,7 @@ class Context:
     cell: dict
     loop: object
     window: dict
+    seed: int
     trace: object = None
     next_call: int = 0
     note: object = log
@@ -82,8 +99,11 @@ def _window(loop, kind, dev, seconds, first, keep):
     ``keep``: window-relative indices whose outputs are cloned."""
     lat, kept, i, failed = [], {}, 0, 0
     rays = torch.zeros((), dtype=torch.int64, device=dev)
+    announce = getattr(loop, "announce", None)
     start = time.perf_counter()
     while True:
+        if announce is not None:
+            announce(first + i)
         t0 = time.perf_counter()
         out = loop.call(first + i)
         if kind == "frames":
@@ -178,18 +198,19 @@ def _clocks() -> str:
         return f"nvidia-smi failed: {exc}"
 
 
-def _device(dev, tr):
+def _device(dev, tr, loop=None, count=1):
     if dev.type == "cuda":
         out = {"platform": "gpu", "kind": torch.cuda.get_device_name(dev),
-               "count": 1,
+               "count": count,
                "memory_peak_bytes": torch.cuda.max_memory_allocated(dev)}
     else:
-        out = {"platform": "cpu", "kind": "cpu", "count": 1,
+        out = {"platform": "cpu", "kind": "cpu", "count": count,
                "memory_peak_bytes": 0}
     if tr is not None:
         out["busy_s"] = tr.busy_s
         out["window_s"] = tr.window_s
-    return out
+    over_ranks = getattr(loop, "over_ranks", None)
+    return out if over_ranks is None else over_ranks(out)
 
 
 def run_cell(root: str, workload: str, seed: int, seconds: float,
@@ -197,8 +218,7 @@ def run_cell(root: str, workload: str, seed: int, seconds: float,
     """One run; returns the result line's object (``compared`` last)."""
     dev = torch.device(dev)
     spec = manifest.cell(root, workload)
-    cfg, traffic, limits = spec["config"], spec["traffic"], spec["cell"]
-    kind = traffic["kind"]
+    cfg, traffic = spec["config"], spec["traffic"]
     probe = None
     if dev.type == "cuda":
         probe = LaunchProbe(dev)
@@ -209,7 +229,24 @@ def run_cell(root: str, workload: str, seed: int, seconds: float,
         log(f"set-up: {label} at {time.perf_counter() - t_start:.6f} s")
 
     mark("imports and the card's context")
-    loop = loops.make(cfg, traffic, seed, root, dev, mark)
+    loop = loops.make(cfg, traffic, seed, root, dev, mark,
+                      spec["entry"]["chips"])
+    try:
+        return _run(loop, root, workload, seed, seconds, traced, dev,
+                    t_start, spec, probe, mark)
+    except BaseException:
+        abandon = getattr(loop, "abandon", None)
+        if abandon is not None:
+            abandon()
+        raise
+
+
+def _run(loop, root, workload, seed, seconds, traced, dev, t_start, spec,
+         probe, mark) -> dict:
+    """``run_cell`` once its loop is set up."""
+    traffic, limits = spec["traffic"], spec["cell"]
+    kind = traffic["kind"]
+    returns = getattr(loop, "returns", kind)
     # Calls are numbered from the first of the loop: the fit's held
     # steps were its first.
     first = traffic["held_steps"] if kind == "fit" else 0
@@ -226,17 +263,17 @@ def run_cell(root: str, workload: str, seed: int, seconds: float,
             f"probe's us a kernel {[round(x, 4) for x in readings]}")
     log(f"card before the window: {_clocks()}")
     keep = set()
-    if kind == "frames":
+    if returns == "frames":
         keep = {random.Random(seed).randrange(limits["draw_from"])}
     # Neither the reference's seconds in set-up (the fit's target frame)
     # nor the wait for the card's launch mode are the program's.
     setup_s = time.perf_counter() - t_start - loop.reference_s - waited
-    window = _window(loop, kind, dev, seconds, first, keep)
+    window = _window(loop, returns, dev, seconds, first, keep)
     window["setup_s"] = setup_s
     log(f"card after the window: {_clocks()}")
     first += window["calls"]
     ctx = Context(root=root, dev=dev, cell=spec, loop=loop,
-                  window=window, next_call=first)
+                  window=window, seed=seed, next_call=first)
     lat_ms = sorted(x * 1e3 for x in window["latencies"])
     tenth = max(1, len(lat_ms) // 10)
     by_tenth = [statistics.median(window["latencies"][k:k + tenth]) * 1e3
@@ -254,7 +291,7 @@ def run_cell(root: str, workload: str, seed: int, seconds: float,
         tr = ctx.trace = trace.record(lambda i: loop.call(first + i), n,
                                       dev.type == "cuda")
         ctx.next_call = first + n + 1   # the traced calls, the first dropped
-    device = _device(dev, tr)
+    device = _device(dev, tr, loop, spec["entry"]["chips"])
 
     metrics = {}
     wanted = spec["per_layer"] if traced else spec["end_to_end"]
@@ -269,7 +306,9 @@ def run_cell(root: str, workload: str, seed: int, seconds: float,
         result["breakdown"] = {"device_ops": tr.top_ops(),
                                "idle_gaps": tr.idle_gaps()}
 
-    numbers = _check(loop, kind, window, traffic, dev)
+    check = getattr(loop, "check", None)
+    numbers = (_check(loop, kind, window, traffic, dev) if check is None
+               else check(window))
     ok, rows = compare.judge(numbers, limits["limits"])
     result["correct"] = ok and result["failed"] == 0
     result["compared"] = {k: {"value": x, "limit": lim} for k, x, lim in rows}

@@ -24,6 +24,12 @@ Traffic kinds (the ``kind`` of a traffic file):
     ``held_steps`` steps are taken in set-up through the same step (its
     first call captures it); the loss is read after every step.
 
+Any other kind is a file of its own, ``raybench/kinds/<kind>.py``, whose
+``Loop`` the harness finds by the name (``kind``); such a loop may also
+name what its calls return (``returns``), check its own outputs
+(``check``) and run over several ranks (``ranks``), as ``harness.py``
+says.
+
 The inputs (mesh, camera, suns, moved meshes, target) are the
 harness's own (``scene.py``, ``reference.py``) and the same are handed
 to the reference.
@@ -36,7 +42,7 @@ import time
 import numpy as np
 import torch
 
-from raybench import reference, scene
+from raybench import manifest, reference, scene
 
 
 def _port():
@@ -229,7 +235,21 @@ class Fit:
 KINDS = {"frames": Frames, "fit": Fit}
 
 
-def make(cfg: dict, traffic: dict, seed: int, root: str, dev, mark=print):
+def kind(root: str, name: str):
+    """The module of the traffic kind ``name`` found by file,
+    ``raybench/kinds/<name>.py`` under ``root``: its loop class is
+    ``Loop``."""
+    return manifest.module(root, "kinds", name)
+
+
+def make(cfg: dict, traffic: dict, seed: int, root: str, dev, mark=print,
+         chips: int = 1):
     """The loop of ``traffic``'s kind, set up; ``mark(label)`` is called
-    as each part of the set-up ends."""
-    return KINDS[traffic["kind"]](cfg, traffic, seed, root, dev, mark)
+    as each part of the set-up ends. A kind that is not in KINDS is
+    found by file (``kind``) and its loop also takes the cell's
+    ``chips``."""
+    name = traffic["kind"]
+    if name in KINDS:
+        return KINDS[name](cfg, traffic, seed, root, dev, mark)
+    return kind(root, name).Loop(cfg, traffic, seed, root, dev, mark,
+                                 chips=chips)

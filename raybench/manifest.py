@@ -10,6 +10,7 @@ traffic mix; each is a file of its own under ``raybench/``:
   metrics/<metric>.py      each metric's reader: ``read(ctx)``, and
                            ``UNIT`` (per-layer metrics also ``LAYER`` and
                            ``MOVES``)
+  kinds/<kind>.py          a traffic kind of its own (``loops.kind``)
 
 A metric belongs to a cell when its ``workloads`` list names the cell,
 or when it has no such list.
@@ -58,9 +59,15 @@ def cell(root: str, workload: str) -> dict:
 
 def metric(root: str, name: str):
     """The reader module of metric ``name``."""
-    path = os.path.join(root, HOME, "metrics", f"{name}.py")
+    return module(root, "metrics", name)
+
+
+def module(root: str, sub: str, name: str):
+    """The module ``raybench/<sub>/<name>.py`` under ``root``, loaded by
+    its path."""
+    path = os.path.join(root, HOME, sub, f"{name}.py")
     spec = importlib.util.spec_from_file_location(
-        f"raybench_metric_{name.replace('.', '_')}", path)
-    module = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(module)
-    return module
+        f"raybench_{sub}_{name.replace('.', '_')}", path)
+    loaded = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(loaded)
+    return loaded

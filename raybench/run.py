@@ -10,7 +10,11 @@ per-layer metrics), ``device``, with ``--trace 1`` ``breakdown``, and
 last ``compared``: each number held to the reference, with its limit.
 The same numbers end standard error. Without a card it exits with an
 error and prints no result: there is no CPU fallback. The card's name
-and power limit go to standard error first.
+and power limit go to standard error first. A cell over N cards starts
+its N - 1 other ranks first (``ranks.py``). It exits 3 with no result
+when this process, or any other rank, holds JAX or the JAX package once
+the window has closed, and names the modules and the rank on standard
+error.
 """
 
 from __future__ import annotations
@@ -71,13 +75,19 @@ def main(argv=None) -> int:
 
     os.environ.setdefault("USE_FLAX", "0")
     sys.path.insert(0, ROOT)
-    import torch
-
-    from raybench import harness, manifest
+    from raybench import manifest, ranks
 
     chips = {w["name"]: w for w in manifest.load(ROOT)["workloads"]}.get(
         args.workload, {}).get("chips", 1)
+    if chips > 1:
+        # The other ranks load torch and the port while this one does.
+        ranks.prestart(chips)
+    import torch
+
+    from raybench import harness
+
     if not torch.cuda.is_available() or torch.cuda.device_count() < chips:
+        ranks.unstart()
         print(f"raybench: the cell needs {chips} CUDA card(s); found "
               f"{torch.cuda.device_count() if torch.cuda.is_available() else 0}",
               file=sys.stderr)
@@ -86,9 +96,13 @@ def main(argv=None) -> int:
                 f"{torch.version.cuda}")
     result = harness.run_cell(ROOT, args.workload, args.seed, args.seconds,
                               bool(args.trace), "cuda", T_START)
-    found = forbidden_modules()
+    found = dict(ranks.FOUND)
+    if forbidden_modules():
+        found[0] = forbidden_modules()
     if found:
-        print(f"raybench: the run loaded {', '.join(found)}", file=sys.stderr)
+        for rank, names in sorted(found.items()):
+            print(f"raybench: rank {rank} of the run loaded "
+                  f"{', '.join(names)}", file=sys.stderr)
         return 3
     print(json.dumps(finite(result), allow_nan=False))
     return 0

@@ -6,14 +6,14 @@ frame's or a step's phases on the card: ``walk_ms.*``,
 
 ``read(ctx)``, once a run (``ctx.cache``), turns the port's spans on and
 makes a second loop of the cell with ``loops.make`` (the same
-configuration, traffic and seed), whose frame or step is captured with
-the spans on. It runs that loop for WARM_SECONDS, then on until the card
-launches a graph's kernels in its fast mode, as the harness waits before
-its window (``harness.await_fast_launches``), since the slow mode
-lengthens the gaps between a graph's kernels and so its spans (after a
-trace, a bunny frame's ``frame`` span once read 6.47 against 6.00 ms,
-NVIDIA H100). Standard error gets the probe's readings: the launch mode
-the spans were read in. Then it makes as
+configuration, traffic and seed: ``ctx.seed``), whose frame or step is
+captured with the spans on. It runs that loop for WARM_SECONDS, then on
+until the card launches a graph's kernels in its fast mode, as the
+harness waits before its window (``harness.await_fast_launches``), since
+the slow mode lengthens the gaps between a graph's kernels and so its
+spans (after a trace, a bunny frame's ``frame`` span once read 6.47
+against 6.00 ms, NVIDIA H100). Standard error gets the probe's
+readings: the launch mode the spans were read in. Then it makes as
 many calls as the trace took, each synchronised, and after each reads
 the span milliseconds of its replay (``FrameGraph.span_ms()``, the
 step's ``span_ms()``) and how far the counter ``graph.nodes`` rose.
@@ -33,7 +33,6 @@ spans (a checkout from before them).
 
 from __future__ import annotations
 
-import argparse
 import statistics
 import time
 
@@ -42,19 +41,6 @@ import torch
 from raybench import harness, loops
 
 WARM_SECONDS = 2.0
-
-
-def _seed() -> int:
-    """The run's ``--seed``, from ``run.py``'s arguments (the harness's
-    Context carries none); raises where the run was started otherwise,
-    as the spans loop would then replay other inputs than the window's."""
-    ap = argparse.ArgumentParser(add_help=False)
-    ap.add_argument("--seed", type=int)
-    seed = ap.parse_known_args()[0].seed
-    if seed is None:
-        raise ValueError("spans: no --seed among the arguments; the spans "
-                         "loop needs the run's seed")
-    return seed
 
 
 def read(ctx):
@@ -79,7 +65,7 @@ def _measure(ctx):
     kind = traffic["kind"]
     spans.enable(True)
     try:
-        loop = loops.make(cfg, traffic, _seed(), ctx.root, ctx.dev,
+        loop = loops.make(cfg, traffic, ctx.seed, ctx.root, ctx.dev,
                           lambda label: ctx.note(f"spans loop: {label}"))
         span_ms = (loop.step.span_ms if kind == "fit"
                    else loop.graph.span_ms)

@@ -24,7 +24,7 @@ def make_root(path, tiny=True):
     """A copy of the benchmark's files under ``path``; with ``tiny`` its
     configurations cut to TINY."""
     shutil.copy(os.path.join(ROOT, "BENCHMARK.json"), path)
-    for sub in ("configs", "traffic", "cells", "metrics", "scenes"):
+    for sub in ("configs", "traffic", "cells", "metrics", "kinds", "scenes"):
         shutil.copytree(os.path.join(HOME, sub),
                         os.path.join(path, "raybench", sub))
     if tiny:

@@ -8,7 +8,8 @@ its old vertices (its state unchanged); a train step that returns its
 state unchanged; a loss over half the image (the mean over that half);
 steps after the first (on the card, the replays of the captured step)
 whose gradient is halved while their loss is not.
-A single card has no exchange between chips to leave out."""
+The four-rank cell's faults (one rank's rows altered, a rank that
+raises) are in ``test_raybench_ranks.py``."""
 
 from __future__ import annotations
 
@@ -148,7 +149,8 @@ def test_later_steps_with_a_wrong_gradient(sound_fit, monkeypatch):
 
 
 @pytest.mark.parametrize("cell", ["bunny-1080p.static",
-                                  "bunny4x-1080p.deform", "bunny-1080p.fit"])
+                                  "bunny4x-1080p.deform", "bunny-1080p.fit",
+                                  "bunny-1080p.frames4"])
 def test_the_control_is_not_correct(tiny_root, cell):
     limits = manifest.cell(tiny_root, cell)["cell"]["limits"]
     readings = control.readings(tiny_root, cell, SEED, "cpu")

@@ -33,15 +33,18 @@ def test_a_run_loads_no_jax():
         import sys, tempfile, time
         sys.path[:0] = [{ROOT!r}, {HERE!r}]
         import conftest
-        from raybench import harness, run
+        from raybench import harness, ranks, run
         root = conftest.make_root(tempfile.mkdtemp())
-        for cell in ("bunny-1080p.static", "bunny-1080p.fit"):
+        for cell in ("bunny-1080p.static", "bunny-1080p.fit",
+                     "bunny-1080p.frames4"):
             harness.run_cell(root, cell, 7, 0.2, False, "cpu",
                              time.perf_counter())
         print(sorted({{m.split(".")[0] for m in sys.modules}}
-                     & {{"ceres_tpu_torch"}}), run.forbidden_modules())
+                     & {{"ceres_tpu_torch"}}), run.forbidden_modules(),
+              ranks.REPORTED, ranks.FOUND)
         """)
-    assert out == "['ceres_tpu_torch'] []"
+    # Every other rank of frames4 reported its modules, and none held one.
+    assert out == "['ceres_tpu_torch'] [] [1, 2, 3] {}"
 
 
 def test_the_reference_loads_nothing_of_the_port():

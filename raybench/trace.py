@@ -123,19 +123,37 @@ def host_share(launch, n: int) -> float:
     return statistics.median(shares)
 
 
-def record(fn, n: int, cuda: bool = True) -> Trace:
-    """Trace n calls of ``fn(i)``, each synchronised, as the cell's loop
-    runs them (``cuda`` False: host events only, for the CPU tests)."""
+def activities(cuda: bool = True):
+    """The profiler's activities: CPU, and CUDA on the card."""
     acts = [torch.profiler.ProfilerActivity.CPU]
     if cuda:
         acts.append(torch.profiler.ProfilerActivity.CUDA)
+    return acts
+
+
+def spanned(call, cuda: bool = True):
+    """``call()`` inside a FRAME_SPAN span, synchronised on the card."""
+    with torch.profiler.record_function(FRAME_SPAN):
+        out = call()
+        if cuda:
+            torch.cuda.synchronize()
+    return out
+
+
+def record(fn, n: int, cuda: bool = True) -> Trace:
+    """Trace n calls of ``fn(i)``, each synchronised, as the cell's loop
+    runs them (``cuda`` False: host events only, for the CPU tests)."""
+    if cuda:
         torch.cuda.synchronize()
-    with torch.profiler.profile(activities=acts) as prof:
+    with torch.profiler.profile(activities=activities(cuda)) as prof:
         for i in range(n + 1):
-            with torch.profiler.record_function(FRAME_SPAN):
-                fn(i)
-                if cuda:
-                    torch.cuda.synchronize()
+            spanned(lambda: fn(i), cuda)
+    return reduce(prof, n)
+
+
+def reduce(prof, n: int) -> Trace:
+    """The Trace of a finished profiler session ``prof`` that made n + 1
+    spanned calls (``spanned``)."""
     device, host, spans = [], [], []
     for e in prof.events():
         iv = (e.name, e.time_range.start, e.time_range.end)
