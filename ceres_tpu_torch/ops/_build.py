@@ -6,7 +6,8 @@ by the source's stem and a hash of the source and the flags: an edited
 source is rebuilt, an unchanged one is reused. The sources (``SOURCES``):
 ``walk`` is ``ops/csrc/walk.cu`` (the walks, span stamps, graph node
 counts), ``lbvh`` is ``accel/csrc/lbvh.cu`` (the LBVH hierarchy and
-boxes). Each library is loaded with ``ctypes`` once per process. A
+boxes), ``walk_f64`` is ``ops/csrc/walk_f64.cu`` (the float64 walk). Each
+library is loaded with ``ctypes`` once per process. A
 missing ``nvcc`` or a failed build raises; there is no fallback.
 
 ``--fmad=false`` keeps every multiply and add separately rounded, so the
@@ -25,7 +26,8 @@ import subprocess
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _PACKAGE = os.path.dirname(_HERE)
 SOURCES = {"walk": os.path.join(_HERE, "csrc", "walk.cu"),
-           "lbvh": os.path.join(_PACKAGE, "accel", "csrc", "lbvh.cu")}
+           "lbvh": os.path.join(_PACKAGE, "accel", "csrc", "lbvh.cu"),
+           "walk_f64": os.path.join(_HERE, "csrc", "walk_f64.cu")}
 BUILD_DIR = os.path.join(_PACKAGE, "_build")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -74,6 +76,12 @@ SIGNATURES = {
         # leaf_lo, leaf_hi, node_lo, node_hi, n, f64, device, stream
         "ceres_lbvh_boxes": ((_P,) * 13 + (_I,) * 3 + (_P,), _I),
         "ceres_lbvh_error_string": ((_I,), _S),
+    },
+    "walk_f64": {
+        # ent, order, counts, dirs, origins, alive, tcap, tmin, tmax,
+        # occ0, w, out, visits, n_tiles, n_c, C, mode, device, stream
+        "ceres_walk_f64": ((_P,) * 13 + (_I,) * 5 + (_P,), _I),
+        "ceres_walk_f64_error_string": ((_I,), _S),
     },
 }
 

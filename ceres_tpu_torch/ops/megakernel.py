@@ -28,8 +28,8 @@ accepts hits only inside each ray's window and caps the walk at tmax.
 
 A float64 soup builds its cut in float64 and searches in float32, with
 every observed value recomputed in float64 at the winners; with
-``exact_f64=True`` the search itself runs in float64 (``ops.walk_f64``,
-plain torch, no kernel).
+``exact_f64=True`` the search itself runs in float64 (``ops.walk_f64``:
+its own kernel on the card, the plain frontier loop on the CPU).
 
 ``any_hit_to_point(regroup=True)`` re-tiles the shadow wavefront by the
 receiving points' morton codes, into tiles of ``_REGROUP_TILE`` = 128

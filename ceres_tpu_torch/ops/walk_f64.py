@@ -1,4 +1,4 @@
-"""All-float64 cluster walk in plain torch (counterpart of
+"""All-float64 cluster walk (counterpart of
 ``ceres_tpu/ops/walk_f64.py``: ``_prepass``, ``_walk``,
 ``closest_search_f64``, ``any_hit_f64``, ``any_hit_to_point_f64``).
 
@@ -8,21 +8,33 @@ winner itself can be wrong where sheets lie closer than float32
 resolution or coordinates span more than 2^24. This module searches in
 float64 throughout, in the two phases of the walk kernels: the interval
 prepass (``ops.prepass``, run in float64) sorts each tile's candidate
-clusters by entry bound, then a lockstep frontier advances every active
-tile through its own list, one candidate a step (a gather and a batched
-float64 Möller-Trumbore), until the tile's next entry bound exceeds its
-prune, the maximum over its rays of min(best t, root exit). No prune pad:
-nothing here understates t.
+clusters by entry bound, then each tile walks its own list front to
+back, one candidate a visit (a batched float64 Möller-Trumbore of its
+rays against the cluster's triangles), while the next entry bound is at
+most the tile's prune, the maximum over its rays of min(best t, root
+exit). No prune pad: nothing here understates t.
 
-Tiles go in chunks, which bound the (chunk, 512, 128) float64
-intermediates. A tile's visits and result do not depend on its chunk:
-its activity is its own, and monotone (entries ascend, prunes only
-fall). The JAX package takes 64 tiles a chunk; on the card a chunk of
-512 tiles runs the frontier loop, which reads each step's activity on
-the host, 8x fewer times. A step evaluates only the chunk's active tiles.
+Two forms of the walk, chosen by the tensors' device:
 
-Plain torch and no kernel: the JAX module is plain JAX, not Pallas. The
-entry points record no autograd graph: they return integers.
+  * on the card, one kernel (``csrc/walk_f64.cu``, built and bound by
+    ``ops._build``): one CTA a tile, one thread a ray, the prune a block
+    reduction after every visit. Each launch adds one to its mode's key
+    of the counter ``walk_f64.launches`` (``utils.spans``). No step of
+    this path reads the device, so a frame with ``f64_exact`` is
+    captured as a CUDA graph (``render.renderer.render_graph``);
+  * on the CPU, the plain frontier loop (``_walk_plain``): every active
+    tile of a chunk advances one candidate a step, and each step's
+    activity is read on the host. Chunks (``_CHUNK`` = 64 tiles, as in
+    the JAX package) bound the (chunk, 512, C) float64 intermediates. A
+    tile's visits and result do not depend on its chunk: its activity is
+    its own, and monotone (entries ascend, prunes only fall).
+
+Both give the same winner slots, flags and visits bit for bit: the card
+tests hold the kernel to ``_walk_plain`` run on the same card tensors,
+the inputs that each entry point's prepass returns (``_closest_inputs``,
+``_any_inputs``, ``_any_dest_inputs``). Each entry point stamps the spans
+``prepass.f64`` (prepass, weight planes and caps) and ``walk.f64`` (the
+walk). They record no autograd graph: they return integers.
 """
 
 from __future__ import annotations
@@ -33,13 +45,20 @@ from ceres_tpu_torch.ops.prepass import (_BIG, _ULP_PAD, _VALID_CUT, TILE,
                                          _hull, _interval_entry, _pad_rays,
                                          _ray_tcap, _scene_root)
 from ceres_tpu_torch.ops.walk import _DEST_EPS
+from ceres_tpu_torch.utils import spans
 
-_CHUNK = 64          # tiles a chunk on the CPU, as in the JAX package
-_CHUNK_CUDA = 512    # tiles a chunk on the card
+_CHUNK = 64          # tiles a chunk of the plain loop, as in the JAX package
+MODES = ("closest", "any", "any_dest")
+
+# Kernel launches by mode since the last reset_launches(), the counter
+# ``walk_f64.launches`` of ``utils.spans``. Counted where a launch
+# succeeds and nowhere else.
+launches = spans.counter("walk_f64.launches", MODES)
 
 
-def _chunk(device: torch.device) -> int:
-    return _CHUNK_CUDA if device.type == "cuda" else _CHUNK
+def reset_launches() -> None:
+    for name in launches:
+        launches[name] = 0
 
 
 def _cross(u, v):
@@ -86,26 +105,100 @@ def _prepass(cs, shift, dir_cols, origin_cols=None, alive_cols=None):
     return order, ent_sorted, counts, d3, o3, alive
 
 
-def _walk(cs, shift, order, ent, counts, d3, o3, alive, tcap, tmin=None,
-          tmax=None, occ0=None, *, mode, chunk=None):
-    """Chunked frontier walk -> (out (n_t, TILE) int32, executed visits).
-
-    ``out`` holds packed winner slot ids (``mode="closest"``, -1 for a
-    miss) or occlusion flags (``"any"``, ``"any_dest"``). ``tmin``/
-    ``tmax`` (n_t, TILE) accept closest hits only inside each ray's
-    window; ``occ0`` (n_t, TILE) int marks rays that start occluded.
-    """
-    n_t, n_c = ent.shape
-    C = cs.cluster_size
-    chunk = chunk or _chunk(ent.device)
-    any_mode = mode in ("any", "any_dest")
-    # Per-cluster weights once: the JAX package gathers the records a
-    # step and computes the same elementwise values from them.
+def _weights(cs, shift):
+    """The per-cluster weight planes of triangles relative to ``shift``:
+    (cu, cv, n, tn), each (N_c, C, 3) but tn (N_c, C). The JAX package
+    gathers the records a step and computes the same elementwise values
+    from them."""
     p0 = cs.p0 - shift
     cu, cv, nn = _cross(p0, cs.e2), _cross(p0, cs.e1), cs.n
     tn = (nn[..., 0] * p0[..., 0] + nn[..., 1] * p0[..., 1]
           + nn[..., 2] * p0[..., 2])
-    one = torch.ones((), dtype=p0.dtype, device=p0.device)
+    return cu, cv, nn, tn
+
+
+def _planes(cs, weights, generic):
+    """The kernel's (N_c, K, C) weight planes: cu, cv, n (3 each) and tn,
+    then for rays with their own origins e1 and e2 (K = 10 or 16)."""
+    cu, cv, nn, tn = weights
+    rows = [x[..., a] for x in (cu, cv, nn) for a in range(3)] + [tn]
+    if generic:
+        rows += [x[..., a] for x in (cs.e1, cs.e2) for a in range(3)]
+    return torch.stack(rows, dim=1)
+
+
+def _walk(cs, weights, order, ent, counts, d3, o3, alive, tcap, tmin=None,
+          tmax=None, occ0=None, *, mode):
+    """The walk -> (out (n_t, TILE) int32, executed visits, a 0-dim int64).
+
+    ``out`` holds packed winner slot ids (``mode="closest"``, -1 for a
+    miss) or occlusion flags (``"any"``, ``"any_dest"``). ``weights`` are
+    ``_weights`` of the rays' shift; ``tmin``/``tmax`` (n_t, TILE) accept
+    closest hits only inside each ray's window; ``occ0`` (n_t, TILE) int
+    marks rays that start occluded. The kernel on the card, the plain
+    loop elsewhere.
+    """
+    with spans.span("walk.f64"):
+        if ent.device.type == "cuda":
+            return _walk_card(cs, weights, order, ent, counts, d3, o3, alive,
+                              tcap, tmin, tmax, occ0, mode)
+        return _walk_plain(cs, weights, order, ent, counts, d3, o3, alive,
+                           tcap, tmin, tmax, occ0, mode=mode)
+
+
+def _walk_card(cs, weights, order, ent, counts, d3, o3, alive, tcap, tmin,
+               tmax, occ0, mode):
+    """``_walk_plain`` as one kernel (``csrc/walk_f64.cu``), one CTA a
+    tile; a failed launch raises."""
+    from ceres_tpu_torch.ops import _build
+
+    n_t, n_c = ent.shape
+    if mode not in MODES:
+        raise ValueError(f"walk_f64: unknown mode {mode!r}")
+    w = _planes(cs, weights, o3 is not None)
+    f64, i64, rays = torch.float64, torch.int64, (n_t, TILE)
+    for x, dtype, shape in (
+            (ent, f64, (n_t, n_c)), (order, i64, (n_t, n_c)),
+            (counts, i64, (n_t,)), (d3, f64, (*rays, 3)),
+            (o3, f64, (*rays, 3)),
+            (alive, torch.bool, rays), (tcap, f64, rays), (tmin, f64, rays),
+            (tmax, f64, rays), (occ0, torch.int32, rays)):
+        if x is not None and (x.dtype != dtype or tuple(x.shape) != shape
+                              or not x.is_contiguous()
+                              or x.device != ent.device):
+            raise ValueError(f"walk_f64 kernel: an input of "
+                             f"{tuple(x.shape)} {x.dtype} on {x.device}, "
+                             f"wants a contiguous {shape} {dtype} on "
+                             f"{ent.device}")
+    out = torch.empty((n_t, TILE), dtype=torch.int32, device=ent.device)
+    visits = torch.empty(n_t, dtype=torch.int64, device=ent.device)
+    lib = _build.load("walk_f64")
+    ptr = [0 if x is None else x.data_ptr()
+           for x in (ent, order, counts, d3, o3, alive, tcap, tmin, tmax,
+                     occ0, w, out, visits)]
+    dev = ent.device
+    err = lib.ceres_walk_f64(*ptr, n_t, n_c, cs.cluster_size,
+                             MODES.index(mode), dev.index or 0,
+                             torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"ceres_walk_f64 kernel launch failed: "
+                           f"{lib.ceres_walk_f64_error_string(err).decode()} "
+                           f"({err})")
+    launches[mode] += 1
+    return out, visits.sum()
+
+
+def _walk_plain(cs, weights, order, ent, counts, d3, o3, alive, tcap,
+                tmin=None, tmax=None, occ0=None, *, mode, chunk=None):
+    """The chunked frontier walk, plain torch: ``_walk``'s result.
+    ``chunk`` tiles a chunk (default ``_CHUNK``) bound its intermediates
+    and change nothing else."""
+    n_t, n_c = ent.shape
+    C = cs.cluster_size
+    chunk = chunk or _CHUNK
+    any_mode = mode in ("any", "any_dest")
+    cu, cv, nn, tn = weights
+    one = torch.ones((), dtype=tn.dtype, device=tn.device)
 
     def mt_step(cid, tiles):
         """(ok, t) of the tiles' rays against clusters ``cid``, each
@@ -141,9 +234,9 @@ def _walk(cs, shift, order, ent, counts, d3, o3, alive, tcap, tmin=None,
             state = occ0[tiles] > 0
         else:
             state = torch.full((tiles.shape[0], TILE), torch.inf,
-                               dtype=p0.dtype, device=p0.device)
+                               dtype=tn.dtype, device=tn.device)
             slot = torch.full((tiles.shape[0], TILE), -1, dtype=torch.int64,
-                              device=p0.device)
+                              device=tn.device)
         for k in range(n_c):
             if any_mode:
                 prune = torch.where(state, -one, tcap_c).amax(dim=1)
@@ -174,68 +267,100 @@ def _counters(steps):
     return {"traversal_steps": steps, "mt_block_visits": steps}
 
 
+def _no_skip(skip, R, device):
+    return (torch.zeros(R, dtype=torch.bool, device=device) if skip is None
+            else skip)
+
+
+def _closest_inputs(cs, eye, dir_cols, tmin=None, tmax=None):
+    """``closest_search_f64``'s prepass: the keywords of ``_walk`` (and of
+    ``_walk_plain``, which the card tests hold the kernel to)."""
+    R = dir_cols[0].shape[0]
+    with spans.span("prepass.f64"):
+        order, ent, counts, d3, _, alive = _prepass(cs, eye, dir_cols)
+        root_lo, root_hi = _scene_root(cs)
+        dp = tuple(_pad_rays(c) for c in dir_cols)
+        tcap = _ray_tcap(root_lo - eye, root_hi - eye, dp).reshape(-1, TILE)
+        tmin_t = tmax_t = None
+        if tmin is not None or tmax is not None:
+            def per_ray(x, fill):
+                x = fill if x is None else x
+                if not isinstance(x, torch.Tensor):
+                    # A fill, not a host copy: nothing waits on the card.
+                    x = eye.new_full((), float(x))
+                x = x.to(dtype=eye.dtype, device=eye.device)
+                return _pad_rays(x.expand(R).contiguous()).reshape(-1, TILE)
+
+            tmin_t, tmax_t = per_ray(tmin, 0.0), per_ray(tmax, _BIG)
+            tcap = torch.where(tcap < 0, tcap,
+                               torch.minimum(tcap, tmax_t * (1.0 + _ULP_PAD)))
+        weights = _weights(cs, eye)
+    return dict(cs=cs, weights=weights, order=order, ent=ent, counts=counts,
+                d3=d3, o3=None, alive=alive, tcap=tcap, tmin=tmin_t,
+                tmax=tmax_t, mode="closest")
+
+
+def _any_inputs(cs, origin_shift, origin_cols, dir_cols, skip=None):
+    """``any_hit_f64``'s prepass, as ``_closest_inputs``."""
+    skip = _no_skip(skip, dir_cols[0].shape[0], cs.lo.device)
+    with spans.span("prepass.f64"):
+        o = tuple(origin_cols[a] - origin_shift[a] for a in range(3))
+        order, ent, counts, d3, o3, alive = _prepass(cs, origin_shift,
+                                                     dir_cols, o, ~skip)
+        root_lo, root_hi = _scene_root(cs)
+        tcap = _ray_tcap(root_lo - origin_shift, root_hi - origin_shift,
+                         tuple(_pad_rays(c) for c in dir_cols),
+                         tuple(_pad_rays(c) for c in o))
+        occ0 = _pad_rays(skip.to(torch.int32)).reshape(-1, TILE)
+        weights = _weights(cs, origin_shift)
+    return dict(cs=cs, weights=weights, order=order, ent=ent, counts=counts,
+                d3=d3, o3=o3, alive=alive, tcap=tcap.reshape(-1, TILE),
+                occ0=occ0, mode="any")
+
+
+def _any_dest_inputs(cs, dest, point_cols, skip=None):
+    """``any_hit_to_point_f64``'s prepass, as ``_closest_inputs``."""
+    skip = _no_skip(skip, point_cols[0].shape[0], cs.lo.device)
+    with spans.span("prepass.f64"):
+        d = tuple(point_cols[a] - dest[a] for a in range(3))
+        order, ent, counts, d3, _, alive = _prepass(cs, dest, d, None, ~skip)
+        root_lo, root_hi = _scene_root(cs)
+        tcap = _ray_tcap(root_lo - dest, root_hi - dest,
+                         tuple(_pad_rays(c) for c in d)).clamp(
+                             max=1.0 + _ULP_PAD)
+        occ0 = _pad_rays(skip.to(torch.int32)).reshape(-1, TILE)
+        weights = _weights(cs, dest)
+    return dict(cs=cs, weights=weights, order=order, ent=ent, counts=counts,
+                d3=d3, o3=None, alive=alive, tcap=tcap.reshape(-1, TILE),
+                occ0=occ0, mode="any_dest")
+
+
 @torch.no_grad()
-def closest_search_f64(cs, eye, dir_cols, tmin=None, tmax=None, chunk=None):
+def closest_search_f64(cs, eye, dir_cols, tmin=None, tmax=None):
     """All-float64 winner search, in place of ``megakernel._closest_search``:
     (packed slot ids (R,) int32, counters). ``cs``, ``eye`` and the rays
     are float64; the ClusterSet is the one the accelerated path walks.
     ``tmin``/``tmax`` (scalar or per-ray) as there."""
-    R = dir_cols[0].shape[0]
-    order, ent, counts, d3, _, alive = _prepass(cs, eye, dir_cols)
-    root_lo, root_hi = _scene_root(cs)
-    dp = tuple(_pad_rays(c) for c in dir_cols)
-    tcap = _ray_tcap(root_lo - eye, root_hi - eye, dp).reshape(-1, TILE)
-    tmin_t = tmax_t = None
-    if tmin is not None or tmax is not None:
-        def per_ray(x, fill):
-            x = fill if x is None else x
-            x = torch.as_tensor(x, dtype=eye.dtype, device=eye.device)
-            return _pad_rays(x.expand(R).contiguous()).reshape(-1, TILE)
-
-        tmin_t, tmax_t = per_ray(tmin, 0.0), per_ray(tmax, _BIG)
-        tcap = torch.where(tcap < 0, tcap,
-                           torch.minimum(tcap, tmax_t * (1.0 + _ULP_PAD)))
-    slot, steps = _walk(cs, eye, order, ent, counts, d3, None, alive, tcap,
-                        tmin_t, tmax_t, mode="closest", chunk=chunk)
-    return slot.reshape(-1)[:R], _counters(steps)
+    slot, steps = _walk(**_closest_inputs(cs, eye, dir_cols, tmin, tmax))
+    return slot.reshape(-1)[:dir_cols[0].shape[0]], _counters(steps)
 
 
 @torch.no_grad()
-def any_hit_f64(cs, origin_shift, origin_cols, dir_cols, skip=None,
-                chunk=None):
+def any_hit_f64(cs, origin_shift, origin_cols, dir_cols, skip=None):
     """All-float64 occlusion of rays with their own origins
     (``megakernel.any_hit`` semantics): (bool (R,), counters)."""
     R = dir_cols[0].shape[0]
-    if skip is None:
-        skip = torch.zeros(R, dtype=torch.bool, device=cs.lo.device)
-    o = tuple(origin_cols[a] - origin_shift[a] for a in range(3))
-    order, ent, counts, d3, o3, alive = _prepass(cs, origin_shift, dir_cols,
-                                                 o, ~skip)
-    root_lo, root_hi = _scene_root(cs)
-    tcap = _ray_tcap(root_lo - origin_shift, root_hi - origin_shift,
-                     tuple(_pad_rays(c) for c in dir_cols),
-                     tuple(_pad_rays(c) for c in o))
-    occ0 = _pad_rays(skip.to(torch.int32)).reshape(-1, TILE)
-    occ, steps = _walk(cs, origin_shift, order, ent, counts, d3, o3, alive,
-                       tcap.reshape(-1, TILE), occ0=occ0, mode="any",
-                       chunk=chunk)
+    skip = _no_skip(skip, R, cs.lo.device)
+    occ, steps = _walk(**_any_inputs(cs, origin_shift, origin_cols, dir_cols,
+                                    skip))
     return (occ.reshape(-1)[:R] > 0) & ~skip, _counters(steps)
 
 
 @torch.no_grad()
-def any_hit_to_point_f64(cs, dest, point_cols, skip=None, chunk=None):
+def any_hit_to_point_f64(cs, dest, point_cols, skip=None):
     """All-float64 occlusion of the segments from ``dest`` to each point
     (``megakernel.any_hit_to_point`` semantics): (bool (R,), counters)."""
     R = point_cols[0].shape[0]
-    if skip is None:
-        skip = torch.zeros(R, dtype=torch.bool, device=cs.lo.device)
-    d = tuple(point_cols[a] - dest[a] for a in range(3))
-    order, ent, counts, d3, _, alive = _prepass(cs, dest, d, None, ~skip)
-    root_lo, root_hi = _scene_root(cs)
-    tcap = _ray_tcap(root_lo - dest, root_hi - dest,
-                     tuple(_pad_rays(c) for c in d)).clamp(max=1.0 + _ULP_PAD)
-    occ0 = _pad_rays(skip.to(torch.int32)).reshape(-1, TILE)
-    occ, steps = _walk(cs, dest, order, ent, counts, d3, None, alive,
-                       tcap.reshape(-1, TILE), occ0=occ0, mode="any_dest",
-                       chunk=chunk)
+    skip = _no_skip(skip, R, cs.lo.device)
+    occ, steps = _walk(**_any_dest_inputs(cs, dest, point_cols, skip))
     return (occ.reshape(-1)[:R] > 0) & ~skip, _counters(steps)

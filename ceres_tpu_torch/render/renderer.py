@@ -586,8 +586,10 @@ def render_graph(vertices, faces, camera: Camera, sun_position,
     camera, sun and ``spheres`` are copied into the graph's buffers in
     the vertices' dtype. Runs on ``device`` as ``render()`` resolves it
     (the card unless CPU tensors or ``device="cpu"`` are given). Only the
-    cluster walk is captured: ``backend="bruteforce"`` (the oracle) and
-    ``f64_exact`` (the float64 walk, ``ops.walk_f64``) raise.
+    cluster walk is captured: ``backend="bruteforce"`` (the oracle)
+    raises. ``f64_exact`` (the float64 search, ``ops.walk_f64``: its
+    kernel on the card) is captured too, and needs float64 vertices, as
+    a frame of it does (it raises otherwise).
     """
     _check_config(config)
     if config.backend != "megakernel":
@@ -595,12 +597,11 @@ def render_graph(vertices, faces, camera: Camera, sun_position,
                          "(backend='megakernel'); backend='bruteforce' is "
                          "the all-pairs oracle, run it through "
                          "render_pipeline")
-    if config.f64_exact:
-        raise ValueError("render_graph: f64_exact searches in float64 on "
-                         "the plain walk (ops.walk_f64), which is not "
-                         "captured; run it through render_pipeline")
     device = resolve_device(vertices, device, "render_graph")
     vertices = torch.as_tensor(vertices, device=device).detach().clone()
+    if config.f64_exact and vertices.dtype != torch.float64:
+        raise ValueError(f"render_graph: f64_exact searches in float64 and "
+                         f"needs float64 vertices, not {vertices.dtype}")
     faces = torch.as_tensor(faces, device=device).clone()
     dtype = vertices.dtype
     camera = Camera(*(torch.as_tensor(getattr(camera, k), dtype=dtype,

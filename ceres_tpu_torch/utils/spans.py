@@ -4,8 +4,11 @@ time goes, timed on the device inside the CUDA graph that runs it.
 Counters. ``counters`` maps a counter's name to its counts by key:
 ``walk.launches`` (walk kernel launches by variant, ``ops.walk``),
 ``lbvh.launches`` (the LBVH build's kernel launches, ``hierarchy`` and
-``boxes``, ``accel.lbvh``) and ``graph.nodes`` (the nodes a replayed
-CUDA graph runs, by type: kernel, memcpy, memset, other). A capture (``utils.graphs``) records how far each
+``boxes``, ``accel.lbvh``), ``walk_f64.launches`` (the float64 walk
+kernel's launches by mode, ``closest``, ``any`` and ``any_dest``,
+``ops.walk_f64``; none on the CPU) and ``graph.nodes`` (the nodes a
+replayed CUDA graph runs, by type: kernel, memcpy, memset, other). A
+capture (``utils.graphs``) records how far each
 counter rose and every replay adds that, so replayed calls count as eager
 ones do; a capture made with spans on also counts its graph's nodes,
 less its stamps, into ``graph.nodes`` at each replay.
@@ -28,6 +31,13 @@ on:
     profiler trace shows the phase on the host beside its stamp kernels;
   * ``host(name)`` is the host span alone (``FrameGraph``'s input copies
     and replay launch).
+
+The port's spans: ``frame``, ``primary``, ``shade``, ``build``,
+``closest.prep``, ``closest.gather``, ``shadow.prep`` and ``walk`` (the
+float32 walk kernels) in a frame; ``prepass.f64`` and ``walk.f64`` in
+each float64-exact search (``ops.walk_f64``: its prepass and its walk);
+``step.refit``, ``step.forward``, ``step.loss``, ``step.backward`` and
+``step.optim`` in a train step.
 
 ``Record.span_ms()``, after a synchronise, gives the milliseconds of the
 last call (or replay) by span name: ``total`` (summed over the spans of

@@ -99,10 +99,19 @@ its own line:
      at 128 x 128;
  16. float64 at 1080p through the CLI: ``-d`` launches K1 and K2 once
      each and its image on the card equals the CPU's at 128 x 128;
-     ``--d-exact`` launches no walk kernel and its image is within 0.5%
-     of pixels of ``-d``'s; ``render()``'s float64 image, and the ms of a
-     frame of each (median of a few, the cut built in each), the exact
-     walk also at 64 tiles a chunk (same visits and counts);
+     ``--d-exact`` launches no float32 walk kernel, the float64 walk
+     kernel (``ops/csrc/walk_f64.cu``) once for the closest search and
+     once for the shadows (``walk_f64.launches``), its image is within
+     0.5% of pixels of ``-d``'s and equals the CPU's at 128 x 128;
+     ``render()``'s float64 image, and the ms of a frame of each (median
+     of a few, the cut built in each); the float64 walk kernel against
+     the plain frontier loop on the same card tensors (closest, shadow
+     segments, generic shadow rays; bit-equal, the same visits, each
+     way's ms) on the bunny's and the 4x bunny's 1080p rays; the 4x
+     bunny's frame of each as a CUDA graph (float64 cut and winner table
+     built before it), replayed and timed, each replay bit-equal to the
+     eager frame (image, rays, hits, visits), the launches of a replay,
+     peak memory, and what ``--d-exact`` costs over ``-d``;
  17. the anim CLI's frame loop (``cli.anim.render_frames``) at its
      default 621 x 1344: 8 turntable frames in batches of 4 with
      ``--save-frames``: the cut built once a batch, K1 and K2 launched
@@ -218,7 +227,7 @@ its own line:
      bunny's), held and timed as phase 22 holds the refitted ones.
 
 ``python3 chip_smoke.py --phases 20`` runs phases 1, 2 and the phases
-listed (of 20, 21, 22 and 23) and prints no JSON record: the
+listed (of 16, 20, 21, 22 and 23) and prints no JSON record: the
 cluster-size sweep of the 128-ray walk (``hier_sweep.py --k128s``) runs
 it.
 
@@ -249,6 +258,7 @@ the device record. Needs no network and no JAX.
 import argparse
 import contextlib
 import dataclasses
+import functools
 import io
 import json
 import os
@@ -1240,24 +1250,91 @@ def phase15(dev, card, tmp):
     return merge(launches, slaunch)
 
 
-def phase16(dev, card, tmp):
-    """Float64 through the CLI: -d and --d-exact at 1080p."""
-    import ceres_tpu_torch as ct
+def f64_walks_both_ways(cs, eye, dirs, sun, label, chunk=None):
+    """The float64 walk kernel against the plain frontier loop (``chunk``
+    tiles a chunk) on the same card tensors, the inputs of the entry
+    points' prepasses: the closest search from ``eye`` along ``dirs``,
+    then the shadow segments from ``sun`` to the hit points (misses
+    skipped) and generic shadow rays from them toward it. Slots and flags
+    bit-equal, visits equal, one kernel launch a walk; each way's
+    CUDA-event ms of the walk alone."""
     from ceres_tpu_torch.ops import walk_f64
+
+    pts = skip = sl = None
+    rows = []
+    for mode in ("closest", "any_dest", "any"):
+        if mode == "closest":
+            w = walk_f64._closest_inputs(cs, eye, dirs)
+        elif mode == "any_dest":
+            w = walk_f64._any_dest_inputs(cs, sun, pts, skip)
+        else:
+            w = walk_f64._any_inputs(cs, cs.p0.mean((0, 1)), pts, sl, skip)
+        walk_f64.reset_launches()
+        (got, visits), ms = timed_once(lambda: walk_f64._walk(**w))
+        launched = {k: n for k, n in walk_f64.launches.items() if n}
+        (want, wvisits), plain_ms = timed_once(
+            lambda: walk_f64._walk_plain(**w, chunk=chunk))
+        same = torch.equal(got, want)
+        visits, wvisits = int(visits), int(wvisits)
+        print(f"phase 16 float64 walk {mode}, {label}: kernel {ms:.3f} ms, "
+              f"plain loop {plain_ms:.3f} ms; visits {visits} (plain "
+              f"{wvisits}); bit-equal {same}; launches {launched}",
+              flush=True)
+        check(same and visits == wvisits and launched == {mode: 1},
+              f"phase 16: the float64 {mode} kernel differs from the plain "
+              f"loop on {label}")
+        rows.append((mode, visits, ms, plain_ms))
+        if mode == "closest":
+            # Points a little short of each hit (its t from the winning
+            # slot's records), the receivers of both shadow walks.
+            got = got.reshape(-1)[:dirs[0].shape[0]]
+            hit = got >= 0
+            idx = got.clamp(min=0).long()
+            p0 = cs.p0.reshape(-1, 3)[idx]
+            n = cs.n.reshape(-1, 3)[idx]
+            d = torch.stack(dirs, -1)
+            t = ((n * (p0 - eye)).sum(-1) / (n * d).sum(-1))
+            t = torch.where(hit, t, 0.0)
+            pts = tuple(eye[a] + 0.999 * t * dirs[a] for a in range(3))
+            skip = ~hit
+            s = tuple(sun[a] - pts[a] for a in range(3))
+            inv = torch.rsqrt(s[0] * s[0] + s[1] * s[1] + s[2] * s[2])
+            sl = tuple(x * inv for x in s)
+    return rows
+
+
+def phase16(dev, card, tmp, meshes=None):
+    """Float64: -d and --d-exact through the CLI at 1080p; the float64 walk
+    kernel against the plain loop; the 4x bunny's float64-exact frame as
+    a CUDA graph against the eager frame."""
+    import ceres_tpu_torch as ct
+    from ceres_tpu_torch.accel.clusters import build_clusters_treelet
+    from ceres_tpu_torch.models.camera import camera_ray_columns
+    from ceres_tpu_torch.ops import walk, walk_f64
+    from ceres_tpu_torch.render.renderer import (prepare_winner_table,
+                                                 render_graph)
+    from ceres_tpu_torch.utils import tiling
 
     d_path, d_counts, d_launch = render_cli(tmp, "d", ["-d"], dev)
     check(d_launch == K1_K2_ONCE,
           f"phase 16: -d launched {d_launch}, not K1 and K2 once")
+    walk_f64.reset_launches()
     x_path, x_counts, x_launch = render_cli(tmp, "d_exact", ["--d-exact"],
                                             dev)
+    x_f64 = {k: n for k, n in walk_f64.launches.items() if n}
     check(not x_launch, f"phase 16: --d-exact launched {x_launch}")
+    check(x_f64 == {"closest": 1, "any_dest": 1},
+          f"phase 16: --d-exact launched the float64 walk {x_f64}, not "
+          f"closest and any_dest once")
     off = ppm_off(d_path, x_path)
     print(f"phase 16 render CLI -d {W}x{H}: launches {d_launch}, Rays/Hits "
-          f"{d_counts}; --d-exact: launches {x_launch}, Rays/Hits "
-          f"{x_counts}; pixels more than one level apart {off:.4%} (limit "
-          f"0.5%)", flush=True)
+          f"{d_counts}; --d-exact: launches {x_launch}, float64 walk "
+          f"launches {x_f64}, Rays/Hits {x_counts}; pixels more than one "
+          f"level apart {off:.4%} (limit 0.5%)", flush=True)
     check(off < 0.005, "phase 16: --d-exact's image differs from -d's")
     against_cpu(tmp, "d", ["-d"], dev, "phase 16 render CLI -d")
+    against_cpu(tmp, "d_exact", ["--d-exact"], dev,
+                "phase 16 render CLI --d-exact")
 
     v, f = ct.load_obj(BUNNY)
     v64 = v.astype(np.float64)
@@ -1265,13 +1342,8 @@ def phase16(dev, card, tmp):
     cam = ct.Camera.make(eye=eye, dir=v64.mean(0) - eye, up=(0, 1, 0),
                          fov=60.0, dtype=torch.float64, device=dev)
     sun = np.asarray(SUN)
-    line, counts = [], {}
-    chunk = walk_f64._CHUNK_CUDA
-    # --d-exact also at the JAX package's 64 tiles a chunk: the same
-    # visits and counts, and the time the card's 512 tiles save.
-    for label, exact, chunk_k in (("-d", False, chunk),
-                                  ("--d-exact", True, chunk),
-                                  ("--d-exact, 64 tiles a chunk", True, 64)):
+    line = []
+    for label, exact in (("-d", False), ("--d-exact", True)):
         config = ct.RenderConfig(width=W, height=H, backend="megakernel",
                                  f64_exact=exact, traversal_stats=True)
 
@@ -1279,25 +1351,82 @@ def phase16(dev, card, tmp):
             return ct.render(v64, f, cam, sun + i * 1e-3, config=config,
                              device=dev)
 
-        walk_f64._CHUNK_CUDA = chunk_k
-        try:
-            (img, st), _ = timed_once(lambda: frame(0))
-            times = [timed_once(lambda: frame(i + 1))[1]
-                     for i in range(F64_FRAMES)]
-        finally:
-            walk_f64._CHUNK_CUDA = chunk
+        (img, st), _ = timed_once(lambda: frame(0))
+        times = [timed_once(lambda: frame(i + 1))[1]
+                 for i in range(F64_FRAMES)]
         check(img.dtype == torch.float64 and bool(torch.isfinite(img).all()),
               f"phase 16 {label}: not a finite float64 image")
-        counts[label] = {k: int(st[k]) for k in ("rays", "hits",
-                                                 "traversal_steps")}
         line.append(f"{label}: ms/frame median {statistics.median(times):.3f} "
                     f"({[round(t, 3) for t in times]}), executed visits "
                     f"{int(st['traversal_steps'])}")
     print(f"phase 16 float64 bunny {W}x{H} through render(), the treelet cut "
           f"built in each frame, CUDA events, {F64_FRAMES} frames after one: "
           f"{'; '.join(line)} [{card}]", flush=True)
-    check(counts["--d-exact"] == counts["--d-exact, 64 tiles a chunk"],
-          f"phase 16: the chunk size changed the exact walk: {counts}")
+
+    # The kernel against the plain loop on the bunny's 1080p rays.
+    vt, ft = torch.as_tensor(v64, device=dev), torch.as_tensor(f, device=dev)
+    cs = build_clusters_treelet(ct.triangle_soup(vt, ft, with_normals=False))
+    dirs = tuple(tiling.swizzle_plane(p) for p in camera_ray_columns(cam, W,
+                                                                     H))
+    sun_t = torch.as_tensor(sun, device=dev)
+    f64_walks_both_ways(cs, cam.eye, dirs, sun_t, f"bunny {W}x{H}")
+
+    # The 4x bunny: the float64-exact frame as a graph, and its walks.
+    v4, f4 = (meshes or bunny_meshes())[4]
+    vt = torch.as_tensor(v4.astype(np.float64), device=dev)
+    ft = torch.as_tensor(f4, device=dev)
+    cam4 = ct.Camera.make(eye=eye, dir=v4.astype(np.float64).mean(0) - eye,
+                          up=(0, 1, 0), fov=60.0, dtype=torch.float64,
+                          device=dev)
+    frames = []
+    for label, exact in (("-d", False), ("--d-exact", True)):
+        config = ct.RenderConfig(width=W, height=H, backend="megakernel",
+                                 f64_exact=exact, traversal_stats=True)
+        cs = build_clusters_treelet(ct.triangle_soup(vt, ft,
+                                                     with_normals=False))
+        table = prepare_winner_table(ct.triangle_soup(vt, ft), cs, config)
+        torch.cuda.reset_peak_memory_stats()
+        fg = render_graph(vt, ft, cam4, sun_t, config, cs, table)
+        times, same = [], True
+        for i in range(F64_FRAMES + 1):
+            s_i = sun_t + i * 1e-3
+            walk.reset_launches()
+            walk_f64.reset_launches()
+            (img, st), ms = timed_once(lambda: fg(sun_position=s_i))
+            f32 = {k: n for k, n in walk.launches.items() if n}
+            f64 = {k: n for k, n in walk_f64.launches.items() if n}
+            times.append(ms)
+            img_e, st_e = ct.render_pipeline(vt, ft, cam4, s_i, config,
+                                             clusters=cs, table_cols=table)
+            same = same and torch.equal(img.view(torch.int64),
+                                        img_e.view(torch.int64)) and {
+                k: int(x) for k, x in st.items()} == {
+                k: int(x) for k, x in st_e.items()}
+        peak = torch.cuda.max_memory_allocated()
+        want = ({"closest": 1, "any_dest": 1}, {}) if exact else (
+            {}, {"walk_closest_hier_stream": 1,
+                 "walk_any_dest_hier_stream": 1})
+        print(f"phase 16 bunny x4 {W}x{H} float64 {label} as a CUDA graph "
+              f"(float64 treelet cut, {cs.num_clusters} blocks): replayed "
+              f"ms {[round(t, 3) for t in times]}, median of the last "
+              f"{F64_FRAMES} {statistics.median(times[1:]):.3f}; launches a "
+              f"replay float64 {f64}, float32 {f32}; image, rays, hits and "
+              f"visits == the eager frame's {same}; visits "
+              f"{int(st['traversal_steps'])}; peak memory {peak} bytes "
+              f"[{card}]", flush=True)
+        check(same, f"phase 16: the bunny x4 {label} graph differs from the "
+              f"eager frame")
+        check((f64, f32) == want, f"phase 16: the bunny x4 {label} graph "
+              f"launched {f64} {f32}")
+        frames.append(statistics.median(times[1:]))
+        del fg, img, img_e
+    print(f"phase 16 bunny x4 {W}x{H}: --d-exact costs "
+          f"{frames[1] / frames[0]:.2f}x the -d frame ({frames[1]:.3f} "
+          f"against {frames[0]:.3f} ms) [{card}]", flush=True)
+    dirs = tuple(tiling.swizzle_plane(p) for p in camera_ray_columns(cam4, W,
+                                                                     H))
+    f64_walks_both_ways(cs, cam4.eye, dirs, sun_t, f"bunny x4 {W}x{H}",
+                        chunk=512)
     return d_launch
 
 
@@ -2732,12 +2861,12 @@ def phase23(dev, card, large):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", help="run phases 1, 2 and these only "
-                    "(comma-separated, of 20, 21, 22 and 23), with no JSON "
-                    "record")
+                    "(comma-separated, of 16, 20, 21, 22 and 23), with no "
+                    "JSON record")
     only = ap.parse_args(argv).phases
     only = [int(x) for x in only.split(",")] if only else None
-    check(only is None or set(only) <= {20, 21, 22, 23},
-          f"--phases takes 20, 21, 22 and 23, not {only}")
+    check(only is None or set(only) <= {16, 20, 21, 22, 23},
+          f"--phases takes 16, 20, 21, 22 and 23, not {only}")
     # Phase 1: device.
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: the port's smoke test "
@@ -2804,6 +2933,9 @@ def main(argv=None):
     if only:
         large = (large_scenes(dev, bunny_meshes())
                  if {20, 22, 23} & set(only) else None)
+        if 16 in only:
+            with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+                phase16(dev, card, tmp)
         if 20 in only:
             phase20(dev, card, large)
         if 21 in only:
@@ -3033,7 +3165,8 @@ def main(argv=None):
 
     # Phases 15-17: the command-line apps.
     with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
-        for phase in (phase15, phase16, phase17):
+        for phase in (phase15, functools.partial(phase16, meshes=meshes),
+                      phase17):
             path_launches = merge(path_launches, phase(dev, card, tmp))
     # Phase 18: the quality builders and their cuts.
     path_launches = merge(path_launches,

@@ -85,6 +85,19 @@ the boxes) and the bunny in float64; a refit without gradients (the
 boxes kernel) against the plain boxes; the treelet ``ClusterSet`` built
 on either; a refit with gradients on the card keeps the plain passes;
 ``lbvh.launches`` rises by one a kernel a build, eager or replayed.
+
+The float64 walk kernel (``ops/csrc/walk_f64.cu``) against the plain
+frontier loop (``ops.walk_f64._walk_plain``) on the same card
+tensors, the inputs of the three entry points' prepasses: on the bunny and the dragon
+decimation from the bench camera, a seeded random soup, and
+``lbvh_soups``' super comb and coordinate planes, in every mode (closest,
+with a per-ray and a scalar window; shadow segments with and without
+skipped rays; generic shadow rays): winner slots and flags bit-equal,
+executed visits equal, one launch a call counted in
+``walk_f64.launches``. The float64-exact frame as a CUDA graph against
+the eager frame, with the cut and winner table built before it (image
+bit-equal) and in it (moved vertices; stats exact), no float32 walk
+launched and the eager frame free of host syncs.
 """
 
 import dataclasses
@@ -1427,3 +1440,199 @@ def test_kernel_source_constants_match_python():
     assert int(const("kNegI")) == walk._NEG_I
     scale = const("kDestScale")
     assert float(scale[len("(float)(1.0 - "):-1]) == walk._DEST_EPS
+
+
+F64_SCENES = ("bunny", "dragon", "random", "super_comb", "planes")
+
+
+def _f64_inputs(name, dev):
+    """A float64 scene on the card with its float64 treelet cut and the
+    inputs of every float64 walk mode: (cs, eye, dirs, (per-ray tmin,
+    tmax, a scalar window), points, skip, sun, centre, sun_line). The
+    bunny and the dragon decimation are seen from the bench camera at
+    256 x 160; the random soup and ``lbvh_soups``' from a point outside
+    their box, mostly toward their triangles."""
+    if name in ("bunny", "dragon"):
+        verts, faces = ct.load_obj(os.path.join(ROOT, "data", f"{name}.obj"))
+        verts = verts.astype(np.float64)
+        eye = np.asarray(EYES[name])
+        cam = ct.Camera.make(eye=eye, dir=verts.mean(0) - eye, up=(0, 1, 0),
+                             fov=60.0, dtype=torch.float64, device=dev)
+        dirs = tuple(tiling.swizzle_plane(p)
+                     for p in camera_ray_columns(cam, 256, 160))
+    else:
+        if name == "random":
+            rng = np.random.default_rng(5)
+            verts = rng.standard_normal((90, 3))
+            faces = rng.integers(0, 90, (400, 3)).astype(np.int32)
+        else:
+            import lbvh_soups as soups
+
+            verts, faces = getattr(soups, name)()
+        verts = verts.astype(np.float64)
+        lo, hi = verts.min(0), verts.max(0)
+        eye = 0.5 * (lo + hi) - np.asarray([0.3, 0.4, 1.5]) * (hi - lo).max()
+        # Two rays in three toward seeded points in or near seeded
+        # triangles (barycentric weights, jittered), the rest in any
+        # direction.
+        rng = np.random.default_rng(6)
+        tri = verts[faces[rng.integers(0, len(faces), 2000)]]
+        bary = rng.dirichlet([1.0, 1.0, 1.0], 2000)
+        bary += 0.1 * rng.standard_normal(bary.shape)
+        aim = (bary[:, :, None] * tri).sum(1)
+        d = np.concatenate([aim - eye, rng.standard_normal((1000, 3))]).T
+        d /= np.linalg.norm(d, axis=0)
+        dirs = tuple(torch.as_tensor(c, device=dev) for c in d)
+    vt = torch.as_tensor(verts, device=dev)
+    ft = torch.as_tensor(faces, device=dev)
+    eye = torch.as_tensor(eye, dtype=torch.float64, device=dev)
+    soup = ct.triangle_soup(vt, ft, with_normals=False)
+    cs = build_clusters_treelet(soup)
+    hit = mk.closest_hit_common_origin(soup, eye, dirs, clusters=cs,
+                                       exact_f64=True)
+    t = torch.where(hit.mask, hit.t, 0.0)
+    points = tuple(eye[a] + 0.999 * t * dirs[a] for a in range(3))
+    sun = torch.as_tensor(SUN, dtype=torch.float64, device=dev)
+    sl = tuple(sun[a] - points[a] for a in range(3))
+    inv = torch.rsqrt(sl[0] * sl[0] + sl[1] * sl[1] + sl[2] * sl[2])
+    # Windows: the second surface behind each first hit, and a near/far
+    # clip for the rays that missed.
+    tmin = torch.where(hit.mask, hit.t * 1.0001, 0.05)
+    tmax = torch.where(hit.mask, 1e30, 8.0)
+    # A scalar window: the middle half of the first hits' distances.
+    window = tuple(float(torch.quantile(hit.t[hit.mask], q))
+                   for q in (0.25, 0.75))
+    return (cs, eye, dirs, (tmin, tmax, window), points, ~hit.mask, sun,
+            soup.p0.mean(0), tuple(c * inv for c in sl))
+
+
+def _f64_walk_inputs(inputs):
+    """Each float64 walk case's ``_walk`` inputs, from the entry points'
+    own prepasses."""
+    from ceres_tpu_torch.ops import walk_f64
+
+    cs, eye, dirs, (tmin, tmax, window), points, skip, sun, centre, sl = inputs
+    return {
+        "closest": walk_f64._closest_inputs(cs, eye, dirs),
+        "closest_window": walk_f64._closest_inputs(cs, eye, dirs, tmin,
+                                                   tmax),
+        "closest_scalar_window": walk_f64._closest_inputs(cs, eye, dirs,
+                                                          *window),
+        "any_dest": walk_f64._any_dest_inputs(cs, sun, points, skip),
+        "any_dest_no_skip": walk_f64._any_dest_inputs(cs, sun, points),
+        "any": walk_f64._any_inputs(cs, centre, points, sl, skip)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", F64_SCENES)
+def test_f64_kernel_equals_plain(name):
+    # The float64 walk kernel against the plain frontier loop on the same
+    # card tensors, every mode (closest, with per-ray and scalar windows;
+    # shadow segments with and without skipped rays; generic shadow
+    # rays): winner slots and flags bit-equal, executed visits equal, one
+    # launch of the mode's kernel a call and none by the plain loop.
+    from ceres_tpu_torch.ops import walk_f64
+
+    dev = _card()
+    for case, w in _f64_walk_inputs(_f64_inputs(name, dev)).items():
+        before = dict(walk_f64.launches)
+        got, steps = walk_f64._walk(**w)
+        after = dict(walk_f64.launches)
+        want, ref_steps = walk_f64._walk_plain(**w)
+        assert walk_f64.launches == after, case
+        assert got.dtype == want.dtype and torch.equal(got, want), case
+        assert int(steps) == int(ref_steps) > 0, case
+        assert {k: n - before[k] for k, n in after.items()
+                if n != before[k]} == {w["mode"]: 1}, case
+        live = w["alive"] if w.get("occ0") is None else (
+            w["alive"] & (w["occ0"] == 0))
+        if case == "closest":
+            assert int(((got >= 0) & live).sum()) > 50
+        elif case in ("any_dest", "any") and name != "super_comb":
+            # super_comb's runs of triangles shadow nothing
+            assert int(((got > 0) & live).sum()) > 0, case
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prebuilt", [True, False])
+def test_f64_graph_frame_equals_eager_on_card(prebuilt):
+    # The float64-exact frame replayed as a CUDA graph against the eager
+    # frame on the same inputs, three suns (and with the cut built in the
+    # frame, moved vertices): image bit-equal where the winner table is
+    # the graph's (stats exact either way), no float32 walk, the float64
+    # kernel once a walk a replay; the eager frame waits on the device
+    # nowhere.
+    from ceres_tpu_torch.ops import walk_f64
+    from ceres_tpu_torch.render.renderer import (prepare_winner_table,
+                                                 render_graph)
+
+    dev = _card()
+    size = 256
+    verts, faces = ct.load_obj(os.path.join(ROOT, "data", "bunny.obj"))
+    vt = torch.as_tensor(verts.astype(np.float64), device=dev)
+    ft = torch.as_tensor(faces, device=dev)
+    eye = np.asarray(EYES["bunny"])
+    cam = ct.Camera.make(eye=eye, dir=verts.mean(0) - eye, up=(0, 1, 0),
+                         fov=60.0, dtype=torch.float64, device=dev)
+    sun = torch.as_tensor(SUN, dtype=torch.float64, device=dev)
+    config = ct.RenderConfig(width=size, height=size, backend="megakernel",
+                             f64_exact=True, traversal_stats=True)
+    cs = table = None
+    if prebuilt:
+        cs = build_clusters_treelet(ct.triangle_soup(vt, ft,
+                                                     with_normals=False))
+        table = prepare_winner_table(ct.triangle_soup(vt, ft), cs, config)
+    fg = render_graph(vt, ft, cam, sun, config, cs, table)
+    assert fg.launches == {}
+    assert fg._graph.counts["walk_f64.launches"] == {"closest": 1,
+                                                     "any_dest": 1}
+    scale = float((vt - vt.mean(0)).abs().max())
+    for i in range(3):
+        kw = {"sun_position": sun + i * 1.5}
+        moved = vt
+        if not prebuilt:
+            noise = np.random.default_rng(50 + i).standard_normal(
+                tuple(vt.shape))
+            moved = vt + torch.as_tensor(2e-3 * scale * noise, device=dev)
+            kw["vertices"] = moved
+        walk.reset_launches()
+        walk_f64.reset_launches()
+        img, st = fg(**kw)
+        torch.cuda.synchronize()
+        assert not any(walk.launches.values())
+        assert walk_f64.launches == {"closest": 1, "any": 0, "any_dest": 1}
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            img_e, st_e = ct.render_pipeline(
+                moved, ft, cam, kw["sun_position"], config, clusters=cs,
+                table_cols=table)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        assert {k: int(x) for k, x in st.items()} == {
+            k: int(x) for k, x in st_e.items()}
+        assert int(st["shadow_hits"]) > 0
+        if prebuilt:
+            assert _same_bits(img, img_e)
+        else:
+            # Corner normals are summed with index_add_ atomics.
+            assert float((img - img_e).abs().max()) < 1e-12
+
+
+def test_f64_kernel_source_constants_match_python():
+    from ceres_tpu_torch.ops import walk_f64
+
+    src = open(os.path.join(os.path.dirname(walk.__file__), "csrc",
+                            "walk_f64.cu")).read()
+
+    def const(name):
+        return re.search(rf"constexpr \w+ {name} = ([^;]+);", src).group(1)
+
+    assert const("kR") == "512" and int(const("kR")) == prepass.TILE
+    assert int(const("kMaxC")) >= walk.CLUSTER_SIZE
+    assert int(const("kCommonPlanes")) == 10
+    assert int(const("kGenericPlanes")) == 16
+    assert float(const("kDestScale")[len("1.0 - "):]) == walk_f64._DEST_EPS
+    enum = re.search(r"enum Mode \{([^}]+)\}", src).group(1)
+    assert [int(x.split("=")[1]) for x in enum.split(",")] == [0, 1, 2]
+    assert walk_f64.MODES == ("closest", "any", "any_dest")

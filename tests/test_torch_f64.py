@@ -103,29 +103,30 @@ def jax_walks(f64_scene):
 
 
 @pytest.mark.parametrize("chunk", [None, 7])
-def test_f64_walk_equals_jax(f64_scene, jax_walks, chunk):
-    # A tile's visits do not depend on its chunk: 7 tiles a chunk gives
-    # the same slots, flags and visits as the JAX package's 64.
+def test_f64_walk_equals_jax(f64_scene, jax_walks, chunk, monkeypatch):
+    # A tile's visits do not depend on its chunk: 7 tiles a chunk of the
+    # plain loop gives the same slots, flags and visits as the JAX
+    # package's 64.
+    if chunk is not None:
+        monkeypatch.setattr(pwalk, "_CHUNK", chunk)
     _, _, _, jcs, cam, dirs = f64_scene
     cs = convert.cluster_set(jcs)
     d = tuple(map(_t, dirs))
-    slot, cnt = pwalk.closest_search_f64(cs, _t(cam.eye), d, chunk=chunk)
+    slot, cnt = pwalk.closest_search_f64(cs, _t(cam.eye), d)
     jslot, jcnt = jax_walks["closest"]
     assert int((np.asarray(jslot) >= 0).sum()) > 100
     np.testing.assert_array_equal(slot.numpy(), np.asarray(jslot))
     assert int(cnt["traversal_steps"]) == int(jcnt["traversal_steps"])
 
     skip, pts = _t(jax_walks["skip"]), tuple(map(_t, jax_walks["pts"]))
-    occ, cnt = pwalk.any_hit_to_point_f64(cs, _t(SUN), pts, skip=skip,
-                                          chunk=chunk)
+    occ, cnt = pwalk.any_hit_to_point_f64(cs, _t(SUN), pts, skip=skip)
     jocc, jcnt = jax_walks["any_dest"]
     assert 0 < int(np.asarray(jocc).sum())
     np.testing.assert_array_equal(occ.numpy(), np.asarray(jocc))
     assert int(cnt["traversal_steps"]) == int(jcnt["traversal_steps"])
 
     occ, cnt = pwalk.any_hit_f64(cs, _t(jax_walks["center"]), pts,
-                                 tuple(map(_t, jax_walks["sl"])), skip=skip,
-                                 chunk=chunk)
+                                 tuple(map(_t, jax_walks["sl"])), skip=skip)
     jocc, jcnt = jax_walks["any"]
     assert 0 < int(np.asarray(jocc).sum())
     np.testing.assert_array_equal(occ.numpy(), np.asarray(jocc))

@@ -22,9 +22,17 @@
     and every other counter of ``utils.spans``' registry, where the
     warm-up call put them, and each replay adds the captured rise (the
     CUDA calls stood in for by fakes here);
-  * what is refused: the oracle backend, ``f64_exact``, CPU tensors
-    handed to a capture, and on the card a refitted or rebuilt train
-    step with a non-capturable optimizer (the device check patched);
+  * the float64-exact frame (``f64_exact=True``, float64 vertices):
+    ``render_graph`` with the float64 cut and winner table built before
+    it, and without them (built in the frame), called with moved suns
+    and moved vertices, bit-equal to ``render()`` of the same inputs
+    (image, rays, hits and executed visits), and to the all-float64
+    oracle (``backend="bruteforce"``): images within 1e-9, rays and hits
+    equal;
+  * what is refused: the oracle backend (with ``f64_exact`` too),
+    ``f64_exact`` on float32 vertices, CPU tensors handed to a capture,
+    and on the card a refitted or rebuilt train step with a
+    non-capturable optimizer (the device check patched);
   * which steps are captured on the card: refitted and rebuilt, not over
     a mesh, on the oracle or with ``f64_exact``; the rebuilt step run through
     the capture with the CUDA calls faked (its first call's loss and
@@ -150,6 +158,7 @@ def test_frame_graph_matches_the_jitted_jax_frame(scene, graph_frames):
 @pytest.mark.parametrize("kwargs, match", [
     ({"backend": "bruteforce"}, "oracle"),
     ({"f64_exact": True}, "float64"),
+    ({"backend": "bruteforce", "f64_exact": True}, "oracle"),
 ])
 def test_render_graph_refuses_uncaptured_paths(scene, kwargs, match):
     verts, faces, _, cs, table, config = scene
@@ -157,6 +166,80 @@ def test_render_graph_refuses_uncaptured_paths(scene, kwargs, match):
     with pytest.raises(ValueError, match=match):
         render_graph(verts, faces, convert.camera(_cameras(verts)[0]), SUN,
                      config, cs, table, device="cpu")
+
+
+F64_SIZE = 40
+F64_CONFIG = dict(width=F64_SIZE, height=F64_SIZE, mode="smooth",
+                  backend="megakernel", f64_exact=True,
+                  traversal_stats=True)
+
+
+@pytest.fixture(scope="module")
+def f64_scene(bunny):
+    """The bunny in float64, moved by seeded noise (1e-3 of its extent),
+    its float64 treelet cut and winner table, and the camera."""
+    verts, faces = bunny
+    v64 = verts.astype(np.float64)
+    scale = np.abs(v64 - v64.mean(0)).max()
+    v64 = v64 + 1e-3 * scale * np.random.default_rng(41).standard_normal(
+        v64.shape)
+    vt, ft = torch.as_tensor(v64), torch.as_tensor(faces)
+    config = ct.RenderConfig(**F64_CONFIG)
+    cs = build_clusters_treelet(ct.triangle_soup(vt, ft, with_normals=False))
+    table = prepare_winner_table(ct.triangle_soup(vt, ft), cs, config)
+    eye = EYE.astype(np.float64)
+    cam = ct.Camera.make(eye=eye, dir=v64.mean(0) - eye, up=(0, 1, 0),
+                         fov=60.0, dtype=torch.float64)
+    return vt, ft, cam, config, cs, table
+
+
+F64_SUNS = [SUN.astype(np.float64),
+            SUN.astype(np.float64) + np.asarray([7.0, -30.0, 21.0])]
+
+
+@pytest.mark.parametrize("prebuilt", [True, False])
+def test_f64_graph_frame_equals_render(f64_scene, prebuilt):
+    vt, ft, cam, config, cs, table = f64_scene
+    cut = (cs, table) if prebuilt else (None, None)
+    fg = render_graph(vt, ft, cam, torch.as_tensor(F64_SUNS[0]), config,
+                      *cut, device="cpu")
+    moved = vt + 1e-4 * torch.as_tensor(
+        np.random.default_rng(42).standard_normal(tuple(vt.shape)))
+    calls = [dict(sun_position=torch.as_tensor(F64_SUNS[1]))]
+    if not prebuilt:
+        calls.append(dict(vertices=moved))
+    images = []
+    for kw in calls:
+        img, st = fg(**kw)
+        v = kw.get("vertices", vt)
+        sun = kw.get("sun_position", torch.as_tensor(F64_SUNS[1]))
+        ref, st_ref = ct.render(v, ft, cam, sun, config=config,
+                                clusters=cs if prebuilt else None)
+        assert img.dtype == torch.float64
+        assert torch.equal(img, ref)
+        for k in ("rays", "hits", "traversal_steps"):
+            assert int(st[k]) == int(st_ref[k]), k
+        assert int(st["shadow_hits"]) > 0
+        images.append(img)
+    assert not prebuilt or not torch.equal(images[0], ct.render(
+        vt, ft, cam, torch.as_tensor(F64_SUNS[0]), config=config,
+        clusters=cs)[0])
+
+
+def test_f64_graph_frame_matches_the_f64_oracle(f64_scene):
+    vt, ft, cam, config, cs, table = f64_scene
+    fg = render_graph(vt, ft, cam, torch.as_tensor(F64_SUNS[0]), config, cs,
+                      table, device="cpu")
+    for sun in F64_SUNS:
+        img, st = fg(sun_position=torch.as_tensor(sun))
+        ref, st_ref = ct.render(vt, ft, cam, torch.as_tensor(sun),
+                                width=F64_SIZE, height=F64_SIZE,
+                                backend="bruteforce")
+        assert int(st["primary_hits"]) > 100
+        np.testing.assert_allclose(img.numpy(), ref.numpy(), rtol=0,
+                                   atol=1e-9)
+        for k in ("rays", "hits"):
+            assert int(st[k]) == int(st_ref[k]), k
 
 
 NOISE = 1e-3   # of the bunny's extent: the deforming frames' vertices

@@ -12,7 +12,11 @@ CPU, where a record's stamps are the host clock:
   * self time is the total less the union of the children's intervals;
   * ``FrameGraph`` on the CPU and the eager train step give their last
     call's spans (``span_ms()``), the step's five ``step.*`` spans with
-    the frame under ``step.forward``.
+    the frame under ``step.forward``;
+  * a float64-exact frame (``f64_exact=True``) records ``prepass.f64``
+    and ``walk.f64`` in place of each walk's prep and ``walk`` spans, as
+    a ``FrameGraph`` on the CPU too, and counts no ``walk_f64.launches``
+    on the CPU (the plain loop), nor any float32 walk.
 
 The counters a replay adds: ``tests/test_torch_graph.py``; the stamps on
 the card: ``tests/test_torch_cuda.py``.
@@ -161,3 +165,39 @@ def test_eager_step_spans(preset, spans_on, refit):
     tree = dict(_tree(record))
     assert tree["frame"] == "step.forward"
     assert tree["step.forward"] is None and tree["step.backward"] is None
+
+
+F64_KIDS = ["primary", "prepass.f64", "walk.f64", "closest.gather", "shade",
+            "prepass.f64", "walk.f64", "shade", "shade"]
+
+
+def test_f64_frame_spans_and_launches(preset, spans_on):
+    from ceres_tpu_torch.ops import walk, walk_f64
+
+    vt, ft, cam, sun, config, _, _ = preset
+    vt = vt.double()
+    cam = ct.Camera.make(cam.eye, cam.dir, cam.up, cam.fov,
+                         dtype=torch.float64)
+    sun = sun.double()
+    config = ct.RenderConfig(width=SIZE, height=SIZE, backend="megakernel",
+                             f64_exact=True)
+    cs = build_clusters_treelet(ct.triangle_soup(vt, ft, with_normals=False))
+    table = prepare_winner_table(ct.triangle_soup(vt, ft), cs, config)
+    assert set(spans.counters["walk_f64.launches"]) == {"closest", "any",
+                                                        "any_dest"}
+    before = spans.snapshot()
+    with spans.recording("cpu") as record:
+        image, _ = ct.render_pipeline(vt, ft, cam, sun, config, clusters=cs,
+                                      table_cols=table)
+    assert _tree(record) == [("frame", None)] + [(k, "frame")
+                                                 for k in F64_KIDS]
+    ms = record.span_ms()
+    assert ms["walk.f64"]["total"] > 0 and ms["prepass.f64"]["total"] > 0
+    assert "walk" not in ms and "closest.prep" not in ms
+    fg = render_graph(vt, ft, cam, sun, config, cs, table, device="cpu")
+    fg(sun_position=sun)
+    assert set(fg.span_ms()) == {"frame", *F64_KIDS}
+    assert spans.snapshot() == before
+    assert walk_f64.launches is spans.counters["walk_f64.launches"]
+    assert not any(walk.launches.values())
+    assert float(image.max()) > 0
