@@ -6,8 +6,8 @@ by the source's stem and a hash of the source and the flags: an edited
 source is rebuilt, an unchanged one is reused. The sources (``SOURCES``):
 ``walk`` is ``ops/csrc/walk.cu`` (the walks, span stamps, graph node
 counts), ``lbvh`` is ``accel/csrc/lbvh.cu`` (the LBVH hierarchy and
-boxes), ``walk_f64`` is ``ops/csrc/walk_f64.cu`` (the float64 walk). Each
-library is loaded with ``ctypes`` once per process. A
+boxes), ``walk_f64`` is ``ops/csrc/walk_f64.cu`` (the float64 walk and
+prepass). Each library is loaded with ``ctypes`` once per process. A
 missing ``nvcc`` or a failed build raises; there is no fallback.
 
 ``--fmad=false`` keeps every multiply and add separately rounded, so the
@@ -81,6 +81,9 @@ SIGNATURES = {
         # ent, order, counts, dirs, origins, alive, tcap, tmin, tmax,
         # occ0, w, out, visits, n_tiles, n_c, C, mode, device, stream
         "ceres_walk_f64": ((_P,) * 13 + (_I,) * 5 + (_P,), _I),
+        # lo, hi, dlo, dhi, olo, ohi, live, ent, order, counts, n_tiles,
+        # n_c, device, stream
+        "ceres_prepass_f64": ((_P,) * 10 + (_I,) * 3 + (_P,), _I),
         "ceres_walk_f64_error_string": ((_I,), _S),
     },
 }

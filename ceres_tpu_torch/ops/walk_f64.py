@@ -14,6 +14,15 @@ rays against the cluster's triangles), while the next entry bound is at
 most the tile's prune, the maximum over its rays of min(best t, root
 exit). No prune pad: nothing here understates t.
 
+The prepass also has two forms, chosen the same way: on the card one
+kernel a call (``prepass_f64_kernel`` in ``csrc/walk_f64.cu``: per tile
+the slab test of every cluster box, the survivors compacted and sorted
+in one CTA; counted in ``prepass_f64.launches``), elsewhere the plain
+whole-tensor passes and stable argsort (``_prepass_plain``), which the
+card tests hold the kernel to on the same card tensors. Rows up to each
+tile's count are bit-equal; past it the kernel writes ``_BIG`` and the
+other clusters' ids, which nothing reads.
+
 Two forms of the walk, chosen by the tensors' device:
 
   * on the card, one kernel (``csrc/walk_f64.cu``, built and bound by
@@ -50,15 +59,18 @@ from ceres_tpu_torch.utils import spans
 _CHUNK = 64          # tiles a chunk of the plain loop, as in the JAX package
 MODES = ("closest", "any", "any_dest")
 
-# Kernel launches by mode since the last reset_launches(), the counter
-# ``walk_f64.launches`` of ``utils.spans``. Counted where a launch
-# succeeds and nowhere else.
+# Kernel launches by mode since the last reset_launches(), the counters
+# ``walk_f64.launches`` (the walk) and ``prepass_f64.launches`` (the
+# prepass) of ``utils.spans``. Counted where a launch succeeds and nowhere
+# else.
 launches = spans.counter("walk_f64.launches", MODES)
+prepass_launches = spans.counter("prepass_f64.launches", MODES)
 
 
 def reset_launches() -> None:
-    for name in launches:
-        launches[name] = 0
+    for counts in (launches, prepass_launches):
+        for name in counts:
+            counts[name] = 0
 
 
 def _cross(u, v):
@@ -76,24 +88,42 @@ def _dots(x, w):
             + x[..., 2, None] * w[:, None, :, 2])
 
 
-def _prepass(cs, shift, dir_cols, origin_cols=None, alive_cols=None):
-    """Sorted float64 candidate lists: (order, ent_sorted, counts, dirs
-    (n_t, TILE, 3), origins likewise or None, alive (n_t, TILE)).
-    ``origin_cols`` are relative to ``shift``; ``alive_cols`` (bool (R,))
-    marks the rays that walk."""
+def _tile_rays(dir_cols, origin_cols=None, alive_cols=None):
+    """The rays in tiles: (dirs, origins or None, each a 3-tuple of
+    (n_t, TILE) columns, alive (n_t, TILE))."""
     dirs_tiled = tuple(_pad_rays(c).reshape(-1, TILE) for c in dir_cols)
     alive = (dirs_tiled[0] * dirs_tiled[0] + dirs_tiled[1] * dirs_tiled[1]
              + dirs_tiled[2] * dirs_tiled[2]) > 0.0
     if alive_cols is not None:
         alive = alive & _pad_rays(alive_cols).reshape(-1, TILE)
+    orig_tiled = None if origin_cols is None else tuple(
+        _pad_rays(c).reshape(-1, TILE) for c in origin_cols)
+    return dirs_tiled, orig_tiled, alive
+
+
+def _prepass(cs, shift, dir_cols, origin_cols=None, alive_cols=None, *,
+             mode):
+    """Sorted float64 candidate lists: (order, ent_sorted, counts, dirs
+    (n_t, TILE, 3), origins likewise or None, alive (n_t, TILE)).
+    ``origin_cols`` are relative to ``shift``; ``alive_cols`` (bool (R,))
+    marks the rays that walk; ``mode`` is the walk's, for the counter.
+    The kernel on the card, the plain passes elsewhere."""
+    if cs.lo.device.type == "cuda":
+        return _prepass_card(cs, shift, dir_cols, origin_cols, alive_cols,
+                             mode)
+    return _prepass_plain(cs, shift, dir_cols, origin_cols, alive_cols)
+
+
+def _prepass_plain(cs, shift, dir_cols, origin_cols=None, alive_cols=None):
+    """``_prepass`` in whole-tensor torch passes: the slab test of every
+    (tile, cluster) pair, then a stable sort of every row."""
+    dirs_tiled, orig_tiled, alive = _tile_rays(dir_cols, origin_cols,
+                                               alive_cols)
     lo, hi = cs.lo - shift, cs.hi - shift
     dlo, dhi = _hull(dirs_tiled, alive)
-    orig_tiled = None
-    if origin_cols is None:
+    if orig_tiled is None:
         ent = _interval_entry(lo, hi, dlo, dhi)
     else:
-        orig_tiled = tuple(_pad_rays(c).reshape(-1, TILE)
-                           for c in origin_cols)
         ent = _interval_entry(lo, hi, dlo, dhi, *_hull(orig_tiled, alive))
     ent = torch.where(alive.any(dim=1)[:, None], ent, _BIG)
     # Stable, as jnp.argsort: the walk breaks equal-t ties by visit order.
@@ -103,6 +133,66 @@ def _prepass(cs, shift, dir_cols, origin_cols=None, alive_cols=None):
     d3 = torch.stack(dirs_tiled, dim=-1)
     o3 = None if orig_tiled is None else torch.stack(orig_tiled, dim=-1)
     return order, ent_sorted, counts, d3, o3, alive
+
+
+def _prepass_card(cs, shift, dir_cols, origin_cols, alive_cols, mode):
+    """``_prepass_plain`` with the slab test, compaction and sort as one
+    kernel (``_prepass_kernel``); the tiles' hulls are torch reductions
+    over their rays."""
+    dirs_tiled, orig_tiled, alive = _tile_rays(dir_cols, origin_cols,
+                                               alive_cols)
+    dlo, dhi = _hull(dirs_tiled, alive)
+    olo = ohi = None
+    if orig_tiled is not None:
+        olo, ohi = _hull(orig_tiled, alive)
+    order, ent, counts = _prepass_kernel(cs.lo - shift, cs.hi - shift, dlo,
+                                         dhi, olo, ohi, alive.any(dim=1),
+                                         mode)
+    d3 = torch.stack(dirs_tiled, dim=-1)
+    o3 = None if orig_tiled is None else torch.stack(orig_tiled, dim=-1)
+    return order, ent, counts, d3, o3, alive
+
+
+def _prepass_kernel(lo, hi, dlo, dhi, olo, ohi, live, mode):
+    """One launch of ``prepass_f64_kernel`` (``csrc/walk_f64.cu``), one
+    CTA a tile: (order, ent_sorted, counts) of the boxes ``lo``, ``hi``
+    (N_c, 3), already relative to the rays' shift, against each tile's
+    direction hull ``dlo``, ``dhi`` (n_t, 3) and origin hull (or None),
+    for the tiles with a ``live`` ray. Rows equal the plain version's up
+    to counts; past it ent_sorted is ``_BIG`` and order the other
+    clusters' ids. A failed launch raises."""
+    from ceres_tpu_torch.ops import _build
+
+    if mode not in MODES:
+        raise ValueError(f"prepass_f64: unknown mode {mode!r}")
+    dev = lo.device
+    n_t, n_c = live.shape[0], lo.shape[0]
+    for x, dtype, shape in ((lo, torch.float64, (n_c, 3)),
+                            (hi, torch.float64, (n_c, 3)),
+                            (dlo, torch.float64, (n_t, 3)),
+                            (dhi, torch.float64, (n_t, 3)),
+                            (olo, torch.float64, (n_t, 3)),
+                            (ohi, torch.float64, (n_t, 3)),
+                            (live, torch.bool, (n_t,))):
+        if x is not None and (x.dtype != dtype or tuple(x.shape) != shape
+                              or not x.is_contiguous() or x.device != dev):
+            raise ValueError(f"prepass_f64 kernel: an input of "
+                             f"{tuple(x.shape)} {x.dtype} on {x.device}, "
+                             f"wants a contiguous {shape} {dtype} on {dev}")
+    ent = torch.empty((n_t, n_c), dtype=torch.float64, device=dev)
+    order = torch.empty((n_t, n_c), dtype=torch.int64, device=dev)
+    counts = torch.empty(n_t, dtype=torch.int64, device=dev)
+    lib = _build.load("walk_f64")
+    ptr = [0 if x is None else x.data_ptr()
+           for x in (lo, hi, dlo, dhi, olo, ohi, live, ent, order, counts)]
+    err = lib.ceres_prepass_f64(*ptr, n_t, n_c, dev.index or 0,
+                                torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"ceres_prepass_f64 kernel launch failed: "
+                           f"{lib.ceres_walk_f64_error_string(err).decode()} "
+                           f"({err})")
+    prepass_launches[mode] += 1
+    return order, ent, counts
 
 
 def _weights(cs, shift):
@@ -277,7 +367,8 @@ def _closest_inputs(cs, eye, dir_cols, tmin=None, tmax=None):
     ``_walk_plain``, which the card tests hold the kernel to)."""
     R = dir_cols[0].shape[0]
     with spans.span("prepass.f64"):
-        order, ent, counts, d3, _, alive = _prepass(cs, eye, dir_cols)
+        order, ent, counts, d3, _, alive = _prepass(cs, eye, dir_cols,
+                                                     mode="closest")
         root_lo, root_hi = _scene_root(cs)
         dp = tuple(_pad_rays(c) for c in dir_cols)
         tcap = _ray_tcap(root_lo - eye, root_hi - eye, dp).reshape(-1, TILE)
@@ -306,7 +397,8 @@ def _any_inputs(cs, origin_shift, origin_cols, dir_cols, skip=None):
     with spans.span("prepass.f64"):
         o = tuple(origin_cols[a] - origin_shift[a] for a in range(3))
         order, ent, counts, d3, o3, alive = _prepass(cs, origin_shift,
-                                                     dir_cols, o, ~skip)
+                                                     dir_cols, o, ~skip,
+                                                     mode="any")
         root_lo, root_hi = _scene_root(cs)
         tcap = _ray_tcap(root_lo - origin_shift, root_hi - origin_shift,
                          tuple(_pad_rays(c) for c in dir_cols),
@@ -323,7 +415,8 @@ def _any_dest_inputs(cs, dest, point_cols, skip=None):
     skip = _no_skip(skip, point_cols[0].shape[0], cs.lo.device)
     with spans.span("prepass.f64"):
         d = tuple(point_cols[a] - dest[a] for a in range(3))
-        order, ent, counts, d3, _, alive = _prepass(cs, dest, d, None, ~skip)
+        order, ent, counts, d3, _, alive = _prepass(cs, dest, d, None, ~skip,
+                                                    mode="any_dest")
         root_lo, root_hi = _scene_root(cs)
         tcap = _ray_tcap(root_lo - dest, root_hi - dest,
                          tuple(_pad_rays(c) for c in d)).clamp(

@@ -101,11 +101,15 @@ its own line:
      each and its image on the card equals the CPU's at 128 x 128;
      ``--d-exact`` launches no float32 walk kernel, the float64 walk
      kernel (``ops/csrc/walk_f64.cu``) once for the closest search and
-     once for the shadows (``walk_f64.launches``), its image is within
+     once for the shadows (``walk_f64.launches``, and the float64 prepass
+     kernel as often, ``prepass_f64.launches``), its image is within
      0.5% of pixels of ``-d``'s and equals the CPU's at 128 x 128;
      ``render()``'s float64 image, and the ms of a frame of each (median
-     of a few, the cut built in each); the float64 walk kernel against
-     the plain frontier loop on the same card tensors (closest, shadow
+     of a few, the cut built in each); the float64 prepass kernel
+     against its plain passes on the same card tensors (counts, and rows
+     bit-equal up to them; each way's ms; survivors a tile: mean, p99,
+     max, tiles past the kernel's shared-memory sort), then the float64
+     walk kernel against the plain frontier loop (closest, shadow
      segments, generic shadow rays; bit-equal, the same visits, each
      way's ms) on the bunny's and the 4x bunny's 1080p rays; the 4x
      bunny's frame of each as a CUDA graph (float64 cut and winner table
@@ -1250,6 +1254,54 @@ def phase15(dev, card, tmp):
     return merge(launches, slaunch)
 
 
+def f64_prepass_both_ways(w, args, opts, label):
+    """The float64 prepass kernel against the plain passes on the same
+    card tensors, the arguments an entry point gave ``_prepass`` (``w``
+    its walk inputs, from the kernel): counts equal, order and ent_sorted
+    bit-equal up to them, the tail at least _VALID_CUT; each way's
+    CUDA-event ms (median of 3 after one), and the kernel's launch
+    alone on the same hulls; survivors a tile (mean, p99, max) and the
+    tiles past the kernel's shared-memory sort."""
+    from ceres_tpu_torch.ops import prepass, walk_f64
+
+    def ms(fn):
+        return statistics.median([timed_once(fn)[1] for _ in range(4)][1:])
+
+    cs, shift, dir_cols, *rest = args
+    dirs_tiled, orig_tiled, alive = walk_f64._tile_rays(dir_cols, *rest)
+    hulls = (*prepass._hull(dirs_tiled, alive),
+             *(prepass._hull(orig_tiled, alive) if orig_tiled is not None
+               else (None, None)))
+    lo, hi, live = cs.lo - shift, cs.hi - shift, alive.any(dim=1)
+    launch_ms = ms(lambda: walk_f64._prepass_kernel(lo, hi, *hulls, live,
+                                                    opts["mode"]))
+    kernel_ms = ms(lambda: walk_f64._prepass(*args, **opts))
+    plain_ms = ms(lambda: walk_f64._prepass_plain(*args))
+    order, ent, counts = walk_f64._prepass_plain(*args)[:3]
+    n_t, n_c = ent.shape
+    head = torch.arange(n_c, device=ent.device)[None, :] < counts[:, None]
+    same = (torch.equal(counts, w["counts"])
+            and torch.equal(order[head], w["order"][head])
+            and torch.equal(ent.view(torch.int64)[head],
+                            w["ent"].view(torch.int64)[head])
+            and bool((w["ent"][~head] >= prepass._VALID_CUT).all()))
+    with open(os.path.join(ROOT, "ceres_tpu_torch", "ops", "csrc",
+                           "walk_f64.cu")) as fh:
+        cap = int(re.search(r"constexpr int kSortCap = (\d+);",
+                            fh.read()).group(1))
+    c = counts.double()
+    print(f"phase 16 float64 prepass {opts['mode']}, {label} ({n_t} tiles x "
+          f"{n_c} clusters): with the kernel {kernel_ms:.3f} ms (its launch "
+          f"alone {launch_ms:.3f}), plain passes {plain_ms:.3f} ms; bit-equal "
+          f"up to the counts {same}; "
+          f"survivors {int(counts.sum())}, a tile mean {float(c.mean()):.2f}"
+          f", p99 {float(torch.quantile(c, 0.99)):.0f}, max "
+          f"{int(counts.max())}, tiles past the shared sort's {cap}: "
+          f"{int((counts > cap).sum())}", flush=True)
+    check(same, f"phase 16: the float64 {opts['mode']} prepass kernel "
+          f"differs from the plain passes on {label}")
+
+
 def f64_walks_both_ways(cs, eye, dirs, sun, label, chunk=None):
     """The float64 walk kernel against the plain frontier loop (``chunk``
     tiles a chunk) on the same card tensors, the inputs of the entry
@@ -1257,18 +1309,31 @@ def f64_walks_both_ways(cs, eye, dirs, sun, label, chunk=None):
     then the shadow segments from ``sun`` to the hit points (misses
     skipped) and generic shadow rays from them toward it. Slots and flags
     bit-equal, visits equal, one kernel launch a walk; each way's
-    CUDA-event ms of the walk alone."""
+    CUDA-event ms of the walk alone. Each prepass first, against its
+    plain passes (``f64_prepass_both_ways``)."""
     from ceres_tpu_torch.ops import walk_f64
 
     pts = skip = sl = None
     rows = []
+    real, calls = walk_f64._prepass, []
+
+    def recorder(*args, **opts):
+        calls.append((args, opts))
+        return real(*args, **opts)
+
     for mode in ("closest", "any_dest", "any"):
-        if mode == "closest":
-            w = walk_f64._closest_inputs(cs, eye, dirs)
-        elif mode == "any_dest":
-            w = walk_f64._any_dest_inputs(cs, sun, pts, skip)
-        else:
-            w = walk_f64._any_inputs(cs, cs.p0.mean((0, 1)), pts, sl, skip)
+        walk_f64._prepass = recorder
+        try:
+            if mode == "closest":
+                w = walk_f64._closest_inputs(cs, eye, dirs)
+            elif mode == "any_dest":
+                w = walk_f64._any_dest_inputs(cs, sun, pts, skip)
+            else:
+                w = walk_f64._any_inputs(cs, cs.p0.mean((0, 1)), pts, sl,
+                                         skip)
+        finally:
+            walk_f64._prepass = real
+        f64_prepass_both_ways(w, *calls.pop(), label)
         walk_f64.reset_launches()
         (got, visits), ms = timed_once(lambda: walk_f64._walk(**w))
         launched = {k: n for k, n in walk_f64.launches.items() if n}
@@ -1395,6 +1460,7 @@ def phase16(dev, card, tmp, meshes=None):
             (img, st), ms = timed_once(lambda: fg(sun_position=s_i))
             f32 = {k: n for k, n in walk.launches.items() if n}
             f64 = {k: n for k, n in walk_f64.launches.items() if n}
+            p64 = {k: n for k, n in walk_f64.prepass_launches.items() if n}
             times.append(ms)
             img_e, st_e = ct.render_pipeline(vt, ft, cam4, s_i, config,
                                              clusters=cs, table_cols=table)
@@ -1416,8 +1482,8 @@ def phase16(dev, card, tmp, meshes=None):
               f"[{card}]", flush=True)
         check(same, f"phase 16: the bunny x4 {label} graph differs from the "
               f"eager frame")
-        check((f64, f32) == want, f"phase 16: the bunny x4 {label} graph "
-              f"launched {f64} {f32}")
+        check((f64, f32) == want and p64 == f64, f"phase 16: the bunny x4 "
+              f"{label} graph launched {f64} {f32}, prepass {p64}")
         frames.append(statistics.median(times[1:]))
         del fg, img, img_e
     print(f"phase 16 bunny x4 {W}x{H}: --d-exact costs "

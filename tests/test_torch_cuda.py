@@ -94,10 +94,18 @@ decimation from the bench camera, a seeded random soup, and
 with a per-ray and a scalar window; shadow segments with and without
 skipped rays; generic shadow rays): winner slots and flags bit-equal,
 executed visits equal, one launch a call counted in
-``walk_f64.launches``. The float64-exact frame as a CUDA graph against
-the eager frame, with the cut and winner table built before it (image
-bit-equal) and in it (moved vertices; stats exact), no float32 walk
-launched and the eager frame free of host syncs.
+``walk_f64.launches``. The float64 prepass kernel against its plain
+passes (``ops.walk_f64._prepass_plain``) on the arguments each entry
+point gives it, on those scenes and on constructed ones (tiles past the
+kernel's shared-memory sort, boxes tied in pairs, empty boxes, a tile of
+dead rays): counts equal, rows bit-equal up to them, the rest of each
+row entries of at least ``_VALID_CUT`` and ids that make the row a
+permutation of the clusters, one launch a call counted in
+``prepass_f64.launches``, the walk the same from either. The
+float64-exact frame as a CUDA graph against the eager frame, with the
+cut and winner table built before it (image bit-equal) and in it (moved
+vertices; stats exact), no float32 walk launched, each float64 kernel
+once a walk a replay, and the eager frame free of host syncs.
 """
 
 import dataclasses
@@ -1451,7 +1459,8 @@ def _f64_inputs(name, dev):
     tmax, a scalar window), points, skip, sun, centre, sun_line). The
     bunny and the dragon decimation are seen from the bench camera at
     256 x 160; the random soup and ``lbvh_soups``' from a point outside
-    their box, mostly toward their triangles."""
+    their box, mostly toward their triangles; the wide soup (prepass
+    cases only) from the origin."""
     if name in ("bunny", "dragon"):
         verts, faces = ct.load_obj(os.path.join(ROOT, "data", f"{name}.obj"))
         verts = verts.astype(np.float64)
@@ -1460,6 +1469,22 @@ def _f64_inputs(name, dev):
                              fov=60.0, dtype=torch.float64, device=dev)
         dirs = tuple(tiling.swizzle_plane(p)
                      for p in camera_ray_columns(cam, 256, 160))
+    elif name == "wide":
+        # 240,000 small triangles in the slab |x|, |y| < 1, 1 < z < 3, seen
+        # from the origin by rays all over the half-space z > 0: each
+        # tile's hull straddles zero on x and y, so every box survives
+        # (over 2,048 a tile), each at its own entry bound.
+        rng = np.random.default_rng(7)
+        centres = rng.uniform((-1.0, -1.0, 1.0), (1.0, 1.0, 3.0),
+                              (240_000, 1, 3))
+        verts = (centres + 0.01 * rng.standard_normal((240_000, 3, 3))
+                 ).reshape(-1, 3)
+        faces = np.arange(verts.shape[0], dtype=np.int32).reshape(-1, 3)
+        eye = np.zeros(3)
+        d = rng.standard_normal((3, 16 * 512))
+        d[2] = np.abs(d[2]) + 0.05
+        d /= np.linalg.norm(d, axis=0)
+        dirs = tuple(torch.as_tensor(c, device=dev) for c in d)
     else:
         if name == "random":
             rng = np.random.default_rng(5)
@@ -1553,6 +1578,118 @@ def test_f64_kernel_equals_plain(name):
             assert int(((got > 0) & live).sum()) > 0, case
 
 
+# The float64 prepass kernel's cases: the walk kernel's scenes, the wide
+# scene (tiles beyond the kernel's shared-memory sort), and the dragon's
+# inputs with boxes tied in pairs, with empty boxes, and with the first
+# tile's rays all dead.
+F64_PREPASS_CASES = F64_SCENES + ("wide", "tied_boxes", "empty_boxes",
+                                  "dead_tile")
+
+
+def _f64_prepass_inputs(name, dev):
+    """``_f64_inputs`` of a prepass case."""
+    if name not in ("tied_boxes", "empty_boxes", "dead_tile"):
+        return _f64_inputs(name, dev)
+    cs, eye, dirs, windows, points, skip, sun, centre, sl = _f64_inputs(
+        "dragon", dev)
+    lo, hi = cs.lo.clone(), cs.hi.clone()
+    if name == "tied_boxes":
+        m = lo.shape[0] // 2
+        lo[1:2 * m:2], hi[1:2 * m:2] = lo[0:2 * m:2], hi[0:2 * m:2]
+    elif name == "empty_boxes":
+        lo[0::3], hi[0::3] = torch.inf, -torch.inf
+        hi[1::3, 1] = lo[1::3, 1] - 1e-3
+    else:
+        dirs = tuple(torch.cat([torch.zeros_like(c[:prepass.TILE]),
+                                c[prepass.TILE:]]) for c in dirs)
+        skip = skip.clone()
+        skip[:prepass.TILE] = True
+    cs = dataclasses.replace(cs, lo=lo, hi=hi)
+    return cs, eye, dirs, windows, points, skip, sun, centre, sl
+
+
+def _f64_prepass_calls(inputs):
+    """Each float64 walk case's ``_walk`` inputs with the arguments its
+    entry point gave ``_prepass``: {case: (inputs, args, keywords)}."""
+    from ceres_tpu_torch.ops import walk_f64
+
+    real, calls = walk_f64._prepass, []
+
+    def recorder(*args, **opts):
+        calls.append((args, opts))
+        return real(*args, **opts)
+
+    walk_f64._prepass = recorder
+    try:
+        cases = _f64_walk_inputs(inputs)
+    finally:
+        walk_f64._prepass = real
+    assert len(calls) == len(cases)
+    return {case: (w, *call) for (case, w), call in zip(cases.items(),
+                                                         calls)}
+
+
+def _f64_source_const(name):
+    src = open(os.path.join(os.path.dirname(walk.__file__), "csrc",
+                            "walk_f64.cu")).read()
+    return re.search(rf"constexpr \w+ {name} = ([^;]+);", src).group(1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", F64_PREPASS_CASES)
+def test_f64_prepass_kernel_equals_plain(name):
+    # The float64 prepass kernel against the plain passes on the same card
+    # tensors, the arguments of every entry point's prepass: counts equal;
+    # order and ent_sorted bit-equal up to each count, past it entries of
+    # at least _VALID_CUT, each row of order a permutation of the
+    # clusters; the rays' tiles equal; a second launch the same, counted
+    # once under its mode; the float64 walk the same from either.
+    from ceres_tpu_torch.ops import walk_f64
+
+    dev = _card()
+    widest, tied, dead = 0, False, True
+    for case, (w, args, opts) in _f64_prepass_calls(
+            _f64_prepass_inputs(name, dev)).items():
+        before = dict(walk_f64.prepass_launches)
+        got = walk_f64._prepass(*args, **opts)
+        assert {k: n - before[k] for k, n in walk_f64.prepass_launches.items()
+                if n != before[k]} == {opts["mode"]: 1}, case
+        want = walk_f64._prepass_plain(*args)
+        order, ent, counts = got[:3]
+        assert torch.equal(order, w["order"]), case
+        assert _same_bits(ent, w["ent"]) and torch.equal(counts, w["counts"])
+        assert counts.dtype == want[2].dtype and torch.equal(counts, want[2])
+        n_c = ent.shape[1]
+        ids = torch.arange(n_c, device=dev)
+        head = ids[None, :] < counts[:, None]
+        assert order.dtype == want[0].dtype, case
+        assert torch.equal(order[head], want[0][head]), case
+        assert torch.equal(ent.view(torch.int64)[head],
+                           want[1].view(torch.int64)[head]), case
+        assert bool((ent[~head] >= prepass._VALID_CUT).all()), case
+        assert torch.equal(order.sort(dim=1).values,
+                           ids.expand_as(order)), case
+        for a, b in zip(got[3:], want[3:]):
+            assert (a is None and b is None) or _same_bits(a, b), case
+        out, visits = walk_f64._walk(**w)
+        plain_out, plain_visits = walk_f64._walk(**dict(
+            w, order=want[0], ent=want[1], counts=want[2]))
+        assert torch.equal(out, plain_out), case
+        assert int(visits) == int(plain_visits), case
+        widest = max(widest, int(counts.max()))
+        tied = tied or bool(((ent[:, 1:] == ent[:, :-1]) & head[:, 1:]).any())
+        dead = dead and int(counts[0]) == 0
+        if name == "empty_boxes":
+            assert not bool((order[head] % 3 < 2).any()), case
+    assert widest > 0
+    if name == "wide":
+        assert widest > int(_f64_source_const("kSortCap")), widest
+    if name == "tied_boxes":
+        assert tied
+    if name == "dead_tile":
+        assert dead
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("prebuilt", [True, False])
 def test_f64_graph_frame_equals_eager_on_card(prebuilt):
@@ -1586,6 +1723,8 @@ def test_f64_graph_frame_equals_eager_on_card(prebuilt):
     assert fg.launches == {}
     assert fg._graph.counts["walk_f64.launches"] == {"closest": 1,
                                                      "any_dest": 1}
+    assert fg._graph.counts["prepass_f64.launches"] == {"closest": 1,
+                                                        "any_dest": 1}
     scale = float((vt - vt.mean(0)).abs().max())
     for i in range(3):
         kw = {"sun_position": sun + i * 1.5}
@@ -1601,6 +1740,7 @@ def test_f64_graph_frame_equals_eager_on_card(prebuilt):
         torch.cuda.synchronize()
         assert not any(walk.launches.values())
         assert walk_f64.launches == {"closest": 1, "any": 0, "any_dest": 1}
+        assert walk_f64.prepass_launches == walk_f64.launches
         torch.cuda.set_sync_debug_mode("error")
         try:
             img_e, st_e = ct.render_pipeline(
@@ -1622,12 +1762,9 @@ def test_f64_graph_frame_equals_eager_on_card(prebuilt):
 def test_f64_kernel_source_constants_match_python():
     from ceres_tpu_torch.ops import walk_f64
 
+    const = _f64_source_const
     src = open(os.path.join(os.path.dirname(walk.__file__), "csrc",
                             "walk_f64.cu")).read()
-
-    def const(name):
-        return re.search(rf"constexpr \w+ {name} = ([^;]+);", src).group(1)
-
     assert const("kR") == "512" and int(const("kR")) == prepass.TILE
     assert int(const("kMaxC")) >= walk.CLUSTER_SIZE
     assert int(const("kCommonPlanes")) == 10
@@ -1636,3 +1773,15 @@ def test_f64_kernel_source_constants_match_python():
     enum = re.search(r"enum Mode \{([^}]+)\}", src).group(1)
     assert [int(x.split("=")[1]) for x in enum.split(",")] == [0, 1, 2]
     assert walk_f64.MODES == ("closest", "any", "any_dest")
+
+
+def test_f64_prepass_source_constants_match_python():
+    # The prepass kernel's sentinels and pads are ops.prepass's; its
+    # shared-memory sort takes a power of two, its CTA whole warps.
+    assert float(_f64_source_const("kBig")) == prepass._BIG
+    assert float(_f64_source_const("kValidCut")) == prepass._VALID_CUT
+    assert float(_f64_source_const("kInvClamp")) == prepass._INV_CLAMP
+    assert float(_f64_source_const("kUlpPad")) == prepass._ULP_PAD
+    cap = int(_f64_source_const("kSortCap"))
+    assert cap > 0 and cap & (cap - 1) == 0
+    assert int(_f64_source_const("kPrepassThreads")) % 32 == 0

@@ -14,7 +14,9 @@ on the CPU.
   * ``exact_f64`` against a float64 brute-force oracle on a seeded soup:
     the same hits, ids equal except at exact float64 ties, t within
     rtol 1e-12;
-  * the dtype refusals, and the float64 boxes of the quality cut.
+  * the dtype refusals, and the float64 boxes of the quality cut;
+  * on CPU tensors the prepass is the plain passes (``_prepass_plain``)
+    and launches nothing.
 """
 
 import jax
@@ -100,6 +102,43 @@ def jax_walks(f64_scene):
     return {"closest": (slot, cnt), "any_dest": (dest, dcnt),
             "any": (gen, gcnt), "skip": skip, "pts": pts, "sl": sl,
             "center": center}
+
+
+@pytest.mark.parametrize("mode", pwalk.MODES)
+def test_f64_prepass_on_the_cpu_is_the_plain_passes(f64_scene, jax_walks,
+                                                    mode):
+    # On CPU tensors _prepass is _prepass_plain, and launches nothing: the
+    # arguments each entry point gives it, recorded, and run both ways.
+    _, _, _, jcs, cam, dirs = f64_scene
+    cs = convert.cluster_set(jcs)
+    d = tuple(map(_t, dirs))
+    skip, pts = _t(jax_walks["skip"]), tuple(map(_t, jax_walks["pts"]))
+    real, calls = pwalk._prepass, []
+
+    def recorder(*args, **opts):
+        calls.append((args, opts))
+        return real(*args, **opts)
+
+    pwalk.reset_launches()
+    pwalk._prepass = recorder
+    try:
+        if mode == "closest":
+            pwalk._closest_inputs(cs, _t(cam.eye), d)
+        elif mode == "any_dest":
+            pwalk._any_dest_inputs(cs, _t(SUN), pts, skip)
+        else:
+            pwalk._any_inputs(cs, _t(jax_walks["center"]), pts,
+                              tuple(map(_t, jax_walks["sl"])), skip)
+    finally:
+        pwalk._prepass = real
+    [(args, opts)] = calls
+    assert opts == {"mode": mode}
+    got, want = pwalk._prepass(*args, **opts), pwalk._prepass_plain(*args)
+    assert int(got[2].sum()) > 0
+    for a, b in zip(got, want):
+        assert (a is None and b is None) or torch.equal(a, b)
+    assert not any(pwalk.prepass_launches.values())
+    assert not any(pwalk.launches.values())
 
 
 @pytest.mark.parametrize("chunk", [None, 7])

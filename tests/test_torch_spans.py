@@ -16,7 +16,8 @@ CPU, where a record's stamps are the host clock:
   * a float64-exact frame (``f64_exact=True``) records ``prepass.f64``
     and ``walk.f64`` in place of each walk's prep and ``walk`` spans, as
     a ``FrameGraph`` on the CPU too, and counts no ``walk_f64.launches``
-    on the CPU (the plain loop), nor any float32 walk.
+    or ``prepass_f64.launches`` on the CPU (the plain loop and passes),
+    nor any float32 walk.
 
 The counters a replay adds: ``tests/test_torch_graph.py``; the stamps on
 the card: ``tests/test_torch_cuda.py``.
@@ -185,6 +186,8 @@ def test_f64_frame_spans_and_launches(preset, spans_on):
     table = prepare_winner_table(ct.triangle_soup(vt, ft), cs, config)
     assert set(spans.counters["walk_f64.launches"]) == {"closest", "any",
                                                         "any_dest"}
+    assert set(spans.counters["prepass_f64.launches"]) == {"closest", "any",
+                                                           "any_dest"}
     before = spans.snapshot()
     with spans.recording("cpu") as record:
         image, _ = ct.render_pipeline(vt, ft, cam, sun, config, clusters=cs,
@@ -199,5 +202,7 @@ def test_f64_frame_spans_and_launches(preset, spans_on):
     assert set(fg.span_ms()) == {"frame", *F64_KIDS}
     assert spans.snapshot() == before
     assert walk_f64.launches is spans.counters["walk_f64.launches"]
+    assert (walk_f64.prepass_launches
+            is spans.counters["prepass_f64.launches"])
     assert not any(walk.launches.values())
     assert float(image.max()) > 0
