@@ -243,6 +243,6 @@ extern "C" int ceres_lbvh_boxes(const int* order, const int* left,
   return (int)cudaGetLastError();
 }
 
-extern "C" const char* ceres_lbvh_error_string(int err) {
+extern "C" const char* ceres_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

@@ -15,8 +15,8 @@ arithmetic runs in int64 and is returned as int32, as in the JAX package.
 
 Two forms, chosen by what the call can observe:
 
-  * on the card, two kernels (``csrc/lbvh.cu``, built and bound by
-    ``ops._build``): the hierarchy, one thread an internal node, and the
+  * on the card, two kernels (``csrc/lbvh.cu``, built and launched by
+    ``utils.native``): the hierarchy, one thread an internal node, and the
     boxes, one thread a leaf climbing to the root, where the second child
     to arrive at a node takes the union. Each launch adds one to its key
     of the counter ``lbvh.launches`` (``utils.spans``);
@@ -41,7 +41,7 @@ import torch
 
 from ceres_tpu_torch.accel import morton
 from ceres_tpu_torch.models.mesh import TriangleSoup
-from ceres_tpu_torch.utils import minmax, spans
+from ceres_tpu_torch.utils import minmax, native, spans
 
 # Refit passes: morton trees over (code, index) keys are at most 62 deep.
 MAX_DEPTH = 64
@@ -232,40 +232,17 @@ def _boxes_plain(order, left, right, p0, e1, e2):
     return node_lo, node_hi, leaf_lo, leaf_hi
 
 
-def _check(x, dtype, shape, what):
-    if x.dtype != dtype or tuple(x.shape) != shape or not x.is_contiguous():
-        raise ValueError(f"lbvh kernels: {what} must be a contiguous {shape} "
-                         f"{dtype}, not {tuple(x.shape)} {x.dtype}")
-
-
-def _launch(kernel: str, tensors, ints) -> None:
-    """Launch ``ceres_lbvh_<kernel>`` on the current stream of the
-    tensors' card; a failed launch raises."""
-    from ceres_tpu_torch.ops import _build
-
-    dev = tensors[0].device
-    for x in tensors:
-        if x.device != dev:
-            raise ValueError(f"lbvh kernels: tensors on {dev} and {x.device}")
-    lib = _build.load("lbvh")
-    fn = f"ceres_lbvh_{kernel}"
-    err = getattr(lib, fn)(*(x.data_ptr() for x in tensors), *ints,
-                           dev.index, torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"{fn} kernel launch failed: "
-                           f"{lib.ceres_lbvh_error_string(err).decode()} "
-                           f"({err})")
-    launches[kernel] += 1
-
-
 def _hierarchy_card(keys: torch.Tensor):
     """``_hierarchy_plain`` as one kernel, one thread an internal node;
     int32 out."""
     n = keys.shape[0]
-    _check(keys, torch.int64, (n,), "keys")
     out = [keys.new_empty((n - 1,), dtype=torch.int32) for _ in range(5)]
     out.append(keys.new_empty((n,), dtype=torch.int32))
-    _launch("hierarchy", [keys, *out], [n])
+    names = ("left", "right", "range_lo", "range_hi", "parent", "leaf_parent")
+    native.launch("lbvh", "ceres_lbvh_hierarchy",
+                  [("keys", keys, torch.int64, (n,)),
+                   *((m, x, torch.int32, x.shape) for m, x in zip(names, out))],
+                  [n], launches, "hierarchy")
     return out
 
 
@@ -273,22 +250,24 @@ def _boxes_card(order, left, right, parent, leaf_parent, p0, e1, e2):
     """``_boxes_plain`` as one kernel, one thread a leaf climbing by
     arrival counters (zeroed here: a fill, a memset in a graph)."""
     n = order.shape[0]
-    for x, shape, what in ((order, (n,), "order"), (left, (n - 1,), "left"),
-                           (right, (n - 1,), "right"),
-                           (parent, (n - 1,), "parent"),
-                           (leaf_parent, (n,), "leaf_parent")):
-        _check(x, torch.int32, shape, what)
-    if p0.dtype not in (torch.float32, torch.float64):
-        raise ValueError(f"lbvh kernels: corners of {p0.dtype}")
+    f = p0.dtype
+    if f not in (torch.float32, torch.float64):
+        raise ValueError(f"lbvh kernels: corners of {f}")
     p0, e1, e2 = (x.contiguous() for x in (p0, e1, e2))
-    for x, what in ((p0, "p0"), (e1, "e1"), (e2, "e2")):
-        _check(x, p0.dtype, (n, 3), what)
     leaf_lo, leaf_hi = (p0.new_empty((n, 3)) for _ in range(2))
     node_lo, node_hi = (p0.new_empty((n - 1, 3)) for _ in range(2))
     arrivals = torch.zeros(n - 1, dtype=torch.int32, device=p0.device)
-    _launch("boxes", [order, left, right, parent, leaf_parent, p0, e1, e2,
-                      arrivals, leaf_lo, leaf_hi, node_lo, node_hi],
-            [n, int(p0.dtype == torch.float64)])
+    i32 = torch.int32
+    native.launch("lbvh", "ceres_lbvh_boxes", [
+        ("order", order, i32, (n,)), ("left", left, i32, (n - 1,)),
+        ("right", right, i32, (n - 1,)), ("parent", parent, i32, (n - 1,)),
+        ("leaf_parent", leaf_parent, i32, (n,)), ("p0", p0, f, (n, 3)),
+        ("e1", e1, f, (n, 3)), ("e2", e2, f, (n, 3)),
+        ("arrivals", arrivals, i32, (n - 1,)),
+        ("leaf_lo", leaf_lo, f, (n, 3)), ("leaf_hi", leaf_hi, f, (n, 3)),
+        ("node_lo", node_lo, f, (n - 1, 3)),
+        ("node_hi", node_hi, f, (n - 1, 3))],
+        [n, int(f == torch.float64)], launches, "boxes")
     return node_lo, node_hi, leaf_lo, leaf_hi
 
 
@@ -304,31 +283,16 @@ def _child_box(c, node_lo, node_hi, leaf_lo, leaf_hi):
 def _refit_boxes(left, right, leaf_lo, leaf_hi):
     """Bottom-up AABBs by MAX_DEPTH dense passes of child gather + min/max:
     every pass finalises the next level up. The unions take XLA's float
-    order exactly: on ``minmax.ordered`` int keys, or, where the leaf
-    boxes carry gradients, with ``minmax.fmin``/``fmax`` on the floats
-    (the same values, and gradients split at ties as ``jnp.minimum``
-    splits them). The int keys take one operation a union where
-    fmin/fmax take nine; the build, which runs 64 passes of two unions,
-    took a median 179.4 ms (148.9-210.2) on the bunny, the dragon and the
-    4x bunny with fmin/fmax alone against 123.5 ms (106.0-187.7) with the
-    int keys (means of 5 builds, two runs of each form of
-    ``chip_smoke.py`` phase 13 in one call in turns, NVIDIA H100 80GB HBM3
-    at 700 W)."""
+    order exactly (``minmax.fmin``/``fmax``), and split gradients at ties
+    as ``jnp.minimum`` splits them."""
     n1 = left.shape[0]
     inf = leaf_lo.new_full((), float("inf"))   # a fill, not a host copy
-    grad = leaf_lo.requires_grad or leaf_hi.requires_grad
-    key = (lambda x: x) if grad else minmax.ordered
-    unkey = (lambda x: x) if grad else minmax.from_ordered
-    lower, upper = ((minmax.fmin, minmax.fmax) if grad
-                    else (torch.minimum, torch.maximum))
-    node_lo = key(inf).expand(n1, 3)
-    node_hi = key(-inf).expand(n1, 3)
-    leaf_lo, leaf_hi = key(leaf_lo), key(leaf_hi)
+    node_lo, node_hi = inf.expand(n1, 3), (-inf).expand(n1, 3)
     for _ in range(MAX_DEPTH):
         llo, lhi = _child_box(left, node_lo, node_hi, leaf_lo, leaf_hi)
         rlo, rhi = _child_box(right, node_lo, node_hi, leaf_lo, leaf_hi)
-        node_lo, node_hi = lower(llo, rlo), upper(lhi, rhi)
-    return unkey(node_lo), unkey(node_hi)
+        node_lo, node_hi = minmax.fmin(llo, rlo), minmax.fmax(lhi, rhi)
+    return node_lo, node_hi
 
 
 def refit(bvh: Lbvh, soup: TriangleSoup) -> Lbvh:
@@ -341,7 +305,7 @@ def refit(bvh: Lbvh, soup: TriangleSoup) -> Lbvh:
     grad = torch.is_grad_enabled() and any(x.requires_grad for x in corners)
     if soup.p0.device.type == "cuda" and not grad:
         boxes = _boxes_card(bvh.order, bvh.left, bvh.right, bvh.parent,
-                            bvh.leaf_parent, *corners)
+                            bvh.leaf_parent, *_corners(soup))
     else:
         boxes = _boxes_plain(bvh.order, bvh.left, bvh.right, *corners)
     node_lo, node_hi, leaf_lo, leaf_hi = boxes

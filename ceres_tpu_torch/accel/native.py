@@ -4,7 +4,7 @@
 
 The port's copy of the source, ``accel/csrc/bvh_build.cpp``, is compiled
 with g++ at first use into ``ceres_tpu_torch/_build/``
-(``utils/cxx.py``). It emits node for node the tree of
+(``utils/native.py``). It emits node for node the tree of
 ``golden_builders.BinnedSahBuilder`` (both score in double), so callers
 treat the two as one builder with two speeds. The one fallback is the
 JAX package's: ``build_binned_sah_fast`` takes the NumPy builder only
@@ -20,7 +20,7 @@ import os
 import numpy as np
 
 from ceres_tpu_torch.accel import golden_builders as gb
-from ceres_tpu_torch.utils import cxx
+from ceres_tpu_torch.utils import native
 
 SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc",
                       "bvh_build.cpp")
@@ -31,7 +31,7 @@ _f32p = ctypes.POINTER(ctypes.c_float)
 
 @functools.lru_cache(maxsize=None)
 def _load():
-    lib = cxx.load(SOURCE, "ceres_bvh")
+    lib = native.load_host(SOURCE)
     if lib is None:
         return None
     lib.ceres_bvh_build_binned.restype = ctypes.c_int

@@ -2,7 +2,7 @@
 ``ceres_tpu/io/native.py``: ``available``, ``parse_obj_file``).
 
 The port's copy of the source, ``io/csrc/objparse.cpp``, is compiled with
-g++ at first use into ``ceres_tpu_torch/_build/`` (``utils/cxx.py``).
+g++ at first use into ``ceres_tpu_torch/_build/`` (``utils/native.py``).
 ``io.obj.load_obj`` uses it for paths where g++ exists, and the Python
 parser otherwise and for streams; both give the same arrays. A build or
 load that fails while g++ exists raises.
@@ -16,7 +16,7 @@ import os
 
 import numpy as np
 
-from ceres_tpu_torch.utils import cxx
+from ceres_tpu_torch.utils import native
 
 SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc",
                       "objparse.cpp")
@@ -24,7 +24,7 @@ SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc",
 
 @functools.lru_cache(maxsize=None)
 def _load():
-    lib = cxx.load(SOURCE, "ceres_objparse")
+    lib = native.load_host(SOURCE)
     if lib is None:
         return None
     lib.ceres_obj_parse.restype = ctypes.c_int

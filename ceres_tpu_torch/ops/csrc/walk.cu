@@ -29,8 +29,8 @@
 // walk_tile walks one tile on a thread-block cluster of K CTAs (below).
 // R is the tile's rays: kR = 512 for every mode, and kR128 = 128 for
 // kAnyDest in all three forms, the shadow wavefront regrouped by receiver
-// (_REGROUP_TILE, from any_hit_to_point(regroup=True); the C entry points
-// ending in _t128). A block has R threads. At 128 rays every form is the
+// (_REGROUP_TILE, from any_hit_to_point(regroup=True); ceres_walk with
+// tile = 128). A block has R threads. At 128 rays every form is the
 // split walk (split_walk, split_list, split_more, split_replay; below).
 // The plain PyTorch versions that define the exact results are in
 // ceres_tpu_torch/ops/walk.py (_walk_closest_plain, _walk_any_dest_plain,
@@ -1495,42 +1495,34 @@ int resident_clusters(bool hier, bool stream_w, int device) {
                   : resident_solo<M, R>(device);
 }
 
-template <int M, int R>
-int launch_flat(bool stream_w, const int* counts, const int* keys,
-                const float* rays, const float* w, const int* occ0, int* out,
-                int* visits, int n_tiles, int n_c, int cmask, int device,
-                void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (stream_w) {
-    return launch_tile<M, true, false, R>(
-        st, counts, keys, rays, w, occ0, nullptr, nullptr, nullptr, out,
-        visits, n_tiles, n_c, cmask, 1);
-  }
-  walk_solo<M, R><<<n_tiles, R, 0, st>>>(counts, keys, rays, w, occ0, out,
-                                         visits, n_tiles * R, n_c, cmask);
-  return (int)cudaGetLastError();
-}
-
-template <int M, int R>
-int launch_hier(bool stream_w, const int* counts, const int* keys,
+// The walks of 512-ray tiles: the flat walk (S = 1) on single CTAs
+// (walk_solo) with resident weights, on clusters (walk_tile) streamed;
+// the two-level walk on clusters in both forms.
+template <int M>
+int launch_walk(bool stream_w, const int* counts, const int* keys,
                 const float* rays, const float* w, const int* occ0,
                 const float* hull, const float* bbox, const int* first,
-                int* out, int* visits, int n_tiles, int n_s, int cmask, int S,
+                int* out, int* visits, int n_tiles, int n_k, int cmask, int S,
                 int device, void* stream) {
-  if (S < 2 || S > kSuperMax) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (stream_w) {
-    return launch_tile<M, true, true, R>(st, counts, keys, rays, w, occ0,
-                                         hull, bbox, first, out, visits,
-                                         n_tiles, n_s, cmask, S);
+  if (S > 1) {
+    return stream_w ? launch_tile<M, true, true, kR>(
+                          st, counts, keys, rays, w, occ0, hull, bbox, first,
+                          out, visits, n_tiles, n_k, cmask, S)
+                    : launch_tile<M, false, true, kR>(
+                          st, counts, keys, rays, w, occ0, hull, bbox, first,
+                          out, visits, n_tiles, n_k, cmask, S);
   }
-  return launch_tile<M, false, true, R>(st, counts, keys, rays, w, occ0,
-                                        hull, bbox, first, out, visits,
-                                        n_tiles, n_s, cmask, S);
+  if (stream_w) {
+    return launch_tile<M, true, false, kR>(st, counts, keys, rays, w, occ0,
+                                           hull, bbox, first, out, visits,
+                                           n_tiles, n_k, cmask, 1);
+  }
+  walk_solo<M, kR><<<n_tiles, kR, 0, st>>>(counts, keys, rays, w, occ0, out,
+                                           visits, n_tiles * kR, n_k, cmask);
+  return (int)cudaGetLastError();
 }
 
 // The split walk on n_tiles tiles of kR128 rays: its passes, the later
@@ -1593,140 +1585,72 @@ int launch_split(const int* counts, const int* keys, const float* rays,
 
 }  // namespace
 
-// Flat walks. counts (n_tiles,) int32; keys (n_tiles, n_c) int32 sorted
-// ascending; rays (rows, n_tiles * 512) f32 (walk.py RAY_ROWS); w (n_c,
-// planes, 128) f32, 16-byte aligned; occ0 (n_tiles * 512,) int32 the rays
-// that start occluded (occlusion modes); out (n_tiles * 512,) int32, the
-// packed slot id or -1 (closest) or the occlusion flag; visits (n_tiles,)
-// int32 executed visits; stream_w selects the streamed form. Each returns
-// a cudaError_t.
-extern "C" int ceres_walk_closest(const int* counts, const int* keys,
-                                  const float* rays, const float* w, int* out,
-                                  int* visits, int n_tiles, int n_c,
-                                  int cmask, int stream_w, int device,
-                                  void* stream) {
-  return launch_flat<kClosest, kR>(stream_w != 0, counts, keys, rays, w,
-                                   nullptr, out, visits, n_tiles, n_c, cmask,
-                                   device, stream);
-}
-
-extern "C" int ceres_walk_closest_window(const int* counts, const int* keys,
-                                         const float* rays, const float* w,
-                                         int* out, int* visits, int n_tiles,
-                                         int n_c, int cmask, int stream_w,
-                                         int device, void* stream) {
-  return launch_flat<kClosestWindow, kR>(stream_w != 0, counts, keys, rays, w,
-                                         nullptr, out, visits, n_tiles, n_c,
-                                         cmask, device, stream);
-}
-
-extern "C" int ceres_walk_any_dest(const int* counts, const int* keys,
-                                   const float* rays, const float* w,
-                                   const int* occ0, int* out, int* visits,
-                                   int n_tiles, int n_c, int cmask,
-                                   int stream_w, int device, void* stream) {
-  return launch_flat<kAnyDest, kR>(stream_w != 0, counts, keys, rays, w, occ0,
-                                   out, visits, n_tiles, n_c, cmask, device,
-                                   stream);
-}
-
-// The shadow wavefront regrouped by receiver (megakernel.any_hit_to_point
-// with regroup): ceres_walk_any_dest on tiles of 128 rays, so rays, occ0
-// and out hold n_tiles * 128, on the split walk with scratch (2 + 131
-// n_tiles int32) and seg (block visits a segment, 0: kSeg128). Both forms
-// stage blocks with cp.async: on resident weights plain copies were
-// slower on the card (PERF.md), so stream_w moves nothing here.
-extern "C" int ceres_walk_any_dest_t128(const int* counts, const int* keys,
-                                        const float* rays, const float* w,
-                                        const int* occ0, int* out,
-                                        int* visits, int* scratch,
-                                        int n_tiles, int n_c, int cmask,
-                                        int seg, int stream_w, int device,
-                                        void* stream) {
-  (void)stream_w;
-  return launch_split<kAnyDest, true, false>(
-      counts, keys, rays, w, occ0, nullptr, nullptr, nullptr, out, visits,
-      scratch, n_tiles, n_c, cmask, 1, seg, device, stream);
-}
-
-extern "C" int ceres_walk_any(const int* counts, const int* keys,
-                              const float* rays, const float* w,
-                              const int* occ0, int* out, int* visits,
-                              int n_tiles, int n_c, int cmask, int stream_w,
-                              int device, void* stream) {
-  return launch_flat<kAny, kR>(stream_w != 0, counts, keys, rays, w, occ0,
-                               out, visits, n_tiles, n_c, cmask, device,
-                               stream);
-}
-
-// Two-level walks. keys (n_tiles, n_s) are super candidates; w
-// (n_c + S, planes, 128) the fine blocks, zero-padded by S; hull
-// (n_tiles, 16) f32 per-tile hull scalars; bbox (n_s, 8, S) f32 member
-// boxes; first (n_s,) int32 first member of each super; 2 <= S <= 32.
-extern "C" int ceres_walk_closest_hier(const int* counts, const int* keys,
-                                       const float* rays, const float* w,
-                                       const float* hull, const float* bbox,
-                                       const int* first, int* out,
-                                       int* visits, int n_tiles, int n_s,
-                                       int cmask, int S, int stream_w,
-                                       int device, void* stream) {
-  return launch_hier<kClosest, kR>(stream_w != 0, counts, keys, rays, w,
-                                   nullptr, hull, bbox, first, out, visits,
-                                   n_tiles, n_s, cmask, S, device, stream);
-}
-
-extern "C" int ceres_walk_closest_window_hier(
-    const int* counts, const int* keys, const float* rays, const float* w,
-    const float* hull, const float* bbox, const int* first, int* out,
-    int* visits, int n_tiles, int n_s, int cmask, int S, int stream_w,
-    int device, void* stream) {
-  return launch_hier<kClosestWindow, kR>(stream_w != 0, counts, keys, rays, w,
-                                         nullptr, hull, bbox, first, out,
-                                         visits, n_tiles, n_s, cmask, S,
-                                         device, stream);
-}
-
-extern "C" int ceres_walk_any_dest_hier(const int* counts, const int* keys,
-                                        const float* rays, const float* w,
-                                        const int* occ0, const float* hull,
-                                        const float* bbox, const int* first,
-                                        int* out, int* visits, int n_tiles,
-                                        int n_s, int cmask, int S,
-                                        int stream_w, int device,
-                                        void* stream) {
-  return launch_hier<kAnyDest, kR>(stream_w != 0, counts, keys, rays, w, occ0,
-                                   hull, bbox, first, out, visits, n_tiles,
-                                   n_s, cmask, S, device, stream);
-}
-
-// ceres_walk_any_dest_hier on tiles of 128 rays (regrouped receivers):
-// the split walk in both forms, with scratch and seg as
-// ceres_walk_any_dest_t128's.
-extern "C" int ceres_walk_any_dest_hier_t128(
-    const int* counts, const int* keys, const float* rays, const float* w,
-    const int* occ0, const float* hull, const float* bbox, const int* first,
-    int* out, int* visits, int* scratch, int n_tiles, int n_s, int cmask,
-    int S, int seg, int stream_w, int device, void* stream) {
-  if (S < 2 || S > kSuperMax) return (int)cudaErrorInvalidValue;
-  return stream_w
-      ? launch_split<kAnyDest, true, true>(
-            counts, keys, rays, w, occ0, hull, bbox, first, out, visits,
-            scratch, n_tiles, n_s, cmask, S, seg, device, stream)
-      : launch_split<kAnyDest, false, true>(
-            counts, keys, rays, w, occ0, hull, bbox, first, out, visits,
-            scratch, n_tiles, n_s, cmask, S, seg, device, stream);
-}
-
-extern "C" int ceres_walk_any_hier(const int* counts, const int* keys,
-                                   const float* rays, const float* w,
-                                   const int* occ0, const float* hull,
-                                   const float* bbox, const int* first,
-                                   int* out, int* visits, int n_tiles,
-                                   int n_s, int cmask, int S, int stream_w,
-                                   int device, void* stream) {
-  return launch_hier<kAny, kR>(stream_w != 0, counts, keys, rays, w, occ0,
-                               hull, bbox, first, out, visits, n_tiles, n_s,
+// One launch of a walk. counts (n_tiles,) int32; keys (n_tiles, n_k)
+// int32 sorted ascending, n_k clusters (flat) or supers (two-level); rays
+// (rows, n_tiles * tile) f32 (walk.py RAY_ROWS); w (n_c [+ S], planes,
+// 128) f32, 16-byte aligned, zero-padded by S blocks for the two-level
+// walk; occ0 (n_tiles * tile,) int32 the rays that start occluded
+// (occlusion modes; null otherwise); hull (n_tiles, 16) f32 per-tile hull
+// scalars, bbox (n_k, 8, S) f32 member boxes and first (n_k,) int32 first
+// member of each super (two-level; null for the flat walk); out (n_tiles
+// * tile,) int32, the packed slot id or -1 (closest) or the occlusion
+// flag; visits (n_tiles,) int32 executed visits. mode as walk.py orders
+// RAY_ROWS; S = 1 for the flat walk, 2..32 for the two-level walk;
+// stream_w selects the streamed form. tile = 512, or 128 for any_dest
+// (the shadow wavefront regrouped by receiver, megakernel.any_hit_to_point
+// with regroup): the split walk, with scratch (2 + 131 n_tiles int32; null
+// at 512) and seg (block visits a segment, 0: kSeg128). There the flat
+// form stages blocks with cp.async either way: on resident weights plain
+// copies were slower on the card (PERF.md). Returns a cudaError_t, or
+// cudaErrorInvalidValue for a combination it does not take.
+extern "C" int ceres_walk(const int* counts, const int* keys,
+                          const float* rays, const float* w, const int* occ0,
+                          const float* hull, const float* bbox,
+                          const int* first, int* out, int* visits,
+                          int* scratch, int mode, int tile, int stream_w,
+                          int n_tiles, int n_k, int cmask, int S, int seg,
+                          int device, void* stream) {
+  const bool hier = S > 1, split = tile == kR128;
+  if (mode < kClosest || mode > kAny || S < 1 || S > kSuperMax ||
+      (tile != kR && !(split && mode == kAnyDest)) ||
+      (occ0 != nullptr) != occlusion(mode) || (hull != nullptr) != hier ||
+      (bbox != nullptr) != hier || (first != nullptr) != hier ||
+      (scratch != nullptr) != split) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (split) {
+    if (!hier) {
+      return launch_split<kAnyDest, true, false>(
+          counts, keys, rays, w, occ0, hull, bbox, first, out, visits,
+          scratch, n_tiles, n_k, cmask, S, seg, device, stream);
+    }
+    return stream_w
+        ? launch_split<kAnyDest, true, true>(
+              counts, keys, rays, w, occ0, hull, bbox, first, out, visits,
+              scratch, n_tiles, n_k, cmask, S, seg, device, stream)
+        : launch_split<kAnyDest, false, true>(
+              counts, keys, rays, w, occ0, hull, bbox, first, out, visits,
+              scratch, n_tiles, n_k, cmask, S, seg, device, stream);
+  }
+  switch (mode) {
+    case kClosest:
+      return launch_walk<kClosest>(stream_w != 0, counts, keys, rays, w,
+                                   occ0, hull, bbox, first, out, visits,
+                                   n_tiles, n_k, cmask, S, device, stream);
+    case kClosestWindow:
+      return launch_walk<kClosestWindow>(stream_w != 0, counts, keys, rays, w,
+                                         occ0, hull, bbox, first, out, visits,
+                                         n_tiles, n_k, cmask, S, device,
+                                         stream);
+    case kAnyDest:
+      return launch_walk<kAnyDest>(stream_w != 0, counts, keys, rays, w,
+                                   occ0, hull, bbox, first, out, visits,
+                                   n_tiles, n_k, cmask, S, device, stream);
+    default:
+      return launch_walk<kAny>(stream_w != 0, counts, keys, rays, w, occ0,
+                               hull, bbox, first, out, visits, n_tiles, n_k,
                                cmask, S, device, stream);
+  }
 }
 
 // Tiles a walk (mode as walk.py orders RAY_ROWS, tiles of `tile` rays) has

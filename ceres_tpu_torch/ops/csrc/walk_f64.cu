@@ -567,6 +567,6 @@ extern "C" int ceres_prepass_f64(const double* lo, const double* hi,
   return (int)cudaGetLastError();
 }
 
-extern "C" const char* ceres_walk_f64_error_string(int err) {
+extern "C" const char* ceres_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

@@ -63,7 +63,7 @@ import torch
 from ceres_tpu_torch.accel.clusters import (_SUPER_MAX, CLUSTER_SIZE,
                                             GENERIC_PLANES, WEIGHT_PLANES)
 from ceres_tpu_torch.ops.prepass import _BIG, _ULP_PAD, TILE, _cid_bits
-from ceres_tpu_torch.utils import spans
+from ceres_tpu_torch.utils import native, spans
 from ceres_tpu_torch.utils.minmax import fmax, fmin
 
 # The walk's early exit stays conservative only while this slack, in int
@@ -127,16 +127,14 @@ def resident_clusters(mode: str, S: int, stream: bool,
     """How many tiles of ``tile`` rays a walk has on ``device`` at once:
     thread-block clusters of a cluster walk (two-level, or streamed flat),
     or CTAs of the resident flat walk."""
-    from ceres_tpu_torch.ops import _build
-
     _check_tile(mode, tile)
-    lib = _build.load()
+    lib = native.load("walk")
     n = lib.ceres_walk_resident_clusters(list(RAY_ROWS).index(mode),
                                          int(S > 1), int(stream), tile,
                                          device.index)
     if n < 0:
         raise RuntimeError(f"{_variant(mode, S, stream, tile)}: "
-                           f"{lib.ceres_error_string(-n).decode()} ({-n})")
+                           f"{native.error_text(lib, -n)}")
     return n
 
 
@@ -154,80 +152,72 @@ def _tile_of(keys, rays):
     return rays.shape[1] // n_tiles
 
 
-def _check(mode, counts, keys, rays, w, occ0, hull, bbox, first, S):
+def _inputs(mode, counts, keys, rays, w, occ0, hull, bbox, first, S):
+    """A walk's input rows for ``native.check``, each with the dtype and
+    shape it must have, after the checks that are the walk's alone."""
     n_tiles, n_k = keys.shape
     tile = _tile_of(keys, rays)
     _check_tile(mode, tile)
-    n_blocks = n_k if S == 1 else w.shape[0]
-    want = {"counts": (counts, (n_tiles,), torch.int32),
-            "keys": (keys, (n_tiles, n_k), torch.int32),
-            "rays": (rays, (RAY_ROWS[mode], n_tiles * tile), torch.float32),
-            "w": (w, (n_blocks, _PLANES[mode], CLUSTER_SIZE),
-                  torch.float32)}
-    if occ0 is not None:
-        want["occ0"] = (occ0, (n_tiles * tile,), torch.int32)
     if S > 1:
         if not 2 <= S <= _SUPER_MAX:
             raise ValueError(f"S = {S}: a super holds 2..{_SUPER_MAX} blocks")
         if hull is None or bbox is None or first is None:
             raise ValueError("the two-level walk needs hull, bbox and first")
-        want["hull"] = (hull, (n_tiles, 16), torch.float32)
-        want["bbox"] = (bbox, (n_k, 8, S), torch.float32)
-        want["first"] = (first, (n_k,), torch.int32)
     elif hull is not None or bbox is not None or first is not None:
         raise ValueError("hull, bbox and first belong to the two-level "
                          "walk (S > 1)")
-    for name, (x, shape, dtype) in want.items():
-        if tuple(x.shape) != shape or x.dtype != dtype:
-            raise ValueError(f"{name}: want {dtype} {shape}, got "
-                             f"{x.dtype} {tuple(x.shape)}")
-        if x.device != rays.device:
-            raise ValueError(f"{name} is on {x.device}, rays on {rays.device}")
-        if not x.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-        if x.requires_grad:
-            raise ValueError(f"{name} requires grad: a walk takes detached "
-                             "inputs (megakernel._detach_f32)")
     if w.data_ptr() % 16:
         raise ValueError("w must be 16-byte aligned (cp.async copies)")
+    i32, f32 = torch.int32, torch.float32
+    return [("counts", counts, i32, (n_tiles,)),
+            ("keys", keys, i32, (n_tiles, n_k)),
+            ("rays", rays, f32, (RAY_ROWS[mode], n_tiles * tile)),
+            ("w", w, f32, (n_k if S == 1 else w.shape[0], _PLANES[mode],
+                           CLUSTER_SIZE)),
+            ("occ0", occ0, i32, (n_tiles * tile,)),
+            ("hull", hull, f32, (n_tiles, 16)),
+            ("bbox", bbox, f32, (n_k, 8, S)),
+            ("first", first, i32, (n_k,))]
 
 
-def _launch(mode, counts, keys, rays, w, occ0, hull, bbox, first, S, stream):
-    from ceres_tpu_torch.ops import _build
+def _run(mode, counts, keys, rays, w, occ0, hull, bbox, first, S, stream):
+    """Check a walk's inputs, then run its plain version on CPU tensors
+    or launch its kernel: (out, visits)."""
+    tensors = _inputs(mode, counts, keys, rays, w, occ0, hull, bbox, first, S)
+    cpu = rays.device.type == "cpu"
+    if cpu:   # on the card, the launcher checks them
+        native.check("walk", tensors)
+    with spans.span("walk"):
+        if not cpu:
+            return _launch(mode, tensors, keys, rays, S, stream)
+        if mode in ("any_dest", "any"):
+            return _occlusion_plain(mode, counts, keys, rays, w, occ0, hull,
+                                    bbox, first, S)[:2]
+        return _walk_closest_plain(counts, keys, rays, w, hull, bbox, first,
+                                   S=S, window=mode == "closest_window")
 
+
+def _launch(mode, tensors, keys, rays, S, stream):
     if rays.device.type != "cuda":
         raise ValueError(f"walk_{mode}: no kernel for device {rays.device}")
-    lib = _build.load()
     n_tiles, n_k = keys.shape
     tile = _tile_of(keys, rays)
     out = torch.empty(n_tiles * tile, dtype=torch.int32, device=rays.device)
     visits = torch.empty(n_tiles, dtype=torch.int32, device=rays.device)
-    ptrs = [counts.data_ptr(), keys.data_ptr(), rays.data_ptr(), w.data_ptr()]
-    if occ0 is not None:
-        ptrs.append(occ0.data_ptr())
-    ints = [n_tiles, n_k, (1 << _cid_bits(n_k)) - 1]
-    fn = f"ceres_walk_{mode}"
-    if S > 1:
-        ptrs += [hull.data_ptr(), bbox.data_ptr(), first.data_ptr()]
-        ints.append(S)
-        fn += "_hier"
-    ptrs += [out.data_ptr(), visits.data_ptr()]
-    if tile != TILE:
-        fn += f"_t{tile}"
-        # The split walk's scratch: a counter, each ray's first occluding
-        # position, and the tiles with later segments, their units and
-        # offsets.
-        scratch = torch.empty(2 + (tile + 3) * n_tiles, dtype=torch.int32,
-                              device=rays.device)
-        ptrs.append(scratch.data_ptr())
-        ints.append(_SPLIT_SEG)
-    err = getattr(lib, fn)(
-        *ptrs, *ints, int(stream), rays.device.index,
-        torch.cuda.current_stream(rays.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"{fn} kernel launch failed: "
-                           f"{lib.ceres_error_string(err).decode()} ({err})")
-    launches[_variant(mode, S, stream, tile)] += 1
+    # The split walk's scratch (128-ray tiles): a counter, each ray's
+    # first occluding position, and the tiles with later segments, their
+    # units and offsets.
+    n_scratch = 2 + (tile + 3) * n_tiles
+    scratch = None if tile == TILE else torch.empty(
+        n_scratch, dtype=torch.int32, device=rays.device)
+    native.launch(
+        "walk", "ceres_walk",
+        [*tensors, ("out", out, torch.int32, out.shape),
+         ("visits", visits, torch.int32, visits.shape),
+         ("scratch", scratch, torch.int32, (n_scratch,))],
+        [list(RAY_ROWS).index(mode), tile, int(stream), n_tiles, n_k,
+         (1 << _cid_bits(n_k)) - 1, S, _SPLIT_SEG],
+        launches, _variant(mode, S, stream, tile))
     return out, visits
 
 
@@ -236,40 +226,24 @@ def walk_closest(counts, keys, rays, w, hull=None, bbox=None, first=None, *,
     """Closest hit per ray: (packed slot ids, visits). ``window=True``:
     ``rays`` carries tmin and tmax rows, and a hit counts only with t in
     [tmin, tmax]."""
-    mode = "closest_window" if window else "closest"
-    _check(mode, counts, keys, rays, w, None, hull, bbox, first, S)
-    with spans.span("walk"):
-        if rays.device.type == "cpu":
-            return _walk_closest_plain(counts, keys, rays, w, hull, bbox,
-                                       first, S=S, window=window)
-        return _launch(mode, counts, keys, rays, w, None, hull, bbox, first,
-                       S, stream)
+    return _run("closest_window" if window else "closest", counts, keys,
+                rays, w, None, hull, bbox, first, S, stream)
 
 
 def walk_any_dest(counts, keys, rays, w, occ0, hull=None, bbox=None,
                   first=None, *, S=1, stream=False):
     """Occlusion of each segment from the common origin (t = 0) to its
     receiving point (t = 1): (flags, visits)."""
-    _check("any_dest", counts, keys, rays, w, occ0, hull, bbox, first, S)
-    with spans.span("walk"):
-        if rays.device.type == "cpu":
-            return _walk_any_dest_plain(counts, keys, rays, w, occ0, hull,
-                                        bbox, first, S=S)
-        return _launch("any_dest", counts, keys, rays, w, occ0, hull, bbox,
-                       first, S, stream)
+    return _run("any_dest", counts, keys, rays, w, occ0, hull, bbox, first,
+                S, stream)
 
 
 def walk_any(counts, keys, rays, w, occ0, hull=None, bbox=None, first=None,
              *, S=1, stream=False):
     """Occlusion of rays with their own origins: any triangle at t >= 0,
     however far (flags, visits)."""
-    _check("any", counts, keys, rays, w, occ0, hull, bbox, first, S)
-    with spans.span("walk"):
-        if rays.device.type == "cpu":
-            return _walk_any_plain(counts, keys, rays, w, occ0, hull, bbox,
-                                   first, S=S)
-        return _launch("any", counts, keys, rays, w, occ0, hull, bbox, first,
-                       S, stream)
+    return _run("any", counts, keys, rays, w, occ0, hull, bbox, first, S,
+                stream)
 
 
 # ---------------------------------------------------------------------------

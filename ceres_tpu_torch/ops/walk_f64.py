@@ -25,8 +25,8 @@ other clusters' ids, which nothing reads.
 
 Two forms of the walk, chosen by the tensors' device:
 
-  * on the card, one kernel (``csrc/walk_f64.cu``, built and bound by
-    ``ops._build``): one CTA a tile, one thread a ray, the prune a block
+  * on the card, one kernel (``csrc/walk_f64.cu``, built and launched by
+    ``utils.native``): one CTA a tile, one thread a ray, the prune a block
     reduction after every visit. Each launch adds one to its mode's key
     of the counter ``walk_f64.launches`` (``utils.spans``). No step of
     this path reads the device, so a frame with ``f64_exact`` is
@@ -54,7 +54,7 @@ from ceres_tpu_torch.ops.prepass import (_BIG, _ULP_PAD, _VALID_CUT, TILE,
                                          _hull, _interval_entry, _pad_rays,
                                          _ray_tcap, _scene_root)
 from ceres_tpu_torch.ops.walk import _DEST_EPS
-from ceres_tpu_torch.utils import spans
+from ceres_tpu_torch.utils import native, spans
 
 _CHUNK = 64          # tiles a chunk of the plain loop, as in the JAX package
 MODES = ("closest", "any", "any_dest")
@@ -161,37 +161,22 @@ def _prepass_kernel(lo, hi, dlo, dhi, olo, ohi, live, mode):
     for the tiles with a ``live`` ray. Rows equal the plain version's up
     to counts; past it ent_sorted is ``_BIG`` and order the other
     clusters' ids. A failed launch raises."""
-    from ceres_tpu_torch.ops import _build
-
     if mode not in MODES:
         raise ValueError(f"prepass_f64: unknown mode {mode!r}")
     dev = lo.device
     n_t, n_c = live.shape[0], lo.shape[0]
-    for x, dtype, shape in ((lo, torch.float64, (n_c, 3)),
-                            (hi, torch.float64, (n_c, 3)),
-                            (dlo, torch.float64, (n_t, 3)),
-                            (dhi, torch.float64, (n_t, 3)),
-                            (olo, torch.float64, (n_t, 3)),
-                            (ohi, torch.float64, (n_t, 3)),
-                            (live, torch.bool, (n_t,))):
-        if x is not None and (x.dtype != dtype or tuple(x.shape) != shape
-                              or not x.is_contiguous() or x.device != dev):
-            raise ValueError(f"prepass_f64 kernel: an input of "
-                             f"{tuple(x.shape)} {x.dtype} on {x.device}, "
-                             f"wants a contiguous {shape} {dtype} on {dev}")
     ent = torch.empty((n_t, n_c), dtype=torch.float64, device=dev)
     order = torch.empty((n_t, n_c), dtype=torch.int64, device=dev)
     counts = torch.empty(n_t, dtype=torch.int64, device=dev)
-    lib = _build.load("walk_f64")
-    ptr = [0 if x is None else x.data_ptr()
-           for x in (lo, hi, dlo, dhi, olo, ohi, live, ent, order, counts)]
-    err = lib.ceres_prepass_f64(*ptr, n_t, n_c, dev.index or 0,
-                                torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"ceres_prepass_f64 kernel launch failed: "
-                           f"{lib.ceres_walk_f64_error_string(err).decode()} "
-                           f"({err})")
-    prepass_launches[mode] += 1
+    f64 = torch.float64
+    native.launch("walk_f64", "ceres_prepass_f64", [
+        ("lo", lo, f64, (n_c, 3)), ("hi", hi, f64, (n_c, 3)),
+        ("dlo", dlo, f64, (n_t, 3)), ("dhi", dhi, f64, (n_t, 3)),
+        ("olo", olo, f64, (n_t, 3)), ("ohi", ohi, f64, (n_t, 3)),
+        ("live", live, torch.bool, (n_t,)), ("ent", ent, f64, ent.shape),
+        ("order", order, torch.int64, order.shape),
+        ("counts", counts, torch.int64, counts.shape)],
+        [n_t, n_c], prepass_launches, mode)
     return order, ent, counts
 
 
@@ -240,41 +225,22 @@ def _walk_card(cs, weights, order, ent, counts, d3, o3, alive, tcap, tmin,
                tmax, occ0, mode):
     """``_walk_plain`` as one kernel (``csrc/walk_f64.cu``), one CTA a
     tile; a failed launch raises."""
-    from ceres_tpu_torch.ops import _build
-
     n_t, n_c = ent.shape
     if mode not in MODES:
         raise ValueError(f"walk_f64: unknown mode {mode!r}")
     w = _planes(cs, weights, o3 is not None)
-    f64, i64, rays = torch.float64, torch.int64, (n_t, TILE)
-    for x, dtype, shape in (
-            (ent, f64, (n_t, n_c)), (order, i64, (n_t, n_c)),
-            (counts, i64, (n_t,)), (d3, f64, (*rays, 3)),
-            (o3, f64, (*rays, 3)),
-            (alive, torch.bool, rays), (tcap, f64, rays), (tmin, f64, rays),
-            (tmax, f64, rays), (occ0, torch.int32, rays)):
-        if x is not None and (x.dtype != dtype or tuple(x.shape) != shape
-                              or not x.is_contiguous()
-                              or x.device != ent.device):
-            raise ValueError(f"walk_f64 kernel: an input of "
-                             f"{tuple(x.shape)} {x.dtype} on {x.device}, "
-                             f"wants a contiguous {shape} {dtype} on "
-                             f"{ent.device}")
     out = torch.empty((n_t, TILE), dtype=torch.int32, device=ent.device)
     visits = torch.empty(n_t, dtype=torch.int64, device=ent.device)
-    lib = _build.load("walk_f64")
-    ptr = [0 if x is None else x.data_ptr()
-           for x in (ent, order, counts, d3, o3, alive, tcap, tmin, tmax,
-                     occ0, w, out, visits)]
-    dev = ent.device
-    err = lib.ceres_walk_f64(*ptr, n_t, n_c, cs.cluster_size,
-                             MODES.index(mode), dev.index or 0,
-                             torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"ceres_walk_f64 kernel launch failed: "
-                           f"{lib.ceres_walk_f64_error_string(err).decode()} "
-                           f"({err})")
-    launches[mode] += 1
+    f64, i64, rays = torch.float64, torch.int64, (n_t, TILE)
+    native.launch("walk_f64", "ceres_walk_f64", [
+        ("ent", ent, f64, (n_t, n_c)), ("order", order, i64, (n_t, n_c)),
+        ("counts", counts, i64, (n_t,)), ("dirs", d3, f64, (*rays, 3)),
+        ("origins", o3, f64, (*rays, 3)), ("alive", alive, torch.bool, rays),
+        ("tcap", tcap, f64, rays), ("tmin", tmin, f64, rays),
+        ("tmax", tmax, f64, rays), ("occ0", occ0, torch.int32, rays),
+        ("w", w, f64, w.shape), ("out", out, torch.int32, rays),
+        ("visits", visits, i64, (n_t,))],
+        [n_t, n_c, cs.cluster_size, MODES.index(mode)], launches, mode)
     return out, visits.sum()
 
 

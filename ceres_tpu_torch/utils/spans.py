@@ -53,6 +53,8 @@ import time
 
 import torch
 
+from ceres_tpu_torch.utils import native
+
 # Stamp slots a record holds: two a span.
 MAX_SLOTS = 1024
 # cudaGraphNodeType values counted apart under graph.nodes; any other
@@ -136,16 +138,8 @@ class Record:
         if self.slots is None:
             self._host.append(time.perf_counter_ns())
             return k
-        from ceres_tpu_torch.ops import _build
-
-        lib = _build.load()
-        err = lib.ceres_span_stamp(
-            self.slots.data_ptr(), k, self.slots.device.index or 0,
-            torch.cuda.current_stream(self.slots.device).cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"ceres_span_stamp launch failed: "
-                               f"{lib.ceres_error_string(err).decode()} "
-                               f"({err})")
+        native.launch("walk", "ceres_span_stamp",
+                      [("slots", self.slots, torch.int64, (MAX_SLOTS,))], [k])
         return k
 
     @contextlib.contextmanager
@@ -245,14 +239,12 @@ def graph_nodes(raw_graph, stamps: int) -> dict:
     ``stamps`` stamp kernels."""
     import ctypes
 
-    from ceres_tpu_torch.ops import _build
-
-    lib = _build.load()
+    lib = native.load("walk")
     counts = (ctypes.c_longlong * (len(NODE_TYPES) + 1))()
     err = lib.ceres_graph_nodes(raw_graph, counts)
     if err != 0:
         raise RuntimeError(f"ceres_graph_nodes failed: "
-                           f"{lib.ceres_error_string(err).decode()} ({err})")
+                           f"{native.error_text(lib, err)}")
     out = dict(zip([*NODE_TYPES.values(), "other"], counts))
     out["kernel"] -= stamps
     return out

@@ -526,10 +526,10 @@ def positives(mode, out, args):
 
 
 def build_log(name="walk"):
-    """nvcc's -Xptxas=-v report of a source's build (``_build.SOURCES``)."""
-    from ceres_tpu_torch.ops import _build
+    """nvcc's -Xptxas=-v report of a source's build (``native.SOURCES``)."""
+    from ceres_tpu_torch.utils import native
 
-    with open(_build.library_path(name)[:-3] + ".log") as fh:
+    with open(native.library_path(native.SOURCES[name])[:-3] + ".log") as fh:
         return fh.read()
 
 
@@ -2941,7 +2941,8 @@ def main(argv=None):
         fail(f"no ceres_tpu_torch package beside {__file__}")
     sys.path.insert(0, ROOT)
     import ceres_tpu_torch as ct
-    from ceres_tpu_torch.ops import _build, walk
+    from ceres_tpu_torch.ops import walk
+    from ceres_tpu_torch.utils import native
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2967,7 +2968,8 @@ def main(argv=None):
 
     with ThreadPoolExecutor(4) as pool:
         jobs = {name: pool.submit(seconds, fn) for name, fn in (
-            ("walk.cu", _build.load), ("lbvh.cu", lambda: _build.load("lbvh")),
+            ("walk.cu", lambda: native.load("walk")),
+            ("lbvh.cu", lambda: native.load("lbvh")),
             ("bvh_build.cpp", bvh_native.available),
             ("objparse.cpp", obj_native.available))}
         builds = {name: job.result() for name, job in jobs.items()}

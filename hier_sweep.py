@@ -74,6 +74,9 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SOURCE = os.path.join("ceres_tpu_torch", "ops", "csrc", "walk.cu")
 SKIP = shutil.ignore_patterns("_build", "__pycache__")
+# Python that builds a checkout's walk library into ``path``.
+BUILD_WALK = ("from ceres_tpu_torch.utils import native\n"
+              "path = native.build(native.SOURCES['walk'])")
 LINES = re.compile(r"(two-level|flat streamed|flat resident|split walk): |"
                    r"^phase 20 (regrouped |heavy |walk_\S+ .*alone)|"
                    r"^phase (4|7|10) .*path|^phase 1[234] .*(ms|MiB)")
@@ -240,7 +243,8 @@ def probe(src_dir, out, card):
 
     sys.path.insert(0, ROOT)
     import chip_smoke as smoke
-    from ceres_tpu_torch.ops import _build, prepass, walk
+    from ceres_tpu_torch.ops import prepass, walk
+    from ceres_tpu_torch.utils import native
 
     with open(os.path.join(src_dir, SOURCE)) as fh:
         text = probe_source(fh.read())
@@ -251,7 +255,8 @@ def probe(src_dir, out, card):
     cu, lib = os.path.join(d, "walk_probe.cu"), os.path.join(d, "probe.so")
     with open(cu, "w") as fh:
         fh.write(text)
-    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", lib, cu],
+    proc = subprocess.run([native.compiler(cu), *native.NVCC_FLAGS, "-o",
+                           lib, cu],
                           capture_output=True, text=True)
     if proc.returncode != 0:
         sys.exit(f"probe build failed:\n{proc.stderr[-3000:]}")
@@ -330,9 +335,9 @@ def sass(lib):
 
 def _nvcc_path():
     sys.path.insert(0, ROOT)
-    from ceres_tpu_torch.ops import _build
+    from ceres_tpu_torch.utils import native
 
-    return _build._nvcc()
+    return native.compiler(native.SOURCES["walk"])
 
 
 def sass_diff(other):
@@ -340,7 +345,7 @@ def sass_diff(other):
     dirs = {"other": os.path.abspath(other), "this": ROOT}
     if build_all(dirs):
         sys.exit("sass: a build failed")
-    code = "from ceres_tpu_torch.ops import _build; print(_build.build())"
+    code = BUILD_WALK + "\nprint(path)"
     libs = {tag: subprocess.run([sys.executable, "-c", code], cwd=d,
                                 capture_output=True, text=True,
                                 check=True).stdout.split()[-1]
@@ -371,7 +376,7 @@ def sass_diff(other):
 def build_all(dirs):
     """Build each checkout's kernels, one nvcc each, all at once. Returns
     the tags whose build failed."""
-    build = "from ceres_tpu_torch.ops import _build; _build.build()"
+    build = BUILD_WALK
     procs = {tag: subprocess.Popen([sys.executable, "-c", build], cwd=d,
                                    stdout=subprocess.PIPE,
                                    stderr=subprocess.STDOUT, text=True)

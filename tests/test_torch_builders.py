@@ -59,7 +59,7 @@ from ceres_tpu_torch.accel import reinsertion as pri
 from ceres_tpu_torch.accel import sbvh as psbvh
 from ceres_tpu_torch.io import native as pio_native
 from ceres_tpu_torch.io import obj as pobj
-from ceres_tpu_torch.utils import convert, cxx
+from ceres_tpu_torch.utils import convert, native
 
 torch.set_num_threads(1)
 
@@ -208,11 +208,10 @@ def test_native_binned_is_numpy_and_jax_native(name):
     _assert_same_bvh(got, jnative.build_binned_sah_native(lo, hi, centers))
     _assert_same_bvh(pnative.build_binned_sah_fast(lo, hi, centers), got)
     assert pnative.available() and pio_native.available()
-    for source, stem in ((pnative.SOURCE, "ceres_bvh"),
-                         (pio_native.SOURCE, "ceres_objparse")):
+    for source in (pnative.SOURCE, pio_native.SOURCE):
         # Built into the port's _build/, never beside its source.
-        assert os.path.isfile(cxx.library_path(source, stem))
-        assert os.path.dirname(cxx.library_path(source, stem)) == os.path.join(
+        assert os.path.isfile(native.library_path(source))
+        assert os.path.dirname(native.library_path(source)) == os.path.join(
             ROOT, "ceres_tpu_torch", "_build")
         assert not [f for f in os.listdir(os.path.dirname(source))
                     if f.endswith(".so")]
@@ -220,8 +219,8 @@ def test_native_binned_is_numpy_and_jax_native(name):
 
 def test_fast_build_takes_numpy_only_without_gxx(monkeypatch, tmp_path):
     lo, hi, centers = _boxes(*_corners("t200"))
-    monkeypatch.setattr(cxx, "compiler", lambda: None)
-    monkeypatch.setattr(cxx, "BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(native, "compiler", lambda source: None)
+    monkeypatch.setattr(native, "BUILD_DIR", str(tmp_path))
     pnative._load.cache_clear()
     try:
         assert not pnative.available()
@@ -240,7 +239,7 @@ def test_failed_native_build_raises(monkeypatch, tmp_path):
     broken = tmp_path / "bvh_build.cpp"
     broken.write_text("this is not C++\n")
     monkeypatch.setattr(pnative, "SOURCE", str(broken))
-    monkeypatch.setattr(cxx, "BUILD_DIR", str(tmp_path / "build"))
+    monkeypatch.setattr(native, "BUILD_DIR", str(tmp_path / "build"))
     pnative._load.cache_clear()
     try:
         with pytest.raises(RuntimeError, match="g\\+\\+ failed"):

@@ -14,7 +14,9 @@ on the CPU.
   * ``exact_f64`` against a float64 brute-force oracle on a seeded soup:
     the same hits, ids equal except at exact float64 ties, t within
     rtol 1e-12;
-  * the dtype refusals, and the float64 boxes of the quality cut;
+  * the dtype refusals, the card wrappers' refusals of ill-formed
+    inputs before any library load, and the float64 boxes of the
+    quality cut;
   * on CPU tensors the prepass is the plain passes (``_prepass_plain``)
     and launches nothing.
 """
@@ -334,6 +336,65 @@ def test_exact_f64_dtype_refusals(bunny, fn):
     with pytest.raises(ValueError, match="float64 ClusterSet"):
         call(soups[torch.float64], cs32)
     call(soups[torch.float64], None)
+
+
+def _strided(x):
+    """x's values in a tensor of x's shape that is not contiguous."""
+    return torch.stack([x, x], dim=-1)[..., 0]
+
+
+def _kernel_calls():
+    """The card wrappers of the float64 walk and prepass on CPU tensors
+    of the sheets' cut, and the changes to their inputs that each must
+    refuse: {case: (wrapper, its inputs, the change)}."""
+    verts, faces = _sheets()
+    cs = build_clusters_treelet(ct.triangle_soup(
+        torch.as_tensor(verts), torch.as_tensor(faces), with_normals=False))
+    eye = torch.zeros(3, dtype=torch.float64)
+    d = torch.nn.functional.normalize(torch.as_tensor(
+        [[0.0, 0.0, 1.0], [0.1, 0.0, 1.0], [0.0, -0.1, 1.0]],
+        dtype=torch.float64), dim=-1)
+    skip = torch.zeros(3, dtype=torch.bool)
+    walk = {"occ0": None, **pwalk._closest_inputs(cs, eye, tuple(d.t()))}
+    dest = {"tmin": None, "tmax": None, **pwalk._any_dest_inputs(
+        cs, eye + 5.0, tuple((d * 9e3).t()), skip)}
+    lo, hi = cs.lo - eye, cs.hi - eye
+    dlo, dhi = d.amin(0)[None], d.amax(0)[None]
+    prepass = dict(lo=lo, hi=hi, dlo=dlo, dhi=dhi, olo=None, ohi=None,
+                   live=torch.ones(1, dtype=torch.bool), mode="closest")
+    w, p = pwalk._walk_card, pwalk._prepass_kernel
+    return {
+        "walk float32 ent": (w, walk, {"ent": walk["ent"].float()}),
+        "walk short counts": (w, walk, {"counts": walk["counts"][:0]}),
+        "walk strided tcap": (w, walk, {"tcap": _strided(walk["tcap"])}),
+        "walk strided dirs": (w, walk, {"d3": _strided(walk["d3"])}),
+        "walk int64 occ0": (w, dest, {"occ0": dest["occ0"].long()}),
+        "walk short tmin": (w, walk, {"tmin": walk["tcap"][:, :256],
+                                      "tmax": walk["tcap"]}),
+        "prepass float32 lo": (p, prepass, {"lo": lo.float()}),
+        "prepass int live": (p, prepass, {"live": prepass["live"].int()}),
+        "prepass short dhi": (p, prepass, {"dhi": dhi[:0]}),
+        "prepass strided dlo": (p, prepass, {"dlo": _strided(dlo)}),
+    }
+
+
+@pytest.mark.parametrize("case", list(_kernel_calls()))
+def test_f64_kernel_wrappers_refuse_before_loading(case, monkeypatch):
+    # The float64 walk's and prepass's card wrappers refuse a wrong
+    # dtype, a wrong shape or a non-contiguous input in the launcher's
+    # check, before it loads the library; the same inputs unchanged get
+    # as far as the load.
+    from ceres_tpu_torch.utils import native
+
+    def no_library(name):
+        raise AssertionError(f"the launcher loaded the {name} library")
+
+    monkeypatch.setattr(native, "load", no_library)
+    wrapper, inputs, change = _kernel_calls()[case]
+    with pytest.raises(AssertionError, match="walk_f64 library"):
+        wrapper(**inputs)
+    with pytest.raises(ValueError, match="walk_f64 kernels"):
+        wrapper(**{**inputs, **change})
 
 
 def test_quality_cut_boxes_follow_the_soup_dtype(bunny):

@@ -55,7 +55,7 @@ from ceres_tpu_torch.accel import cuts as pcuts
 from ceres_tpu_torch.accel import lbvh as plbvh
 from ceres_tpu_torch.accel import morton as pmorton
 from ceres_tpu_torch.models import mesh as pmesh
-from ceres_tpu_torch.ops import _build
+from ceres_tpu_torch.utils import native
 
 import lbvh_soups as soups
 
@@ -258,7 +258,7 @@ def test_cpu_soup_takes_the_plain_version(name, bunny, monkeypatch):
     def no_library(name="walk"):
         raise AssertionError(f"a CPU build loaded the {name} library")
 
-    monkeypatch.setattr(_build, "load", no_library)
+    monkeypatch.setattr(native, "load", no_library)
     plbvh.reset_launches()
     _, psoup = _soups(*_mesh(name, bunny))
     got = plbvh.build_lbvh(psoup)
@@ -329,20 +329,22 @@ def _refusals():
             i32, n1, n1, n1, i32, *(corners.half(),) * 3),
         "mixed corners": lambda: plbvh._boxes_card(
             i32, n1, n1, n1, i32, corners, corners.double(), corners),
+        "corners with grad": lambda: plbvh._boxes_card(
+            i32, n1, n1, n1, i32, corners.requires_grad_(), corners, corners),
     }
 
 
 @pytest.mark.parametrize("what", list(_refusals()))
 def test_kernel_wrappers_refuse_before_launching(what, monkeypatch):
-    def no_launch(*args):
-        raise AssertionError("launched")
+    def no_library(name):
+        raise AssertionError(f"the launcher loaded the {name} library")
 
-    monkeypatch.setattr(plbvh, "_launch", no_launch)
+    monkeypatch.setattr(native, "load", no_library)
     with pytest.raises(ValueError, match="lbvh kernels"):
         _refusals()[what]()
 
 
-_C_TYPES = {"int": _build.ctypes.c_int, "const char*": _build.ctypes.c_char_p}
+_C_TYPES = {"int": native.ctypes.c_int, "const char*": native.ctypes.c_char_p}
 
 
 def _entry_points(source):
@@ -358,18 +360,18 @@ def _entry_points(source):
         for param in params.split(","):
             param = " ".join(param.split())
             if "*" in param:
-                args.append(_build.ctypes.c_void_p)
+                args.append(native.ctypes.c_void_p)
             else:
                 assert param.startswith("int "), (name, param)
-                args.append(_build.ctypes.c_int)
+                args.append(native.ctypes.c_int)
         out[name] = (tuple(args), _C_TYPES[ret])
     return out
 
 
-@pytest.mark.parametrize("name", sorted(_build.SOURCES))
+@pytest.mark.parametrize("name", sorted(native.SOURCES))
 def test_c_entry_points_declared_as_in_the_source(name):
-    want = _entry_points(_build.SOURCES[name])
+    want = _entry_points(native.SOURCES[name])
     assert want, name
     got = {fn: (tuple(args), ret)
-           for fn, (args, ret) in _build.SIGNATURES[name].items()}
+           for fn, (args, ret) in native.SIGNATURES[name].items()}
     assert got == want

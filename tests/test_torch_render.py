@@ -267,7 +267,7 @@ def test_port_imports_without_jax():
     code = ("import sys\n"
             "for m in ('jax', 'optax', 'orbax'): sys.modules[m] = None\n"
             "import ceres_tpu_torch, ceres_tpu_torch.render.renderer, "
-            "ceres_tpu_torch.render.scenes, ceres_tpu_torch.ops._build, "
+            "ceres_tpu_torch.render.scenes, ceres_tpu_torch.utils.native, "
             "ceres_tpu_torch.ops.intersect, ceres_tpu_torch.ops.walk, "
             "ceres_tpu_torch.models.transform, ceres_tpu_torch.utils.convert, "
             "ceres_tpu_torch.diff, ceres_tpu_torch.cli.render, "
@@ -280,7 +280,7 @@ def test_port_imports_without_jax():
             "ceres_tpu_torch.accel.ploc, ceres_tpu_torch.accel.sbvh, "
             "ceres_tpu_torch.accel.reinsertion, "
             "ceres_tpu_torch.accel.presplit, ceres_tpu_torch.accel.native, "
-            "ceres_tpu_torch.io.native, ceres_tpu_torch.utils.cxx, "
+            "ceres_tpu_torch.io.native, "
             "ceres_tpu_torch.utils.golden\n"
             "from ceres_tpu_torch.accel import native\n"
             "from ceres_tpu_torch.io import native as io_native\n"
