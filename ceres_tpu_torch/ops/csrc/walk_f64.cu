@@ -1,6 +1,7 @@
-// The float64 cluster walk: one CTA a 512-ray tile, one thread a ray,
-// float64 throughout (the search of RenderConfig(f64_exact=True), the
-// render CLI's --d-exact).
+// The float64 cluster walk: each 512-ray tile on a thread-block cluster of
+// kK CTAs, one thread a ray in every CTA, float64 throughout (the search
+// of RenderConfig(f64_exact=True), the render CLI's --d-exact); on short
+// rows one CTA a tile (below).
 //
 // It replaces no TPU kernel: the JAX package's float64 walk
 // (ceres_tpu/ops/walk_f64.py, _walk) is plain JAX, a lockstep frontier
@@ -8,33 +9,68 @@
 // (ceres_tpu_torch/ops/walk_f64.py, _walk_plain) advances a chunk one
 // candidate a step and reads each step's activity on the host, thousands
 // of times a frame on a large mesh, so it can be neither captured nor
-// fast. Here each tile walks its own sorted candidate list in one CTA
-// with the plain loop's exact rule:
+// fast. Here each tile walks its own sorted candidate list with the plain
+// loop's exact rule:
 //     k < counts[tile]  &&  ent[tile, k] <= prune,
 // prune the tile's maximum over its rays of min(best t, root exit)
 // (closest) or of the root exit of its unoccluded rays (occlusion), dead
-// rays counting -1, recomputed after every visit (a block reduction). A
-// tile's walk is then uniform, so the barriers in the loop are safe, and
-// its visits equal the plain loop's: entries ascend and the prune only
-// falls, so a tile the plain loop drops never walks again.
+// rays counting -1, renewed after every visit. Entries ascend and the
+// prune only falls, so a tile the rule stops never walks again.
 //
-// Per visit the CTA copies the cluster's weight planes to shared memory
-// (K x C doubles, K = 10 for rays from a common origin: cu, cv, n, tn of
-// the triangles relative to it; 16 for rays with their own origins: and
-// e2, e1), and each live thread runs the plain loop's Möller-Trumbore on
-// the C triangles in lane order, in its operation order. --fmad=false
-// (ops/_build.py) keeps every multiply and add separately rounded, so the
-// winner slots (closest: the first lane of the smallest t, kept only
-// where strictly below the ray's best) and the occlusion flags are the
-// plain loop's bit for bit. Modes: closest, with or without a per-ray
-// [tmin, tmax] window; any (rays with their own origins, t >= 0); any_dest
-// (segments from a common origin, t in [0, 1 - eps] by the window test).
+// A visit: the cluster's weight planes in shared memory (P x C doubles,
+// P = 10 for rays from a common origin: cu, cv, n, tn of the triangles
+// relative to it; 16 for rays with their own origins: and e2, e1), and
+// each live thread runs the plain loop's Möller-Trumbore on the C
+// triangles in lane order, in its operation order. --fmad=false
+// (utils/native.py) keeps every multiply and add separately rounded, so
+// the outcomes are the plain loop's bit for bit: closest, the first lane
+// of the smallest t (inside the ray's [tmin, tmax] window where given),
+// kept only where strictly below the ray's best; any (rays with their own
+// origins, t >= 0) and any_dest (segments from a common origin, t in [0,
+// 1 - eps] by the window test), the occlusion flag.
 //
 // Bound: float64 operations. A visit is R x C ray-triangle tests of ~30
 // float64 operations (the H100 runs float64 at half its float32 rate,
-// outside the tensor cores), against K x C x 8 bytes of weights and two
-// entries; the rays are read once. Shadow rays stop at their first
-// occluder and occluded or dead rays test nothing.
+// outside the tensor cores), ~3.4 us of one SM's peak at 512 x 64,
+// against P x C x 8 bytes of weights and two entries; the rays are read
+// once. A tile's walk is a chain of visits, each a CTA's whole work, and
+// a frame waits for its longest chain: on the 4x bunny's 1080p closest
+// walk a tile whose ray hull straddles an axis makes 2,625 visits (of
+// 17,007 candidates) while the mean walking tile makes ~36, and one CTA
+// a tile left that chain on one SM for ~71 ms, ~27 us a visit, while the
+// others idled (PERF.md).
+//
+// So the chain itself is cut: the walk goes in rounds of kK candidates.
+// In the round from k0, CTA c visits candidate k0 + c (staged with
+// cp.async during the round before, into the other of two plane buffers)
+// for all the tile's rays, where the round's opening prune admits it, and
+// publishes each ray's outcome in its shared memory (a ballot word a warp
+// of which rays it hit; closest, each ray's t and slot too), two buffers
+// for alternate rounds. After a cluster barrier every CTA reads the kK
+// outcomes of its rays from the others' shared memory (distributed shared
+// memory) and replays the plain rule over the round's candidates in
+// order: per ray the running best (strict <, so an equal t keeps the
+// earlier candidate) or the running OR of the flag; after candidate j the
+// bit "this ray's part of the prune admits candidate j + 1"; a block
+// reduction ORs the bits over the rays and takes the prune after the
+// whole round. The walk ends at the first candidate no ray admits:
+// outcomes past it are dropped and not counted (a closest outcome past
+// the plain stop can hold a hit that the plain loop never sees), so the
+// winner slots, flags and each tile's visits are the plain loop's. Within
+// a walk nothing is NaN (a NaN root exit makes the opening prune NaN, and
+// that tile walks nothing), so "some ray's part >= entry" is "entry <=
+// prune". Every CTA holds every ray's state and merges the same outcomes
+// in the same order, so all reach the same stop: the trip count is
+// uniform and the barriers are safe. A tile whose opening prune admits
+// nothing returns before any cluster barrier. The only work beyond the
+// plain loop's is at most kK - 1 dropped visits at the end of a tile's
+// walk. kK is a constant, from the card's times (PERF.md).
+//
+// A row of n_c candidates chains at most n_c visits. Where rows are short
+// the chains are too, and a cluster's CTAs that wait on the others'
+// visits cost more than the chains they cut, so the caller asks for the
+// form by the row length (ops/walk_f64.py, _SOLO_ROW): the same body at
+// K = 1, one CTA a tile, exchanges nothing.
 //
 // The walk's input, each tile's sorted candidate list, comes from the
 // float64 prepass kernel further down (prepass_f64_kernel): the slab test
@@ -43,11 +79,14 @@
 // stable argsort of every pair and its gathers (ops/walk_f64.py,
 // _prepass_plain).
 //
-// Built by ops/_build.py (nvcc for sm_90a, --fmad=false, a plain C
+// Built by utils/native.py (nvcc for sm_90a, --fmad=false, a plain C
 // interface bound with ctypes); launched on the caller's stream, with no
 // allocation and no synchronisation, so a CUDA graph captures them.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -56,6 +95,7 @@ constexpr int kWarps = kR / 32;
 constexpr int kMaxC = 128;     // triangles a cluster, at most
 constexpr int kCommonPlanes = 10;
 constexpr int kGenericPlanes = 16;
+constexpr int kK = 8;          // CTAs a tile's cluster: candidates a round
 // The any_dest window's scale, 1 - _DEST_EPS (ops/walk.py), in float64 as
 // the plain loop's (1.0 - _DEST_EPS) * nd takes it.
 constexpr double kDestScale = 1.0 - 4e-6;
@@ -89,13 +129,50 @@ __device__ __forceinline__ double block_max(double v, double* red) {
   return m;
 }
 
-// One tile a CTA. Inputs per tile (n_c candidates, R rays): ent sorted
-// ascending and order the cluster of each entry, counts the real
-// entries; rays d (and o) as (R, 3); alive, tcap, tmin/tmax (WINDOW),
-// occ0 (occlusion modes) per ray; w (N_c, K, C) the weight planes.
-// Out: packed winner slot ids (cluster * C + lane, -1 for a miss) or
-// occlusion flags, and the tile's executed visits.
-template <int M, bool WINDOW, bool GENERIC>
+// Copy n doubles from global src to shared dst with cp.async (8 bytes a
+// copy, so any cluster size and offset), as one group.
+__device__ __forceinline__ void stage_async(double* dst, const double* src,
+                                            int n) {
+  for (int i = threadIdx.x; i < n; i += kR) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n"
+                 :: "r"(static_cast<unsigned>(__cvta_generic_to_shared(
+                        dst + i))),
+                    "l"(src + i) : "memory");
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wait_async() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// What a CTA keeps in shared memory (P weight planes a cluster, K CTAs a
+// cluster).
+template <int P, int K>
+struct WalkShared {
+  static constexpr int kX = K > 1 ? kR : 1;  // no exchange on one CTA
+  // The planes of this CTA's candidate: one round's visit reads one
+  // buffer while the next round's candidate is copied into the other.
+  double planes[2][P * kMaxC];
+  // This CTA's outcome of a round, which the cluster's CTAs read; rounds
+  // alternate between the two buffers. hit: a bit a ray, a word a warp;
+  // closest, each ray's smallest t and its packed slot id.
+  double t[2][kX];
+  int slot[2][kX];
+  unsigned hit[2][kWarps];
+  // The block reductions'.
+  double red[kWarps];
+  unsigned red_bits[kWarps];
+};
+
+// One tile on a cluster of K CTAs (K = 1: one CTA, no exchange). Inputs
+// per tile (n_c candidates, R rays): ent sorted ascending and order the
+// cluster of each entry, counts the real entries; rays d (and o) as (R,
+// 3); alive, tcap, tmin/tmax (WINDOW), occ0 (occlusion modes) per ray; w
+// (N_c, P, C) the weight planes. Out: packed winner slot ids (cluster * C
+// + lane, -1 for a miss) or occlusion flags, and the tile's executed
+// visits.
+template <int M, bool WINDOW, bool GENERIC, int K>
 __global__ void __launch_bounds__(kR)
     walk_f64_kernel(const double* __restrict__ ent,
                     const long long* __restrict__ order,
@@ -109,93 +186,257 @@ __global__ void __launch_bounds__(kR)
                     const int* __restrict__ occ0,
                     const double* __restrict__ w, int* __restrict__ out,
                     long long* __restrict__ visits, int n_c, int C) {
-  constexpr int K = GENERIC ? kGenericPlanes : kCommonPlanes;
-  __shared__ double planes[K * kMaxC];
-  __shared__ double red[kWarps];
-  const long long tile = blockIdx.x;
+  static_assert(K == 1 || K == 2 || K == 4 || K == 8,
+                "one CTA or a portable cluster size");
+  constexpr int P = GENERIC ? kGenericPlanes : kCommonPlanes;
+  constexpr bool kOcc = M != kClosest;
+  __shared__ WalkShared<P, K> sh;
+  const int rank = K > 1 ? static_cast<int>(cg::this_cluster().block_rank())
+                         : 0;
+  const long long tile = blockIdx.x / K;
   const long long ray = tile * kR + threadIdx.x;
-  const double d0 = dirs[3 * ray], d1 = dirs[3 * ray + 1],
-               d2 = dirs[3 * ray + 2];
-  double o0 = 0.0, o1 = 0.0, o2 = 0.0, c0 = 0.0, c1 = 0.0, c2 = 0.0;
-  if (GENERIC) {
-    o0 = origins[3 * ray];
-    o1 = origins[3 * ray + 1];
-    o2 = origins[3 * ray + 2];
-    // d x o, as the plain loop's _cross(d, o).
-    c0 = __dsub_rn(__dmul_rn(d1, o2), __dmul_rn(d2, o1));
-    c1 = __dsub_rn(__dmul_rn(d2, o0), __dmul_rn(d0, o2));
-    c2 = __dsub_rn(__dmul_rn(d0, o1), __dmul_rn(d1, o0));
-  }
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const bool live = alive[ray] != 0;
   const double cap = live ? tcap[ray] : -1.0;
-  double lo = 0.0, hi = 0.0;
-  if (WINDOW) {
-    lo = tlo[ray];
-    hi = thi[ray];
-  }
   const double inf = __longlong_as_double(0x7ff0000000000000LL);
   double best = inf;
-  long long slot = -1;
+  int slot = -1;
   bool occ = false;
-  if (M != kClosest) occ = occ0[ray] > 0;
+  if (kOcc) occ = occ0[ray] > 0;
+  // This ray's part of the prune.
+  auto part = [&](double b, bool o) {
+    return kOcc ? (o ? -1.0 : cap) : tmin(b, cap);
+  };
 
   const long long count = counts[tile];
   const double* ent_t = ent + tile * n_c;
   const long long* order_t = order + tile * n_c;
-  long long k = 0;
-  for (;; ++k) {
-    const double mine = M == kClosest ? tmin(best, cap) : (occ ? -1.0 : cap);
-    const double prune = block_max(mine, red);
-    if (!(k < count && ent_t[k] <= prune)) break;
-    const long long cid = order_t[k];
-    const double* wc = w + cid * K * C;
-    for (int i = threadIdx.x; i < K * C; i += kR) planes[i] = wc[i];
-    __syncthreads();
-    if (live && !(M != kClosest && occ)) {
-      for (int j = 0; j < C; ++j) {
-        const double* p = planes + j;
-        double nu = dot3(d0, d1, d2, p[0 * C], p[1 * C], p[2 * C]);
-        double nv = dot3(d0, d1, d2, p[3 * C], p[4 * C], p[5 * C]);
-        const double nd = dot3(d0, d1, d2, p[6 * C], p[7 * C], p[8 * C]);
-        double nt = p[9 * C];
-        if (GENERIC) {
-          nu = __dsub_rn(nu, dot3(c0, c1, c2, p[13 * C], p[14 * C],
-                                  p[15 * C]));
-          nv = __dsub_rn(nv, dot3(c0, c1, c2, p[10 * C], p[11 * C],
-                                  p[12 * C]));
-          nt = __dsub_rn(nt, dot3(o0, o1, o2, p[6 * C], p[7 * C], p[8 * C]));
+  const int span = P * C;  // doubles of a cluster's planes
+  double prune = block_max(part(best, occ), sh.red);
+  long long nvis = 0;
+  if (count > 0 && ent_t[0] <= prune) {
+    const double d0 = dirs[3 * ray], d1 = dirs[3 * ray + 1],
+                 d2 = dirs[3 * ray + 2];
+    double o0 = 0.0, o1 = 0.0, o2 = 0.0, c0 = 0.0, c1 = 0.0, c2 = 0.0;
+    if (GENERIC) {
+      o0 = origins[3 * ray];
+      o1 = origins[3 * ray + 1];
+      o2 = origins[3 * ray + 2];
+      // d x o, as the plain loop's _cross(d, o).
+      c0 = __dsub_rn(__dmul_rn(d1, o2), __dmul_rn(d2, o1));
+      c1 = __dsub_rn(__dmul_rn(d2, o0), __dmul_rn(d0, o2));
+      c2 = __dsub_rn(__dmul_rn(d0, o1), __dmul_rn(d1, o0));
+    }
+    double lo = 0.0, hi = 0.0;
+    if (WINDOW) {
+      lo = tlo[ray];
+      hi = thi[ray];
+    }
+    if (rank < count && ent_t[rank] <= prune)
+      stage_async(sh.planes[0], w + order_t[rank] * span, span);
+    for (long long k0 = 0, r = 0;; k0 += K, ++r) {
+      // Round r: candidates k0 .. k0 + K - 1, this CTA's k0 + rank.
+      const int b = static_cast<int>(r & 1);
+      const long long k = k0 + rank;
+      const bool go = k < count && ent_t[k] <= prune;
+      wait_async();
+      __syncthreads();  // its planes are in; the other buffer is free
+      if (k + K < count && ent_t[k + K] <= prune)
+        stage_async(sh.planes[b ^ 1], w + order_t[k + K] * span, span);
+
+      // The visit: this ray's outcome of candidate k.
+      double ct = inf;
+      int cslot = -1;
+      bool hit = false;
+      if (go && live && !(kOcc && occ)) {
+        const long long cid = order_t[k];
+        const double* pl = sh.planes[b];
+        for (int j = 0; j < C; ++j) {
+          const double* p = pl + j;
+          double nu = dot3(d0, d1, d2, p[0 * C], p[1 * C], p[2 * C]);
+          double nv = dot3(d0, d1, d2, p[3 * C], p[4 * C], p[5 * C]);
+          const double nd = dot3(d0, d1, d2, p[6 * C], p[7 * C], p[8 * C]);
+          double nt = p[9 * C];
+          if (GENERIC) {
+            nu = __dsub_rn(nu, dot3(c0, c1, c2, p[13 * C], p[14 * C],
+                                    p[15 * C]));
+            nv = __dsub_rn(nv, dot3(c0, c1, c2, p[10 * C], p[11 * C],
+                                    p[12 * C]));
+            nt = __dsub_rn(nt, dot3(o0, o1, o2, p[6 * C], p[7 * C],
+                                    p[8 * C]));
+          }
+          const double s = nd >= 0.0 ? 1.0 : -1.0;
+          const double uvw =
+              tmin(tmin(__dmul_rn(nu, s), __dmul_rn(nv, s)),
+                   __dmul_rn(__dsub_rn(__dsub_rn(nd, nu), nv), s));
+          bool ok;
+          if (M == kAnyDest) {
+            const double far = __dsub_rn(nt, __dmul_rn(kDestScale, nd));
+            const bool win =
+                __dmul_rn(far, s) <= 0.0 && __dmul_rn(nt, s) >= 0.0;
+            ok = uvw >= 0.0 && nd != 0.0 && win;
+          } else {
+            ok = tmin(uvw, __dmul_rn(nt, s)) >= 0.0 && nd != 0.0;
+          }
+          if (M == kClosest) {
+            if (ok) {
+              const double t = __ddiv_rn(nt, nd);
+              if ((!WINDOW || (t >= lo && t <= hi)) && t < ct) {
+                ct = t;
+                cslot = static_cast<int>(cid * C + j);
+              }
+            }
+          } else if (ok) {
+            hit = true;
+            break;
+          }
         }
-        const double s = nd >= 0.0 ? 1.0 : -1.0;
-        const double uvw =
-            tmin(tmin(__dmul_rn(nu, s), __dmul_rn(nv, s)),
-                 __dmul_rn(__dsub_rn(__dsub_rn(nd, nu), nv), s));
-        bool ok;
-        if (M == kAnyDest) {
-          const double far = __dsub_rn(nt, __dmul_rn(kDestScale, nd));
-          const bool win = __dmul_rn(far, s) <= 0.0 && __dmul_rn(nt, s) >= 0.0;
-          ok = uvw >= 0.0 && nd != 0.0 && win;
-        } else {
-          ok = tmin(uvw, __dmul_rn(nt, s)) >= 0.0 && nd != 0.0;
+        if (M == kClosest) hit = cslot >= 0;
+      }
+
+      // The round's outcomes of this ray: bit j of hits, candidate k0 + j
+      // hit it (closest: with t tj[j] at slot sj[j]).
+      unsigned hits = hit ? 1u : 0u;
+      double tj[K];
+      int sj[K];
+      if constexpr (K == 1) {
+        tj[0] = ct;
+        sj[0] = cslot;
+      } else {
+        cg::cluster_group cluster = cg::this_cluster();
+        const unsigned word = __ballot_sync(0xffffffffu, hit);
+        if (lane == 0) sh.hit[b][warp] = word;
+        if (!kOcc) {
+          sh.t[b][threadIdx.x] = ct;
+          sh.slot[b][threadIdx.x] = cslot;
         }
-        if (M == kClosest) {
-          if (ok) {
-            const double t = __ddiv_rn(nt, nd);
-            if ((!WINDOW || (t >= lo && t <= hi)) && t < best) {
-              best = t;
-              slot = cid * C + j;
+        cluster.sync();  // every CTA's outcomes are in
+        unsigned mine = 0;
+        if (lane < K) mine = *cluster.map_shared_rank(&sh.hit[b][warp], lane);
+        hits = 0;
+#pragma unroll
+        for (int j = 0; j < K; ++j)
+          hits |= ((__shfl_sync(0xffffffffu, mine, j) >> lane) & 1u) << j;
+        if (!kOcc) {
+#pragma unroll
+          for (int j = 0; j < K; ++j) {
+            if ((hits >> j) & 1u) {
+              tj[j] = *cluster.map_shared_rank(&sh.t[b][threadIdx.x], j);
+              sj[j] = *cluster.map_shared_rank(&sh.slot[b][threadIdx.x], j);
             }
           }
-        } else if (ok) {
-          occ = true;
-          break;
         }
       }
+
+      // The plain rule over the round's candidates in order: bit j + 1 of
+      // admit, this ray's part after candidates k0 .. k0 + j admits
+      // candidate k0 + j + 1.
+      double rbest = best;
+      int rslot = slot;
+      bool rocc = occ;
+      unsigned admit = 0;
+#pragma unroll
+      for (int j = 0; j < K; ++j) {
+        if ((hits >> j) & 1u) {
+          if (kOcc) {
+            rocc = true;
+          } else if (tj[j] < rbest) {
+            rbest = tj[j];
+            rslot = sj[j];
+          }
+        }
+        if (j + 1 < K && k0 + j + 1 < count &&
+            part(rbest, rocc) >= ent_t[k0 + j + 1])
+          admit |= 1u << (j + 1);
+      }
+      // Over the tile's rays: the prune after the whole round, and which
+      // candidates the rule admits.
+      double m = part(rbest, rocc);
+      for (int off = 16; off > 0; off >>= 1)
+        m = tmax(m, __shfl_xor_sync(0xffffffffu, m, off));
+      admit = __reduce_or_sync(0xffffffffu, admit);
+      if (lane == 0) {
+        sh.red[warp] = m;
+        sh.red_bits[warp] = admit;
+      }
+      __syncthreads();
+      m = sh.red[0];
+      admit = sh.red_bits[0];
+#pragma unroll
+      for (int i = 1; i < kWarps; ++i) {
+        m = tmax(m, sh.red[i]);
+        admit |= sh.red_bits[i];
+      }
+      // Visited: candidates k0 .. k0 + n - 1, up to the first one not
+      // admitted.
+      const unsigned stops = ~admit & ((1u << K) - 2u);
+      const int n = stops ? __ffs(static_cast<int>(stops)) - 1 : K;
+      nvis += n;
+      if (n < K) {  // the walk ends inside the round: drop the rest
+#pragma unroll
+        for (int j = 0; j < K; ++j) {
+          if (j < n && ((hits >> j) & 1u)) {
+            if (kOcc) {
+              occ = true;
+            } else if (tj[j] < best) {
+              best = tj[j];
+              slot = sj[j];
+            }
+          }
+        }
+        break;
+      }
+      best = rbest;
+      slot = rslot;
+      occ = rocc;
+      prune = m;
+      if (!(k0 + K < count && ent_t[k0 + K] <= prune)) break;
     }
+    wait_async();  // drain a copy left behind
+    // No CTA leaves while another may still read its outcomes.
+    if constexpr (K > 1) cg::this_cluster().sync();
   }
-  out[ray] = M == kClosest ? static_cast<int>(slot) : (occ ? 1 : 0);
-  if (threadIdx.x == 0) visits[tile] = k;
+  if (rank == 0) {
+    out[ray] = kOcc ? (occ ? 1 : 0) : slot;
+    if (threadIdx.x == 0) visits[tile] = nvis;
+  }
 }
 
+// Launch walk_f64_kernel on n_tiles clusters of K CTAs (K = 1: n_tiles
+// CTAs, no cluster).
+template <int M, bool WINDOW, bool GENERIC, int K>
+cudaError_t launch_k(const double* ent, const long long* order,
+                     const long long* counts, const double* dirs,
+                     const double* origins, const unsigned char* alive,
+                     const double* tcap, const double* tlo, const double* thi,
+                     const int* occ0, const double* w, int* out,
+                     long long* visits, int n_tiles, int n_c, int C,
+                     cudaStream_t stream) {
+  const auto kernel = walk_f64_kernel<M, WINDOW, GENERIC, K>;
+  if (K == 1) {
+    kernel<<<n_tiles, kR, 0, stream>>>(ent, order, counts, dirs, origins,
+                                       alive, tcap, tlo, thi, occ0, w, out,
+                                       visits, n_c, C);
+    return cudaGetLastError();
+  }
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = K;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(n_tiles * K);
+  cfg.blockDim = dim3(kR);
+  cfg.stream = stream;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, kernel, ent, order, counts, dirs, origins, alive, tcap, tlo, thi,
+      occ0, w, out, visits, n_c, C);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+// The cluster form (kK CTAs a tile) or one CTA a tile.
 template <int M, bool WINDOW, bool GENERIC>
 cudaError_t launch(const double* ent, const long long* order,
                    const long long* counts, const double* dirs,
@@ -203,11 +444,13 @@ cudaError_t launch(const double* ent, const long long* order,
                    const double* tcap, const double* tlo, const double* thi,
                    const int* occ0, const double* w, int* out,
                    long long* visits, int n_tiles, int n_c, int C,
-                   cudaStream_t stream) {
-  walk_f64_kernel<M, WINDOW, GENERIC><<<n_tiles, kR, 0, stream>>>(
-      ent, order, counts, dirs, origins, alive, tcap, tlo, thi, occ0, w, out,
-      visits, n_c, C);
-  return cudaGetLastError();
+                   bool cluster, cudaStream_t stream) {
+  return cluster ? launch_k<M, WINDOW, GENERIC, kK>(
+                       ent, order, counts, dirs, origins, alive, tcap, tlo,
+                       thi, occ0, w, out, visits, n_tiles, n_c, C, stream)
+                 : launch_k<M, WINDOW, GENERIC, 1>(
+                       ent, order, counts, dirs, origins, alive, tcap, tlo,
+                       thi, occ0, w, out, visits, n_tiles, n_c, C, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -501,9 +744,11 @@ __global__ void __launch_bounds__(kPrepassThreads)
 }  // namespace
 
 // One launch of the float64 walk: mode 0 closest (window: tmin and tmax
-// given), 1 any (origins given), 2 any_dest; returns a cudaError_t, or
-// cudaErrorInvalidValue for a mode, origins or cluster size it does not
-// take. n_tiles CTAs of 512 threads.
+// given), 1 any (origins given), 2 any_dest; cluster 1 for the cluster
+// form (n_tiles clusters of kK CTAs of 512 threads), 0 for one CTA a tile
+// (the caller's choice by the row length, ops/walk_f64.py); returns a
+// cudaError_t, or cudaErrorInvalidValue for a mode, origins or cluster
+// size it does not take.
 extern "C" int ceres_walk_f64(const double* ent, const long long* order,
                               const long long* counts, const double* dirs,
                               const double* origins,
@@ -511,29 +756,34 @@ extern "C" int ceres_walk_f64(const double* ent, const long long* order,
                               const double* tlo, const double* thi,
                               const int* occ0, const double* w, int* out,
                               long long* visits, int n_tiles, int n_c, int C,
-                              int mode, int device, void* stream) {
+                              int mode, int cluster, int device,
+                              void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (C < 1 || C > kMaxC || n_tiles < 0) return (int)cudaErrorInvalidValue;
+  if (C < 1 || C > kMaxC || n_tiles < 0 || cluster < 0 || cluster > 1)
+    return (int)cudaErrorInvalidValue;
   if (n_tiles == 0) return 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (mode == kClosest && origins == nullptr && tlo == nullptr) {
     err = launch<kClosest, false, false>(ent, order, counts, dirs, origins,
                                         alive, tcap, tlo, thi, occ0, w, out,
-                                        visits, n_tiles, n_c, C, st);
+                                        visits, n_tiles, n_c, C, cluster,
+                                        st);
   } else if (mode == kClosest && origins == nullptr && tlo != nullptr &&
              thi != nullptr) {
     err = launch<kClosest, true, false>(ent, order, counts, dirs, origins,
                                        alive, tcap, tlo, thi, occ0, w, out,
-                                       visits, n_tiles, n_c, C, st);
+                                       visits, n_tiles, n_c, C, cluster,
+                                       st);
   } else if (mode == kAny && origins != nullptr && occ0 != nullptr) {
     err = launch<kAny, false, true>(ent, order, counts, dirs, origins, alive,
                                    tcap, tlo, thi, occ0, w, out, visits,
-                                   n_tiles, n_c, C, st);
+                                   n_tiles, n_c, C, cluster, st);
   } else if (mode == kAnyDest && origins == nullptr && occ0 != nullptr) {
     err = launch<kAnyDest, false, false>(ent, order, counts, dirs, origins,
                                         alive, tcap, tlo, thi, occ0, w, out,
-                                        visits, n_tiles, n_c, C, st);
+                                        visits, n_tiles, n_c, C, cluster,
+                                        st);
   } else {
     return (int)cudaErrorInvalidValue;
   }

@@ -26,11 +26,18 @@ other clusters' ids, which nothing reads.
 Two forms of the walk, chosen by the tensors' device:
 
   * on the card, one kernel (``csrc/walk_f64.cu``, built and launched by
-    ``utils.native``): one CTA a tile, one thread a ray, the prune a block
-    reduction after every visit. Each launch adds one to its mode's key
-    of the counter ``walk_f64.launches`` (``utils.spans``). No step of
-    this path reads the device, so a frame with ``f64_exact`` is
-    captured as a CUDA graph (``render.renderer.render_graph``);
+    ``utils.native``), one thread a ray. Where the rows are longer than
+    ``_SOLO_ROW`` candidates, each tile on a cluster of CTAs: the walk
+    goes in rounds of as many candidates as the cluster has CTAs, one a
+    CTA; the CTAs exchange their rays' outcomes through distributed
+    shared memory and each replays the plain rule over the round in
+    order, dropping the outcomes past the stop, so a tile's chain of
+    visits is spread over the cluster's SMs. Shorter rows, one CTA a
+    tile. Each launch adds one to its mode's key of the counter
+    ``walk_f64.launches``, and in the cluster form of
+    ``walk_f64.clustered`` (``utils.spans``). No step of this path reads
+    the device, so a frame with ``f64_exact`` is captured as a CUDA graph
+    (``render.renderer.render_graph``);
   * on the CPU, the plain frontier loop (``_walk_plain``): every active
     tile of a chunk advances one candidate a step, and each step's
     activity is read on the host. Chunks (``_CHUNK`` = 64 tiles, as in
@@ -58,17 +65,23 @@ from ceres_tpu_torch.utils import native, spans
 
 _CHUNK = 64          # tiles a chunk of the plain loop, as in the JAX package
 MODES = ("closest", "any", "any_dest")
+# Rows of at most this many candidates walk one CTA a tile, longer ones on
+# the kernel's cluster form. A row of n_c candidates chains at most n_c
+# visits; where they are few, the cluster's CTAs that wait on others'
+# visits cost more than the chains they cut (PERF.md).
+_SOLO_ROW = 512
 
 # Kernel launches by mode since the last reset_launches(), the counters
-# ``walk_f64.launches`` (the walk) and ``prepass_f64.launches`` (the
-# prepass) of ``utils.spans``. Counted where a launch succeeds and nowhere
-# else.
+# ``walk_f64.launches`` (the walk), ``walk_f64.clustered`` (the walk's
+# launches in the cluster form) and ``prepass_f64.launches`` (the prepass)
+# of ``utils.spans``. Counted where a launch succeeds and nowhere else.
 launches = spans.counter("walk_f64.launches", MODES)
+clustered = spans.counter("walk_f64.clustered", MODES)
 prepass_launches = spans.counter("prepass_f64.launches", MODES)
 
 
 def reset_launches() -> None:
-    for counts in (launches, prepass_launches):
+    for counts in (launches, clustered, prepass_launches):
         for name in counts:
             counts[name] = 0
 
@@ -215,20 +228,24 @@ def _walk(cs, weights, order, ent, counts, d3, o3, alive, tcap, tmin=None,
     """
     with spans.span("walk.f64"):
         if ent.device.type == "cuda":
-            return _walk_card(cs, weights, order, ent, counts, d3, o3, alive,
-                              tcap, tmin, tmax, occ0, mode)
+            out, visits = _walk_card(cs, weights, order, ent, counts, d3, o3,
+                                     alive, tcap, tmin, tmax, occ0, mode)
+            return out, visits.sum()
         return _walk_plain(cs, weights, order, ent, counts, d3, o3, alive,
                            tcap, tmin, tmax, occ0, mode=mode)
 
 
 def _walk_card(cs, weights, order, ent, counts, d3, o3, alive, tcap, tmin,
                tmax, occ0, mode):
-    """``_walk_plain`` as one kernel (``csrc/walk_f64.cu``), one CTA a
-    tile; a failed launch raises."""
+    """``_walk_plain`` as one kernel (``csrc/walk_f64.cu``), a cluster
+    of CTAs a tile where rows hold more than ``_SOLO_ROW`` candidates,
+    else one CTA a tile: (out, each tile's executed visits (n_t,) int64).
+    A failed launch raises."""
     n_t, n_c = ent.shape
     if mode not in MODES:
         raise ValueError(f"walk_f64: unknown mode {mode!r}")
     w = _planes(cs, weights, o3 is not None)
+    cluster = n_c > _SOLO_ROW
     out = torch.empty((n_t, TILE), dtype=torch.int32, device=ent.device)
     visits = torch.empty(n_t, dtype=torch.int64, device=ent.device)
     f64, i64, rays = torch.float64, torch.int64, (n_t, TILE)
@@ -240,8 +257,9 @@ def _walk_card(cs, weights, order, ent, counts, d3, o3, alive, tcap, tmin,
         ("tmax", tmax, f64, rays), ("occ0", occ0, torch.int32, rays),
         ("w", w, f64, w.shape), ("out", out, torch.int32, rays),
         ("visits", visits, i64, (n_t,))],
-        [n_t, n_c, cs.cluster_size, MODES.index(mode)], launches, mode)
-    return out, visits.sum()
+        [n_t, n_c, cs.cluster_size, MODES.index(mode), int(cluster)],
+        (launches, clustered) if cluster else launches, mode)
+    return out, visits
 
 
 def _walk_plain(cs, weights, order, ent, counts, d3, o3, alive, tcap,

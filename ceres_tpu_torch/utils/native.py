@@ -83,8 +83,8 @@ SIGNATURES = {
     },
     "walk_f64": {
         # ent, order, counts, dirs, origins, alive, tcap, tmin, tmax,
-        # occ0, w, out, visits; n_tiles, n_c, C, mode
-        "ceres_walk_f64": _launch_entry(13, 4),
+        # occ0, w, out, visits; n_tiles, n_c, C, mode, cluster
+        "ceres_walk_f64": _launch_entry(13, 5),
         # lo, hi, dlo, dhi, olo, ohi, live, ent, order, counts; n_tiles,
         # n_c
         "ceres_prepass_f64": _launch_entry(10, 2),
@@ -199,7 +199,8 @@ def launch(library: str, entry: str, tensors, ints, counter=None,
     of its tensors' card: ``check`` the tensors, then pass their pointers
     (0 for None) in order, the ``ints``, the device index and the stream.
     A failed launch raises with the library's error text; one that
-    succeeds adds one to ``counter[key]`` (a ``utils.spans`` counter)."""
+    succeeds adds one to ``counter[key]`` (a ``utils.spans`` counter, or
+    a tuple of them, each counted)."""
     dev = check(library, tensors)
     lib = load(library)
     err = getattr(lib, entry)(
@@ -208,5 +209,6 @@ def launch(library: str, entry: str, tensors, ints, counter=None,
     if err != 0:
         raise RuntimeError(f"{entry} kernel launch failed: "
                            f"{error_text(lib, err)}")
-    if counter is not None:
-        counter[key] += 1
+    for counts in (counter if isinstance(counter, tuple) else (counter,)):
+        if counts is not None:
+            counts[key] += 1

@@ -6,13 +6,15 @@ Counters. ``counters`` maps a counter's name to its counts by key:
 ``lbvh.launches`` (the LBVH build's kernel launches, ``hierarchy`` and
 ``boxes``, ``accel.lbvh``), ``walk_f64.launches`` (the float64 walk
 kernel's launches by mode, ``closest``, ``any`` and ``any_dest``,
-``ops.walk_f64``; none on the CPU), ``prepass_f64.launches`` (the
-float64 prepass kernel's, by the same modes) and ``graph.nodes`` (the
-nodes a replayed CUDA graph runs, by type: kernel, memcpy, memset,
-other). A capture (``utils.graphs``) records how far each counter rose
-and every replay adds that, so replayed calls count as eager ones do; a
-capture made with spans on also counts its graph's nodes, less its
-stamps, into ``graph.nodes`` at each replay.
+``ops.walk_f64``; none on the CPU), ``walk_f64.clustered`` (those of
+its launches that took the cluster form, by the same modes),
+``prepass_f64.launches`` (the float64 prepass kernel's, by the same
+modes) and ``graph.nodes`` (the nodes a replayed CUDA graph runs, by
+type: kernel, memcpy, memset, other). A capture (``utils.graphs``)
+records how far each counter rose and every replay adds that, so
+replayed calls count as eager ones do; a capture made with spans on also
+counts its graph's nodes, less its stamps, into ``graph.nodes`` at each
+replay.
 
 Spans. Off by default: ``enable(True)`` turns them on for the graphs
 captured and the eager calls run after it (a graph keeps what it was

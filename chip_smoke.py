@@ -334,6 +334,11 @@ DRAGON_EYE = (0.0, 2.0, -8.0)
 # The CLIs (phases 15-17): float64 frames timed, the CPU comparison size,
 # and the anim app's default size, frames and batch.
 F64_FRAMES = 3
+# The float64 walk kernel's ms in phase 16 when it walked each tile on one
+# CTA (NVIDIA H100 80GB HBM3, 700 W), beside which the phase prints its
+# own: closest, any_dest, any.
+F64_ONE_CTA_MS = {"bunny": (1.340, 1.644, 2.171),
+                  "bunny x4": (70.830, 49.813, 54.207)}
 CLI_CHECK = 128
 ANIM_W, ANIM_H = 621, 1344
 ANIM_FRAMES, ANIM_BATCH = 8, 4
@@ -1302,26 +1307,38 @@ def f64_prepass_both_ways(w, args, opts, label):
           f"differs from the plain passes on {label}")
 
 
+MODE_ORDER = ("closest", "any_dest", "any")
+
+
 def f64_walks_both_ways(cs, eye, dirs, sun, label, chunk=None):
     """The float64 walk kernel against the plain frontier loop (``chunk``
     tiles a chunk) on the same card tensors, the inputs of the entry
     points' prepasses: the closest search from ``eye`` along ``dirs``,
     then the shadow segments from ``sun`` to the hit points (misses
     skipped) and generic shadow rays from them toward it. Slots and flags
-    bit-equal, visits equal, one kernel launch a walk; each way's
-    CUDA-event ms of the walk alone. Each prepass first, against its
-    plain passes (``f64_prepass_both_ways``)."""
+    bit-equal, visits equal, one kernel launch a walk, in the cluster
+    form where the rows are longer than ``walk_f64._SOLO_ROW``; each
+    way's CUDA-event ms of the walk alone, the kernel's beside its
+    one-CTA-a-tile ms (``F64_ONE_CTA_MS``); the heaviest tile's visits and
+    rounds (of kK candidates in the cluster form, else 1), and the most
+    visits made and dropped past the stop (a tile whose last round holds
+    n < kK of its visits drops at most kK - n, and no more than the
+    candidates left). Each prepass first, against its plain passes
+    (``f64_prepass_both_ways``)."""
     from ceres_tpu_torch.ops import walk_f64
 
     pts = skip = sl = None
     rows = []
     real, calls = walk_f64._prepass, []
+    with open(os.path.join(ROOT, "ceres_tpu_torch", "ops", "csrc",
+                           "walk_f64.cu")) as fh:
+        K = int(re.search(r"constexpr int kK = (\d+);", fh.read()).group(1))
 
     def recorder(*args, **opts):
         calls.append((args, opts))
         return real(*args, **opts)
 
-    for mode in ("closest", "any_dest", "any"):
+    for mode in MODE_ORDER:
         walk_f64._prepass = recorder
         try:
             if mode == "closest":
@@ -1335,17 +1352,33 @@ def f64_walks_both_ways(cs, eye, dirs, sun, label, chunk=None):
             walk_f64._prepass = real
         f64_prepass_both_ways(w, *calls.pop(), label)
         walk_f64.reset_launches()
-        (got, visits), ms = timed_once(lambda: walk_f64._walk(**w))
+        (got, tiles), ms = timed_once(lambda: walk_f64._walk_card(
+            w["cs"], w["weights"], w["order"], w["ent"], w["counts"],
+            w["d3"], w["o3"], w["alive"], w["tcap"], w.get("tmin"),
+            w.get("tmax"), w.get("occ0"), mode))
         launched = {k: n for k, n in walk_f64.launches.items() if n}
+        clustered = {k: n for k, n in walk_f64.clustered.items() if n}
         (want, wvisits), plain_ms = timed_once(
             lambda: walk_f64._walk_plain(**w, chunk=chunk))
         same = torch.equal(got, want)
-        visits, wvisits = int(visits), int(wvisits)
-        print(f"phase 16 float64 walk {mode}, {label}: kernel {ms:.3f} ms, "
-              f"plain loop {plain_ms:.3f} ms; visits {visits} (plain "
-              f"{wvisits}); bit-equal {same}; launches {launched}",
-              flush=True)
-        check(same and visits == wvisits and launched == {mode: 1},
+        visits, wvisits = int(tiles.sum()), int(wvisits)
+        form = (launched if w["ent"].shape[1] > walk_f64._SOLO_ROW
+                else {})
+        k = K if form else 1
+        last = tiles % k
+        dropped = int(torch.where(last > 0, torch.minimum(
+            k - last, w["counts"] - tiles), 0).sum())
+        before = F64_ONE_CTA_MS.get(label.split(" 1920")[0])
+        before = "" if before is None else (
+            f" (one CTA a tile: {before[MODE_ORDER.index(mode)]:.3f} ms)")
+        print(f"phase 16 float64 walk {mode}, {label}: kernel {ms:.3f} ms"
+              f"{before}, plain loop {plain_ms:.3f} ms; visits {visits} "
+              f"(plain {wvisits}); heaviest tile {int(tiles.max())} visits, "
+              f"{-(-int(tiles.max()) // k)} rounds of {k}; visits dropped "
+              f"past the stop at most {dropped}; bit-equal {same}; launches "
+              f"{launched}, clustered {clustered}", flush=True)
+        check(same and visits == wvisits and launched == {mode: 1}
+              and clustered == form,
               f"phase 16: the float64 {mode} kernel differs from the plain "
               f"loop on {label}")
         rows.append((mode, visits, ms, plain_ms))

@@ -94,7 +94,16 @@ decimation from the bench camera, a seeded random soup, and
 with a per-ray and a scalar window; shadow segments with and without
 skipped rays; generic shadow rays): winner slots and flags bit-equal,
 executed visits equal, one launch a call counted in
-``walk_f64.launches``. The float64 prepass kernel against its plain
+``walk_f64.launches`` and ``walk_f64.clustered``. The kernel walks each
+tile on a cluster of kK CTAs in rounds of kK candidates, dropping the
+outcomes past the plain stop, so it is held also tile by tile (visits
+per tile) on crafted rows of the bunny's rays (``tests/f64_rows.py``):
+the stop right after each position of the first two rounds, where the
+next candidate holds a hit for a ray that nothing visited hits; a row
+shorter than a round and a row of none; a cluster and its twin (equal
+t) in one round and across two, in both orders; and on the 4x bunny's
+heaviest 1080p closest tile (over 10,000 candidates). The float64
+prepass kernel against its plain
 passes (``ops.walk_f64._prepass_plain``) on the arguments each entry
 point gives it, on those scenes and on constructed ones (tiles past the
 kernel's shared-memory sort, boxes tied in pairs, empty boxes, a tile of
@@ -1561,6 +1570,7 @@ def test_f64_kernel_equals_plain(name):
     dev = _card()
     for case, w in _f64_walk_inputs(_f64_inputs(name, dev)).items():
         before = dict(walk_f64.launches)
+        before_clustered = dict(walk_f64.clustered)
         got, steps = walk_f64._walk(**w)
         after = dict(walk_f64.launches)
         want, ref_steps = walk_f64._walk_plain(**w)
@@ -1569,6 +1579,11 @@ def test_f64_kernel_equals_plain(name):
         assert int(steps) == int(ref_steps) > 0, case
         assert {k: n - before[k] for k, n in after.items()
                 if n != before[k]} == {w["mode"]: 1}, case
+        assert {k: n - before_clustered[k]
+                for k, n in walk_f64.clustered.items()
+                if n != before_clustered[k]} == (
+            {w["mode"]: 1} if w["ent"].shape[1] > walk_f64._SOLO_ROW
+            else {}), case
         live = w["alive"] if w.get("occ0") is None else (
             w["alive"] & (w["occ0"] == 0))
         if case == "closest":
@@ -1576,6 +1591,133 @@ def test_f64_kernel_equals_plain(name):
         elif case in ("any_dest", "any") and name != "super_comb":
             # super_comb's runs of triangles shadow nothing
             assert int(((got > 0) & live).sum()) > 0, case
+
+
+# The float64 walk kernel on crafted rows (tests/f64_rows.py) of the
+# bunny's rays, in both forms (rows padded past walk_f64._SOLO_ROW for the
+# cluster form), and on the 4x bunny's heaviest closest tile.
+F64_ROUND_CASES = ("closest", "closest_window", "any_dest", "any")
+F64_FORMS = ("solo", "cluster")
+
+
+def _f64_width(form):
+    """The row width that takes ``form``."""
+    from ceres_tpu_torch.ops import walk_f64
+
+    return 1 if form == "solo" else walk_f64._SOLO_ROW + 1
+
+
+def _f64_round():
+    """kK of walk_f64.cu: the CTAs of a tile's cluster, candidates a
+    round."""
+    return int(_f64_source_const("kK"))
+
+
+@pytest.fixture(scope="module")
+def f64_bunny():
+    """``_f64_walk_inputs`` of the float64 bunny."""
+    return _f64_walk_inputs(_f64_inputs("bunny", _card()))
+
+
+def _f64_card_walk(w):
+    """The float64 walk kernel on ``w``: (out, each tile's visits, what
+    the launch added to walk_f64.launches and to walk_f64.clustered)."""
+    from ceres_tpu_torch.ops import walk_f64
+
+    counters = (walk_f64.launches, walk_f64.clustered)
+    before = [dict(c) for c in counters]
+    out, visits = walk_f64._walk_card(
+        w["cs"], w["weights"], w["order"], w["ent"], w["counts"], w["d3"],
+        w["o3"], w["alive"], w["tcap"], w.get("tmin"), w.get("tmax"),
+        w.get("occ0"), w["mode"])
+    rose = [{k: n - b[k] for k, n in c.items() if n != b[k]}
+            for c, b in zip(counters, before)]
+    return out, visits, rose
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", F64_FORMS)
+@pytest.mark.parametrize("case", F64_ROUND_CASES)
+def test_f64_cluster_walk_stops_inside_a_round(f64_bunny, case, form):
+    # The plain stop right after each position of the cluster form's
+    # first two rounds, where the next candidate holds a hit for a ray
+    # that nothing visited hits (visited and dropped unless it opens the
+    # next round); a row shorter than a round; a row of none: slots or
+    # flags bit-equal, each tile's visits the plain loop's, the launch
+    # counted once, and as clustered in the cluster form alone.
+    import f64_rows
+    from ceres_tpu_torch.ops import walk_f64
+
+    K = _f64_round()
+    w = f64_rows.craft(f64_bunny[case],
+                       f64_rows.stop_specs(f64_bunny[case], range(2 * K)),
+                       _f64_width(form))
+    got, visits, rose = _f64_card_walk(w)
+    want, _ = walk_f64._walk_plain(**w)
+    assert torch.equal(got, want)
+    assert visits.tolist() == [p + 1 for p in range(2 * K)] + [1, 0]
+    assert torch.equal(visits, f64_rows.tile_visits(w))
+    assert bool((want[:, 1] == (-1 if case.startswith("closest")
+                                else 0)).all())
+    assert rose == [{w["mode"]: 1}, {w["mode"]: 1} if form == "cluster"
+                    else {}]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", F64_FORMS)
+@pytest.mark.parametrize("case", ("closest", "closest_window"))
+def test_f64_cluster_walk_keeps_the_earlier_of_equal_t(f64_bunny, case,
+                                                        form):
+    # A cluster and its twin (equal t for the ray) next to each other in
+    # one round and across two, in both orders: the earlier one's slot
+    # wins, as in the plain loop; visits equal.
+    import f64_rows
+    from ceres_tpu_torch.ops import walk_f64
+
+    K = _f64_round()
+    positions = [(p, first) for p in (0, 3, K - 1, K + 2)
+                 for first in (0, 1)]
+    w, specs = f64_rows.twin_specs(f64_bunny[case], positions)
+    w = f64_rows.craft(w, specs, _f64_width(form))
+    got, visits, _ = _f64_card_walk(w)
+    want, _ = walk_f64._walk_plain(**w)
+    assert torch.equal(got, want)
+    assert torch.equal(visits, f64_rows.tile_visits(w))
+    twin = w["cs"].num_clusters - 1
+    assert ((want[:, 0] // w["cs"].cluster_size) == twin).tolist() == [
+        bool(f) for _, f in positions]
+
+
+@pytest.mark.cuda
+def test_f64_cluster_walk_on_the_4x_bunnys_heaviest_tile():
+    # The 4x bunny's float64 closest walk at 1920 x 1080 (the benchmark's
+    # float64 frame: 19,872 clusters) cut to its tile with the most
+    # candidates, whose ray hull straddles an axis: thousands of visits
+    # in hundreds of rounds, slots bit-equal, visits equal.
+    import f64_rows
+    from ceres_tpu_torch.ops import walk_f64
+
+    dev = _card()
+    verts, faces = subdivide(*ct.load_obj(os.path.join(ROOT, "data",
+                                                       "bunny.obj")), 4)
+    v64 = verts.astype(np.float64)
+    eye = np.asarray(EYES["bunny"])
+    cam = ct.Camera.make(eye=eye, dir=v64.mean(0) - eye, up=(0, 1, 0),
+                         fov=60.0, dtype=torch.float64, device=dev)
+    dirs = tuple(tiling.swizzle_plane(p)
+                 for p in camera_ray_columns(cam, 1920, 1080))
+    cs = build_clusters_treelet(ct.triangle_soup(
+        torch.as_tensor(v64, device=dev), torch.as_tensor(faces, device=dev),
+        with_normals=False))
+    w = walk_f64._closest_inputs(cs, cam.eye, dirs)
+    tile = int(w["counts"].argmax())
+    one = f64_rows.tile_of(w, tile)
+    got, visits, rose = _f64_card_walk(one)
+    want, steps = walk_f64._walk_plain(**one)
+    assert int(w["counts"][tile]) > 10_000
+    assert torch.equal(got, want)
+    assert int(visits[0]) == int(steps) > 100 * _f64_round()
+    assert rose == [{"closest": 1}] * 2
 
 
 # The float64 prepass kernel's cases: the walk kernel's scenes, the wide

@@ -44,6 +44,8 @@ from ceres_tpu_torch.ops import megakernel as pmk
 from ceres_tpu_torch.ops import walk_f64 as pwalk
 from ceres_tpu_torch.utils import convert
 
+import f64_rows
+
 torch.set_num_threads(1)
 SUN = np.asarray([-50.0, 100.0, 0.0])
 EYE = np.asarray([0.0, 0.1, -0.3])
@@ -186,6 +188,184 @@ def test_f64_windowed_search_equals_jax(f64_scene):
     np.testing.assert_array_equal(slot.numpy(), np.asarray(jslot))
     assert int(cnt["traversal_steps"]) == int(jcnt["traversal_steps"])
 
+
+# The card's float64 walk goes in rounds of K candidates, one a CTA of the
+# tile's cluster, each visited against the round's opening prune and then
+# replayed in order (ops/csrc/walk_f64.cu). The model below is that rule
+# in plain torch, held to the plain frontier loop on the CPU: the
+# exactness argument, since the CPU cannot launch the kernel.
+ROUND_CASES = ("closest", "closest_window", "any_dest", "any")
+
+
+def _round_inputs(f64_scene, case):
+    """``_walk``'s inputs of a case on the bunny's 64 x 64 rays: the
+    closest search (with a window), then the shadow segments from the sun
+    to points just short of the hits (misses skipped) and generic shadow
+    rays from them toward it."""
+    _, _, _, jcs, cam, dirs = f64_scene
+    cs = convert.cluster_set(jcs)
+    d, eye = tuple(map(_t, dirs)), _t(cam.eye)
+    if case == "closest_window":
+        return pwalk._closest_inputs(cs, eye, d, 0.1, 0.35)
+    w = pwalk._closest_inputs(cs, eye, d)
+    if case == "closest":
+        return w
+    slot = pwalk._walk_plain(**w)[0].reshape(-1)[:d[0].shape[0]]
+    hit, idx = slot >= 0, slot.clamp(min=0).long()
+    p0, n = cs.p0.reshape(-1, 3)[idx], cs.n.reshape(-1, 3)[idx]
+    t = (n * (p0 - eye)).sum(-1) / (n * torch.stack(d, -1)).sum(-1)
+    t = torch.where(hit, t, 0.0)
+    pts = tuple(eye[a] + 0.999 * t * d[a] for a in range(3))
+    sun = _t(SUN)
+    if case == "any_dest":
+        return pwalk._any_dest_inputs(cs, sun, pts, ~hit)
+    sl = tuple(sun[a] - pts[a] for a in range(3))
+    inv = torch.rsqrt(sl[0] * sl[0] + sl[1] * sl[1] + sl[2] * sl[2])
+    return pwalk._any_inputs(cs, cs.p0.mean((0, 1)), pts,
+                             tuple(c * inv for c in sl), ~hit)
+
+
+def _round_walk(w, K):
+    """The kernel's round rule, tile by tile: (out (n_t, TILE) int32, each
+    tile's visits, outcomes dropped, dropped outcomes that would have
+    changed a ray). In the round from k0, candidate k0 + c is visited
+    where it is within the count and the round's opening prune admits
+    it; the outcomes are merged in order (strict <, or OR), bit j + 1 is
+    "some ray's part of the prune after candidates k0 .. k0 + j admits
+    candidate k0 + j + 1", and the walk ends at the first candidate not
+    admitted, its outcome and the later ones dropped."""
+    ent, order, counts = w["ent"], w["order"], w["counts"]
+    occl = w["mode"] != "closest"
+    out = torch.empty(ent.shape, dtype=torch.int32)[:, :1].expand(
+        -1, pwalk.TILE).clone()
+    visits = torch.zeros(ent.shape[0], dtype=torch.int64)
+    dropped = changed = 0
+    for tile in range(ent.shape[0]):
+        alive = w["alive"][tile]
+        cap = torch.where(alive, w["tcap"][tile], -1.0)
+        state = (torch.full((pwalk.TILE,), torch.inf, dtype=torch.float64),
+                 torch.full((pwalk.TILE,), -1, dtype=torch.int64),
+                 w["occ0"][tile] > 0 if occl else None)
+
+        def part(state):
+            best, _, occ = state
+            return (torch.where(occ, -1.0, cap) if occl
+                    else torch.minimum(best, cap))
+
+        def merge(state, res, c):
+            best, slot, occ = state
+            if occl:
+                return best, slot, occ | (res[0][c] & alive)
+            better = alive & (res[0][c] < best)
+            return (torch.where(better, res[0][c], best),
+                    torch.where(better, res[1][c], slot), occ)
+
+        count, k0 = int(counts[tile]), 0
+        prune = part(state).max()
+        while k0 < count and ent[tile, k0] <= prune:
+            go = [k0 + c < count and bool(ent[tile, k0 + c] <= prune)
+                  for c in range(K)]
+            seen = [c for c in range(K) if go[c]]
+            res = f64_rows.outcome(w, tile, order[tile, k0 + seen[0]:
+                                                  k0 + seen[-1] + 1])
+            states, admit = [], [True] + [False] * (K - 1)
+            s = state
+            for j in range(K):
+                if go[j]:
+                    s = merge(s, res, j - seen[0])
+                states.append(s)
+                if j + 1 < K and k0 + j + 1 < count:
+                    admit[j + 1] = bool((part(s)
+                                         >= ent[tile, k0 + j + 1]).any())
+            n = next((j for j in range(1, K) if not admit[j]), K)
+            state = states[n - 1]
+            for j in range(n, K):
+                if go[j]:
+                    dropped += 1
+                    after = merge(state, res, j - seen[0])
+                    changed += any(a is not None and not torch.equal(a, b)
+                                   for a, b in zip(after, state))
+            visits[tile] += n
+            if n < K:
+                break
+            prune = part(state).max()
+            k0 += K
+        out[tile] = (state[2] if occl else state[1]).to(torch.int32)
+    return out, visits, dropped, changed
+
+
+@pytest.fixture(scope="module")
+def round_inputs(f64_scene):
+    """``_round_inputs`` of each case, made once."""
+    made = {}
+
+    def inputs(case):
+        if case not in made:
+            made[case] = _round_inputs(f64_scene, case)
+        return made[case]
+
+    return inputs
+
+
+@pytest.mark.parametrize("K", [1, 8, 16])
+@pytest.mark.parametrize("case", ROUND_CASES)
+def test_f64_round_rule_equals_plain(round_inputs, case, K):
+    # The round rule of the cluster kernel gives the plain loop's winner
+    # slots or flags and each tile's visits on the bunny's rays.
+    w = round_inputs(case)
+    got, visits, _, _ = _round_walk(w, K)
+    want, steps = pwalk._walk_plain(**w)
+    assert torch.equal(got, want)
+    assert torch.equal(visits, f64_rows.tile_visits(w))
+    assert int(steps) == int(visits.sum()) > 0
+    live = w["alive"] if case.startswith("closest") else (
+        w["alive"] & (w["occ0"] == 0))
+    found = (got >= 0) if case.startswith("closest") else (got > 0)
+    assert int((found & live).sum()) > 0
+
+
+@pytest.mark.parametrize("case", ROUND_CASES)
+def test_f64_round_rule_drops_outcomes_past_the_stop(round_inputs, case):
+    # Crafted rows: the plain stop right after each of the first 32
+    # positions, where the next candidate (visited in the same round
+    # unless it opens the next) holds a hit for a ray that nothing
+    # visited hits: merged, it would change that ray; a row shorter than
+    # K; a row of none. At K = 8 and 16 the round rule drops those
+    # outcomes and gives the plain loop's results and visits.
+    positions = range(32)
+    w = f64_rows.craft(round_inputs(case),
+                       f64_rows.stop_specs(round_inputs(case), positions))
+    want, _ = pwalk._walk_plain(**w)
+    assert torch.equal(f64_rows.tile_visits(w), torch.tensor(
+        [p + 1 for p in positions] + [1, 0]))
+    assert bool((want[:, 1] == (-1 if case.startswith("closest")
+                                else 0)).all())
+    for K in (8, 16):
+        got, visits, dropped, changed = _round_walk(w, K)
+        assert torch.equal(got, want), K
+        assert visits.tolist() == [p + 1 for p in positions] + [1, 0], K
+        # Candidate p + 1 shares a round with p but where it opens the
+        # next; the row of 3 stops inside its only round.
+        assert changed == sum((p + 1) % K != 0 for p in positions) + 1, K
+        assert dropped >= changed, K
+
+
+@pytest.mark.parametrize("K", [8, 16])
+def test_f64_round_rule_keeps_the_earlier_of_equal_t(round_inputs, K):
+    # A cluster and its twin (equal t for the ray) next to each other in
+    # one round and across two, in both orders: the earlier one's slot
+    # wins, as in the plain loop.
+    positions = [(p, first) for p in (0, 3, K - 1) for first in (0, 1)]
+    for case in ("closest", "closest_window"):
+        w, specs = f64_rows.twin_specs(round_inputs(case), positions)
+        w = f64_rows.craft(w, specs)
+        got, visits, _, _ = _round_walk(w, K)
+        want, _ = pwalk._walk_plain(**w)
+        assert torch.equal(got, want), case
+        assert torch.equal(visits, f64_rows.tile_visits(w)), case
+        twin = w["cs"].num_clusters - 1
+        twin_won = (want[:, 0] // w["cs"].cluster_size) == twin
+        assert twin_won.tolist() == [bool(f) for _, f in positions], case
 
 def _sheets():
     """Two sheets 0.0004 apart at z ~ 10000, below a float32 ulp there;
@@ -396,6 +576,76 @@ def test_f64_kernel_wrappers_refuse_before_loading(case, monkeypatch):
     with pytest.raises(ValueError, match="walk_f64 kernels"):
         wrapper(**{**inputs, **change})
 
+
+
+
+@pytest.mark.parametrize("wide", [False, True])
+def test_f64_walk_takes_the_cluster_form_past_the_solo_row(wide,
+                                                          monkeypatch):
+    # The card wrapper asks for the cluster form, and counts it as
+    # clustered, only where the rows hold more than _SOLO_ROW candidates.
+    from ceres_tpu_torch.utils import native
+
+    seen = []
+
+    def launch(library, entry, tensors, ints, counter=None, key=None):
+        seen.append((entry, ints, counter, key))
+
+    monkeypatch.setattr(native, "launch", launch)
+    w = dict(_kernel_calls()["walk float32 ent"][1])
+    if wide:
+        pad = pwalk._SOLO_ROW + 1 - w["ent"].shape[1]
+        w["ent"] = torch.nn.functional.pad(w["ent"], (0, pad),
+                                           value=pwalk._BIG)
+        w["order"] = torch.nn.functional.pad(w["order"], (0, pad))
+    pwalk._walk_card(**w)
+    [(entry, ints, counter, key)] = seen
+    assert entry == "ceres_walk_f64" and key == "closest"
+    assert ints[-1] == int(wide) and ints[1] == w["ent"].shape[1]
+    if wide:
+        assert counter[0] is pwalk.launches and counter[1] is pwalk.clustered
+    else:
+        assert counter is pwalk.launches
+
+@pytest.mark.parametrize("err", [0, 3])
+def test_launch_counts_each_counter_it_is_given(err, monkeypatch):
+    # The launcher adds one to counter[key] of every counter it is given
+    # (the float64 walk counts walk_f64.launches and walk_f64.clustered),
+    # after the entry returns success, and none where it fails.
+    from ceres_tpu_torch.utils import native
+
+    calls = []
+
+    class Library:
+        def ceres_walk_f64(self, *args):
+            calls.append(args)
+            return err
+
+        def ceres_error_string(self, code):
+            return b"a fake failure"
+
+    class Stream:
+        cuda_stream = 7
+
+    monkeypatch.setattr(native, "load", lambda name: Library())
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda dev: Stream())
+    first, second = dict.fromkeys(pwalk.MODES, 0), dict.fromkeys(
+        pwalk.MODES, 0)
+    x = torch.zeros(3, dtype=torch.float64)
+
+    def launch():
+        native.launch("walk_f64", "ceres_walk_f64",
+                      [("x", x, torch.float64, (3,)), ("y", None, None, ())],
+                      [5], (first, second), "any")
+
+    if err:
+        with pytest.raises(RuntimeError, match="a fake failure"):
+            launch()
+    else:
+        launch()
+    assert calls == [(x.data_ptr(), 0, 5, None, 7)]
+    want = {"closest": 0, "any": 0 if err else 1, "any_dest": 0}
+    assert first == second == want
 
 def test_quality_cut_boxes_follow_the_soup_dtype(bunny):
     # float32 soups keep the host tree's float32 boxes; a float64 soup

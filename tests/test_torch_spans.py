@@ -188,6 +188,8 @@ def test_f64_frame_spans_and_launches(preset, spans_on):
                                                         "any_dest"}
     assert set(spans.counters["prepass_f64.launches"]) == {"closest", "any",
                                                            "any_dest"}
+    assert set(spans.counters["walk_f64.clustered"]) == {"closest", "any",
+                                                         "any_dest"}
     before = spans.snapshot()
     with spans.recording("cpu") as record:
         image, _ = ct.render_pipeline(vt, ft, cam, sun, config, clusters=cs,
@@ -204,5 +206,6 @@ def test_f64_frame_spans_and_launches(preset, spans_on):
     assert walk_f64.launches is spans.counters["walk_f64.launches"]
     assert (walk_f64.prepass_launches
             is spans.counters["prepass_f64.launches"])
+    assert walk_f64.clustered is spans.counters["walk_f64.clustered"]
     assert not any(walk.launches.values())
     assert float(image.max()) > 0
