@@ -52,7 +52,7 @@ from ceres_tpu_torch.ops import walk, walk_f64
 from ceres_tpu_torch.ops.intersect import Hit
 from ceres_tpu_torch.ops.prepass import (
     _BIG, COMMON_ROWS, GENERIC_ROWS, TILE, _ULP_PAD, _hier_setup, _pad_rays,
-    _ray_tcap, _scene_root, _tile_candidate_keys, _use_stream)
+    _ray_tcap, _scene_root, _super_factor, _tile_candidate_keys, _use_stream)
 from ceres_tpu_torch.utils import spans
 
 # Rays per tile of the shadow wavefront regrouped by receiver (the JAX
@@ -116,12 +116,17 @@ def _walk_inputs(cs, shift, w, ray_rows, dirs_tiled, alive,
     args = (counts, keys, rays, w), opts = the two-level inputs (hull,
     bbox, first, S) and ``stream``. ``shift`` is the point the weights
     and ray rows are relative to (the common origin, or the scene centre
-    for rays with their own ``origins_tiled``)."""
-    S, hull, bbox, first, cull_lo, cull_hi, w = _hier_setup(
-        cs.lo - shift, cs.hi - shift, dirs_tiled, alive, w, cs=cs,
-        origins_tiled=origins_tiled)
-    keys, counts = _tile_candidate_keys(cull_lo, cull_hi, dirs_tiled,
-                                        origins_tiled, alive=alive)
+    for rays with their own ``origins_tiled``). The prepass (the form's
+    inputs, the slab test, the keys, their sort and the counts) is the
+    span ``prepass.flat`` or ``prepass.hier``, by the form the walk
+    takes."""
+    form = "flat" if _super_factor(cs.lo.shape[0]) == 1 else "hier"
+    with spans.span(f"prepass.{form}"):
+        S, hull, bbox, first, cull_lo, cull_hi, w = _hier_setup(
+            cs.lo - shift, cs.hi - shift, dirs_tiled, alive, w, cs=cs,
+            origins_tiled=origins_tiled)
+        keys, counts = _tile_candidate_keys(cull_lo, cull_hi, dirs_tiled,
+                                            origins_tiled, alive=alive)
     rows = COMMON_ROWS if origins_tiled is None else GENERIC_ROWS
     return ((counts, keys, torch.stack(ray_rows), w),
             {"hull": hull, "bbox": bbox, "first": first, "S": S,

@@ -37,7 +37,9 @@ on:
 
 The port's spans: ``frame``, ``primary``, ``shade``, ``build``,
 ``closest.prep``, ``closest.gather``, ``shadow.prep`` and ``walk`` (the
-float32 walk kernels) in a frame; ``prepass.f64`` and ``walk.f64`` in
+float32 walk kernels) in a frame, and inside each prep the float32
+prepass, ``prepass.flat`` or ``prepass.hier`` by the form of the walk
+(``ops.megakernel._walk_inputs``); ``prepass.f64`` and ``walk.f64`` in
 each float64-exact search (``ops.walk_f64``: its prepass and its walk);
 ``step.refit``, ``step.forward``, ``step.loss``, ``step.backward`` and
 ``step.optim`` in a train step.

@@ -7,8 +7,10 @@ CPU, where a record's stamps are the host clock:
     records ``frame`` and under it ``primary``, ``closest.prep``, two
     ``walk``s, ``closest.gather``, ``shadow.prep`` and ``shade``, with
     ``build`` (the treelet cut and the winner table) only when no cut is
-    given; the same names show as ``ceres.<name>`` host spans in a
-    profiler trace;
+    given, and the float32 prepass inside each prep: ``prepass.flat``
+    where the walk is flat (resident or streamed weights),
+    ``prepass.hier`` where it is two-level; the same names show as
+    ``ceres.<name>`` host spans in a profiler trace;
   * self time is the total less the union of the children's intervals;
   * ``FrameGraph`` on the CPU and the eager train step give their last
     call's spans (``span_ms()``), the step's five ``step.*`` spans with
@@ -40,6 +42,18 @@ torch.set_num_threads(1)
 SIZE = 32
 FRAME_KIDS = ["primary", "closest.prep", "walk", "closest.gather", "shade",
               "shadow.prep", "walk", "shade", "shade"]
+PREPS = ("closest.prep", "shadow.prep")
+
+
+def _frame_tree(kids, prepass="prepass.flat"):
+    """The expected [(name, parent name)] of a frame whose children are
+    ``kids``: each prep holds the float32 prepass span ``prepass``."""
+    tree = [("frame", None)]
+    for k in kids:
+        tree.append((k, "frame"))
+        if k in PREPS:
+            tree.append((prepass, k))
+    return tree
 
 
 @pytest.fixture
@@ -95,14 +109,48 @@ def test_frame_spans_nest(preset, spans_on, prebuilt):
     want = FRAME_KIDS if prebuilt else (
         FRAME_KIDS[:1] + ["build"] + FRAME_KIDS[1:3] + ["build"]
         + FRAME_KIDS[3:])
-    assert _tree(record) == [("frame", None)] + [(k, "frame") for k in want]
+    assert _tree(record) == _frame_tree(want)
     assert record.stamps == 2 * len(record.spans)
     ms = record.span_ms()
     assert ("build" in ms) == (not prebuilt)
     assert all(row["total"] >= row["self"] >= 0 for row in ms.values())
     # The children of the frame are disjoint: the union is their sum.
-    kids = sum(row["total"] for name, row in ms.items() if name != "frame")
+    kids = sum(row["total"] for name, row in ms.items()
+               if name not in ("frame", "prepass.flat"))
     assert ms["frame"]["self"] == pytest.approx(ms["frame"]["total"] - kids)
+    assert float(image.max()) > 0
+
+
+@pytest.mark.parametrize("form", ["resident", "streamed", "two-level"])
+def test_prepass_span_names_the_walks_form(preset, spans_on, monkeypatch,
+                                           form):
+    from ceres_tpu_torch.ops import megakernel, prepass
+
+    vt, ft, cam, sun, config, cs, table = preset
+    if form == "streamed":
+        monkeypatch.setattr(prepass, "_RESIDENT_W_BYTES", 64 << 10)
+    if form == "two-level":
+        monkeypatch.setattr(prepass, "_HIER_MIN_CLUSTERS", 32)
+    seen = []
+    for name in ("walk_closest", "walk_any_dest"):
+        real = getattr(megakernel.walk, name)
+
+        def recorded(*args, _real=real, **opts):
+            seen.append((opts["S"], opts["stream"]))
+            return _real(*args, **opts)
+
+        monkeypatch.setattr(megakernel.walk, name, recorded)
+    with spans.recording("cpu") as record:
+        image, _ = ct.render_pipeline(vt, ft, cam, sun, config, clusters=cs,
+                                      table_cols=table)
+    flat = form != "two-level"
+    assert [(S == 1, stream) for S, stream in seen] == [
+        (flat, form == "streamed")] * 2
+    name = "prepass.flat" if flat else "prepass.hier"
+    assert _tree(record) == _frame_tree(FRAME_KIDS, name)
+    ms = record.span_ms()
+    assert 0 < ms[name]["total"] < (ms["closest.prep"]["total"]
+                                    + ms["shadow.prep"]["total"])
     assert float(image.max()) > 0
 
 
@@ -128,7 +176,8 @@ def test_spans_show_as_host_spans(preset, spans_on):
         ct.render_pipeline(vt, ft, cam, sun, config, clusters=cs,
                            table_cols=table)
     names = {e.name for e in prof.events() if e.name.startswith("ceres.")}
-    assert names == {f"ceres.{k}" for k in ["frame", *FRAME_KIDS]}
+    assert names == {f"ceres.{k}" for k in ["frame", *FRAME_KIDS,
+                                             "prepass.flat"]}
 
 
 def test_frame_graph_gives_the_last_calls_spans(preset, spans_on):
@@ -139,7 +188,7 @@ def test_frame_graph_gives_the_last_calls_spans(preset, spans_on):
     fg(sun_position=sun + 1e-3)
     assert fg.record is not first
     ms = fg.span_ms()
-    assert set(ms) == {"frame", *FRAME_KIDS}
+    assert set(ms) == {"frame", *FRAME_KIDS, "prepass.flat"}
     assert ms["walk"]["total"] > 0
 
 
